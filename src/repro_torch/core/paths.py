@@ -1,0 +1,190 @@
+"""Path analysis via adjacency-matrix algebra (paper Appendix B.1), dense
+engine.
+
+APSP is a sequence of boolean-semiring frontier products through
+:func:`repro_torch.kernels.semiring.semiring_matmul` (the CUDA kernel on
+the card, the plain product on the CPU); forwarding tables pick, per
+(layer, s, t), a uniformly random equal-cost next hop with one threefry
+uniform per table entry (:mod:`repro_torch.prng`), so the tables are the
+JAX package's bit for bit.
+
+The batched entry points (``apsp_batched``, ``forwarding_batched``,
+``layer_tables_batched``) work on an (L, N, N) stack of layer
+adjacencies on one device.  Each takes numpy arrays or tensors and a
+``device`` (``"cuda"`` unless the caller asks for the CPU); tensors
+already on a device stay there when ``device=None``.
+
+Only the ``dense`` engine exists here.  The JAX package's ``auto`` picks
+its ``blocked`` frontier engine from 512 routers up; that engine is
+asserted bit-identical to ``dense`` by the JAX package's own tests, so a
+dense table here equals the table the JAX package builds at any size.
+``REPRO_PATH_ENGINE=blocked`` raises until the blocked engine is ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .. import prng, resolve_device
+from ..kernels.semiring import semiring_matmul
+
+__all__ = [
+    "shortest_path_lengths",
+    "apsp_batched",
+    "forwarding_batched",
+    "layer_tables_batched",
+    "neighbor_table",
+    "path_engine",
+    "to_device",
+]
+
+PATH_ENGINES = ("dense", "blocked", "auto")
+
+
+def path_engine() -> str:
+    """Resolve ``REPRO_PATH_ENGINE`` (``dense|blocked|auto``, default
+    ``auto``): every choice but ``blocked`` is ``dense``."""
+    eng = os.environ.get("REPRO_PATH_ENGINE", "") or "auto"
+    if eng not in PATH_ENGINES:
+        raise ValueError(f"unknown path engine {eng!r}; "
+                         f"choose from {PATH_ENGINES}")
+    if eng == "blocked":
+        raise NotImplementedError(
+            "the blocked path engine is not ported yet (ROADMAP A9); "
+            "the dense engine builds bit-identical tables")
+    return "dense"
+
+
+def to_device(x, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """``x`` (numpy or tensor) as a ``dtype`` tensor: on ``device`` when
+    one is given, else where a tensor already lies (numpy goes to cuda)."""
+    if device is None:
+        device = x.device if torch.is_tensor(x) else "cuda"
+    dev = resolve_device(device)
+    if torch.is_tensor(x):
+        return x.to(device=dev, dtype=dtype)
+    return torch.tensor(np.asarray(x), device=dev).to(dtype)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# -----------------------------------------------------------------------------
+# Batched cores.
+# -----------------------------------------------------------------------------
+def _apsp_core(adj: torch.Tensor, max_l: int) -> torch.Tensor:
+    """(L, N, N) bool adjacency stack -> (L, N, N) int32 distances via
+    boolean-semiring frontier products; unreachable pairs get max_l + 1.
+    One host sync per product decides whether another is needed."""
+    _, n, _ = adj.shape
+    eye = torch.eye(n, dtype=torch.bool, device=adj.device)
+    dist = torch.where(eye[None], 0,
+                       torch.where(adj, 1, max_l + 1)).to(torch.int32)
+    reach = adj | eye[None]
+    l, go = 1, True
+    while go and l < max_l:
+        nreach = semiring_matmul(reach, adj, "bool")
+        newly = nreach & ~reach
+        dist = torch.where(newly & (dist > l + 1), l + 1, dist).to(torch.int32)
+        reach = reach | nreach
+        l += 1
+        go = bool(newly.any())
+    return dist
+
+
+def neighbor_table(adj_union: np.ndarray) -> np.ndarray:
+    """(N, Dmax) int32 padded neighbor-index table for a (union)
+    adjacency.  Entry ``nbr[s, j]`` is the j-th neighbor of s; pad slots
+    hold non-neighbor ids and are masked out by the per-layer adjacency
+    gather, which keeps forwarding construction at O(N * Dmax * N)."""
+    a = np.asarray(adj_union, dtype=bool)
+    dmax = max(1, int(a.sum(axis=1).max()))
+    # stable argsort puts neighbors (True) first in ascending-id order
+    return np.argsort(~a, axis=1, kind="stable")[:, :dmax].astype(np.int32)
+
+
+def _forwarding_core(adj: torch.Tensor, dist: torch.Tensor, nbr: torch.Tensor,
+                     key: torch.Tensor) -> torch.Tensor:
+    """Single-next-hop tables for an (L, N, N) stack.
+
+    For each (layer, s, t) the next hop is the r-th valid candidate of
+    ``{u in nbr[s] : adj[s, u], dist[u, t] == dist[s, t] - 1}``, with r
+    drawn from one uniform per table entry of a single ``(L, N, N)``
+    draw; -1 where there is no candidate, ``nh[l, s, s] = s``."""
+    L, n, _ = adj.shape
+    u01 = prng.uniform(key, (L, n, n))
+    nbr = nbr.long()
+    out = torch.empty((L, n, n), dtype=torch.int32, device=adj.device)
+    for li in range(L):
+        adj_l, dist_l, u_l = adj[li], dist[li], u01[li]
+        has_edge = torch.gather(adj_l, 1, nbr)                  # (N, D)
+        dist_nbr = dist_l[nbr]                                  # (N, D, N)
+        # ok[s, j, t]: edge s->nbr[s,j] in this layer, one hop closer to t.
+        ok = has_edge[:, :, None] & (dist_nbr + 1 == dist_l[:, None, :])
+        cnt = ok.sum(dim=1, dtype=torch.int32)                  # (N, N)
+        r = torch.minimum(torch.clamp_min((u_l * cnt).to(torch.int32), 0),
+                          torch.clamp_min(cnt - 1, 0))
+        csum = torch.cumsum(ok.to(torch.int32), dim=1, dtype=torch.int32)
+        pick = ok & (csum == (r + 1)[:, None, :])
+        j = pick.to(torch.int32).argmax(dim=1)                  # first True
+        nh = torch.gather(nbr, 1, j).to(torch.int32)
+        out[li] = torch.where(cnt > 0, nh, -1)
+    idx = torch.arange(n, device=adj.device)
+    out[:, idx, idx] = idx.to(torch.int32)
+    return out
+
+
+def _layer_tables_core(adj: torch.Tensor, nbr: torch.Tensor, key: torch.Tensor,
+                       max_l: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """APSP + forwarding: ``(nh, reach, dist)``, each (L, N, N)."""
+    dist = _apsp_core(adj, max_l)
+    nh = _forwarding_core(adj, dist, nbr, key)
+    return nh, dist <= max_l, dist
+
+
+# -----------------------------------------------------------------------------
+# Batched entry points.
+# -----------------------------------------------------------------------------
+def apsp_batched(adj, max_l: int = 64, device=None) -> torch.Tensor:
+    """All-pairs shortest path lengths for an (L, N, N) adjacency stack;
+    unreachable pairs get ``max_l + 1``."""
+    path_engine()
+    return _apsp_core(to_device(adj, torch.bool, device), max_l)
+
+
+def forwarding_batched(adj, dist, key: torch.Tensor,
+                       device=None) -> torch.Tensor:
+    """Random-tie-break forwarding tables for an (L, N, N) stack; ``key``
+    seeds the per-entry uniform choice (one stream for the stack)."""
+    path_engine()
+    adj_t = to_device(adj, torch.bool, device)
+    nbr = neighbor_table(adj_t.any(dim=0).cpu().numpy())
+    return _forwarding_core(adj_t, to_device(dist, torch.int32, adj_t.device),
+                            torch.as_tensor(nbr, device=adj_t.device),
+                            key.to(adj_t.device))
+
+
+def layer_tables_batched(adj, key: torch.Tensor, max_l: int, device=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """APSP + forwarding for a whole layer stack on one device.
+
+    Returns ``(nh, reach, dist)`` each (L, N, N).  The host's only job is
+    the (N, Dmax) union neighbor table."""
+    path_engine()
+    adj_t = to_device(adj, torch.bool, device)
+    nbr = neighbor_table(adj_t.any(dim=0).cpu().numpy())
+    return _layer_tables_core(adj_t, torch.as_tensor(nbr, device=adj_t.device),
+                              key.to(adj_t.device), max_l)
+
+
+def shortest_path_lengths(adj, max_l: int = 64, device=None) -> torch.Tensor:
+    """(N, N) int32 shortest path lengths via boolean adjacency powers;
+    unreachable pairs get ``max_l + 1``, the diagonal is 0."""
+    return _apsp_core(to_device(adj, torch.bool, device)[None], max_l)[0]

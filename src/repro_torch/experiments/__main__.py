@@ -1,0 +1,190 @@
+"""Experiment CLI of the port: run cells or whole grids, emit RunResult JSON.
+
+  python -m repro_torch.experiments sweep --topos sf,df,ft \\
+      --schemes ecmp,letflow,fatpaths --patterns adversarial,shuffle \\
+      [--evaluators transport] [--seeds 0] [--quick] [--json out.json] \\
+      [--filter SUBSTR] [--device cuda|cpu]
+
+  python -m repro_torch.experiments run --topo "sf(q=5)" --scheme fatpaths \\
+      --pattern adversarial [--evaluator "transport(steps=1200)"]
+
+  python -m repro_torch.experiments diff a.json b.json [--rtol 0]
+  python -m repro_torch.experiments list    # registered axes + defaults
+
+``--quick`` shortens transport simulations (steps=400) unless a spec
+pins ``steps`` explicitly.  ``--device`` defaults to ``cuda``; without a
+card that raises rather than falling back to the CPU.  Sweeps run one
+cell after another (the batched multi-device engine is not ported yet).
+Artifacts use the JAX package's RunResult format, so ``diff`` compares
+an artifact of either package with one of the other.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+_QUICK_STEPS = 400
+
+
+def _quicken(evaluators, quick: bool):
+    """Apply --quick: cap transport steps unless the spec pins them."""
+    from .specs import Spec
+    if not quick:
+        return evaluators
+    out = []
+    for e in evaluators:
+        spec = Spec.coerce(e)
+        if spec.name == "transport" and "steps" not in spec.kw:
+            spec = Spec(spec.name, spec.kwargs + (("steps", _QUICK_STEPS),))
+        out.append(spec)
+    return out
+
+
+def cmd_sweep(args) -> int:
+    from .results import results_to_json, summary_table
+    from .session import Session
+    from .specs import split_spec_list
+
+    session = Session(device=args.device)
+    evaluators = _quicken(split_spec_list(args.evaluators), args.quick)
+    seeds = [int(s) for s in args.seeds.split(",") if s != ""]
+    cells = session.grid(topos=split_spec_list(args.topos),
+                         routings=split_spec_list(args.schemes),
+                         patterns=split_spec_list(args.patterns),
+                         evaluators=evaluators, seeds=seeds)
+    if args.filter:
+        kept = [c for c in cells if args.filter in c.cell_id]
+        if not kept:
+            print(f"error: --filter {args.filter!r} matches none of the "
+                  f"{len(cells)} grid cell(s):", file=sys.stderr)
+            for c in cells:
+                print(f"  {c.cell_id}", file=sys.stderr)
+            return 2
+        print(f"# --filter {args.filter!r}: {len(kept)} of {len(cells)} "
+              "cell(s)", flush=True)
+        cells = kept
+    results = []
+    for spec in cells:
+        rr = session.run(spec)
+        print(summary_table([rr]), flush=True)
+        results.append(rr)
+    builds = session.stats["stack_build"]
+    hits = session.stats["stack_hit"]
+    print(f"# {len(results)} cells; layer/table stacks built {builds}x, "
+          f"reused {hits}x", flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            f.write(results_to_json(results) + "\n")
+        print(f"# wrote {len(results)} RunResults to {args.json}")
+    return 0
+
+
+def cmd_run(args) -> int:
+    from .results import results_to_json
+    from .session import Session
+
+    session = Session(device=args.device)
+    (evaluator,) = _quicken([args.evaluator], args.quick)
+    rr = session.run(args.topo, args.scheme, args.pattern, evaluator,
+                     seed=args.seed)
+    print(rr.to_json())
+    if args.json:
+        with open(args.json, "w") as f:
+            f.write(results_to_json([rr]) + "\n")
+    return 0
+
+
+def cmd_list(_args) -> int:
+    from .catalog import EVALUATORS, NOT_PORTED, ROUTINGS, TOPOLOGIES, TRAFFIC
+
+    for title, reg in (("topologies", TOPOLOGIES),
+                       ("routing schemes", ROUTINGS),
+                       ("traffic patterns", TRAFFIC),
+                       ("evaluators", EVALUATORS)):
+        print(f"{title}:")
+        for name in reg.names():
+            defaults = ", ".join(f"{k}={v!r}"
+                                 for k, v in sorted(reg.defaults(name).items()))
+            print(f"  {name}({defaults})")
+            doc = reg.doc(name)
+            if doc:
+                print(f"      {doc}")
+    print("not ported yet: " + ", ".join(
+        f"{k} ({v})" for k, v in sorted(NOT_PORTED.items())))
+    return 0
+
+
+def cmd_diff(args) -> int:
+    """Cell-for-cell comparison of two sweep artifacts."""
+    from .results import compare_results, results_from_json
+
+    sides = []
+    for path in (args.a, args.b):
+        with open(path) as f:
+            sides.append(results_from_json(f.read()))
+    diffs = compare_results(sides[0], sides[1], rtol=args.rtol)
+    for d in diffs:
+        print(d)
+    if diffs:
+        print(f"# {len(diffs)} difference(s) between {args.a} and {args.b}",
+              file=sys.stderr)
+        return 1
+    print(f"# identical: {len(sides[0])} cells ({args.a} vs {args.b}, "
+          f"rtol={args.rtol:g})")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.experiments",
+                                 description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    sw = sub.add_parser("sweep", help="run a topology x scheme x pattern grid")
+    sw.add_argument("--topos", default="sf,df,ft")
+    sw.add_argument("--schemes", default="ecmp,letflow,fatpaths")
+    sw.add_argument("--patterns", default="adversarial,shuffle")
+    sw.add_argument("--evaluators", default="transport")
+    sw.add_argument("--seeds", default="0")
+    sw.add_argument("--filter", default="",
+                    help="run only cells whose cell id contains this "
+                         "substring (rc=2 with the cell list when nothing "
+                         "matches)")
+    sw.add_argument("--quick", action="store_true")
+    sw.add_argument("--json", default="", help="write RunResult list here")
+    sw.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sw.set_defaults(fn=cmd_sweep)
+
+    rn = sub.add_parser("run", help="run a single cell")
+    rn.add_argument("--topo", required=True)
+    rn.add_argument("--scheme", required=True)
+    rn.add_argument("--pattern", required=True)
+    rn.add_argument("--evaluator", default="transport")
+    rn.add_argument("--seed", type=int, default=0)
+    rn.add_argument("--quick", action="store_true")
+    rn.add_argument("--json", default="")
+    rn.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    rn.set_defaults(fn=cmd_run)
+
+    df = sub.add_parser("diff", help="cell-for-cell compare two artifacts")
+    df.add_argument("a")
+    df.add_argument("b")
+    df.add_argument("--rtol", type=float, default=0.0,
+                    help="relative tolerance for float metrics (default: "
+                         "exact)")
+    df.set_defaults(fn=cmd_diff)
+
+    ls = sub.add_parser("list", help="show registered axes and defaults")
+    ls.set_defaults(fn=cmd_list)
+
+    args = ap.parse_args(argv)
+    from .specs import SpecError
+    try:
+        return args.fn(args)
+    except SpecError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

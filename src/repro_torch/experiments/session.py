@@ -1,0 +1,205 @@
+"""Session layer: artifact memoization across experiment cells.
+
+A :class:`Session` is the unit of reuse for a whole evaluation grid:
+topologies, forwarding-layer stacks (keyed by ``(topo, scheme, seed)``)
+and workloads are built at most once, whatever order the cells run in;
+``ecmp`` and ``letflow`` cells share one minimal-table stack.
+``session.stats`` counts builds vs hits and accumulates build wall time
+(``build_wall_s``, ``<kind>_build_s``, and the device/host split the
+layer builders report), so each ``RunResult.meta`` carries the per-cell
+``build_s`` / ``cache_hits`` / ``cache_builds``.
+
+Every artifact is built on the session's ``device`` (``"cuda"`` unless
+the caller asks for ``"cpu"``); asking for ``cuda`` without a card
+raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
+
+from .. import resolve_device
+from ..core.topology import Topology
+from ..core.traffic import FlowWorkload
+from .catalog import (EVALUATORS, ROUTINGS, TOPOLOGIES, TRAFFIC,
+                      RoutingBundle, RoutingCtx, check_ported, table_meta,
+                      topo_spec)
+from .results import RunResult
+from .specs import ExperimentSpec, Spec, SpecLike
+
+__all__ = ["Session", "ResolvedCell"]
+
+
+class ResolvedCell:
+    """An :class:`ExperimentSpec` with its artifacts materialized."""
+
+    def __init__(self, spec: ExperimentSpec, topo: Topology,
+                 bundle: RoutingBundle, workload: FlowWorkload):
+        self.spec = spec
+        self.topo = topo
+        self.bundle = bundle
+        self.workload = workload
+        self.seed = spec.seed
+
+
+class Session:
+    """Memoizing context for running experiment cells on one device."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self._cache: Dict[tuple, Any] = {}
+        self.stats = collections.Counter()
+
+    # ---- memoization core ----------------------------------------------------
+    def _memo(self, key: tuple, build: Callable[[], Any]) -> Any:
+        if key in self._cache:
+            self.stats[f"{key[0]}_hit"] += 1
+            return self._cache[key]
+        self.stats[f"{key[0]}_build"] += 1
+        t0 = time.perf_counter()
+        value = build()
+        dt = time.perf_counter() - t0
+        self.stats[f"{key[0]}_build_s"] += dt
+        self.stats["build_wall_s"] += dt
+        bs = getattr(value, "build_stats", None)
+        if isinstance(bs, dict):
+            self.stats["build_device_s"] += bs.get("device_s", 0.0)
+            self.stats["build_host_s"] += bs.get("host_s", 0.0)
+        self._cache[key] = value
+        return value
+
+    def _stack_memo(self, key: tuple, build: Callable[[], Any]) -> Any:
+        return self._memo(("stack",) + key, build)
+
+    # ---- artifact builders ---------------------------------------------------
+    # Cache keys use the defaults-filled canonical spec form, so "sf" and
+    # "sf(q=5)" (or "sf:5") resolve to the same artifacts.
+    def topology(self, spec: SpecLike) -> Topology:
+        spec = topo_spec(spec)
+        return self._memo(("topo", TOPOLOGIES.canonical(spec)),
+                          lambda: TOPOLOGIES.build(spec))
+
+    def routing(self, topo: SpecLike, scheme: SpecLike,
+                seed: int = 0) -> RoutingBundle:
+        tspec = topo_spec(topo)
+        rspec = Spec.coerce(scheme)
+        check_ported(rspec)
+        fn, kw = ROUTINGS.resolve(rspec)   # validate before building topo
+        ctx = RoutingCtx(topo=self.topology(tspec),
+                         topo_key=TOPOLOGIES.canonical(tspec),
+                         seed=int(seed), stack=self._stack_memo,
+                         device=self.device)
+        return fn(ctx, **kw)
+
+    def workload(self, topo: SpecLike, pattern: SpecLike,
+                 seed: int = 0) -> FlowWorkload:
+        tspec = topo_spec(topo)
+        pspec = Spec.coerce(pattern)
+        check_ported(pspec)
+        fn, kw = TRAFFIC.resolve(pspec)
+        t = self.topology(tspec)
+        return self._memo(
+            ("workload", TOPOLOGIES.canonical(tspec),
+             TRAFFIC.canonical(pspec), int(seed)),
+            lambda: fn(t, int(seed), self.device, **kw))
+
+    # ---- cell execution ------------------------------------------------------
+    def resolve(self, spec: ExperimentSpec) -> ResolvedCell:
+        return ResolvedCell(
+            spec=spec,
+            topo=self.topology(spec.topo),
+            bundle=self.routing(spec.topo, spec.routing, seed=spec.seed),
+            workload=self.workload(spec.topo, spec.pattern, seed=spec.seed))
+
+    def run(self, topo, routing: Optional[SpecLike] = None,
+            pattern: Optional[SpecLike] = None,
+            evaluator: SpecLike = "transport", seed: int = 0) -> RunResult:
+        """Evaluate one cell; accepts an ExperimentSpec or the four axes."""
+        if isinstance(topo, ExperimentSpec):
+            if (routing is not None or pattern is not None
+                    or Spec.coerce(evaluator) != Spec("transport")
+                    or seed != 0):
+                raise ValueError(
+                    "run(ExperimentSpec) takes no other arguments; "
+                    "dataclasses.replace the spec instead")
+            spec = topo
+        else:
+            spec = ExperimentSpec(topo=topo_spec(topo),
+                                  routing=Spec.coerce(routing),
+                                  pattern=Spec.coerce(pattern),
+                                  evaluator=Spec.coerce(evaluator),
+                                  seed=int(seed))
+        check_ported(spec.evaluator)
+        fn, kw = EVALUATORS.resolve(spec.evaluator)
+        t0 = time.perf_counter()
+        pre = self.stats_snapshot()
+        cell = self.resolve(spec)
+        metrics, meta = fn(self, cell, **kw)
+        wall = time.perf_counter() - t0
+        return self.finish_result(spec, cell, metrics, meta, pre, wall)
+
+    # Execution-bookkeeping counters snapshotted around each cell so the
+    # per-cell build-vs-simulate split can be attributed.
+    _SNAPSHOT_KEYS = ("build_wall_s", "build_device_s", "stack_build",
+                      "stack_hit")
+
+    def stats_snapshot(self) -> Dict[str, float]:
+        return {k: self.stats[k] for k in self._SNAPSHOT_KEYS}
+
+    def finish_result(self, spec: ExperimentSpec, cell: ResolvedCell,
+                      metrics: Dict[str, float], ev_meta: Dict[str, Any],
+                      pre: Dict[str, float], wall: float) -> RunResult:
+        """Assemble the canonical :class:`RunResult` for one evaluated
+        cell (the same record the JAX package emits)."""
+        post = self.stats_snapshot()
+        meta = {"n_routers": cell.topo.n_routers,
+                "n_endpoints": cell.topo.n_endpoints,
+                "n_flows": int(cell.workload.n_flows),
+                # build-vs-simulate split for this cell's artifacts
+                "build_s": post["build_wall_s"] - pre["build_wall_s"],
+                "build_device_s": (post["build_device_s"]
+                                   - pre["build_device_s"]),
+                "cache_builds": int(post["stack_build"]
+                                    - pre["stack_build"]),
+                "cache_hits": int(post["stack_hit"]
+                                  - pre["stack_hit"]),
+                **table_meta(cell.bundle), **ev_meta}
+        return RunResult(
+            topo=spec.topo.format(), routing=spec.routing.format(),
+            pattern=spec.pattern.format(), evaluator=spec.evaluator.format(),
+            seed=spec.seed, metrics=metrics, meta=meta, wall_s=wall)
+
+    def grid(self, topos: Sequence[SpecLike], routings: Sequence[SpecLike],
+             patterns: Sequence[SpecLike],
+             evaluators: Sequence[SpecLike] = ("transport",),
+             seeds: Iterable[int] = (0,)) -> List[ExperimentSpec]:
+        """The grid's cells in canonical order (topo-major nesting)."""
+        return [ExperimentSpec(topo=topo_spec(t), routing=Spec.coerce(r),
+                               pattern=Spec.coerce(p),
+                               evaluator=Spec.coerce(e), seed=int(s))
+                for t in topos for r in routings for p in patterns
+                for e in evaluators for s in seeds]
+
+    def sweep(self, topos: Sequence[SpecLike], routings: Sequence[SpecLike],
+              patterns: Sequence[SpecLike],
+              evaluators: Sequence[SpecLike] = ("transport",),
+              seeds: Iterable[int] = (0,),
+              callback: Optional[Callable[[RunResult], None]] = None,
+              devices: Optional[int] = None,
+              checkpoint_dir: Optional[str] = None) -> List[RunResult]:
+        """Run the full grid, one cell after another, through this
+        session's caches.  The batched multi-device engine behind
+        ``devices`` and ``checkpoint_dir`` is not ported yet (ROADMAP
+        A10)."""
+        if devices is not None or checkpoint_dir is not None:
+            raise NotImplementedError("devices= and checkpoint_dir= need the "
+                                      "batched sweep engine (ROADMAP A10)")
+        results: List[RunResult] = []
+        for spec in self.grid(topos, routings, patterns, evaluators, seeds):
+            rr = self.run(spec)
+            if callback is not None:
+                callback(rr)
+            results.append(rr)
+        return results

@@ -1,0 +1,79 @@
+"""Carry state into the port from plain values.
+
+Each function builds one of the port's objects from a dict of numpy
+arrays and plain Python values — the fields of the corresponding
+dataclass.  A caller that holds the JAX package's objects (a parity
+test, say) flattens them into such dicts itself; this module never sees
+them, so the port can run its scan on exactly the tables, workload and
+configuration another implementation built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .core.layers import LayeredRouting
+from .core.topology import Topology
+from .core.traffic import FlowWorkload
+from .core.transport import SimConfig
+
+__all__ = ["topology_from_arrays", "routing_from_arrays",
+           "workload_from_arrays", "config_from_dict"]
+
+
+def _fields(cls, d: Mapping[str, Any]) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def topology_from_arrays(d: Mapping[str, Any]) -> Topology:
+    """A :class:`Topology` from its fields (``adj``, ``concentration``
+    as numpy arrays)."""
+    kw = _fields(Topology, d)
+    kw["adj"] = np.asarray(kw["adj"], dtype=np.bool_)
+    kw["concentration"] = np.asarray(kw["concentration"], dtype=np.int64)
+    kw["params"] = dict(kw.get("params") or {})
+    return Topology(**kw)
+
+
+def routing_from_arrays(topo: Topology, d: Mapping[str, Any],
+                        device="cuda") -> LayeredRouting:
+    """A :class:`LayeredRouting` from ``scheme``, ``rho`` and the numpy
+    tables ``nh``, ``reach``, ``pathlen``, ``layer_adj``, placed on
+    ``device``.  The fault and compressed lanes are carried as given (the
+    scan refuses them until they are ported)."""
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(d[name]), device=dev).to(dtype)
+
+    return LayeredRouting(
+        topo=topo, scheme=str(d["scheme"]), rho=float(d["rho"]),
+        nh=t("nh", torch.int32), reach=t("reach", torch.bool),
+        pathlen=t("pathlen", torch.int16),
+        layer_adj=t("layer_adj", torch.bool),
+        build_stats=d.get("build_stats"),
+        link_down_step=d.get("link_down_step"),
+        link_churn=d.get("link_churn"),
+        churn_conv=int(d.get("churn_conv") or 0),
+        compressed=d.get("compressed"))
+
+
+def workload_from_arrays(d: Mapping[str, Any]) -> FlowWorkload:
+    """A :class:`FlowWorkload` from its numpy fields."""
+    kw = {k: (None if v is None else np.asarray(v))
+          for k, v in _fields(FlowWorkload, d).items()}
+    return FlowWorkload(**kw)
+
+
+def config_from_dict(d: Mapping[str, Any]) -> SimConfig:
+    """A :class:`SimConfig` from its fields; a backend name meant for the
+    JAX package's dispatch is dropped (the port dispatches by device)."""
+    kw = _fields(SimConfig, d)
+    kw["kernel_backend"] = ""
+    return SimConfig(**kw)

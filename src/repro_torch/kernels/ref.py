@@ -1,0 +1,123 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+They are the CPU path of every kernel wrapper and the yardstick the CUDA
+kernels are held against on the card.  Their semantics follow the JAX
+package's oracles line for line, so that on the CPU the port computes
+the same float32 operations in the same order:
+
+* scatter-adds run over the flattened ``(F, S)`` edge array in row-major
+  order on a 1-D target (``index_add_``), which is the order XLA's CPU
+  scatter sums in;
+* reductions that decide results (min, max) are order-free.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["SAT", "pathcount_ref", "semiring_matmul_ref", "waterfill_ref"]
+
+SAT = 3.0e38
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def pathcount_ref(a: torch.Tensor, b: torch.Tensor,
+                  sat: float = SAT) -> torch.Tensor:
+    """min(A @ B, sat) in f32 (exact below 2**24)."""
+    prod = torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    return torch.minimum(prod, _f32(sat, prod))
+
+
+def _minplus_2d(a: torch.Tensor, b: torch.Tensor,
+                chunk: int = 64) -> torch.Tensor:
+    """(min, +) product, row-chunked so the (m, k, n) broadcast never
+    materialises whole."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    return torch.cat([(a[i:i + chunk, :, None] + b[None]).amin(dim=1)
+                      for i in range(0, a.shape[0], chunk)]
+                     or [a.new_empty((0, b.shape[1]))])
+
+
+def semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor,
+                        semiring: str = "count",
+                        sat: float = SAT) -> torch.Tensor:
+    """Semantics of :func:`repro_torch.kernels.semiring.semiring_matmul`;
+    operands may carry one leading batch dimension."""
+    if a.ndim == 3 or b.ndim == 3:
+        if a.ndim == 2:
+            a = a[None].expand((b.shape[0],) + a.shape)
+        if b.ndim == 2:
+            b = b[None].expand((a.shape[0],) + b.shape)
+    if semiring == "count":
+        return pathcount_ref(a, b, sat)
+    if semiring == "bool":
+        return torch.matmul(a.to(torch.float32), b.to(torch.float32)) > 0
+    if semiring == "minplus":
+        if a.ndim == 3:
+            return torch.stack([_minplus_2d(x, y) for x, y in zip(a, b)])
+        return _minplus_2d(a, b)
+    raise ValueError(f"unknown semiring {semiring!r}")
+
+
+def _scatter_add(e_tot: int, idx: torch.Tensor,
+                 val: torch.Tensor) -> torch.Tensor:
+    """Per-link sums of ``val`` (F, S) over link ids ``idx`` (F, S),
+    accumulated in flat row-major order."""
+    out = torch.zeros(e_tot, dtype=torch.float32, device=idx.device)
+    return out.index_add_(0, idx.reshape(-1), val.reshape(-1))
+
+
+def waterfill_ref(edges: torch.Tensor, w: torch.Tensor, desired: torch.Tensor,
+                  cap: torch.Tensor, fair_iters: int = 2,
+                  active: Optional[torch.Tensor] = None,
+                  want_util: bool = False):
+    """One max-min water-filling step (semantics of
+    :func:`repro_torch.kernels.waterfill.waterfill_step`).
+
+    ``edges`` (F, S) int link ids, the last id ``cap.shape[0] - 1`` being
+    the write-only trash link; ``w`` (F,) 0/1 weights; ``desired`` (F,)
+    requested rates; ``cap`` (E,) capacities; ``active`` (F,) bool
+    optional — inactive rows and -1 slots go to the trash link and their
+    weight and desire are zeroed.  Returns ``(sent, share)``, or
+    ``(sent, share, util)`` with ``want_util`` (the max over live slots
+    of load / cap, from round ``min(1, fair_iters)``).
+    """
+    e_tot = cap.shape[0]
+    w = w.to(torch.float32)
+    if active is not None:
+        actf = active.to(torch.float32)
+        edges = torch.where(active[:, None] & (edges >= 0), edges,
+                            e_tot - 1)
+        w = w * actf
+        desired = desired * actf
+    live = edges < e_tot - 1
+    # Negative ids (only possible without ``active``) wrap like jnp indexing.
+    idx = torch.where(edges < 0, edges + e_tot, edges).to(torch.int64)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=cap.device)
+    tiny = _f32(1e-9, cap)
+    count = _scatter_add(e_tot, idx, w[:, None].expand(idx.shape))
+    fair = cap / torch.maximum(count, tiny)
+    share = torch.where(live, fair[idx], inf).amin(dim=1)
+    util = None
+    if want_util and fair_iters == 0:
+        link_util = count / torch.maximum(cap, tiny)
+        util = torch.where(live, link_util[idx], 0.0).amax(dim=1)
+    d = torch.minimum(desired, share)
+    for it in range(fair_iters):
+        load = _scatter_add(e_tot, idx, d[:, None].expand(idx.shape))
+        if want_util and it == 0:
+            link_util = load / torch.maximum(cap, tiny)
+            util = torch.where(live, link_util[idx], 0.0).amax(dim=1)
+        scale = torch.clamp_max(cap / torch.maximum(load, tiny), 1.0)
+        s = torch.where(live, scale[idx], inf).amin(dim=1)
+        s = torch.where(torch.isfinite(s), s, 0.0)
+        d = d * s
+    if want_util:
+        return d, share, util
+    return d, share

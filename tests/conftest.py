@@ -23,3 +23,8 @@ def df4():
 def rt0():
     from repro.dist.sharding import Runtime
     return Runtime(mesh=None)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; the test skips itself without one")

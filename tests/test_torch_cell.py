@@ -1,0 +1,90 @@
+"""The whole slice: Session.run in the JAX package and in the port on the
+same cells must give identical RunResults (compare_results at rtol 0),
+the port's CLI must run, list and diff, and no module of the port may
+import JAX or the JAX package."""
+
+import json
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.experiments import Session as JSession
+from repro.experiments.results import compare_results
+from repro_torch.experiments import Session
+from repro_torch.experiments import __main__ as cli
+from repro_torch.experiments.results import results_from_json
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = [("sf", r, p, "transport(steps=400)")
+         for r in ("ecmp", "letflow", "fatpaths(n_layers=9,rho=0.6)")
+         for p in ("permutation", "adversarial")]
+CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6)", "permutation",
+              "transport(steps=400,transport=tcp)"))
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    return JSession(), Session(device="cpu")
+
+
+@pytest.mark.parametrize("topo,routing,pattern,evaluator", CELLS)
+def test_session_run_matches_reference(sessions, topo, routing, pattern,
+                                       evaluator):
+    js, ts = sessions
+    ref = js.run(topo, routing, pattern, evaluator)
+    port = ts.run(topo, routing, pattern, evaluator)
+    assert compare_results([ref], [port], rtol=0) == []
+    assert port.metrics["finished"] > 0
+
+
+def test_cli_run_list_diff(tmp_path, capsys):
+    a, b = tmp_path / "a.json", tmp_path / "b.json"
+    args = ["--topos", "df", "--schemes", "ecmp", "--patterns", "shuffle",
+            "--quick", "--device", "cpu"]
+    assert cli.main(["sweep", *args, "--json", str(a)]) == 0
+    assert cli.main(["sweep", *args, "--json", str(b)]) == 0
+    assert cli.main(["diff", str(a), str(b)]) == 0
+    (rr,) = results_from_json(a.read_text())
+    assert rr.topo == "df" and rr.meta["n_flows"] > 0
+    assert cli.main(["run", "--topo", "sf", "--scheme", "ecmp", "--pattern",
+                     "collide", "--quick", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert json.loads(out.strip().splitlines()[-1])["pattern"] == "collide"
+    assert cli.main(["list"]) == 0
+    assert "not ported yet" in capsys.readouterr().out
+    assert cli.main(["sweep", *args, "--filter", "nomatch"]) == 2
+
+
+def test_unported_axes_and_engines_raise(monkeypatch):
+    ts = Session(device="cpu")
+    for routing, item in (("failures", "A8"), ("churn", "A8")):
+        with pytest.raises(NotImplementedError, match=item):
+            ts.run("sf", routing, "uniform")
+    with pytest.raises(NotImplementedError, match="A7"):
+        ts.run("sf", "ecmp", "load")
+    with pytest.raises(NotImplementedError, match="A11"):
+        ts.run("sf", "ecmp", "uniform", "mat")
+    with pytest.raises(NotImplementedError, match="A10"):
+        ts.sweep(["sf"], ["ecmp"], ["uniform"], devices=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["run", "--topo", "sf", "--scheme", "ecmp", "--pattern",
+                  "uniform"])
+
+
+def test_port_imports_no_jax():
+    """Neither the port nor chip_smoke.py may import jax or the JAX
+    package, not even its numpy-only modules."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pat.match(line)]
+    assert bad == []
