@@ -14,12 +14,16 @@ Construction schemes (§5.3) ported here:
                   random root.
   * ``past``    — PAST adaptation: per-layer re-randomised shortest-path
                   tie-breaks on the full graph.
+  * ``ksp``     — k-shortest-paths style: every layer keeps all links and
+                  routes on randomly perturbed link weights, by (min, +)
+                  all-pairs distances.
 
-These sample the layer adjacencies on the host with numpy (the JAX
-package's exact draws); every layer's APSP and forwarding tables then
+The first four sample the layer adjacencies on the host with numpy (the
+JAX package's exact draws); every layer's APSP and forwarding tables then
 come out of one batched device pass (:mod:`repro_torch.core.paths`).
-``pi_min`` and ``ksp`` sample on the device from earlier layers' tables
-and are not ported yet (ROADMAP A4).
+``ksp`` draws its weights on the device from the threefry stream.
+``pi_min`` samples on the device from earlier layers' tables and is not
+ported yet (ROADMAP A4).
 
 Forwarding is destination-based: ``nh[i, s, t]`` = next hop at router s for
 a packet tagged layer i, destination t; unreachable entries are -1.  The
@@ -42,7 +46,7 @@ from .topology import Topology
 __all__ = ["LayeredRouting", "build_layers"]
 
 _UNREACH = 10_000
-_NOT_PORTED = {"pi_min": "A4", "ksp": "A4"}
+_NOT_PORTED = {"pi_min": "A4"}
 
 
 @dataclasses.dataclass
@@ -117,15 +121,53 @@ def _bfs_tree(adj: np.ndarray, root: int, rng: np.random.Generator) -> np.ndarra
     return tree
 
 
+def _ksp_stack(adj: torch.Tensor, nbr: torch.Tensor, key: torch.Tensor,
+               n_layers: int, max_l: int):
+    """k-shortest-paths-style layers: per-layer perturbed edge weights,
+    (min, +) all-pairs distances, and next hops minimising
+    ``w[s, u] + D[u, t]`` over neighbors u (first minimum on ties).
+    Every layer keeps all links; reach and dist are layer 0's."""
+    n = adj.shape[0]
+    dev = adj.device
+    idx = torch.arange(n, device=dev)
+    k0, kw = prng.split(key)
+    nh0, _, dist0 = paths_mod._layer_tables_core(adj[None], nbr, k0, max_l)
+    hop = dist0[0]
+    u01 = prng.uniform(kw, (n_layers - 1, n, n))
+    inf = torch.tensor(float("inf"), device=dev)
+    w = torch.where(adj[None], 1.0 + 0.25 * u01, inf)
+    w = torch.minimum(w, w.transpose(1, 2))
+    w[:, idx, idx] = 0.0
+    d = paths_mod._minplus_apsp_core(w, max_l)
+
+    nbr = nbr.long()
+    has_edge = torch.gather(adj, 1, nbr)                      # (N, D)
+    nh = [nh0]
+    for w_l, d_l in zip(w, d):
+        w_nbr = torch.gather(w_l, 1, nbr)                     # (N, D)
+        cost = torch.where(has_edge[:, :, None],
+                           w_nbr[:, :, None] + d_l[nbr], inf)  # (N, D, N)
+        j = cost.argmin(dim=1)                                # first minimum
+        best = torch.gather(nbr, 1, j).to(torch.int32)
+        nh_l = torch.where(torch.isfinite(cost.amin(dim=1)), best, -1)
+        nh_l[idx, idx] = idx.to(torch.int32)
+        nh.append(nh_l[None])
+    shape = (n_layers, n, n)
+    return (adj[None].expand(shape).clone(), torch.cat(nh),
+            (hop <= max_l)[None].expand(shape).clone(),
+            hop[None].expand(shape).clone())
+
+
 def build_layers(topo: Topology, n_layers: int, rho: float,
                  scheme: str = "rand", seed: int = 0,
                  max_len: Optional[int] = None,
                  device="cuda") -> LayeredRouting:
     """Construct the FatPaths layer stack (layer 0 = all links, minimal).
 
-    Layer adjacencies are sampled on the host; all L layers' tables come
-    out of one batched pass on ``device``.  ``build_stats`` records the
-    host (sampling) vs device (table construction) wall-time split."""
+    Layer adjacencies are sampled on the host (``ksp``: every layer is the
+    whole graph, with weights drawn on the device); all L layers' tables
+    come out of one batched pass on ``device``.  ``build_stats`` records
+    the host (sampling) vs device (table construction) wall-time split."""
     if scheme in _NOT_PORTED:
         raise NotImplementedError(
             f"layer scheme {scheme!r} is not ported yet "
@@ -142,23 +184,28 @@ def build_layers(topo: Topology, n_layers: int, rho: float,
     nbr = torch.as_tensor(paths_mod.neighbor_table(adj), device=dev)
 
     t0 = time.perf_counter()
-    layer_adjs: List[np.ndarray] = [adj.copy()]
-    if scheme in ("rand", "undir"):
-        for _ in range(n_layers - 1):
-            layer_adjs.append(
-                _rand_layer(adj, rho, rng, oriented=(scheme == "rand")))
-    elif scheme == "spain":
-        for _ in range(n_layers - 1):
-            root = int(rng.integers(n))
-            layer_adjs.append(_bfs_tree(adj, root, rng))
-    elif scheme == "past":
-        for _ in range(n_layers - 1):
-            layer_adjs.append(adj.copy())  # re-randomised tie-breaks
+    if scheme == "ksp":
+        t_dev = time.perf_counter()
+        la, nh, reach, dist = _ksp_stack(torch.as_tensor(adj, device=dev),
+                                         nbr, key, n_layers, max_len)
     else:
-        raise ValueError(f"unknown scheme {scheme!r}")
-    la = torch.as_tensor(np.stack(layer_adjs), device=dev)
-    t_dev = time.perf_counter()
-    nh, reach, dist = paths_mod._layer_tables_core(la, nbr, key, max_len)
+        layer_adjs: List[np.ndarray] = [adj.copy()]
+        if scheme in ("rand", "undir"):
+            for _ in range(n_layers - 1):
+                layer_adjs.append(
+                    _rand_layer(adj, rho, rng, oriented=(scheme == "rand")))
+        elif scheme == "spain":
+            for _ in range(n_layers - 1):
+                root = int(rng.integers(n))
+                layer_adjs.append(_bfs_tree(adj, root, rng))
+        elif scheme == "past":
+            for _ in range(n_layers - 1):
+                layer_adjs.append(adj.copy())  # re-randomised tie-breaks
+        else:
+            raise ValueError(f"unknown scheme {scheme!r}")
+        la = torch.as_tensor(np.stack(layer_adjs), device=dev)
+        t_dev = time.perf_counter()
+        nh, reach, dist = paths_mod._layer_tables_core(la, nbr, key, max_len)
     paths_mod._sync(dev)
     t1 = time.perf_counter()
 

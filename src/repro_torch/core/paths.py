@@ -3,14 +3,16 @@ engine.
 
 APSP is a sequence of boolean-semiring frontier products through
 :func:`repro_torch.kernels.semiring.semiring_matmul` (the CUDA kernel on
-the card, the plain product on the CPU); forwarding tables pick, per
-(layer, s, t), a uniformly random equal-cost next hop with one threefry
-uniform per table entry (:mod:`repro_torch.prng`), so the tables are the
-JAX package's bit for bit.
+the card, the plain product on the CPU); weighted distances are (min, +)
+squarings and walk counts saturating ``count`` products through the same
+kernel.  Forwarding tables pick, per (layer, s, t), a uniformly random
+equal-cost next hop with one threefry uniform per table entry
+(:mod:`repro_torch.prng`), so the tables are the JAX package's bit for
+bit.
 
 The batched entry points (``apsp_batched``, ``forwarding_batched``,
-``layer_tables_batched``) work on an (L, N, N) stack of layer
-adjacencies on one device.  Each takes numpy arrays or tensors and a
+``layer_tables_batched``, ``minplus_apsp_batched``) work on an (L, N, N)
+stack of layer adjacencies on one device.  Each takes numpy arrays or tensors and a
 ``device`` (``"cuda"`` unless the caller asks for the CPU); tensors
 already on a device stay there when ``device=None``.
 
@@ -24,7 +26,7 @@ dense table here equals the table the JAX package builds at any size.
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,9 @@ __all__ = [
     "apsp_batched",
     "forwarding_batched",
     "layer_tables_batched",
+    "minplus_apsp_batched",
+    "path_counts_exact_length",
+    "min_path_stats",
     "neighbor_table",
     "path_engine",
     "to_device",
@@ -45,10 +50,11 @@ __all__ = [
 PATH_ENGINES = ("dense", "blocked", "auto")
 
 
-def path_engine() -> str:
-    """Resolve ``REPRO_PATH_ENGINE`` (``dense|blocked|auto``, default
-    ``auto``): every choice but ``blocked`` is ``dense``."""
-    eng = os.environ.get("REPRO_PATH_ENGINE", "") or "auto"
+def path_engine(override: Optional[str] = None) -> str:
+    """Resolve the engine: an explicit ``override`` wins, then
+    ``REPRO_PATH_ENGINE`` (``dense|blocked|auto``, default ``auto``);
+    every choice but ``blocked`` is ``dense``."""
+    eng = override or os.environ.get("REPRO_PATH_ENGINE", "") or "auto"
     if eng not in PATH_ENGINES:
         raise ValueError(f"unknown path engine {eng!r}; "
                          f"choose from {PATH_ENGINES}")
@@ -96,6 +102,18 @@ def _apsp_core(adj: torch.Tensor, max_l: int) -> torch.Tensor:
         l += 1
         go = bool(newly.any())
     return dist
+
+
+def _minplus_apsp_core(w: torch.Tensor, max_l: int) -> torch.Tensor:
+    """All-pairs weighted distances for a (K, N, N) weight stack (+inf
+    non-edges, 0 diagonal) by repeated (min, +) squaring: after i
+    squarings paths of up to 2**i hops are covered, and with unit-ish
+    weights (>= 1) no shortest path uses more than ~1.25 * max_l hops."""
+    iters = max(1, int(np.ceil(np.log2(1.25 * max_l + 1))))
+    d = w
+    for _ in range(iters):
+        d = semiring_matmul(d, d, "minplus")
+    return d
 
 
 def neighbor_table(adj_union: np.ndarray) -> np.ndarray:
@@ -184,7 +202,57 @@ def layer_tables_batched(adj, key: torch.Tensor, max_l: int, device=None
                               key.to(adj_t.device), max_l)
 
 
+def minplus_apsp_batched(w, max_l: int, device=None) -> torch.Tensor:
+    """(min, +) all-pairs distances for a (K, N, N) weight stack.
+
+    Precondition: edge weights are >= 1 (+inf for non-edges, 0 diagonal)
+    and every hop-distance is <= ``max_l``: the squaring count is sized
+    for shortest weighted paths of at most ~1.25 * max_l hops, which is
+    what the ``ksp`` scheme's 1 + 0.25*U(0,1) perturbed unit weights
+    guarantee.  Sub-unit weights would admit longer optimal paths than
+    the iteration covers and silently overestimate distances."""
+    path_engine()
+    return _minplus_apsp_core(to_device(w, torch.float32, device), max_l)
+
+
 def shortest_path_lengths(adj, max_l: int = 64, device=None) -> torch.Tensor:
     """(N, N) int32 shortest path lengths via boolean adjacency powers;
     unreachable pairs get ``max_l + 1``, the diagonal is 0."""
     return _apsp_core(to_device(adj, torch.bool, device)[None], max_l)[0]
+
+
+def path_counts_exact_length(adj, l: int, device=None) -> torch.Tensor:
+    """Number of length-``l`` walks between every pair (Theorem 1), by
+    saturating ``count`` products."""
+    path_engine()
+    a = to_device(adj, torch.float32, device)
+    out = a
+    for _ in range(l - 1):
+        out = semiring_matmul(out, a, "count")
+    return out
+
+
+def _min_path_stats(adj: torch.Tensor, max_l: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dist, counts of shortest walks) for an (N, N) f32 adjacency, the
+    masked select done on the device."""
+    dist = _apsp_core((adj != 0)[None], max_l)[0]
+    counts = torch.where(dist == 1, adj, 0.0)
+    cur = adj
+    for l in range(2, max_l + 1):
+        cur = semiring_matmul(cur, adj, "count")
+        counts = torch.where(dist == l, cur, counts)
+    return dist, counts
+
+
+def min_path_stats(adj, max_l: int = 8, engine: Optional[str] = None,
+                   device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-pair (l_min, c_min): shortest-path length and multiplicity
+    (§4.2.1), as numpy arrays (int32 and float64).
+
+    c_min counts *shortest walks*, which for the minimal length equal
+    shortest paths (no repeated vertex fits in a minimal walk)."""
+    path_engine(engine)
+    dist, counts = _min_path_stats(to_device(adj, torch.float32, device),
+                                   max_l)
+    return dist.cpu().numpy(), counts.cpu().numpy().astype(np.float64)

@@ -175,7 +175,7 @@ class RoutingCtx:
     topo_key: str
     seed: int
     stack: Callable[[tuple, Callable[[], LayeredRouting]], LayeredRouting]
-    device: torch.device = torch.device("cpu")
+    device: torch.device
 
 
 def _minimal_tables(ctx: RoutingCtx, n: int) -> LayeredRouting:

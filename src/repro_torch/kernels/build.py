@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "load", "build_all", "check", "BUILD_DIR"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("semiring", "waterfill")
+KERNELS = ("semiring", "waterfill", "sparse", "gfmm", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

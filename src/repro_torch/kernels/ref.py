@@ -9,6 +9,10 @@ the same float32 operations in the same order:
   order on a 1-D target (``index_add_``), which is the order XLA's CPU
   scatter sums in;
 * reductions that decide results (min, max) are order-free.
+
+The GF(p) product is exact integer arithmetic on both devices (float64
+products of K slices short enough to stay below 2**53, then ``%``),
+because PyTorch has no integer matrix product on CUDA.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["SAT", "pathcount_ref", "semiring_matmul_ref", "waterfill_ref"]
+__all__ = ["SAT", "pathcount_ref", "semiring_matmul_ref",
+           "sparse_semiring_matmul_ref", "waterfill_ref", "gf_matmul_ref",
+           "attention_ref"]
 
 SAT = 3.0e38
 
@@ -60,9 +66,21 @@ def semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor,
         return torch.matmul(a.to(torch.float32), b.to(torch.float32)) > 0
     if semiring == "minplus":
         if a.ndim == 3:
+            if a.shape[0] == 0:
+                return a.new_empty((0, a.shape[1], b.shape[2]),
+                                   dtype=torch.float32)
             return torch.stack([_minplus_2d(x, y) for x, y in zip(a, b)])
         return _minplus_2d(a, b)
     raise ValueError(f"unknown semiring {semiring!r}")
+
+
+def sparse_semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor,
+                               semiring: str = "count",
+                               sat: float = SAT) -> torch.Tensor:
+    """Semantics of :func:`repro_torch.kernels.sparse
+    .sparse_semiring_matmul`: an all-identity tile contributes exactly
+    the additive identity, so the block-sparse product IS the dense one."""
+    return semiring_matmul_ref(a, b, semiring, sat=sat)
 
 
 def _scatter_add(e_tot: int, idx: torch.Tensor,
@@ -121,3 +139,59 @@ def waterfill_ref(edges: torch.Tensor, w: torch.Tensor, desired: torch.Tensor,
     if want_util:
         return d, share, util
     return d, share
+
+
+def gf_matmul_ref(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
+    """(A @ B) mod p as exact integers, returned as int32.
+
+    Operands are reduced mod p first.  The product runs in float64 over
+    K slices of at most ``(2**53 - 1) // (p - 1)**2`` terms, so every
+    partial sum is an exact integer; each slice is reduced mod p and the
+    slices are summed mod p.  That works on the CPU and on CUDA alike
+    (PyTorch has no int64 matrix product on CUDA)."""
+    a = a.to(torch.int64) % p
+    b = b.to(torch.int64) % p
+    k = a.shape[-1]
+    step = max(1, (2 ** 53 - 1) // max(1, (p - 1) ** 2))
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.int64,
+                      device=a.device)
+    for k0 in range(0, k, step):
+        part = torch.matmul(a[..., k0:k0 + step].to(torch.float64),
+                            b[..., k0:k0 + step, :].to(torch.float64))
+        out = (out + part.to(torch.int64) % p) % p
+    return out.to(torch.int32)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, softcap: float = 0.0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Naive (materialised-logits) attention with GQA, causal and sliding
+    window masks and gemma2 logit soft-capping, over (B, H, S, D).
+
+    Query and key positions both start at 0.  A row whose keys are all
+    masked gives 0.  Computes in f32 and returns q's dtype."""
+    _, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    if scale is None:
+        scale = float(d) ** -0.5
+    kk = torch.repeat_interleave(k, group, dim=1)
+    vv = torch.repeat_interleave(v, group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     kk.to(torch.float32)) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask[None, None], s, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(torch.isnan(p), 0.0, p)  # fully masked rows
+    denom = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(denom == 0, 1.0, denom)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv.to(torch.float32))
+    return out.to(q.dtype)

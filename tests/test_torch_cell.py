@@ -22,6 +22,8 @@ CELLS = [("sf", r, p, "transport(steps=400)")
          for p in ("permutation", "adversarial")]
 CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6)", "permutation",
               "transport(steps=400,transport=tcp)"))
+CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6,scheme=ksp)", "permutation",
+              "transport(steps=400)"))
 
 
 @pytest.fixture(scope="module")

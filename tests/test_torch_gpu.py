@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES, ref, semiring_matmul, waterfill_step
+from repro_torch.kernels import (LAUNCHES, flash_attention, gf_matmul, ref,
+                                 semiring_matmul, sparse_semiring_matmul,
+                                 waterfill_step)
 
 WF_SHAPES = [(7, 3, 19), (128, 7, 512), (200, 7, 751), (1, 5, 33),
              (130, 9, 513), (256, 4, 1024), (10830, 8, 42599)]
@@ -88,6 +90,98 @@ def test_cuda_waterfill_matches_plain_and_repeats(f, s, e, pad):
                                        rtol=1e-5, atol=1e-7)
 
 
+SPARSE_SHAPES = [(1, 1, 1, 128), (100, 130, 70, 32), (97, 300, 65, 128),
+                 (70, 1100, 90, 64), (130, 257, 200, 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring", ["bool", "count", "minplus"])
+@pytest.mark.parametrize("m,k,n,tile", SPARSE_SHAPES)
+def test_cuda_sparse_matches_dense_kernel_and_plain(semiring, m, k, n, tile):
+    """Bitwise against the dense kernel and the plain version, batched,
+    broadcast and 2-D; integer-valued counts (bk = 48 moves the kernel's
+    32-wide saturation steps off the dense kernel's)."""
+    _need_card()
+    a, b = _mm_operands(m, k, n, semiring, seed=m * n + tile)
+    before = LAUNCHES["sparse"]
+    for x, y in ((a, b), (a, b[0]), (a[0], b[0])):
+        out = sparse_semiring_matmul(x, y, semiring, bm=tile, bn=tile,
+                                     bk=tile)
+        assert torch.equal(out, semiring_matmul(x, y, semiring))
+        assert torch.equal(out, ref.sparse_semiring_matmul_ref(x, y,
+                                                               semiring))
+    assert LAUNCHES["sparse"] == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring", ["bool", "count", "minplus"])
+def test_cuda_sparse_skips_empty_tiles_exactly(semiring):
+    """A block-diagonal operand: three quarters of the tile pairs are
+    empty and skipped; the result is still the dense product's."""
+    _need_card()
+    a, b = _mm_operands(256, 256, 256, semiring, seed=3, batch=1)
+    a, b = a[0].clone(), b[0]
+    zero = float("inf") if semiring == "minplus" else 0
+    for i in range(4):
+        for j in range(4):
+            if i != j:
+                a[64 * i:64 * (i + 1), 64 * j:64 * (j + 1)] = zero
+    out = sparse_semiring_matmul(a, b, semiring, bm=64, bn=64, bk=64)
+    assert torch.equal(out, ref.sparse_semiring_matmul_ref(a, b, semiring))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,p", [("int32", 1009), ("int32", 127),
+                                    ("f32", 251), ("int32", 40009)])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (128, 384, 256), (70, 1100, 33),
+                                   (257, 64, 129)])
+def test_cuda_gfmm_matches_plain_exactly(mode, p, m, k, n):
+    """p = 40009 takes the kernel's int64 step sums (32 (p-1)^2 >= 2^31)."""
+    _need_card()
+    rng = np.random.default_rng(m + k + n + p)
+    a = torch.from_numpy(rng.integers(0, p, (m, k)).astype(np.int32)).cuda()
+    b = torch.from_numpy(rng.integers(0, p, (k, n)).astype(np.int32)).cuda()
+    bk = 1 if p == 40009 else 128
+    before = LAUNCHES["gfmm"]
+    out = gf_matmul(a, b, p=p, mode=mode, bk=bk)
+    assert LAUNCHES["gfmm"] == before + 1
+    assert out.dtype == torch.int32
+    assert torch.equal(out, ref.gf_matmul_ref(a, b, p))
+
+
+# (b, h, hkv, sq, sk, d, causal, window, softcap)
+ATTN_CASES = [(1, 4, 2, 200, 200, 64, True, 0, 0.0),
+              (2, 4, 1, 130, 130, 128, False, 0, 0.0),
+              (1, 2, 2, 300, 300, 96, True, 50, 0.0),
+              (1, 4, 2, 190, 190, 128, True, 64, 50.0),
+              (1, 2, 1, 100, 77, 200, False, 0, 0.0),
+              (1, 2, 1, 150, 60, 32, True, 16, 0.0),     # rows 75.. dead
+              (1, 8, 1, 64, 64, 256, True, 0, 30.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,softcap", ATTN_CASES)
+def test_cuda_flash_attention_matches_plain(dtype, tol, b, h, hkv, sq, sk, d,
+                                            causal, window, softcap):
+    _need_card()
+    rng = np.random.default_rng(sq + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dtype) for s in ((b, h, sq, d), (b, hkv, sk, d),
+                                             (b, hkv, sk, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    assert LAUNCHES["flash_attention"] == before + 1
+    exp = ref.attention_ref(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == exp.shape
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=tol, atol=tol)
+    if causal and window and sq > sk + window - 1:
+        assert (out[:, :, sk + window - 1:] == 0).all()
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     _need_card()
@@ -100,3 +194,11 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     v = torch.ones(4, device="cuda")
     with pytest.raises(TypeError, match="int32"):
         waterfill_step(edges, v, v, torch.ones(5, device="cuda"))
+    with pytest.raises(TypeError, match="bool operands"):
+        sparse_semiring_matmul(a, a, "bool")
+    q = torch.zeros((1, 2, 4, 300), device="cuda")
+    with pytest.raises(ValueError, match="head dimension"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention(q[..., :8].half(), q[..., :8].half(),
+                        q[..., :8].half())

@@ -65,7 +65,7 @@ def test_layer_tables_batched(topo_pair, seed):
     np.testing.assert_array_equal(np.asarray(f_j), f_t.numpy())
 
 
-@pytest.mark.parametrize("scheme", ["rand", "undir", "spain", "past"])
+@pytest.mark.parametrize("scheme", ["rand", "undir", "spain", "past", "ksp"])
 def test_build_layers_bitwise(topo_pair, scheme):
     jt, tt = topo_pair
     a = j_layers.build_layers(jt, 5, 0.6, scheme=scheme, seed=3)
@@ -90,14 +90,62 @@ def test_ecmp_routing_bitwise(topo_pair, n_tables, seed):
                                       err_msg=f)
 
 
+@pytest.mark.parametrize("n_layers,seed", [(1, 0), (4, 7)])
+def test_minplus_apsp_batched_bitwise(topo_pair, n_layers, seed):
+    """Perturbed unit weights, as the ksp scheme draws them, through the
+    (min, +) squarings; and a one-layer ksp stack (zero weight layers)."""
+    jt, tt = topo_pair
+    adj = np.asarray(jt.adj, bool)
+    rng = np.random.default_rng(seed)
+    w = np.where(adj[None], 1.0 + 0.25 * rng.random((n_layers,) + adj.shape),
+                 np.inf).astype(np.float32)
+    w = np.minimum(w, w.transpose(0, 2, 1))
+    w[:, np.arange(adj.shape[0]), np.arange(adj.shape[0])] = 0.0
+    exp = np.asarray(j_paths.minplus_apsp_batched(jax.numpy.asarray(w),
+                                                  max_l=6))
+    got = paths.minplus_apsp_batched(w, max_l=6, device="cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), exp)
+    a = j_layers.build_layers(jt, 1, 0.6, scheme="ksp", seed=seed)
+    b = layers.build_layers(tt, 1, 0.6, scheme="ksp", seed=seed,
+                            device="cpu")
+    np.testing.assert_array_equal(a.nh, b.nh.numpy())
+
+
+@pytest.mark.parametrize("l", [1, 2, 4])
+def test_path_counts_exact_length_bitwise(topo_pair, l):
+    jt, tt = topo_pair
+    exp = np.asarray(j_paths.path_counts_exact_length(
+        jax.numpy.asarray(jt.adj), l))
+    got = paths.path_counts_exact_length(tt.adj, l, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+@pytest.mark.parametrize("max_l", [4, 8])
+def test_min_path_stats_bitwise(topo_pair, max_l):
+    jt, tt = topo_pair
+    d_j, c_j = j_paths.min_path_stats(np.asarray(jt.adj), max_l=max_l,
+                                      engine="dense")
+    d_t, c_t = paths.min_path_stats(tt.adj, max_l=max_l, device="cpu")
+    assert (d_t.dtype, c_t.dtype) == (d_j.dtype, c_j.dtype)
+    np.testing.assert_array_equal(d_t, d_j)
+    np.testing.assert_array_equal(c_t, c_j)
+
+
 def test_unported_engines_and_schemes_raise(monkeypatch):
     tt = topology.slim_fly(5)
-    for scheme in ("pi_min", "ksp"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            layers.build_layers(tt, 3, 0.6, scheme=scheme, device="cpu")
+    with pytest.raises(NotImplementedError, match="A4"):
+        layers.build_layers(tt, 3, 0.6, scheme="pi_min", device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        paths.min_path_stats(tt.adj, engine="blocked", device="cpu")
     monkeypatch.setenv("REPRO_PATH_ENGINE", "blocked")
     with pytest.raises(NotImplementedError, match="A9"):
         layers.build_layers(tt, 3, 0.6, device="cpu")
+    for fn in (paths.minplus_apsp_batched, paths.path_counts_exact_length,
+               paths.min_path_stats):
+        with pytest.raises(NotImplementedError, match="A9"):
+            fn(np.zeros((1, 4, 4), np.float32) if fn is
+               paths.minplus_apsp_batched else tt.adj, 2, device="cpu")
     monkeypatch.setenv("REPRO_PATH_ENGINE", "auto")
     assert paths.path_engine() == "dense"
     monkeypatch.setenv("REPRO_PATH_ENGINE", "sparse")
