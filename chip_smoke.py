@@ -5,8 +5,10 @@ its plain PyTorch version, drive the main path at full width, and report.
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 
-1. card: name, count, and ``nvidia-smi`` name and power limit;
-   then the main cells are driven once with a recorder in front of each
+1. card: name, count, and ``nvidia-smi`` name and power limit; the
+   kernels are built (``ptxas``'s registers, shared memory and spills of
+   each kernel printed); then the main cells are driven once with a
+   recorder in front of each
    kernel wrapper, to keep the inputs the main path hands the kernels;
 2. the semiring kernel vs its plain version: three semirings at ragged
    shapes, and every boolean product the main path made, bitwise; the
@@ -30,17 +32,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 (b) the block-sparse semiring kernel: driven over every semiring call
    recorded in phases 1 and (a), then held bitwise against the dense
    kernel and the plain version on those calls, on ragged shapes and on a
-   block-diagonal operand, and timed beside them;
+   block-diagonal operand, and timed beside them, with its occupancy
+   pass's device time apart;
 (c) the GF(p) kernel: ``ops.gf_power_sum(K, 4)`` of the Cheung
    propagation matrix of sf(q=11) (4114 directed links, p = 1009), exact
    against the plain version, both modes on ragged shapes, timed;
-(d) the flash-attention kernel: ``ops.attention`` at the gemma2-27b
+(d) the flash-attention kernels: ``ops.attention`` at the gemma2-27b
    (H 32, Hkv 16, D 128, causal, window 4096, softcap 50, S 8192) and
-   yi-9b (H 32, Hkv 4, D 128, causal, S 4096) layouts in bf16, held
-   against the plain version two query heads at a time at bf16's
-   rounding (|err| <= 1e-2 |exp| + 1e-3), the same layouts in f32 and
-   ragged f32 cases at rtol = atol = 1e-4; timed beside the plain
-   version and, for yi-9b, ``scaled_dot_product_attention``;
+   yi-9b (H 32, Hkv 4, D 128, causal, S 4096) layouts in bf16 (the
+   tensor-core kernel), held against the plain version two query heads
+   at a time at bf16's rounding (|err| <= 1e-2 |exp| + 1e-3), the same
+   layouts in f32 (the CUDA-core kernel) at rtol = atol = 1e-4, and
+   ragged cases (D 32 to 256, dead rows) in both; both kernels timed
+   beside the plain version and, for yi-9b,
+   ``scaled_dot_product_attention`` (the entry's ``library_ms``);
 4. a small cell (sf(q=5)) on the card and on the CPU through the same
    port, for ecmp, fatpaths and fatpaths with the ksp scheme: tables and
    path-edge tensors bitwise, departures within 2 steps for at least 99%
@@ -128,6 +133,39 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _ptxas_report(logs):
+    """Each built kernel's registers, spill bytes and static shared memory
+    from ``ptxas -v``: {library: {kernel: [registers, spill stores, spill
+    loads, smem bytes]}}, names demangled by ``c++filt`` where it runs."""
+    import re
+
+    out = {}
+    for lib, log in logs.items():
+        kernels, name = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                kernels[name] = [None, 0, 0, 0]
+            elif name and "spill stores" in line:
+                st, ld = re.findall(r"(\d+) bytes spill", line)
+                kernels[name][1:3] = [int(st), int(ld)]
+            elif name and "Used" in line and "registers" in line:
+                kernels[name][0] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                kernels[name][3] = int(smem.group(1)) if smem else 0
+        try:
+            plain = subprocess.run(["c++filt"], input="\n".join(kernels),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.split("\n")
+        except (OSError, subprocess.CalledProcessError):
+            plain = list(kernels)
+        out[lib] = {p.replace("(anonymous namespace)::", "")[:90]: v
+                    for p, v in zip(plain, kernels.values())}
+    return out
+
+
 def phase_card():
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -206,6 +244,21 @@ def _replay_ms(fn, calls, iters: int):
     wall = _time_ms(replay, 1, warmup=1) / iters / len(calls)
     device_ms, _, _ = _profile(replay)
     return device_ms / iters / len(calls), wall
+
+
+def _replay_split_ms(fn, calls, iters: int, marker: str):
+    """``fn(*call)`` replayed as in :func:`_replay_ms`: ``(device ms,
+    device ms of the kernels whose name holds marker)`` per call, both
+    from one profiled replay."""
+    def replay():
+        for _ in range(iters):
+            for c in calls:
+                fn(*c)
+    fn(*calls[0])
+    device_ms, _, top = _profile(replay, top_n=10 ** 6)
+    part = sum(ms for name, ms, _ in top if marker in name)
+    per = iters * len(calls)
+    return device_ms / per, part / per
 
 
 def _mm_bound(a, b, semiring):
@@ -627,7 +680,10 @@ def phase_sparse(ref, sparse_semiring_matmul, occupancy, semiring_matmul,
     for name, mine in groups.items():
         if not mine:
             continue
-        ms, _ = _replay_ms(sparse_semiring_matmul, mine, 5)
+        # One reading: the whole call, and of it the occupancy pass (the
+        # rest is the product, with the packing passes for bool).
+        ms, occ_ms = _replay_split_ms(sparse_semiring_matmul, mine, 5,
+                                      "occupancy")
         k2_ms, _ = _replay_ms(semiring_matmul, mine, 5)
         plain_ms, _ = _replay_ms(ref.sparse_semiring_matmul_ref, mine, 2)
         parts = [_sparse_bound(a, b, s, occupancy) for a, b, s in mine]
@@ -636,7 +692,8 @@ def phase_sparse(ref, sparse_semiring_matmul, occupancy, semiring_matmul,
         if name == "count":
             lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
                                                for a, b, _ in mine], 5)
-        per[name] = dict(calls=len(mine), ms=ms, dense_kernel_ms=k2_ms,
+        per[name] = dict(calls=len(mine), ms=ms, occupancy_ms=occ_ms,
+                         product_ms=ms - occ_ms, dense_kernel_ms=k2_ms,
                          plain_ms=plain_ms, bound_ms=bound / len(mine),
                          bound_by=by, library_ms=lib,
                          occupied_share=sum(sh for _, sh in parts)
@@ -754,12 +811,14 @@ def _attn_close(out, exp, rtol, atol, what):
 
 
 def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
-    """(d) Attention at two full-width layouts in bf16, held against the
-    plain version two query heads at a time at bf16's rounding (rtol
-    1e-2, atol 1e-3: both round the same f32 result, so they differ by
-    at most one bf16 ulp, 2^-7 of the value); the same layouts in f32
-    and f32 ragged cases at rtol = atol = 1e-4 (the JAX package's own
-    kernel tolerances, 5e-2 bf16 and 2e-3 f32, are looser than both)."""
+    """(d) Attention at two full-width layouts in bf16 (the tensor-core
+    kernel), held against the plain version two query heads at a time at
+    bf16's rounding (rtol 1e-2, atol 1e-3: both round an f32 result, so
+    they differ by about one bf16 ulp, 2^-7 of the value); the same
+    layouts in f32 (the CUDA-core kernel) and ragged cases in both types,
+    f32 at rtol = atol = 1e-4 and bf16 at bf16's rounding (the JAX
+    package's own kernel tolerances, 5e-2 bf16 and 2e-3 f32, are looser
+    than both).  Both kernels timed at both layouts."""
     g = torch.Generator(device="cuda").manual_seed(3)
     inputs = {}
     for name, lay in ATTN_LAYOUTS.items():
@@ -805,29 +864,35 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
              (1, 4, 2, 190, 190, 128, True, 64, 50.0),
              (1, 2, 1, 100, 77, 200, False, 0, 0.0),
              (1, 4, 2, 1000, 700, 128, True, 0, 0.0),
-             (1, 2, 1, 150, 60, 32, True, 16, 0.0)]     # rows 75.. dead
+             (1, 2, 1, 150, 60, 32, True, 16, 0.0),     # rows 75.. dead
+             (1, 8, 1, 300, 300, 256, True, 0, 30.0)]
     gc = torch.Generator(device="cuda").manual_seed(4)
-    ragged = (0.0, 0.0)
+    tol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+    ragged = {dt: (0.0, 0.0) for dt in tol}
     for b, h, hkv, sq, sk, d, causal, window, softcap in cases:
         q = torch.randn((b, h, sq, d), generator=gc, device="cuda")
         k, v = (torch.randn((b, hkv, sk, d), generator=gc, device="cuda")
                 for _ in range(2))
         kw = dict(causal=causal, window=window, softcap=softcap)
-        out = flash_attention(q, k, v, **kw)
-        e = _attn_close(out, ref.attention_ref(q, k, v, **kw), 1e-4, 1e-4,
-                        f"attention f32 {(b, h, hkv, sq, sk, d)} {kw}")
-        ragged = tuple(map(max, ragged, e))
-        if causal and window and sq > sk + window - 1:
-            if not bool((out[:, :, sk + window - 1:] == 0).all()):
-                raise AssertionError("fully masked rows are not 0")
-    err["f32 ragged"] = ragged
+        for dt, (rtol, atol) in tol.items():
+            x = [t.to(dt) for t in (q, k, v)]
+            out = flash_attention(*x, **kw)
+            e = _attn_close(out, ref.attention_ref(*x, **kw), rtol, atol,
+                            f"attention {dt} {(b, h, hkv, sq, sk, d)} {kw}")
+            ragged[dt] = tuple(map(max, ragged[dt], e))
+            if causal and window and sq > sk + window - 1:
+                if not bool((out[:, :, sk + window - 1:] == 0).all()):
+                    raise AssertionError(f"{dt}: fully masked rows are "
+                                         "not 0")
+    err["f32 ragged"] = ragged[torch.float32]
+    err["bf16 ragged"] = ragged[torch.bfloat16]
     print(f"# phase (d): attention at {list(ATTN_LAYOUTS)} against the "
           "plain version, two heads at a time, in bf16 (rtol 1e-2, atol "
           "1e-3; the JAX package's limit is 5e-2) and in f32 (rtol = atol "
-          f"= 1e-4), and {len(cases)} ragged f32 cases (1e-4; the JAX "
-          "package's limit is 2e-3); (max abs err, relative Frobenius err) "
-          + json.dumps(err) + "; fully masked rows 0; launches on its own "
-          f"path {launches}", flush=True)
+          f"= 1e-4), and {len(cases)} ragged cases in both (f32 1e-4, the "
+          "JAX package's limit being 2e-3; bf16 as above); (max abs err, "
+          "relative Frobenius err) " + json.dumps(err) + "; fully masked "
+          f"rows 0; launches on its own path {launches}", flush=True)
 
     per = {}
     for name, lay in ATTN_LAYOUTS.items():
@@ -835,6 +900,10 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
         kw = kws[name]
         ms, wall = _replay_ms(lambda *x: ops.attention(*x, **kw),
                               [(q, k, v)], 2)
+        x32 = [t.float() for t in (q, k, v)]
+        f32_ms, _ = _replay_ms(lambda *x: flash_attention(*x, **kw),
+                               [tuple(x32)], 2)
+        del x32
         plain_ms, _ = _replay_ms(plain_sliced, [(q, k, v, kw)], 1)
         lib = None
         if lay["softcap"] == 0 and lay["window"] == 0:
@@ -845,22 +914,28 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
         pairs = _attn_pairs(lay["s"], lay["s"], lay["causal"], lay["window"])
         t_ops = 4.0 * lay["h"] * lay["d"] * pairs / BF16_FLOP_PER_S
         t_bytes = sum(x.numel() * 2 for x in (q, k, v, q)) / HBM_BYTES_PER_S
-        per[name] = dict(ms=ms, wall_ms=wall, plain_ms=plain_ms,
+        t_ops32 = 4.0 * lay["h"] * lay["d"] * pairs / F32_FLOP_PER_S
+        per[name] = dict(ms=ms, wall_ms=wall, f32_ms=f32_ms,
+                         f32_bound_ms=max(t_ops32, 2 * t_bytes) * 1e3,
+                         plain_ms=plain_ms,
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes", library_ms=lib,
                          unmasked_pairs_per_head=pairs)
         print(f"# attention {name}: " + json.dumps(per[name]), flush=True)
-    n = len(per)
+    # The entry's times are yi-9b's in bf16, the layout that one PyTorch
+    # call (scaled_dot_product_attention) also computes; both layouts and
+    # both kernels are in per_layout.
+    top = per["yi-9b"]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:96",
                 launches=launches,
                 max_abs_err=max(e for e, _ in err.values()),
-                ms=sum(p["ms"] for p in per.values()) / n,
-                plain_ms=sum(p["plain_ms"] for p in per.values()) / n,
-                bound_ms=sum(p["bound_ms"] for p in per.values()) / n,
-                bound_by="operations", library_ms=None, per_layout=per)
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"], entry_layout="yi-9b bf16",
+                per_layout=per)
 
 
 def phase_small_cell(Session, transport):
@@ -1076,6 +1151,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"# kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
+    for lib, kernels in _ptxas_report(build.PTXAS_LOG).items():
+        print(f"# ptxas {lib}: " + json.dumps(kernels), flush=True)
     main_mm, main_wf = capture_main_inputs(Session, paths, transport)
     k2 = phase_semiring(ref, semiring_matmul, main_mm)
     k1 = phase_waterfill(ref, waterfill_step, main_wf)

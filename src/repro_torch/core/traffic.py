@@ -111,10 +111,11 @@ def adversarial(n: int, seed: int = 0) -> np.ndarray:
 
 
 def worst_case(topo: Topology, seed: int = 0,
-               sample_cap: int = 4096, device="cpu") -> np.ndarray:
+               sample_cap: int = 4096, device="cuda") -> np.ndarray:
     """Jyothi et al. style worst-case: pair endpoints to maximise total
     path length via linear-sum assignment on router distances (§2.4.7).
-    The router distances are computed on ``device``."""
+    The router distances are computed on ``device``: the card unless the
+    caller asks for the CPU, and without a card ``cuda`` raises."""
     from scipy.optimize import linear_sum_assignment
 
     from . import paths as paths_mod
@@ -193,7 +194,7 @@ def make_workload(topo: Topology, pattern: str = "permutation",
                   arrival_rate: float = 0.0, randomize: bool = True,
                   seed: int = 0, frac_endpoints: float = 1.0,
                   size_spread: float = 0.0, acks: bool = False,
-                  ack_frac: float = 0.05, device="cpu") -> FlowWorkload:
+                  ack_frac: float = 0.05, device="cuda") -> FlowWorkload:
     """Build a flow workload from a named pattern.
 
     Args:
@@ -210,7 +211,10 @@ def make_workload(topo: Topology, pattern: str = "permutation",
         flows (TCP-outcast scenario); marked in ``is_ack`` and sized at
         ``ack_frac * flow_size``.
       ack_frac: ACK flow size as a fraction of ``flow_size``.
-      device: where ``worstcase`` computes its router distances.
+      device: where ``worstcase`` computes its router distances: the
+        card unless the caller asks for the CPU (``cuda`` without a card
+        raises).  The other patterns are built with numpy and never
+        read it.
     """
     rng = np.random.default_rng(seed)
     ep2r = endpoint_router_map(topo)

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so``
 at the checkout's root, at first use, once per process.  The hash covers
-the source and the flags, so an edited kernel is rebuilt and a stale
-library is never loaded.  No PyTorch header is compiled: a build takes
-seconds.
+the source, every shared header ``csrc/*.cuh`` and the flags, so an
+edited kernel or header is rebuilt and a stale library is never loaded.
+No PyTorch header is compiled: a build takes seconds.  ``ptxas`` reports
+each kernel's registers, shared memory and spills (``-Xptxas -v``);
+:data:`PTXAS_LOG` keeps that report per library built in this process.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
@@ -23,15 +25,18 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNELS", "load", "build_all", "check", "BUILD_DIR"]
+__all__ = ["KERNELS", "load", "build_all", "check", "BUILD_DIR",
+           "PTXAS_LOG"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("semiring", "waterfill", "sparse", "gfmm", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's output (the ptxas report) of each library built in this process.
+PTXAS_LOG: Dict[str, str] = {}
 _LOCK = threading.Lock()
 
 
@@ -47,9 +52,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, every shared
+    header (a source may include any of them) and the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -72,6 +81,7 @@ def _finish(name: str, target: Path, tmp, proc) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {name}.cu "
                            f"(rc {proc.returncode}):\n{out}")
+    PTXAS_LOG[name] = out
     os.replace(tmp, target)
 
 

@@ -16,7 +16,9 @@
 // 32-wide word, B by columns), so a 722-wide K is 23 words; the product
 // then ANDs and ORs 32-bit words, 4x4 outputs per thread from a 64x64
 // tile whose packed rows and columns are staged through shared memory.
-// The packed operands (1/8 of the bytes) stay in L2 across tiles.
+// The packed operands (1/8 of the bytes) stay in L2 across tiles.  The
+// packing and the staged AND/OR live in semiring_common.cuh, shared with
+// the block-sparse kernel.
 //
 // count and minplus.  What bounds them: operations (2 M K N f32 flops
 // against 4 (M K + K N + M N) bytes).  No TF32 and no tensor cores:
@@ -35,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "semiring_common.cuh"
 
 namespace {
 
@@ -113,119 +117,25 @@ semiring_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// ---- bool: bit-packed along K ---------------------------------------------
-
-constexpr int kBoolTile = 64;   // output rows and columns per block
-constexpr int kBoolSide = 16;   // threads per block side
-constexpr int kBoolPer = kBoolTile / kBoolSide;  // outputs per thread side
-constexpr int kWords = 32;      // packed K words staged per pass
-
-// (rows, k) bytes -> (rows, kw) words: bit j of word w is src[r, 32 w + j].
-// One warp per word: each lane reads one byte, the ballot packs them.
-__global__ void pack_rows(const uint8_t* __restrict__ src,
-                          uint32_t* __restrict__ dst, long long rows, int k,
-                          int kw) {
-  const long long word =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (word >= rows * kw) return;  // uniform across the warp
-  const long long r = word / kw;
-  const int col = static_cast<int>(word % kw) * 32 + lane;
-  const bool bit = col < k && src[r * k + col] != 0;
-  const uint32_t packed = __ballot_sync(0xffffffffu, bit);
-  if (lane == 0) dst[word] = packed;
-}
-
-// (batches, k, n) bytes -> (batches, kw, n) words: bit j of word [w, c]
-// is src[32 w + j, c].  Neighbouring threads take neighbouring columns, so
-// reads and writes are coalesced.
-__global__ void pack_cols(const uint8_t* __restrict__ src,
-                          uint32_t* __restrict__ dst, int batches, int k,
-                          int n, int kw) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(batches) * kw * n) return;
-  const int c = static_cast<int>(idx % n);
-  const long long bw = idx / n;  // batch * kw + w
-  const int w = static_cast<int>(bw % kw);
-  const long long b = bw / kw;
-  const int k0 = w * 32;
-  const int len = min(32, k - k0);
-  const uint8_t* s = src + (b * k + k0) * n + c;
-  uint32_t packed = 0;
-  for (int j = 0; j < len; ++j)
-    packed |= static_cast<uint32_t>(s[static_cast<long long>(j) * n] != 0)
-              << j;
-  dst[idx] = packed;
-}
+// ---- bool: bit-packed along K (semiring_common.cuh) ----------------------
 
 // C[r, c] = any_w (ap[r, w] & bp[w, c]) for one (batch) of the product.
 __global__ void __launch_bounds__(kBoolSide * kBoolSide)
 bool_product(const uint32_t* __restrict__ ap, const uint32_t* __restrict__ bp,
              uint8_t* __restrict__ c, int m, int n, int kw,
              long long stride_ap, long long stride_bp) {
-  __shared__ uint32_t as[kBoolTile][kWords + 1];
-  __shared__ uint32_t bs[kWords][kBoolTile];
+  __shared__ BoolStage st;
   const long long batch = blockIdx.z;
   ap += batch * stride_ap;
   bp += batch * stride_bp;
   c += batch * static_cast<long long>(m) * n;
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kBoolSide + tx;
   const int row0 = blockIdx.y * kBoolTile;
   const int col0 = blockIdx.x * kBoolTile;
-
-  uint32_t acc[kBoolPer][kBoolPer];
-#pragma unroll
-  for (int i = 0; i < kBoolPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kBoolPer; ++j) acc[i][j] = 0u;
-
-  for (int w0 = 0; w0 < kw; w0 += kWords) {
-    for (int e = tid; e < kBoolTile * kWords; e += kBoolSide * kBoolSide) {
-      const int r = e / kWords, w = e % kWords;
-      const int gr = row0 + r, gw = w0 + w;
-      as[r][w] = gr < m && gw < kw ? ap[static_cast<long long>(gr) * kw + gw]
-                                   : 0u;
-      const int wb = e / kBoolTile, cb = e % kBoolTile;
-      const int gwb = w0 + wb, gc = col0 + cb;
-      bs[wb][cb] = gwb < kw && gc < n
-                       ? bp[static_cast<long long>(gwb) * n + gc]
-                       : 0u;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int w = 0; w < kWords; ++w) {
-      uint32_t av[kBoolPer], bv[kBoolPer];
-#pragma unroll
-      for (int i = 0; i < kBoolPer; ++i) av[i] = as[ty + kBoolSide * i][w];
-#pragma unroll
-      for (int j = 0; j < kBoolPer; ++j) bv[j] = bs[w][tx + kBoolSide * j];
-#pragma unroll
-      for (int i = 0; i < kBoolPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kBoolPer; ++j) acc[i][j] |= av[i] & bv[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kBoolPer; ++i) {
-    const int gr = row0 + ty + kBoolSide * i;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kBoolPer; ++j) {
-      const int gc = col0 + tx + kBoolSide * j;
-      if (gc < n)
-        c[static_cast<long long>(gr) * n + gc] = acc[i][j] != 0u ? 1 : 0;
-    }
-  }
-}
-
-unsigned blocks_for(long long threads, int per_block) {
-  return static_cast<unsigned>((threads + per_block - 1) / per_block);
+  uint32_t acc[kBoolPer][kBoolPer] = {};
+  for (int w0 = 0; w0 < kw; w0 += kWords)
+    bool_pass(ap, bp, m, n, kw, row0, col0, min(kWords, kw - w0),
+              [w0](int i) { return w0 + i; }, st, acc);
+  bool_store(c, m, n, row0, col0, acc);
 }
 
 }  // namespace
@@ -275,11 +185,7 @@ int semiring_bool_launch(const void* a, const void* b, void* c, void* ap,
   const int kw = (k + 31) / 32;
   uint32_t* pa = static_cast<uint32_t*>(ap);
   uint32_t* pb = static_cast<uint32_t*>(bp);
-  const long long rows_a = static_cast<long long>(batch_a) * m;
-  pack_rows<<<blocks_for(rows_a * kw * 32, 256), 256, 0, s>>>(
-      static_cast<const uint8_t*>(a), pa, rows_a, k, kw);
-  pack_cols<<<blocks_for(static_cast<long long>(batch_b) * kw * n, 256), 256,
-              0, s>>>(static_cast<const uint8_t*>(b), pb, batch_b, k, n, kw);
+  pack_operands(a, b, pa, pb, batch_a, batch_b, m, k, n, s);
   const dim3 block(kBoolSide, kBoolSide);
   const dim3 grid((n + kBoolTile - 1) / kBoolTile,
                   (m + kBoolTile - 1) / kBoolTile, batch);

@@ -12,7 +12,10 @@ Supports what the repo's architectures need:
 
 Query and key positions both start at 0, also when ``Sq != Sk``; keys at
 or beyond ``Sk`` are masked, and a row whose keys are all masked gives 0.
-A CUDA tensor runs the hand-written kernel in ``csrc/flash_attention.cu``;
+A CUDA tensor runs a hand-written kernel in ``csrc/flash_attention.cu``:
+bf16 the tensor-core kernel (``mma.sync`` bf16 products with f32
+accumulators, P kept in registers as a bf16 high part and remainder),
+f32 the CUDA-core kernel (f32 throughout, exact enough for rtol 1e-4);
 a CPU tensor runs the plain version
 :func:`repro_torch.kernels.ref.attention_ref`.
 """
@@ -89,9 +92,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       window: if > 0, sliding window of this many positions.
       softcap: if > 0, gemma2-style logit soft-capping.
       bq, bk: the TPU kernel's query and key tile sizes, kept so that its
-        callers run unchanged.  They set nothing here: the CUDA kernel's
-        tiles are fixed at 64 query rows by 64 keys per block, and the
-        plain version has no tiles.  They must be positive.
+        callers run unchanged.  They set nothing here: the CUDA kernels
+        fix their tiles (64 query rows a block; 64 keys a tile, 32 for
+        bf16 at D > 128), and the plain version has no tiles.  They must
+        be positive.
     Returns (B, H, Sq, D) in q's dtype (accumulated in f32).
     """
     if bq < 1 or bk < 1:

@@ -10,9 +10,11 @@ skips every tile pair where either bit is 0.
 Skipping is exact: an all-identity tile contributes exactly the additive
 identity to the K reduction (0 to a count, +inf to a min), so the result
 is bitwise the dense product's.  A CUDA tensor runs the hand-written
-kernel in ``csrc/sparse.cu``; a CPU tensor runs the plain version, which
-is the dense product (:func:`repro_torch.kernels.ref
-.sparse_semiring_matmul_ref`).
+kernel in ``csrc/sparse.cu``, which builds the occupancy bitmaps itself
+in one device pass over both operands; a CPU tensor runs the plain
+version, which is the dense product (:func:`repro_torch.kernels.ref
+.sparse_semiring_matmul_ref`).  :func:`tile_occupancy` is the bitmaps'
+plain version.
 """
 
 from __future__ import annotations
@@ -65,9 +67,9 @@ def _lib():
     lib = build.load("sparse")
     fn = lib.sparse_launch
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, ll, ll, ll, ll,
-                       i, i, i, ctypes.c_float, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                       ctypes.c_float, p]
         fn.restype = i
     return lib
 
@@ -87,8 +89,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, semiring: str, sat: float,
         dtype = torch.bool
     else:
         dtype = torch.float32
-    batch = max(a.shape[0] if a.ndim == 3 else 1,
-                b.shape[0] if b.ndim == 3 else 1)
+    batch_a = a.shape[0] if a.ndim == 3 else 1
+    batch_b = b.shape[0] if b.ndim == 3 else 1
+    batch = max(batch_a, batch_b)
     for x in (a, b):
         if x.ndim == 3 and x.shape[0] != batch:
             raise ValueError(f"batch sizes differ: {tuple(a.shape)} x "
@@ -103,18 +106,29 @@ def _launch(a: torch.Tensor, b: torch.Tensor, semiring: str, sat: float,
         return out
     if k == 0:
         return out.fill_(float("inf") if semiring == "minplus" else 0)
-    a_occ = _occupancy(a, bm, bk, semiring)
-    b_occ = _occupancy(b, bk, bn, semiring)
-    tiles_a = a_occ.shape[-2] * a_occ.shape[-1]
-    tiles_b = b_occ.shape[-2] * b_occ.shape[-1]
+    # Scratch the kernel writes before it reads: the occupancy bitmaps
+    # and, for bool, the operands packed along K.  Freed on return, which
+    # is safe: the caching allocator hands it only to work queued later
+    # on the same stream.
+    kt = -(-k // bk)
+    dev = a.device
+    a_occ = torch.empty((batch_a, -(-m // bm), kt), dtype=torch.int32,
+                        device=dev)
+    b_occ = torch.empty((batch_b, kt, -(-n // bn)), dtype=torch.int32,
+                        device=dev)
+    ap = bp = None
+    if semiring == "bool":
+        kw = -(-k // 32)
+        ap = torch.empty((batch_a, m, kw), dtype=torch.int32, device=dev)
+        bp = torch.empty((batch_b, kw, n), dtype=torch.int32, device=dev)
     lib = _lib()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.sparse_launch(
         _MODE[semiring], a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        a_occ.data_ptr(), b_occ.data_ptr(), batch, m, k, n,
-        m * k if a.ndim == 3 else 0, k * n if b.ndim == 3 else 0,
-        tiles_a if a.ndim == 3 else 0, tiles_b if b.ndim == 3 else 0,
-        bm, bn, bk, float(sat), stream)
+        a_occ.data_ptr(), b_occ.data_ptr(),
+        None if ap is None else ap.data_ptr(),
+        None if bp is None else bp.data_ptr(), batch, batch_a, batch_b, m,
+        k, n, bm, bn, bk, float(sat), stream)
     build.check(lib, code, f"sparse_semiring_matmul[{semiring}]")
     LAUNCHES["sparse"] += 1
     return out

@@ -131,6 +131,30 @@ def test_cuda_sparse_skips_empty_tiles_exactly(semiring):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bk", [48, 96])
+@pytest.mark.parametrize("m,k,n,tile", [(130, 257, 200, 64), (97, 300, 65, 32),
+                                        (2, 1100, 3, 128)])
+def test_cuda_sparse_bool_packed_words_any_bk(bk, m, k, n, tile):
+    """The bool product on K2's bit-packed words with a bk that is not a
+    multiple of 32 (a word then straddles two K tiles): bitwise against the
+    dense kernel and the plain version, dense and with every other K tile
+    of A emptied, so that words are skipped and others are partly empty."""
+    _need_card()
+    a, b = _mm_operands(m, k, n, "bool", seed=m + k + bk)
+    sparse_a = a.clone()
+    for kt in range(1, -(-k // bk), 2):
+        sparse_a[..., kt * bk:(kt + 1) * bk] = False
+    for x in (a, sparse_a):
+        for y in (b, b[0]):
+            out = sparse_semiring_matmul(x, y, "bool", bm=tile, bn=tile,
+                                         bk=bk)
+            assert out.dtype == torch.bool
+            assert torch.equal(out, semiring_matmul(x, y, "bool"))
+            assert torch.equal(out, ref.sparse_semiring_matmul_ref(x, y,
+                                                                   "bool"))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode,p", [("int32", 1009), ("int32", 127),
                                     ("f32", 251), ("int32", 40009)])
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (128, 384, 256), (70, 1100, 33),
@@ -178,6 +202,46 @@ def test_cuda_flash_attention_matches_plain(dtype, tol, b, h, hkv, sq, sk, d,
     assert out.dtype == dtype and out.shape == exp.shape
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                exp.float().cpu().numpy(), rtol=tol, atol=tol)
+    if causal and window and sq > sk + window - 1:
+        assert (out[:, :, sk + window - 1:] == 0).all()
+
+
+# (b, h, hkv, sq, sk, d, causal, window, softcap): bf16 cases for the
+# tensor-core kernel's edges.
+TC_CASES = [(1, 2, 2, 64, 64, 16, True, 0, 0.0),        # D 16: one chunk
+            (1, 2, 1, 100, 130, 48, False, 0, 0.0),     # D 48, Sk > Sq
+            (1, 4, 2, 1, 300, 128, False, 0, 0.0),      # Sq 1
+            (1, 4, 2, 1, 300, 64, True, 0, 0.0),        # Sq 1, causal
+            (1, 4, 2, 200, 1, 128, True, 0, 0.0),       # Sk 1
+            (1, 4, 2, 200, 1, 128, False, 0, 0.0),
+            (1, 8, 1, 1024, 1024, 128, True, 0, 0.0),   # GQA group 8
+            (1, 2, 1, 150, 60, 32, True, 16, 0.0),      # rows 75.. dead
+            (1, 4, 2, 190, 190, 200, True, 64, 50.0),   # D 200, softcap
+            (2, 2, 1, 77, 93, 20, True, 0, 0.0),        # D 20: no cp.async
+            (1, 2, 1, 300, 300, 256, True, 100, 30.0)]  # D 256
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,softcap", TC_CASES)
+def test_cuda_flash_attention_bf16_tensor_cores(b, h, hkv, sq, sk, d, causal,
+                                                window, softcap):
+    """bf16 through the tensor-core kernel, held to bf16's rounding
+    against the plain version (|err| <= 1e-2 |exp| + 1e-3, tighter than
+    the JAX package's 5e-2); fully masked rows exactly 0."""
+    _need_card()
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", torch.bfloat16)
+               for s in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    assert LAUNCHES["flash_attention"] == before + 1
+    exp = ref.attention_ref(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == exp.shape
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=1e-2,
+                               atol=1e-3)
     if causal and window and sq > sk + window - 1:
         assert (out[:, :, sk + window - 1:] == 0).all()
 
