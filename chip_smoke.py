@@ -13,7 +13,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 2. the semiring kernel vs its plain version: three semirings at ragged
    shapes, and every boolean product the main path made, bitwise; the
    main path's products timed (replayed in order) with CUDA events beside
-   the plain version and ``torch.matmul`` of f32 copies (TF32 off);
+   the plain version and ``torch.matmul`` of f32 copies (TF32 off); each
+   semiring is timed again on its own path's calls once phase (a) has
+   recorded them (bool: the main sweep; count: ``min_path_stats`` and
+   ``path_counts_power``; minplus: the ksp cell), count and bool beside
+   ``torch.matmul`` f32, into the entry's ``per_semiring``;
 3. the water-filling kernel vs its plain version: ragged shapes, rows
    with no live slot, all-inactive rows, ``want_util`` on and off, and
    every call the main path made (its strided (F, S) views of the packed
@@ -36,7 +40,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    pass's device time apart;
 (c) the GF(p) kernel: ``ops.gf_power_sum(K, 4)`` of the Cheung
    propagation matrix of sf(q=11) (4114 directed links, p = 1009), exact
-   against the plain version, both modes on ragged shapes, timed;
+   against the plain version, both modes on ragged shapes (and p = 40009
+   over a K that crosses the kernel's reduction chunk), timed beside
+   float64 ``torch.matmul`` + ``remainder`` (``f64_matmul_ms``);
 (d) the flash-attention kernels: ``ops.attention`` at the gemma2-27b
    (H 32, Hkv 16, D 128, causal, window 4096, softcap 50, S 8192) and
    yi-9b (H 32, Hkv 4, D 128, causal, S 4096) layouts in bf16 (the
@@ -45,7 +51,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    layouts in f32 (the CUDA-core kernel) at rtol = atol = 1e-4, and
    ragged cases (D 32 to 256, dead rows) in both; both kernels timed
    beside the plain version and, for yi-9b,
-   ``scaled_dot_product_attention`` (the entry's ``library_ms``);
+   ``scaled_dot_product_attention`` on the bf16 inputs (the entry's
+   ``library_ms``) and on f32 copies (``library_f32_ms``);
 4. a small cell (sf(q=5)) on the card and on the CPU through the same
    port, for ecmp, fatpaths and fatpaths with the ksp scheme: tables and
    path-edge tensors bitwise, departures within 2 steps for at least 99%
@@ -66,9 +73,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
-67 TFLOP/s of float32 outside the tensor cores, and 67 TFLOP/s of fp64 on
-the tensor cores for the GF(p) product (exact there while
-k (p - 1)^2 < 2^53).
+and 67 TFLOP/s of float32 outside the tensor cores (the count semiring's
+rate: its exact fp64 tensor-core sums peak at the same 67 TFLOP/s).  The
+GF(p) product is bound at the int8 rate over its 8-bit limb products
+(four for p > 256, one below): limbs^2 x 2 E^3 operations.
 """
 
 from __future__ import annotations
@@ -89,7 +97,6 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
-F64_TENSOR_FLOP_PER_S = 67e12
 # Host calls that put one event on the device: kernel launches (runtime
 # and driver API), memsets and copies.
 DEVICE_WORK_CALLS = ("Launch", "Memset", "Memcpy")
@@ -356,11 +363,76 @@ def phase_semiring(ref, semiring_matmul, main_calls):
           f"plain {plain_ms:.5f}, torch.matmul f32 {library_ms:.5f}, bound "
           f"{bound:.6f} ({by}); wall ms/call kernel {wall:.5f}, plain "
           f"{plain_wall:.5f}", flush=True)
+    if {s for _, _, _, s in main_calls} != {"bool"}:
+        raise AssertionError("the main sweep made other than bool products")
+    per = {"bool": dict(path="main sweep", calls=len(calls), ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        library_ms=library_ms)}
     return dict(name="semiring", route="cuda",
                 source="src/repro_torch/kernels/csrc/semiring.cu",
                 replaces="src/repro/kernels/semiring.py:92",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=library_ms)
+                bound_ms=bound, bound_by=by, library_ms=library_ms,
+                per_semiring=per)
+
+
+def phase_semiring_paths(ref, semiring_matmul, recorded, path_launches, k2):
+    """K2 timed on the count and minplus calls of their own paths
+    (recorded in phase (a)), beside the plain version and, for count,
+    ``torch.matmul`` of f32 copies (TF32 off); into ``per_semiring``.
+    Each recorded call is one launch on its path (phase (a) holds the
+    launch counts to the recorded calls)."""
+    paths = {"count": ("min_path_stats", "path_counts_power"),
+             "minplus": ("ksp",)}
+    for s, tags in paths.items():
+        mine = [(a, b, s) for tag, a, b, ss in recorded
+                if ss == s and tag in tags]
+        ms, wall = _replay_ms(semiring_matmul, mine, 20)
+        plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, mine,
+                                 20 if s == "count" else 2)
+        lib = None
+        extra = {}
+        if s == "count":
+            lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
+                                               for a, b, _ in mine], 20)
+            # The split-K sum pass apart from the product, one reading.
+            _, extra["reduce_ms"] = _replay_split_ms(semiring_matmul, mine,
+                                                     20, "count_reduce")
+            # The same products on copies whose rows are padded with zeros
+            # to a multiple of 4 floats, so that the kernel stages 16-byte
+            # copies (722-float rows allow 8); equal results, checked.
+            def pad4(x, rows):
+                return torch.nn.functional.pad(
+                    x, (0, -x.shape[1] % 4, 0, -x.shape[0] % 4 if rows
+                        else 0))
+            padded = [(pad4(a, False), pad4(b, True), "count")
+                      for a, b, _ in mine]
+            for (a, b, _), (ap, bp, _) in zip(mine, padded):
+                got = semiring_matmul(ap, bp, "count")
+                if not torch.equal(got[:, :b.shape[1]],
+                                   semiring_matmul(a, b, "count")):
+                    raise AssertionError("count on padded operands differs")
+            extra["padded16_ms"] = _replay_ms(semiring_matmul, padded, 20)[0]
+            # The same products as one batched call (B is the adjacency in
+            # every one): a full grid without split K, per product.
+            if all(torch.equal(b, mine[0][1]) for _, b, _ in mine):
+                stack = torch.stack([a for a, _, _ in mine])
+                one = [(stack, mine[0][1], "count")]
+                extra["batched_ms_per_product"] = _replay_ms(
+                    semiring_matmul, one, 10)[0] / len(mine)
+                extra["batched_library_ms_per_product"] = _replay_ms(
+                    torch.matmul, [(stack, mine[0][1].float())],
+                    10)[0] / len(mine)
+        bound, by = _sum_bound([_mm_bound(*c) for c in mine])
+        k2["per_semiring"][s] = dict(
+            path=" + ".join(tags), calls=len(mine),
+            launches=len(mine), ms=ms, wall_ms=wall, plain_ms=plain_ms,
+            bound_ms=bound / len(mine), bound_by=by, library_ms=lib,
+            shapes=sorted({(tuple(a.shape), tuple(b.shape))
+                           for a, b, _ in mine}), **extra)
+        print(f"# semiring {s} on its path's calls: "
+              + json.dumps(k2["per_semiring"][s]), flush=True)
+    k2["path_launches"] = path_launches
 
 
 def _wf_instance(f, s, e, seed, dev="cuda"):
@@ -524,6 +596,10 @@ def phase_ksp(Session, paths, pathcount, ops, transport, prng, ref,
     torch.cuda.synchronize()
     ksp_launches = dict(LAUNCHES)
     _need_launches(ksp_launches, ("semiring", "waterfill"), "the ksp cell")
+    if ksp_launches["semiring"] != len(calls):
+        raise AssertionError(f"the ksp cell launched the semiring kernel "
+                             f"{ksp_launches['semiring']} times for "
+                             f"{len(calls)} recorded calls")
     m = rr.metrics
     if not m["finished"] > 0 or not all(
             math.isfinite(m[k]) for k in ("fct_p50_us", "fct_p99_us")):
@@ -543,6 +619,7 @@ def phase_ksp(Session, paths, pathcount, ops, transport, prng, ref,
 
     adj = np.asarray(ses.topology(MAIN_TOPO).adj)
     n_ksp = len(calls)
+    ksp_calls = list(calls)
     reset_launches()
     with _recording([paths, pathcount], calls, "min_path_stats"):
         dist_g, cnt_g = paths.min_path_stats(adj, max_l=8, device="cuda")
@@ -552,6 +629,11 @@ def phase_ksp(Session, paths, pathcount, ops, transport, prng, ref,
     stats_launches = dict(LAUNCHES)
     _need_launches(stats_launches, ("semiring",),
                    "min_path_stats and path_counts_power")
+    if stats_launches["semiring"] != len(calls) - len(ksp_calls):
+        raise AssertionError("min_path_stats and path_counts_power launched "
+                             f"the semiring kernel {stats_launches['semiring']}"
+                             f" times for {len(calls) - len(ksp_calls)} "
+                             "recorded calls")
     dist_c, cnt_c = paths.min_path_stats(adj, max_l=8, device="cpu")
     pc_c = ops.path_counts_power(torch.as_tensor(adj), 3)
     if not (np.array_equal(dist_g, dist_c) and np.array_equal(cnt_g, cnt_c)):
@@ -576,7 +658,10 @@ def phase_ksp(Session, paths, pathcount, ops, transport, prng, ref,
           f"{n_exact} bitwise, {len(calls) - n_exact} count products above "
           f"2^24 within rtol 4e-6 of float64 (max abs err {max_err:.6g})",
           flush=True)
-    return calls, info
+    path_launches = {"ksp cell": ksp_launches["semiring"],
+                     "min_path_stats + path_counts_power":
+                         stats_launches["semiring"]}
+    return calls, info, path_launches
 
 
 def _sparse_bound(a, b, semiring, occupancy, tile=128):
@@ -724,7 +809,8 @@ def cheung_matrix(adj, p, seed=0):
     return k
 
 
-def phase_gfmm(topology, ops, ref, gf_matmul, LAUNCHES, reset_launches):
+def phase_gfmm(topology, ops, ref, gf_matmul, gf_plan, LAUNCHES,
+               reset_launches):
     """(c) ``ops.gf_power_sum`` of the sf(q=11) Cheung matrix on the card,
     exact against the plain version; both modes on ragged shapes."""
     kmat = torch.from_numpy(cheung_matrix(
@@ -746,14 +832,18 @@ def phase_gfmm(topology, ops, ref, gf_matmul, LAUNCHES, reset_launches):
                      f"GF({GF_P}) product {i} of gf_power_sum")
     g = torch.Generator().manual_seed(2)
     n_cases = 0
-    for mode, p in (("int32", GF_P), ("f32", 251)):
-        for mm, kk, nn in ((1, 1, 1), (70, 1100, 33), (257, 64, 129),
-                           (1000, 333, 777)):
+    ragged = ((1, 1, 1), (70, 1100, 33), (257, 64, 129), (1000, 333, 777))
+    # p = 40009 (two limbs, bk = 1) over K = 20 000: past one reduction
+    # chunk of the kernel (gf_plan's 16 512 entries).
+    for mode, p, bk, shapes in (("int32", GF_P, 128, ragged),
+                                ("f32", 251, 128, ragged),
+                                ("int32", 40009, 1, ((33, 20000, 17),))):
+        for mm, kk, nn in shapes:
             a = torch.randint(0, p, (mm, kk), generator=g,
                               dtype=torch.int32).cuda()
             b = torch.randint(0, p, (kk, nn), generator=g,
                               dtype=torch.int32).cuda()
-            _check_equal(gf_matmul(a, b, p=p, mode=mode),
+            _check_equal(gf_matmul(a, b, p=p, mode=mode, bk=bk),
                          ref.gf_matmul_ref(a, b, p),
                          f"GF({p}) {mode} ({mm},{kk})x({kk},{nn})")
             n_cases += 1
@@ -768,23 +858,24 @@ def phase_gfmm(topology, ops, ref, gf_matmul, LAUNCHES, reset_launches):
                              calls, 2)
     f64 = [(x.double(), y.double()) for x, y in calls]
     f64_ms, _ = _replay_ms(lambda x, y: torch.remainder(x @ y, GF_P), f64, 3)
-    # The products are exact integers in float64 while k (p-1)^2 < 2^53,
-    # so the fp64 tensor cores bound the operations.
-    if e * (GF_P - 1) ** 2 >= 2 ** 53:
-        raise AssertionError("the fp64 bound needs k (p-1)^2 < 2^53")
-    t_ops = 2.0 * e ** 3 / F64_TENSOR_FLOP_PER_S
+    # The kernel's route: limbs^2 products of 8-bit limbs on the int8
+    # tensor cores, 2 E^3 operations each.
+    limbs, chunk = gf_plan(GF_P, e)
+    t_ops = limbs ** 2 * 2.0 * e ** 3 / INT8_OP_PER_S
     t_bytes = 3 * e * e * 4 / HBM_BYTES_PER_S
     bound = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"# GF(p) product {e}^2: device ms/call kernel {ms:.5f} (wall "
-          f"{wall:.5f}), plain {plain_ms:.5f}, bound {bound:.5f} ({by}; fp64 "
-          f"tensor cores); for scale, float64 torch.matmul + remainder "
-          f"{f64_ms:.5f} (exact while k (p-1)^2 < 2^53)", flush=True)
+          f"{wall:.5f}), plain {plain_ms:.5f}, bound {bound:.5f} ({by}; "
+          f"{limbs ** 2} int8 limb products, chunk {chunk}); for scale, "
+          f"float64 torch.matmul + remainder {f64_ms:.5f} (exact while "
+          f"k (p-1)^2 < 2^53)", flush=True)
     return dict(name="gfmm", route="cuda",
                 source="src/repro_torch/kernels/csrc/gfmm.cu",
                 replaces="src/repro/kernels/gfmm.py:53", launches=launches,
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None, f64_matmul_ms=f64_ms)
+                bound_by=by, library_ms=None, f64_matmul_ms=f64_ms,
+                limbs=limbs, chunk=chunk)
 
 
 def _attn_pairs(sq, sk, causal, window):
@@ -905,12 +996,15 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
                                [tuple(x32)], 2)
         del x32
         plain_ms, _ = _replay_ms(plain_sliced, [(q, k, v, kw)], 1)
-        lib = None
+        lib = lib32 = None
         if lay["softcap"] == 0 and lay["window"] == 0:
-            lib, _ = _replay_ms(
-                lambda *x: torch.nn.functional.scaled_dot_product_attention(
-                    *x, is_causal=lay["causal"], enable_gqa=True),
-                [(q, k, v)], 2)
+            def sdpa(*x):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    *x, is_causal=lay["causal"], enable_gqa=True)
+            lib, _ = _replay_ms(sdpa, [(q, k, v)], 2)
+            x32 = [t.float() for t in (q, k, v)]
+            lib32, _ = _replay_ms(sdpa, [tuple(x32)], 2)
+            del x32
         pairs = _attn_pairs(lay["s"], lay["s"], lay["causal"], lay["window"])
         t_ops = 4.0 * lay["h"] * lay["d"] * pairs / BF16_FLOP_PER_S
         t_bytes = sum(x.numel() * 2 for x in (q, k, v, q)) / HBM_BYTES_PER_S
@@ -921,6 +1015,7 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes", library_ms=lib,
+                         library_f32_ms=lib32,
                          unmasked_pairs_per_head=pairs)
         print(f"# attention {name}: " + json.dumps(per[name]), flush=True)
     # The entry's times are yi-9b's in bf16, the layout that one PyTorch
@@ -1143,6 +1238,7 @@ def main() -> int:
                                      gf_matmul, ops, pathcount, ref,
                                      reset_launches, semiring_matmul,
                                      sparse_semiring_matmul, waterfill_step)
+    from repro_torch.kernels.gfmm import gf_plan
     from repro_torch.kernels.sparse import _occupancy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1157,19 +1253,23 @@ def main() -> int:
     k2 = phase_semiring(ref, semiring_matmul, main_mm)
     k1 = phase_waterfill(ref, waterfill_step, main_wf)
     del main_wf
-    new_mm, _ = phase_ksp(Session, paths, pathcount, ops, transport, prng,
-                          ref, semiring_matmul, LAUNCHES, reset_launches)
+    new_mm, _, path_launches = phase_ksp(
+        Session, paths, pathcount, ops, transport, prng, ref,
+        semiring_matmul, LAUNCHES, reset_launches)
+    phase_semiring_paths(ref, semiring_matmul, new_mm, path_launches, k2)
     k3 = phase_sparse(ref, sparse_semiring_matmul, _occupancy,
                       semiring_matmul, main_mm + new_mm, LAUNCHES,
                       reset_launches)
     del main_mm, new_mm
-    k4 = phase_gfmm(topology, ops, ref, gf_matmul, LAUNCHES, reset_launches)
+    k4 = phase_gfmm(topology, ops, ref, gf_matmul, gf_plan, LAUNCHES,
+                    reset_launches)
     k5 = phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches)
     torch.cuda.empty_cache()
     exact = phase_small_cell(Session, transport)
     launches, _ = phase_main(Session, transport, prng, LAUNCHES,
                              reset_launches)
     k2["launches"] = launches["semiring"]
+    k2["per_semiring"]["bool"]["launches"] = launches["semiring"]
     k1["launches"] = launches["waterfill"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,14 +1,15 @@
-// Semiring matrix product C = A (x) B for Hopper (sm_90a), on CUDA cores.
+// Semiring matrix product C = A (x) B for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/semiring.py
 // (_semiring_kernel, _pallas_matmul, semiring_matmul): a tiled product with
 // an optional leading batch dimension in three semirings,
-//   count   : C = min(acc + A@B, sat) in f32, saturating after each K tile;
-//   bool    : the count clamped to 1 after each K tile, returned as C > 0.5;
+//   count   : C = min(A @ B, sat) in f32;
+//   bool    : OR_k (a_ik AND b_kj);
 //   minplus : C = min_k (a_ik + b_kj), +inf being the additive identity.
+// The tile products live in semiring_common.cuh, shared with the
+// block-sparse kernel (sparse.cu).
 //
-// bool.  With 0/1 operands the clamped count is exactly OR_k (a_ik AND
-// b_kj).  What bounds it on the H100: bytes.  The main path multiplies
+// bool.  What bounds it on the H100: bytes.  The main path multiplies
 // (L, 722, 722) x (L, 722, 722) byte stacks; at the card's int8 tensor
 // rate the 2 L N^3 operations take less time than moving the 3 L N^2
 // bytes once.  What the design does about it: the operands are read once
@@ -16,23 +17,31 @@
 // 32-wide word, B by columns), so a 722-wide K is 23 words; the product
 // then ANDs and ORs 32-bit words, 4x4 outputs per thread from a 64x64
 // tile whose packed rows and columns are staged through shared memory.
-// The packed operands (1/8 of the bytes) stay in L2 across tiles.  The
-// packing and the staged AND/OR live in semiring_common.cuh, shared with
-// the block-sparse kernel.
+// The packed operands (1/8 of the bytes) stay in L2 across tiles.
 //
-// count and minplus.  What bounds them: operations (2 M K N f32 flops
-// against 4 (M K + K N + M N) bytes).  No TF32 and no tensor cores:
-// `count` must stay exact below 2^24, and minplus has no tensor-core
-// form.  Each 256-thread block owns a 32x32 output tile and walks K in
-// 32-wide tiles staged through shared memory (padded rows, so the column
-// reads of B and the broadcast reads of A are free of bank conflicts);
-// each thread keeps four outputs in registers and reuses every A value it
-// loads across them.  Out-of-range rows, columns and K entries load the
-// semiring's additive identity (0 or +inf), exactly as the TPU kernel
-// pads its operands.
+// count.  What bounds it: operations, 2 M K N at 67 TFLOP/s (the fp64
+// tensor cores' peak, equal to f32's on the CUDA cores).  The path's
+// count calls are single 722^2 products (walk counts of sf(q=19)), which
+// as 64x64 tiles give the card 144 blocks for 132 SMs: too few to hide
+// latency.  What the design does about it: the sums are exact (fp64
+// tensor cores, mma.sync m16n8k8; see semiring_common.cuh), so the order
+// of the K reduction is free, and K is split across blocks.  Each 128-
+// thread block owns a 64x64 output tile and a share of K (the split and
+// the share, `chunk`, are semiring.py's count_split of the shapes: three
+// blocks fit an SM, and the split fills one wave of them); with split > 1
+// it writes its fp64 partial sums to scratch, and a second pass adds the
+// partials of each output in split order, rounds once and saturates.  No
+// atomics: two launches give the same bits.
 //
-// In both, the batch rides on gridDim.z, with a zero batch stride for a
-// 2-D operand.
+// minplus.  What bounds it: operations (2 M K N at the f32 rate; no
+// tensor-core form).  The ksp scheme's calls are (8, 722, 722) squarings,
+// 8 x 144 blocks of 64x64, enough to fill the card.  Each block runs the
+// shared register-tiled (min, +) product over all of K: 8x4 outputs a
+// thread, 32 K entries a step through a three-stage cp.async ring.
+// Out-of-range rows, columns and K entries are the identity (+inf).
+//
+// In all three, the batch rides on gridDim.z, with a zero batch stride
+// for a 2-D operand.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,79 +51,91 @@
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kRows = 8;                  // threadIdx.y extent
-constexpr int kPerThread = kTile / kRows;  // outputs per thread
-
 enum Mode { kCount = 0, kMinPlus = 2 };  // ids of semiring.py's _MODE
 
-template <int MODE>
-__global__ void __launch_bounds__(kTile * kRows)
-semiring_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ c, int m, int k, int n,
-                long long stride_a, long long stride_b, float sat) {
-  __shared__ float as[kTile][kTile + 1];
-  __shared__ float bs[kTile][kTile + 1];
-  const float zero = MODE == kMinPlus ? INFINITY : 0.0f;
+constexpr int kCountBM = 64;   // the dense count product's tile rows
+
+// ---- count: exact fp64 sums, K split across blocks -------------------------
+
+// Block (x, y, z): output tile (y, x) of batch entry z / split, over K
+// entries [s chunk, (s + 1) chunk) with s = z % split.  With split 1 it
+// writes the outputs; otherwise its fp64 partial sums into part (split,
+// batch, m, n), which count_reduce adds.
+__global__ void __launch_bounds__(kCountThreads)
+count_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             float* __restrict__ c, double* __restrict__ part, int m, int k,
+             int n, long long stride_a, long long stride_b, int split,
+             int chunk, float sat, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int batch = blockIdx.z / split, s = blockIdx.z % split;
+  const int batches = gridDim.z / split;
+  a += batch * stride_a;
+  b += batch * stride_b;
+  const long long mn = static_cast<long long>(m) * n;
+  const int row0 = blockIdx.y * kCountBM, col0 = blockIdx.x * kCountBN;
+  CountAcc<kCountBM> acc = {};
+  const KRange walk{s * chunk, min(k, (s + 1) * chunk)};
+  count_tile<kCountBM>(a, b, m, k, n, row0, col0, walk, vec, smem, acc);
+  if (split == 1) {
+    float* out = c + batch * mn;
+    count_outputs<kCountBM>(m, n, row0, col0, acc,
+                            [&](int r, int col, double v) {
+                              out[static_cast<long long>(r) * n + col] =
+                                  count_value(v, sat);
+                            });
+  } else {
+    double* out = part + (static_cast<long long>(s) * batches + batch) * mn;
+    count_outputs<kCountBM>(m, n, row0, col0, acc,
+                            [&](int r, int col, double v) {
+                              out[static_cast<long long>(r) * n + col] = v;
+                            });
+  }
+}
+
+// c[i] = min((float) sum_s part[s][i], sat), the partials added in split
+// order.
+__global__ void count_reduce(const double* __restrict__ part,
+                             float* __restrict__ c, long long size,
+                             int split, float sat) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= size) return;
+  double sum = part[i];
+  for (int s = 1; s < split; ++s) sum += part[s * size + i];
+  c[i] = count_value(sum, sat);
+}
+
+// ---- minplus: the shared register-tiled product over all of K -------------
+
+template <class T>
+__global__ void __launch_bounds__(T::kThreads)
+minplus_kernel(const float* __restrict__ a, const float* __restrict__ b,
+               float* __restrict__ c, int m, int k, int n,
+               long long stride_a, long long stride_b, int vec) {
+  extern __shared__ __align__(16) float smem[];
   const long long batch = blockIdx.z;
   a += batch * stride_a;
   b += batch * stride_b;
   c += batch * static_cast<long long>(m) * n;
+  const int row0 = blockIdx.y * T::kBM, col0 = blockIdx.x * T::kBN;
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = INFINITY;
+  minplus_tile<T>(a, b, m, k, n, row0, col0, KRange{0, k}, vec, smem, acc);
+  minplus_store<T>(c, m, n, row0, col0, acc);
+}
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int row0 = blockIdx.y * kTile;
-  const int col = blockIdx.x * kTile + tx;
-
-  float acc[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) acc[i] = zero;
-
-  for (int k0 = 0; k0 < k; k0 += kTile) {
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int r = ty + kRows * i;
-      const int gr = row0 + r;
-      const int ga = k0 + tx;
-      as[r][tx] = gr < m && ga < k ? a[static_cast<long long>(gr) * k + ga]
-                                   : zero;
-      const int gb = k0 + r;
-      bs[r][tx] = gb < k && col < n ? b[static_cast<long long>(gb) * n + col]
-                                    : zero;
-    }
-    __syncthreads();
-    if (MODE == kMinPlus) {
-#pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) {
-        const float bv = bs[kk][tx];
-#pragma unroll
-        for (int i = 0; i < kPerThread; ++i)
-          acc[i] = fminf(acc[i], as[ty + kRows * i][kk] + bv);
-      }
-    } else {
-      float part[kPerThread];
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) part[i] = 0.0f;
-#pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) {
-        const float bv = bs[kk][tx];
-#pragma unroll
-        for (int i = 0; i < kPerThread; ++i)
-          part[i] = fmaf(as[ty + kRows * i][kk], bv, part[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i)
-        acc[i] = fminf(acc[i] + part[i], sat);
-    }
-    __syncthreads();
-  }
-
-  if (col >= n) return;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int gr = row0 + ty + kRows * i;
-    if (gr < m) c[static_cast<long long>(gr) * n + col] = acc[i];
-  }
+template <class T>
+int launch_minplus(const float* a, const float* b, float* c, int batch,
+                   int m, int k, int n, long long stride_a,
+                   long long stride_b, cudaStream_t s) {
+  const dim3 grid((n + T::kBN - 1) / T::kBN, (m + T::kBM - 1) / T::kBM,
+                  batch);
+  return launch_dynamic(minplus_kernel<T>, grid, T::kThreads, T::kSmem, s, a,
+                        b, c, m, k, n, stride_a, stride_b,
+                        copy_vec(a, b, k, n, k));
 }
 
 // ---- bool: bit-packed along K (semiring_common.cuh) ----------------------
@@ -144,30 +165,52 @@ extern "C" {
 
 // mode: 0 count, 2 minplus (f32 in, f32 out).  Operands are row-major
 // (batch, m, k) and (batch, k, n) with the given batch strides (0
-// broadcasts one matrix); the output is a dense (batch, m, n).  Returns
-// cudaGetLastError().
+// broadcasts one matrix); the output is a dense (batch, m, n).  count
+// splits K into `split` shares of `chunk` entries (a multiple of 32,
+// split = ceil(k / chunk)); with split > 1, part is scratch for split *
+// batch * m * n doubles (else unused).  minplus ignores split, chunk and
+// part.  Returns cudaGetLastError() (or the error of raising a block's
+// shared memory limit).
 int semiring_launch(int mode, const void* a, const void* b, void* c,
-                    int batch, int m, int k, int n, long long stride_a,
-                    long long stride_b, float sat, void* stream) {
-  const dim3 block(kTile, kRows);
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile, batch);
+                    void* part, int batch, int m, int k, int n,
+                    long long stride_a, long long stride_b, int split,
+                    int chunk, float sat, void* stream) {
+  if (batch < 1 || m < 1 || n < 1 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fa = static_cast<const float*>(a);
   const float* fb = static_cast<const float*>(b);
   float* fc = static_cast<float*>(c);
   switch (mode) {
-    case kCount:
-      semiring_kernel<kCount><<<grid, block, 0, s>>>(
-          fa, fb, fc, m, k, n, stride_a, stride_b, sat);
-      break;
+    case kCount: {
+      if (split < 1 || chunk < 1 || chunk % kStep != 0 ||
+          static_cast<long long>(split - 1) * chunk >= k ||
+          static_cast<long long>(split) * chunk < k ||
+          static_cast<long long>(batch) * split > 65535 ||
+          (split > 1 && part == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const dim3 grid((n + kCountBN - 1) / kCountBN,
+                      (m + kCountBM - 1) / kCountBM, batch * split);
+      double* pp = static_cast<double*>(part);
+      const int err = launch_dynamic(
+          count_kernel, grid, kCountThreads, CountRing<kCountBM>::kSmem, s,
+          fa, fb, fc, pp, m, k, n, stride_a, stride_b, split, chunk, sat,
+          copy_vec(fa, fb, k, n, chunk));
+      if (err != 0 || split == 1) return err;
+      const long long size = static_cast<long long>(batch) * m * n;
+      count_reduce<<<blocks_for(size, 256), 256, 0, s>>>(pp, fc, size, split,
+                                                         sat);
+      return static_cast<int>(cudaGetLastError());
+    }
     case kMinPlus:
-      semiring_kernel<kMinPlus><<<grid, block, 0, s>>>(
-          fa, fb, fc, m, k, n, stride_a, stride_b, sat);
-      break;
+      if (wide_tiles(batch, m, n))
+        return launch_minplus<MinPlusWide>(fa, fb, fc, batch, m, k, n,
+                                           stride_a, stride_b, s);
+      return launch_minplus<MinPlusNarrow>(fa, fb, fc, batch, m, k, n,
+                                           stride_a, stride_b, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The bool semiring on byte operands (0 or not 0): A (batch_a, m, k) and

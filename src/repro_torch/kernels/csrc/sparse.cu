@@ -1,31 +1,32 @@
-// Block-sparse semiring product C = A (x) B for Hopper (sm_90a), on CUDA
-// cores, skipping every tile pair that holds only the additive identity.
+// Block-sparse semiring product C = A (x) B for Hopper (sm_90a), skipping
+// every tile pair that holds only the additive identity.
 //
 // Replaces the TPU kernel src/repro/kernels/sparse.py
 // (_sparse_semiring_kernel, _pallas_sparse_matmul, sparse_semiring_matmul):
 // the semiring product of semiring.py, gated per (bm, bk) x (bk, bn) tile
 // pair on two occupancy bitmaps (pl.when(occupied)), in three semirings:
-//   count   : C = min(acc + A@B, sat) in f32;
+//   count   : C = min(A @ B, sat) in f32, summed exactly in fp64;
 //   bool    : OR_k (a_ik AND b_kj) on bool bytes;
 //   minplus : C = min_k (a_ik + b_kj), +inf being the additive identity.
 // Skipping is exact: a skipped pair would add 0 to a count, nothing to an
 // OR and +inf to a min.  The skip decides the time, never the result.
 //
 // What bounds it on the H100: for count and minplus, operations over the
-// occupied tile pairs only (2 M K N f32 operations scaled by the occupied
-// share); for bool, bytes (the int8 tensor rate would do the operations
-// faster than the operands can be read).  No TF32 and no tensor cores:
-// `count` must stay exact below 2^24, and minplus has no tensor-core form.
+// occupied tile pairs only (2 M K N operations scaled by the occupied
+// share, at 67 TFLOP/s: the fp64 tensor cores for count, the f32 CUDA
+// cores for minplus, which has no tensor-core form); for bool, bytes (the
+// int8 tensor rate would do the operations faster than the operands can
+// be read).
 //
 // What the design does about it.  One call is three steps on the stream:
 //
 // 1. Occupancy, one pass over both operands (occupancy_kernel): four
 //    256-thread blocks per tile of A or of B read the tile once, a warp
 //    per row with every load in flight together, and each writes one byte
-//    of the tile's int32 bit.  It replaces the live-mask, pad and
-//    reductions the wrapper ran before as PyTorch ops.  Each product block
-//    then evaluates its K tiles' liveness once, in parallel, into bit
-//    flags in shared memory.
+//    of the tile's int32 bit.  Each product block then evaluates its K
+//    tiles' liveness once, in parallel, into bit flags in shared memory,
+//    and walks only the live K tiles (Live, a K walk of
+//    semiring_common.cuh).
 // 2. bool: the operands are packed to bits along K (semiring_common.cuh,
 //    shared with the dense kernel), and each 64x64 output block ANDs and
 //    ORs the 32-bit words that meet an occupied tile pair of its rows and
@@ -33,22 +34,19 @@
 //    time, so a pass stages only live words.  A word whose K range is
 //    partly in an empty tile is still exact: its zero bits add nothing,
 //    so bk need not be a multiple of 32.
-// 3. count and minplus (f32_kernel): each thread keeps 4x4 outputs in
-//    registers, 256 threads on a 64x64 block tile, or 128 on a 32x64 one
-//    when 64x64 would give fewer than four blocks an SM (a single 722^2
-//    product then runs 276 blocks, not 144).  Larger register tiles (8x8, 8x4)
-//    were tried and ran no faster at these shapes: with one product of
-//    722^2 the card holds few blocks, and latency, not issue, bounds it.
-//    The K walk visits only the occupied K tiles of the block's rows and
-//    columns, 32 entries a step; each step is copied into shared memory
-//    by cp.async in 16-, 8- or 4-byte pieces (the widest the operands'
-//    alignment allows) through a three-stage ring, two steps ahead of the
-//    products, and read back as float4 (A row-major with its 32 K
-//    entries, B by rows).  Each output keeps the dense kernel's sum
-//    order: a sequential fmaf over the 32 entries of a step, steps
-//    starting at kt * bk + 32 j, and the saturating min(acc + part, sat)
-//    after every step.  With bk a multiple of 32 the steps fall where the
-//    dense kernel's do, so the two agree bitwise on any input.
+// 3. count: the dense kernel's exact fp64 tile product
+//    (semiring_common.cuh: mma.sync m16n8k8 f64 on f32 operands widened
+//    as their fragments are read from shared memory), 64x64 tiles of 128
+//    threads, or 32x64 when 64x64 would give fewer than four blocks an SM,
+//    walked over the live K tiles 32 entries a step through the shared
+//    three-stage cp.async ring.  A skipped pair would add exact
+//    zeros, and every sum of integer-valued operands is exact, so the
+//    result is bitwise the dense kernel's (which splits K instead) on any
+//    such input.
+//    minplus: the shared register-tiled product (8x4 outputs a thread in
+//    64x64 tiles, 4x4 in 32x64 ones, 32 K entries a step through a
+//    three-stage cp.async ring), walked over the live K tiles; min is
+//    order-free.
 //    Out-of-range rows, columns and K entries (and entries past the K
 //    tile's end) are the identity, so a ragged edge needs no padded copy
 //    of the operands.
@@ -63,7 +61,6 @@ namespace {
 
 enum Mode { kCount = 0, kBool = 1, kMinPlus = 2 };  // ids of sparse.py's _MODE
 
-constexpr int kStep = 32;         // K entries per saturation step
 constexpr int kOccThreads = 256;
 constexpr int kOccParts = 4;      // blocks per tile, one byte of its bit each
 
@@ -134,17 +131,18 @@ constexpr int kFlagWords = 64;   // words of K-tile flags in shared memory
 // A tile of the block's rows and a B tile of its columns are both
 // occupied there.  stage() evaluates every K tile once, in parallel, into
 // bit flags in shared memory (up to 32 kFlagWords tiles; beyond that
-// each query reads the bitmaps again).
+// each query reads the bitmaps again).  As a K walk (semiring_common.cuh)
+// its segments are the live K tiles.
 struct Live {
   const int* a_occ;  // (ceil(m / bm), kt_n) of this batch entry
   const int* b_occ;  // (kt_n, ceil(n / bn))
-  int kt_n, nt_n, ti0, ti1, tj0, tj1;
+  int k, bk, kt_n, nt_n, ti0, ti1, tj0, tj1;
   uint32_t* flags;   // kFlagWords words in shared memory
 
-  __device__ Live(const int* ao, const int* bo, int m, int n, int k, int bm,
-                  int bn, int bk, int row0, int col0, int rows_blk,
+  __device__ Live(const int* ao, const int* bo, int m, int n, int k_, int bm,
+                  int bn, int bk_, int row0, int col0, int rows_blk,
                   int cols_blk, uint32_t* fl)
-      : a_occ(ao), b_occ(bo), kt_n((k + bk - 1) / bk),
+      : a_occ(ao), b_occ(bo), k(k_), bk(bk_), kt_n((k_ + bk_ - 1) / bk_),
         nt_n((n + bn - 1) / bn), ti0(row0 / bm),
         ti1((min(m, row0 + rows_blk) - 1) / bm), tj0(col0 / bn),
         tj1((min(n, col0 + cols_blk) - 1) / bn), flags(fl) {}
@@ -178,6 +176,18 @@ struct Live {
   __device__ bool on(int kt) const {
     return staged() ? (flags[kt / 32] >> (kt % 32)) & 1u : tile(kt);
   }
+
+  // The K walk: the live tiles in order, each [kt bk, min(k, (kt + 1) bk)).
+  __device__ int next(int kt) const {
+    do {
+      ++kt;
+    } while (kt < kt_n && !on(kt));
+    return kt;
+  }
+  __device__ int first() const { return next(-1); }
+  __device__ int count() const { return kt_n; }
+  __device__ int begin(int kt) const { return kt * bk; }
+  __device__ int end(int kt) const { return min(k, (kt + 1) * bk); }
 };
 
 // ---- 2. bool on packed words -----------------------------------------------
@@ -248,266 +258,94 @@ sparse_bool_kernel(const uint32_t* __restrict__ ap,
   bool_store(c, m, n, row0, col0, acc);
 }
 
-// ---- 3. count and minplus on f32 -------------------------------------------
+// ---- 3. count and minplus ---------------------------------------------------
 
-// V floats (4 V bytes, aligned so) from global to shared memory.
-template <int V>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(4 * V));
-}
-
-// `rows` x `cols` floats of a row-major source (row stride ld) into dst
-// (row stride ldd), copied V at a time; entries outside [0, row_end) x
-// [0, col_end) of the source are `zero`.  Needs V-aligned cols, ld, the
-// column origin and the source base.
-template <int V, int THREADS>
-__device__ __forceinline__ void stage_tile(float* dst, int ldd,
-                                           const float* src, long long ld,
-                                           int row0, int col0, int rows,
-                                           int cols, int row_end,
-                                           int col_end, float zero) {
-  for (int e = threadIdx.x; e < rows * (cols / V); e += THREADS) {
-    const int r = e / (cols / V), cc = (e % (cols / V)) * V;
-    const int gr = row0 + r, gc = col0 + cc;
-    float* to = dst + r * ldd + cc;
-    const float* from = src + gr * ld + gc;
-    if (gr < row_end && gc + V <= col_end) {
-      cp_async<V>(to, from);
-    } else {
-#pragma unroll
-      for (int u = 0; u < V; ++u) {
-        if (gr < row_end && gc + u < col_end)
-          cp_async<1>(to + u, from + u);
-        else
-          to[u] = zero;
-      }
-    }
-  }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// A BM x BN output tile, TM x TN outputs a thread, an S-stage ring.
-template <int BM, int BN>
-struct F32Tile {
-  static constexpr int TM = 4, TN = 4;
-  static constexpr int S = 3;
-  static constexpr int TX = BN / TN;      // threads along the columns
-  static constexpr int TY = BM / TM;      // threads along the rows
-  static constexpr int kThreads = TX * TY;
-  static constexpr int LDA = kStep + 4;   // A stage: BM rows of 32 (+4)
-  static constexpr int LDB = BN + 4;      // B stage: 32 rows of BN (+4)
-  static constexpr int kStage = BM * LDA + kStep * LDB;  // floats
-  static constexpr size_t kSmem = S * kStage * sizeof(float);
-};
-
-template <int MODE, int BM, int BN>
-__global__ void __launch_bounds__(F32Tile<BM, BN>::kThreads)
-f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-           float* __restrict__ c, const int* __restrict__ a_occ,
-           const int* __restrict__ b_occ, int m, int k, int n,
-           long long stride_a, long long stride_b, long long stride_ao,
-           long long stride_bo, int bm, int bn, int bk, float sat, int vec) {
-  using T = F32Tile<BM, BN>;
-  constexpr int TM = T::TM, TN = T::TN, TX = T::TX, TY = T::TY, S = T::S;
+template <int BM>
+__global__ void __launch_bounds__(kCountThreads)
+sparse_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ c, const int* __restrict__ a_occ,
+                    const int* __restrict__ b_occ, int m, int k, int n,
+                    long long stride_a, long long stride_b,
+                    long long stride_ao, long long stride_bo, int bm, int bn,
+                    int bk, float sat, int vec) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint32_t flags[kFlagWords];
-  const float zero = MODE == kMinPlus ? INFINITY : 0.0f;
   const long long batch = blockIdx.z;
   a += batch * stride_a;
   b += batch * stride_b;
   c += batch * static_cast<long long>(m) * n;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * kCountBN;
   const Live live(a_occ + batch * stride_ao, b_occ + batch * stride_bo, m, n,
-                  k, bm, bn, bk, row0, col0, BM, BN, flags);
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  live.stage(tid, T::kThreads);
-
-  // The K walk: steps [k0, min(k0 + 32, kend)) over the live K tiles.
-  auto tile_end = [&](int kt) { return min(k, (kt + 1) * bk); };
-  auto next_live = [&](int kt) {
-    do {
-      ++kt;
-    } while (kt < live.kt_n && !live.on(kt));
-    return kt;
-  };
-  // Step [k0, kend) of A's rows and B's columns into stage `st`, V
-  // floats a copy (V = vec, which the launch chose by alignment).
-  auto load = [&](int st, int k0, int kend) {
-    float* as = smem + st * T::kStage;
-    float* bs = as + BM * T::LDA;
-    constexpr int N = T::kThreads;
-    if (vec == 4) {
-      stage_tile<4, N>(as, T::LDA, a, k, row0, k0, BM, kStep, m, kend, zero);
-      stage_tile<4, N>(bs, T::LDB, b, n, k0, col0, kStep, BN, kend, n, zero);
-    } else if (vec == 2) {
-      stage_tile<2, N>(as, T::LDA, a, k, row0, k0, BM, kStep, m, kend, zero);
-      stage_tile<2, N>(bs, T::LDB, b, n, k0, col0, kStep, BN, kend, n, zero);
-    } else {
-      stage_tile<1, N>(as, T::LDA, a, k, row0, k0, BM, kStep, m, kend, zero);
-      stage_tile<1, N>(bs, T::LDB, b, n, k0, col0, kStep, BN, kend, n, zero);
-    }
-  };
-  // The next step after (kt, k0): 32 further in K, or the next live tile.
-  auto advance = [&](int& kt, int& k0) {
-    k0 += kStep;
-    if (k0 >= tile_end(kt)) {
-      kt = next_live(kt);
-      k0 = kt * bk;
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = zero;
-
-  // A ring of S stages: the loads run S - 1 steps ahead of the products.
-  // Every slot commits one cp.async group (empty past the last step), so
-  // once S - 2 groups at most are pending, step i has landed.  One
-  // barrier a step: after it, step i is visible to every thread and every
-  // thread is done with step i - 1, whose stage the next load takes.
-  int ikt = next_live(-1), ik0 = ikt * bk;   // the next step to load
-  int issued = 0;
-#pragma unroll
-  for (int st = 0; st < S - 1; ++st) {
-    if (ikt < live.kt_n) {
-      load(st, ik0, tile_end(ikt));
-      advance(ikt, ik0);
-      ++issued;
-    }
-    cp_async_commit();
-  }
-  int st = 0, st_load = S - 1;
-  for (int step = 0; step < issued; ++step) {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    if (ikt < live.kt_n) {
-      load(st_load, ik0, tile_end(ikt));
-      advance(ikt, ik0);
-      ++issued;
-    }
-    cp_async_commit();
-    const float* as = smem + st * T::kStage;
-    const float* bs = as + BM * T::LDA;
-    float part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.0f;
-#pragma unroll 4
-    for (int k4 = 0; k4 < kStep; k4 += 4) {
-      float4 av[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        av[i] = *reinterpret_cast<const float4*>(
-            as + (ty + TY * i) * T::LDA + k4);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float bv[TN];
-#pragma unroll
-        for (int j4 = 0; j4 < TN / 4; ++j4) {
-          const float4 t = *reinterpret_cast<const float4*>(
-              bs + (k4 + q) * T::LDB + j4 * 4 * TX + tx * 4);
-          bv[4 * j4] = t.x;
-          bv[4 * j4 + 1] = t.y;
-          bv[4 * j4 + 2] = t.z;
-          bv[4 * j4 + 3] = t.w;
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float x = q == 0 ? av[i].x : q == 1 ? av[i].y
-                        : q == 2 ? av[i].z : av[i].w;
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            if constexpr (MODE == kMinPlus)
-              acc[i][j] = fminf(acc[i][j], x + bv[j]);
-            else
-              part[i][j] = fmaf(x, bv[j], part[i][j]);
-          }
-        }
-      }
-    }
-    if constexpr (MODE != kMinPlus) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          acc[i][j] = fminf(acc[i][j] + part[i][j], sat);
-    }
-    st = st + 1 == S ? 0 : st + 1;
-    st_load = st_load + 1 == S ? 0 : st_load + 1;
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gr = row0 + ty + TY * i;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = col0 + (j / 4) * 4 * TX + tx * 4 + j % 4;
-      if (gc < n) c[static_cast<long long>(gr) * n + gc] = acc[i][j];
-    }
-  }
+                  k, bm, bn, bk, row0, col0, BM, kCountBN, flags);
+  live.stage(threadIdx.x, kCountThreads);
+  CountAcc<BM> acc = {};
+  count_tile<BM>(a, b, m, k, n, row0, col0, live, vec, smem, acc);
+  count_outputs<BM>(m, n, row0, col0, acc, [&](int r, int col, double v) {
+    c[static_cast<long long>(r) * n + col] = count_value(v, sat);
+  });
 }
 
-template <int MODE, int BM, int BN>
-int launch_f32(const float* a, const float* b, float* c, const int* a_occ,
-               const int* b_occ, int batch, int m, int k, int n,
-               long long stride_a, long long stride_b, long long stride_ao,
-               long long stride_bo, int bm, int bn, int bk, float sat,
-               cudaStream_t s) {
-  using T = F32Tile<BM, BN>;
-  auto kernel = f32_kernel<MODE, BM, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(T::kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Copies of 4 (or 2) floats where every row start, step start and
-  // column origin is aligned to them.
-  auto fits = [&](int v) {
-    return k % v == 0 && n % v == 0 && bk % v == 0 &&
-           reinterpret_cast<uintptr_t>(a) % (4 * v) == 0 &&
-           reinterpret_cast<uintptr_t>(b) % (4 * v) == 0;
-  };
-  const int vec = fits(4) ? 4 : fits(2) ? 2 : 1;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  kernel<<<grid, T::kThreads, T::kSmem, s>>>(a, b, c, a_occ, b_occ, m, k, n,
-                                             stride_a, stride_b, stride_ao,
-                                             stride_bo, bm, bn, bk, sat,
-                                             vec);
-  return static_cast<int>(cudaGetLastError());
+template <class T>
+__global__ void __launch_bounds__(T::kThreads)
+sparse_minplus_kernel(const float* __restrict__ a,
+                      const float* __restrict__ b, float* __restrict__ c,
+                      const int* __restrict__ a_occ,
+                      const int* __restrict__ b_occ, int m, int k, int n,
+                      long long stride_a, long long stride_b,
+                      long long stride_ao, long long stride_bo, int bm,
+                      int bn, int bk, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t flags[kFlagWords];
+  const long long batch = blockIdx.z;
+  a += batch * stride_a;
+  b += batch * stride_b;
+  c += batch * static_cast<long long>(m) * n;
+  const int row0 = blockIdx.y * T::kBM, col0 = blockIdx.x * T::kBN;
+  const Live live(a_occ + batch * stride_ao, b_occ + batch * stride_bo, m, n,
+                  k, bm, bn, bk, row0, col0, T::kBM, T::kBN, flags);
+  live.stage(threadIdx.x, T::kThreads);
+  float acc[T::TM][T::TN];
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = INFINITY;
+  minplus_tile<T>(a, b, m, k, n, row0, col0, live, vec, smem, acc);
+  minplus_store<T>(c, m, n, row0, col0, acc);
 }
 
+// The operands and occupancy bitmaps of one product, as the launches
+// below pass them on.
+struct Product {
+  const float* a;
+  const float* b;
+  float* c;
+  const int* a_occ;
+  const int* b_occ;
+  int batch, m, k, n;
+  long long stride_a, stride_b, stride_ao, stride_bo;
+  int bm, bn, bk;
+};
 
-// 64x64 tiles, or 32x64 when those would give fewer than four blocks an
-// SM (a single 722^2 product: 144 blocks of 64x64, 276 of 32x64).
-template <int MODE>
-int launch_f32_sized(const float* a, const float* b, float* c,
-                     const int* a_occ, const int* b_occ, int batch, int m,
-                     int k, int n, long long stride_a, long long stride_b,
-                     long long stride_ao, long long stride_bo, int bm,
-                     int bn, int bk, float sat, cudaStream_t s) {
-  constexpr int kSms = 132;
-  const long long blocks = static_cast<long long>((m + 63) / 64) *
-                           ((n + 63) / 64) * batch;
-  if (blocks >= 4 * kSms)
-    return launch_f32<MODE, 64, 64>(a, b, c, a_occ, b_occ, batch, m, k, n,
-                                    stride_a, stride_b, stride_ao, stride_bo,
-                                    bm, bn, bk, sat, s);
-  return launch_f32<MODE, 32, 64>(a, b, c, a_occ, b_occ, batch, m, k, n,
-                                  stride_a, stride_b, stride_ao, stride_bo,
-                                  bm, bn, bk, sat, s);
+template <int BM>
+int launch_count(const Product& p, float sat, cudaStream_t s) {
+  const dim3 grid((p.n + kCountBN - 1) / kCountBN, (p.m + BM - 1) / BM,
+                  p.batch);
+  return launch_dynamic(sparse_count_kernel<BM>, grid, kCountThreads,
+                        CountRing<BM>::kSmem, s, p.a, p.b, p.c, p.a_occ,
+                        p.b_occ, p.m, p.k, p.n, p.stride_a, p.stride_b,
+                        p.stride_ao, p.stride_bo, p.bm, p.bn, p.bk, sat,
+                        copy_vec(p.a, p.b, p.k, p.n, p.bk));
+}
+
+template <class T>
+int launch_minplus(const Product& p, cudaStream_t s) {
+  const dim3 grid((p.n + T::kBN - 1) / T::kBN, (p.m + T::kBM - 1) / T::kBM,
+                  p.batch);
+  return launch_dynamic(sparse_minplus_kernel<T>, grid, T::kThreads,
+                        T::kSmem, s, p.a, p.b, p.c, p.a_occ, p.b_occ, p.m,
+                        p.k, p.n, p.stride_a, p.stride_b, p.stride_ao,
+                        p.stride_bo, p.bm, p.bn, p.bk,
+                        copy_vec(p.a, p.b, p.k, p.n, p.bk));
 }
 
 template <int MODE>
@@ -550,19 +388,18 @@ int sparse_launch(int mode, const void* a, const void* b, void* c,
   const long long stride_b = batch_b == 1 ? 0 : static_cast<long long>(k) * n;
   const int* ao = static_cast<const int*>(a_occ);
   const int* bo = static_cast<const int*>(b_occ);
+  const Product p{static_cast<const float*>(a), static_cast<const float*>(b),
+                  static_cast<float*>(c), ao, bo, batch, m, k, n, stride_a,
+                  stride_b, stride_ao, stride_bo, bm, bn, bk};
+  const bool wide = wide_tiles(batch, m, n);
   switch (mode) {
     case kCount:
       launch_occupancy<kCount>(ja, jb, s);
-      return launch_f32_sized<kCount>(
-          static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<float*>(c), ao, bo, batch, m, k, n, stride_a, stride_b,
-          stride_ao, stride_bo, bm, bn, bk, sat, s);
+      return wide ? launch_count<64>(p, sat, s) : launch_count<32>(p, sat, s);
     case kMinPlus:
       launch_occupancy<kMinPlus>(ja, jb, s);
-      return launch_f32_sized<kMinPlus>(
-          static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<float*>(c), ao, bo, batch, m, k, n, stride_a, stride_b,
-          stride_ao, stride_bo, bm, bn, bk, sat, s);
+      return wide ? launch_minplus<MinPlusWide>(p, s)
+                  : launch_minplus<MinPlusNarrow>(p, s);
     case kBool: {
       launch_occupancy<kBool>(ja, jb, s);
       const int kw = (k + 31) / 32;

@@ -29,6 +29,8 @@ from typing import Sequence, Union
 
 import torch
 
+from . import resolve_device
+
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform",
            "threefry2x32"]
 
@@ -59,16 +61,18 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
     return a, b
 
 
-def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
+def PRNGKey(seed: int, device: DeviceLike = "cuda") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)``: a 32-bit seed becomes ``[0, seed]``
     (two's complement low word for negative seeds), a wider one its high
-    and low words."""
+    and low words.  On the card unless ``device`` says otherwise (raises
+    without one, as every entry point does)."""
     seed = int(seed)
     if -2 ** 31 <= seed < 2 ** 31:
         words = [0, seed & _MASK]
     else:
         words = [(seed >> 32) & _MASK, seed & _MASK]
-    return torch.tensor(words, dtype=torch.int64, device=device)
+    return torch.tensor(words, dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def _keywords(key: torch.Tensor):

@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import (LAUNCHES, flash_attention, gf_matmul, ref,
                                  semiring_matmul, sparse_semiring_matmul,
                                  waterfill_step)
+from repro_torch.kernels.semiring import SAT, count_split
 
 WF_SHAPES = [(7, 3, 19), (128, 7, 512), (200, 7, 751), (1, 5, 33),
              (130, 9, 513), (256, 4, 1024), (10830, 8, 42599)]
@@ -54,6 +55,61 @@ def test_cuda_semiring_matches_plain(semiring, m, k, n):
                        ref.semiring_matmul_ref(a, b[0], semiring))
     assert torch.equal(semiring_matmul(a[0], b[0], semiring),
                        ref.semiring_matmul_ref(a[0], b[0], semiring))
+
+
+# (m, k, n, bound): integer operands below `bound`, so that sums pass 2^24
+# but stay below 2^53 (exact in float64): a single 722^2 product (split
+# K), k = 5000, and ragged m, k, n that are not multiples of 8.
+COUNT_EXACT = [(722, 722, 722, 2 ** 20), (722, 5000, 722, 2 ** 18),
+               (37, 1001, 53, 2 ** 20), (1, 3, 1, 2 ** 20),
+               (129, 77, 65, 2 ** 21), (250, 4100, 3, 2 ** 18),
+               (70, 1100, 90, 2 ** 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,bound", COUNT_EXACT)
+def test_cuda_count_is_the_rounded_float64_product(m, k, n, bound):
+    """K2's count product is bitwise f32(float64 product) clamped at sat
+    (exact fp64 sums, one rounding, whatever the split of K), the same bits
+    from launch to launch, and K3's count product is bitwise K2's."""
+    _need_card()
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(0, bound, (m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(0, bound, (k, n)).astype(np.float32))
+    a, b = a.cuda(), b.cuda()
+    exp = torch.minimum(torch.matmul(a.double(), b.double()).float(),
+                        torch.tensor(SAT, device="cuda"))
+    if m * n > 1:
+        assert float(exp.max()) > 2 ** 24
+    before = LAUNCHES["semiring"]
+    out = semiring_matmul(a, b, "count")
+    assert LAUNCHES["semiring"] == before + 1
+    assert torch.equal(out, exp)
+    assert torch.equal(semiring_matmul(a, b, "count"), out)
+    assert torch.equal(sparse_semiring_matmul(a, b, "count"), out)
+    for x, y, e in ((a[None].expand(2, -1, -1), b, exp[None].expand(2, -1, -1)),
+                    (a, b[None].expand(3, -1, -1), exp[None].expand(3, -1, -1))):
+        assert torch.equal(semiring_matmul(x, y, "count"), e)
+
+
+@pytest.mark.gpu
+def test_cuda_count_saturates_once():
+    """Sums past FLT_MAX round to inf and the min takes them to sat, as the
+    plain min(A @ B, sat) does; a small sat clamps the exact sum."""
+    _need_card()
+    a = torch.ones((33, 70), device="cuda")
+    a[:10] = 2.0 ** 70
+    b = torch.full((70, 129), 2.0 ** 70, device="cuda")   # 2^140 > FLT_MAX
+    b[:, :5] = 1.0
+    out = semiring_matmul(a, b, "count")
+    assert torch.equal(out, ref.semiring_matmul_ref(a, b, "count"))
+    assert bool((out[:10, 5:] == torch.tensor(SAT, dtype=torch.float32)).all())
+    c = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 9, (700, 700)).astype(np.float32)).cuda()
+    small = semiring_matmul(c, c, "count", sat=10000.0)
+    exact = torch.matmul(c.double(), c.double())
+    assert torch.equal(small, torch.clamp_max(exact, 10000.0).float())
+    assert count_split(1, 700, 700, 700)[0] > 1
 
 
 @pytest.mark.gpu
@@ -170,6 +226,48 @@ def test_cuda_gfmm_matches_plain_exactly(mode, p, m, k, n):
     out = gf_matmul(a, b, p=p, mode=mode, bk=bk)
     assert LAUNCHES["gfmm"] == before + 1
     assert out.dtype == torch.int32
+    assert torch.equal(out, ref.gf_matmul_ref(a, b, p))
+
+
+# (p, mode, bk): every limb class the kernel takes (one limb up to 256,
+# two above), in the mode whose limit admits it; bk = 0 passes the mode
+# limit for the largest primes below 2^16.
+GF_LIMBS = [(2, "int32", 128), (2, "f32", 128), (127, "int32", 128),
+            (251, "f32", 256), (257, "int32", 128), (1009, "int32", 128),
+            (4093, "int32", 128), (40009, "int32", 1), (65521, "int32", 0)]
+# Shapes that are not multiples of 16, 8 or 32; k = 20 000 crosses the
+# kernel's K chunk (16 512 entries with two limbs).
+GF_RAGGED = [(1, 1, 1), (70, 1100, 33), (257, 64, 129), (131, 333, 77),
+             (17, 20000, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,mode,bk", GF_LIMBS)
+@pytest.mark.parametrize("m,k,n", GF_RAGGED)
+def test_cuda_gfmm_limbs_exact(p, mode, bk, m, k, n):
+    _need_card()
+    rng = np.random.default_rng(m * n + k + p)
+    a = torch.from_numpy(rng.integers(0, p, (m, k)).astype(np.int32)).cuda()
+    b = torch.from_numpy(rng.integers(0, p, (k, n)).astype(np.int32)).cuda()
+    before = LAUNCHES["gfmm"]
+    out = gf_matmul(a, b, p=p, mode=mode, bk=bk)
+    assert LAUNCHES["gfmm"] == before + 1
+    assert out.dtype == torch.int32
+    assert torch.equal(out, ref.gf_matmul_ref(a, b, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [257, 40009, 65521])
+def test_cuda_gfmm_largest_residues_across_chunks(p):
+    """Every entry p - 1 over 40 000 K entries: the s32 sums must be
+    reduced at each chunk boundary (unreduced, the cross sum of p = 65521
+    would pass 2^31), and the result is exact."""
+    _need_card()
+    k = 40000
+    a = torch.full((19, k), p - 1, dtype=torch.int32, device="cuda")
+    b = torch.full((k, 23), p - 1, dtype=torch.int32, device="cuda")
+    out = gf_matmul(a, b, p=p, bk=0)
+    assert bool((out == (k * (p - 1) ** 2) % p).all())
     assert torch.equal(out, ref.gf_matmul_ref(a, b, p))
 
 

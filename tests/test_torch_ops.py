@@ -278,3 +278,34 @@ def test_cpu_tensors_launch_nothing_in_the_new_kernels():
                                "tropical")
     with pytest.raises(ValueError, match="positive"):
         flash_attention(q, k, v, bq=0)
+
+
+# -----------------------------------------------------------------------------
+# The count kernel's split of K (the wrapper's rule; no kernel runs here).
+# -----------------------------------------------------------------------------
+SPLIT_SHAPES = [(1, 722, 722, 722), (9, 722, 722, 722), (8, 722, 722, 722),
+                (1, 722, 722, 5000), (2, 65, 67, 1100), (1, 1, 1, 1),
+                (1, 130, 200, 1), (3, 33, 129, 70), (1, 4114, 4114, 4114),
+                (70000, 1, 1, 10 ** 6)]
+
+
+@pytest.mark.parametrize("batch,m,n,k", SPLIT_SHAPES)
+def test_count_split_is_a_pure_function_of_the_shapes(batch, m, n, k):
+    """The same shapes always give the same (split, chunk); every share is
+    non-empty, a whole number of 32-entry steps, at least 128 entries
+    long unless K is shorter, and the grid's z extent stays within
+    65535."""
+    from repro_torch.kernels.semiring import count_split
+
+    split, chunk = count_split(batch, m, n, k)
+    assert (split, chunk) == count_split(batch, m, n, k)
+    assert split >= 1 and chunk % 32 == 0
+    assert (split - 1) * chunk < k <= split * chunk
+    assert split == 1 or chunk >= 128
+    assert batch * split <= 65535 or split == 1
+    tiles = batch * -(-m // 64) * -(-n // 64)
+    if tiles > 3 * 132 // 2:
+        assert split == 1
+    assert tiles * split <= 3 * 132 or split == 1   # one wave
+    if (batch, m, n, k) == (1, 722, 722, 722):
+        assert (split, chunk) == (2, 384)     # 288 blocks, 3 an SM

@@ -83,3 +83,14 @@ def test_uniform_range_and_partitionable_layout():
     np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
         a, np.asarray(jax.random.uniform(jax.random.PRNGKey(3), (4,))))
+
+
+def test_prngkey_defaults_to_the_card():
+    """Like every entry point of the port, PRNGKey runs on ``cuda`` unless
+    asked for the CPU, and raises without a card instead of falling back."""
+    if torch.cuda.is_available():
+        assert prng.PRNGKey(5).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prng.PRNGKey(5)
+    assert prng.PRNGKey(5, "cpu").device.type == "cpu"
