@@ -18,13 +18,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    recorded them (bool: the main sweep; count: ``min_path_stats`` and
    ``path_counts_power``; minplus: the ksp cell), count and bool beside
    ``torch.matmul`` f32, into the entry's ``per_semiring``;
-3. the water-filling kernel vs its plain version: ragged shapes, rows
-   with no live slot, all-inactive rows, ``want_util`` on and off, and
-   every call the main path made (its strided (F, S) views of the packed
-   path record: S=9 for fatpaths, S=4 for ecmp); ``share`` bitwise,
-   ``sent``/``util`` within rtol 1e-5 (the plain version sums with float
-   atomics in another order), and two launches bitwise equal; the main
-   path's calls timed, replayed in order;
+3. the water-filling kernel vs its plain version on CPU copies of the
+   same inputs (the plain version on the card sums with float atomics in
+   no fixed order; the kernel sums each link in the CPU's flat (flow,
+   slot) order): ragged shapes, rows with no live slot, all-inactive
+   rows, values outside [0, 1], ``want_util`` and ``acc`` on and off,
+   and every call the main path made (its strided (F, S) views of the
+   packed path record with the cell's link plan: S=9 for fatpaths, S=4
+   for ecmp); ``sent``, ``share``, ``util`` and ``acc`` bitwise, and two
+   launches bitwise equal; the main path's calls timed, replayed in order,
+   with the kernel's per-phase split (``%globaltimer``: each phase's work,
+   its blocks' skew and its grid barrier) and the plan a direct call
+   builds timed apart;
 (a) the ``ksp`` scheme and ``min_path_stats`` on the card:
    ``Session(device="cuda").run`` of sf(q=19) x
    fatpaths(n_layers=9,rho=0.6,scheme=ksp) x permutation x
@@ -54,18 +59,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``scaled_dot_product_attention`` on the bf16 inputs (the entry's
    ``library_ms``) and on f32 copies (``library_f32_ms``);
 4. a small cell (sf(q=5)) on the card and on the CPU through the same
-   port, for ecmp, fatpaths and fatpaths with the ksp scheme: tables and
-   path-edge tensors bitwise, departures within 2 steps for at least 99%
-   of flows;
+   port, for ecmp, fatpaths and fatpaths with the ksp scheme: tables,
+   path-edge tensors, ``depart_step`` and the metrics equal;
 5. the main path: ``Session(device="cuda").sweep`` over sf(q=19) (722
    routers, 10 830 endpoints) x {fatpaths(n_layers=9,rho=0.6), ecmp} x
    permutation x transport(steps=2000,transport=ndp), with every launch
-   count set to 0 just before and read just after; then each cell's scan
-   alone (host wall, µs per step, ``torch.profiler`` device time), and
-   the same cells with 256 MiB flows, where all 2000 steps run;
+   count set to 0 just before and read just after; the same sweep on the
+   CPU port, its metrics (``==``) and ``depart_step`` equal to the
+   card's; then each cell's scan alone (host wall, µs per step,
+   ``torch.profiler`` device time, the link plan's entries and longest
+   segment), and the same cells with 256 MiB flows, where all 2000 steps
+   run;
 6. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse, GF(p) and attention kernels, on their own phase's path),
-   error against the plain version, kernel / plain / bound / library
+   error against the plain version (0 for the water-filling kernel, which
+   phase 3 holds bitwise), kernel / plain / bound / library
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
@@ -83,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -235,6 +244,12 @@ def capture_main_inputs(Session, paths, transport):
     torch.cuda.synchronize()
     print(f"# captured the main path's kernel inputs: {len(mm)} semiring "
           f"and {len(wf)} water-filling calls", flush=True)
+    for routing in MAIN_ROUTINGS:
+        offsets, entries, _ = next(kw["plan"] for r, _, kw in wf
+                                   if r == routing)
+        seg = (offsets[1:] - offsets[:-1]).max()
+        print(f"# link plan of {routing}: {entries.numel()} entries, "
+              f"longest segment {int(seg)}", flush=True)
     return mm, wf
 
 
@@ -435,7 +450,7 @@ def phase_semiring_paths(ref, semiring_matmul, recorded, path_launches, k2):
     k2["path_launches"] = path_launches
 
 
-def _wf_instance(f, s, e, seed, dev="cuda"):
+def _wf_instance(f, s, e, seed, dev="cuda", scale=1.0):
     g = torch.Generator().manual_seed(seed)
     edges = torch.randint(0, max(1, e - 1), (f, s), generator=g,
                           dtype=torch.int32)
@@ -446,96 +461,139 @@ def _wf_instance(f, s, e, seed, dev="cuda"):
     desired = torch.rand(f, generator=g) * w
     active = torch.rand(f, generator=g) < 0.8
     cap = torch.ones(e)
+    if scale != 1.0:                     # outside [0, 1]
+        w = w * (0.5 + torch.rand(f, generator=g) * scale)
+        desired = desired * scale
+        cap = 0.25 + torch.rand(e, generator=g) * scale
     return [x.to(dev) for x in (edges, w, desired, cap, active)]
 
 
-def _close(a, b, what):
-    bad = (a - b).abs() > 1e-5 * b.abs() + 1e-7
-    both_inf = torch.isinf(a) & torch.isinf(b) & (a == b)
-    bad &= ~both_inf
-    if bool(bad.any()):
-        raise AssertionError(f"waterfill {what}: not within rtol 1e-5 of "
-                             f"its plain version")
-    fin = torch.isfinite(b)
-    return float((a - b)[fin].abs().max()) if fin.any() else 0.0
+_REF_KW = ("active", "fair_iters", "want_util", "acc")
 
 
-def _wf_check(ref, waterfill_step, edges, w, desired, cap, act, fi, wu,
-              what):
-    """Two launches bitwise equal; share bitwise and sent/util within
-    rtol 1e-5 of the plain version.  Returns the max abs error."""
-    k1 = waterfill_step(edges, w, desired, cap, active=act, fair_iters=fi,
-                        want_util=wu)
-    k2 = waterfill_step(edges, w, desired, cap, active=act, fair_iters=fi,
-                        want_util=wu)
-    # The plain version with the kernel's masking of -1 slots.
-    act_r = torch.ones_like(w, dtype=torch.bool) if act is None else act
-    r = ref.waterfill_ref(edges, w, desired, cap, fair_iters=fi,
-                          active=act_r, want_util=wu)
+def _wf_check(ref, waterfill_step, args, kw, what):
+    """Two launches bitwise equal, and every output bitwise the plain
+    version's on CPU copies of the inputs (with the kernel's masking of
+    -1 slots when ``active`` is None).  Returns the max abs error (0.0)."""
+    k1 = waterfill_step(*args, **kw)
+    k2 = waterfill_step(*args, **kw)
+    cpu = {k: (v.cpu() if torch.is_tensor(v) else v)
+           for k, v in kw.items() if k in _REF_KW}
+    if cpu.get("active") is None:
+        cpu["active"] = torch.ones(args[1].shape, dtype=torch.bool)
+    r = ref.waterfill_ref(*[a.cpu() for a in args], **cpu)
     torch.cuda.synchronize()
-    for x, y in zip(k1, k2):
+    if len(k1) != len(r):
+        raise AssertionError(f"waterfill {what}: {len(k1)} outputs, plain "
+                             f"version {len(r)}")
+    err = 0.0
+    for name, x, y, z in zip(("sent", "share", "util" if kw.get("want_util")
+                              else "acc", "acc"), k1, k2, r):
         if not torch.equal(x, y):
-            raise AssertionError(f"waterfill {what} fi={fi}: two launches "
-                                 "differ")
-    if not torch.equal(k1[1], r[1]):
-        raise AssertionError(f"waterfill {what} fi={fi}: share not bitwise")
-    err = _close(k1[0], r[0], f"{what} sent")
-    if wu:
-        err = max(err, _close(k1[2], r[2], f"{what} util"))
+            raise AssertionError(f"waterfill {what} {kw.get('fair_iters')}:"
+                                 f" two launches differ in {name}")
+        err = max(err, _check_equal(x.cpu(), z, f"waterfill {what} {name}"))
     return err
 
 
-def phase_waterfill(ref, waterfill_step, main_calls):
-    shapes = [(1, 5, 33), (7, 3, 19), (130, 9, 513), (1000, 8, 3001),
-              (10830, 8, 42599)]
+def phase_waterfill(ref, waterfill, main_calls):
+    waterfill_step = waterfill.waterfill_step
+    shapes = [(1, 5, 33, 1.0), (7, 3, 19, 1.0), (130, 9, 513, 1.0),
+              (1000, 8, 3001, 1.0), (10830, 8, 42599, 1.0),
+              (1000, 8, 3001, 50.0), (10830, 9, 42599, 300.0)]
     max_err = 0.0
     n_cases = 0
-    for f, s, e in shapes:
-        edges, w, desired, cap, active = _wf_instance(f, s, e, f + e)
+    for f, s, e, scale in shapes:
+        edges, w, desired, cap, active = _wf_instance(f, s, e, f + e,
+                                                      scale=scale)
+        acc = torch.rand(f, generator=torch.Generator().manual_seed(f)) \
+            .mul(100.0).cuda()
         for act in (active, torch.zeros_like(active), None):
             for fi in (0, 1, 2):
                 for wu in (False, True):
-                    max_err = max(max_err, _wf_check(
-                        ref, waterfill_step, edges, w, desired, cap, act,
-                        fi, wu, f"({f},{s},{e})"))
-                    n_cases += 1
-    # The main path's own inputs: every call as the path made it, and the
-    # first call of each cell again with every fair_iters and want_util.
+                    for a in (None, acc):
+                        kw = dict(active=act, fair_iters=fi, want_util=wu,
+                                  acc=a)
+                        max_err = max(max_err, _wf_check(
+                            ref, waterfill_step, (edges, w, desired, cap),
+                            kw, f"({f},{s},{e}) x{scale}"))
+                        n_cases += 1
+    # The main path's own inputs: every call as the path made it (with
+    # its plan, layers and accumulator), and the first call of each cell
+    # again with every fair_iters and want_util.
     first = {}
     for i, (routing, args, kw) in enumerate(main_calls):
         first.setdefault(routing, (args, kw))
-        max_err = max(max_err, _wf_check(
-            ref, waterfill_step, *args, kw.get("active"),
-            kw.get("fair_iters", 2), False, f"main-path call {i} ({routing})"))
+        max_err = max(max_err, _wf_check(ref, waterfill_step, args, kw,
+                                         f"main-path call {i} ({routing})"))
         n_cases += 1
     for routing, (args, kw) in first.items():
         for fi in (0, 1, 2):
             for wu in (False, True):
                 max_err = max(max_err, _wf_check(
-                    ref, waterfill_step, *args, kw.get("active"), fi, wu,
+                    ref, waterfill_step, args,
+                    dict(kw, fair_iters=fi, want_util=wu),
                     f"main-path first call ({routing})"))
                 n_cases += 1
-    print(f"# phase 3: waterfill on {n_cases} cases ({len(main_calls)} of "
-          "them the main path's own calls, strided edges): share bitwise, "
-          f"sent/util within rtol 1e-5 (max abs err {max_err:.3g}), "
-          "launch-to-launch bitwise", flush=True)
+    print(f"# phase 3: waterfill bitwise equal to its plain version on CPU "
+          f"copies (sent, share, util, acc) on {n_cases} cases "
+          f"({len(main_calls)} of them the main path's own calls, strided "
+          "edges, with the cell's link plan), and launch to launch",
+          flush=True)
 
     def wf_bound(edges, w, desired, cap):
+        # edges, w, desired, active, acc and cap read; sent, share and
+        # acc written.
         f, s = edges.shape
-        nbytes = f * s * 4 + f * (4 + 4 + 1) + cap.shape[0] * 4 + f * 4 * 2
+        nbytes = f * s * 4 + f * (4 + 4 + 1 + 4) + cap.shape[0] * 4 \
+            + f * 4 * 3
         return nbytes / HBM_BYTES_PER_S, 0.0
 
     def kernel(args, kw):
         return waterfill_step(*args, **kw)
 
     def plain(args, kw):
-        return ref.waterfill_ref(*args, **kw)
+        return ref.waterfill_ref(*args, **{k: v for k, v in kw.items()
+                                           if k in _REF_KW})
 
     calls = [(args, kw) for _, args, kw in main_calls]
     ms, wall = _replay_ms(kernel, calls, 10)
     plain_ms, plain_wall = _replay_ms(plain, calls, 3)
     bound, by = _sum_bound([wf_bound(*args) for args, _ in calls])
     bound /= len(calls)
+    # The plan a direct call (no plan given) builds from its (F, S) edges.
+    plan_ms, _ = _replay_ms(waterfill.link_plan,
+                            [(args[0], args[3].shape[0])
+                             for args, _ in calls], 3)
+    # Per-phase split over the main path's calls, from %globaltimer: block
+    # 0's stamps at the start, after each grid barrier and at its end, and
+    # every block's arrival at each barrier.  A phase's work runs from the
+    # last release to its last arrival; the barrier from the last arrival
+    # to block 0's release; skew is last minus first arrival.
+    fi = calls[0][1]["fair_iters"]
+    nb = 2 * fi + 1
+    blocks = waterfill._lib().waterfill_grid_blocks()
+    stamps = torch.zeros((len(calls), nb + 2 + blocks * nb),
+                         dtype=torch.int64, device="cuda")
+    for _ in range(2):
+        for j, (args, kw) in enumerate(calls):
+            waterfill._launch(*args, kw["active"], kw["fair_iters"], False,
+                              kw["acc"], kw["plan"], kw["layer"],
+                              phase_ns=stamps[j])
+    torch.cuda.synchronize()
+    st = stamps.double()
+    rel = st[:, :nb + 2]                       # start, releases, end
+    arr = st[:, nb + 2:].reshape(len(calls), blocks, nb)
+    last, first_in = arr.max(1).values, arr.min(1).values
+    us = lambda x: float(x.mean()) / 1e3         # noqa: E731
+    names = [f"{p}{r}" for r in range(fi + 1) for p in ("links", "flows")]
+    phase_split = {"blocks": blocks}
+    for b in range(nb):
+        phase_split[names[b]] = {
+            "work_us": us(last[:, b] - rel[:, b]),
+            "skew_us": us(last[:, b] - first_in[:, b]),
+            "barrier_us": us(rel[:, b + 1] - last[:, b])}
+    phase_split[names[nb]] = {"work_us": us(rel[:, nb + 1] - rel[:, nb])}
     for routing, (args, kw) in first.items():
         edges = args[0]
         mine = [(a, k) for r, a, k in main_calls if r == routing]
@@ -548,12 +606,16 @@ def phase_waterfill(ref, waterfill_step, main_calls):
               f"ms/call kernel {k_wall:.5f}, plain {p_wall:.5f}", flush=True)
     print(f"# waterfill, main path's calls: device ms/call kernel {ms:.5f}, "
           f"plain {plain_ms:.5f}, bound {bound:.6f} ({by}); wall ms/call "
-          f"kernel {wall:.5f}, plain {plain_wall:.5f}", flush=True)
+          f"kernel {wall:.5f}, plain {plain_wall:.5f}; direct-call plan "
+          f"build {plan_ms:.5f}; per phase (µs, %globaltimer; the last "
+          "flow phase is block 0's own) "
+          + json.dumps(phase_split), flush=True)
     return dict(name="waterfill", route="cuda",
                 source="src/repro_torch/kernels/csrc/waterfill.cu",
                 replaces="src/repro/kernels/waterfill.py:167",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                bound_ms=bound, bound_by=by, library_ms=None,
+                plan_build_ms=plan_ms, phase_split_ms=phase_split)
 
 
 def _need_launches(launches, names, what, exactly=None):
@@ -1035,7 +1097,6 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
 
 def phase_small_cell(Session, transport):
     sessions = {d: Session(device=d) for d in ("cuda", "cpu")}
-    exact = True
     for routing in ("ecmp", "fatpaths(n_layers=9,rho=0.6)", KSP_ROUTING):
         res, bundles, prepared = {}, {}, {}
         for d, ses in sessions.items():
@@ -1056,28 +1117,23 @@ def phase_small_cell(Session, transport):
             if not torch.equal(getattr(bundles["cuda"].routing, name).cpu(),
                                getattr(bundles["cpu"].routing, name)):
                 raise AssertionError(f"{routing}: {name} differs card vs CPU")
-        for name in ("path_edges", "routed", "usable"):
+        for name in ("path_edges", "routed", "usable", "plan_offsets",
+                     "plan_entries"):
             if not torch.equal(prepared["cuda"][name].cpu(),
                                prepared["cpu"][name]):
                 raise AssertionError(f"{routing}: {name} differs card vs CPU")
         dep_g = res["cuda"][1].depart_step
         dep_c = res["cpu"][1].depart_step
-        same = float((dep_g == dep_c).mean())
-        gap = int(np.abs(dep_g.astype(np.int64) - dep_c).max())
-        if same < 0.99 or gap > 2:
-            raise AssertionError(f"{routing}: departures agree for {same:.4f}"
-                                 f" of flows, max gap {gap} steps")
-        fin_g = res["cuda"][0].metrics["finished"]
-        fin_c = res["cpu"][0].metrics["finished"]
-        if fin_g != fin_c:
-            raise AssertionError(f"{routing}: finished {fin_g} vs {fin_c}")
-        cell_exact = res["cuda"][0].metrics == res["cpu"][0].metrics
-        exact &= cell_exact
-        print(f"# phase 4: sf(q=5) {routing}: tables and path edges bitwise; "
-              f"departures equal for {same:.4f} of flows (max gap {gap}); "
-              f"metrics {'exactly equal' if cell_exact else 'differ'} "
-              "card vs CPU", flush=True)
-    return exact
+        if not np.array_equal(dep_g, dep_c):
+            raise AssertionError(f"{routing}: depart_step differs card vs "
+                                 f"CPU for {int((dep_g != dep_c).sum())} "
+                                 "flows")
+        if res["cuda"][0].metrics != res["cpu"][0].metrics:
+            raise AssertionError(f"{routing}: metrics differ card vs CPU: "
+                                 f"{res['cuda'][0].metrics} vs "
+                                 f"{res['cpu'][0].metrics}")
+        print(f"# phase 4: sf(q=5) {routing}: tables, path edges, "
+              "depart_step and metrics equal card vs CPU", flush=True)
 
 
 def _profile(fn, top_n: int = 6):
@@ -1164,10 +1220,23 @@ def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
                 scan_idle_share=1.0 - device_ms / 1e3 / window_s,
                 scan_device_events_per_step=n_dev / profile_steps,
                 scan_top_kernels_ms=top, e_tot=static[0],
-                hop_slots=arrs["path_edges"].shape[2])
+                hop_slots=arrs["path_edges"].shape[2],
+                plan_entries=arrs["plan_entries"].numel(),
+                plan_max_segment=int((arrs["plan_offsets"][1:]
+                                      - arrs["plan_offsets"][:-1]).max()))
 
 
-def phase_main(Session, transport, prng, LAUNCHES, reset_launches):
+def _sims_recorder(sims):
+    """Wrap ``simulate_seeds`` so that each call's SimResults are kept."""
+    def wrap(fn):
+        def rec(*args, **kw):
+            sims.append(fn(*args, **kw))
+            return sims[-1]
+        return rec
+    return wrap
+
+
+def phase_main(Session, transport, catalog, prng, LAUNCHES, reset_launches):
     ses = Session(device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1180,9 +1249,11 @@ def phase_main(Session, transport, prng, LAUNCHES, reset_launches):
 
     reset_launches()
     last.update(LAUNCHES)
+    card_sims, cpu_sims = [], []
     t0 = time.perf_counter()
-    results = ses.sweep([MAIN_TOPO], list(MAIN_ROUTINGS), [MAIN_PATTERN],
-                        [MAIN_EVAL], callback=count_cell)
+    with _patched(catalog, "simulate_seeds", _sims_recorder(card_sims)):
+        results = ses.sweep([MAIN_TOPO], list(MAIN_ROUTINGS),
+                            [MAIN_PATTERN], [MAIN_EVAL], callback=count_cell)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -1191,6 +1262,25 @@ def phase_main(Session, transport, prng, LAUNCHES, reset_launches):
         if launches[name] <= 0:
             raise AssertionError(f"main path never launched the {name} "
                                  "kernel")
+    # The same sweep on the CPU port: the card must give the same bits.
+    t1 = time.perf_counter()
+    with _patched(catalog, "simulate_seeds", _sims_recorder(cpu_sims)):
+        cpu_results = Session(device="cpu").sweep(
+            [MAIN_TOPO], list(MAIN_ROUTINGS), [MAIN_PATTERN], [MAIN_EVAL])
+    cpu_wall = time.perf_counter() - t1
+    for rr, rc, sg, sc in zip(results, cpu_results, card_sims, cpu_sims):
+        if rr.metrics != rc.metrics:
+            raise AssertionError(f"{rr.cell_id}: metrics differ card vs "
+                                 f"CPU: {rr.metrics} vs {rc.metrics}")
+        for g, c in zip(sg, sc):
+            if not np.array_equal(g.depart_step, c.depart_step):
+                raise AssertionError(f"{rr.cell_id}: depart_step differs "
+                                     "card vs CPU")
+    digests = [hashlib.sha256(sims[0].depart_step.tobytes()).hexdigest()[:16]
+               for sims in card_sims]
+    print(f"# phase 5: both main cells' metrics and depart_step equal card "
+          f"vs CPU (CPU sweep {cpu_wall:.2f} s; depart_step sha256 "
+          f"{digests}; host metrics by numpy {np.__version__})", flush=True)
     cells = []
     for rr, cell_launches in zip(results, per_cell):
         m = rr.metrics
@@ -1233,11 +1323,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import prng
     from repro_torch.core import paths, topology, transport
-    from repro_torch.experiments import Session
+    from repro_torch.experiments import Session, catalog
     from repro_torch.kernels import (LAUNCHES, build, flash_attention,
                                      gf_matmul, ops, pathcount, ref,
                                      reset_launches, semiring_matmul,
-                                     sparse_semiring_matmul, waterfill_step)
+                                     sparse_semiring_matmul, waterfill)
     from repro_torch.kernels.gfmm import gf_plan
     from repro_torch.kernels.sparse import _occupancy
 
@@ -1251,7 +1341,7 @@ def main() -> int:
         print(f"# ptxas {lib}: " + json.dumps(kernels), flush=True)
     main_mm, main_wf = capture_main_inputs(Session, paths, transport)
     k2 = phase_semiring(ref, semiring_matmul, main_mm)
-    k1 = phase_waterfill(ref, waterfill_step, main_wf)
+    k1 = phase_waterfill(ref, waterfill, main_wf)
     del main_wf
     new_mm, _, path_launches = phase_ksp(
         Session, paths, pathcount, ops, transport, prng, ref,
@@ -1265,15 +1355,14 @@ def main() -> int:
                     reset_launches)
     k5 = phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches)
     torch.cuda.empty_cache()
-    exact = phase_small_cell(Session, transport)
-    launches, _ = phase_main(Session, transport, prng, LAUNCHES,
+    phase_small_cell(Session, transport)
+    launches, _ = phase_main(Session, transport, catalog, prng, LAUNCHES,
                              reset_launches)
     k2["launches"] = launches["semiring"]
     k2["per_semiring"]["bool"]["launches"] = launches["semiring"]
     k1["launches"] = launches["waterfill"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(f"# small cell card vs CPU exactly equal: {exact}")
     lost = PROFILE_LEAD_LOST
     print(f"# profiler: {len(lost)} traces; lead spin kernels missing from "
           f"{sum(1 for x in lost if x)} of them ({sum(lost)} in all, at most "

@@ -23,12 +23,15 @@ stream (:mod:`repro_torch.prng`): per-flow keys ``fold_in(key, flow)``,
 and per chunk one ``uniform(fold_in(flow_key, chunk), (chunk, 2))``
 block, sliced for the tail chunk.  Python float constants are rounded to
 float32 before they meet a tensor, as JAX rounds its weak-typed scalars.
+``sent_acc + sent`` is rounded once, as XLA contracts the reference's
+``sent_acc + d * s`` into a fused multiply-add (the water-filling step
+returns it).
 
 The scan is a Python loop over steps.  Its only host syncs are the path
-trim in :func:`prepare` and one ``exhausted()`` check per chunk of the
-adaptive horizon, which stops once every flow is finished or provably
-stuck; skipped steps are exact no-ops, so early exit returns what the
-full horizon would.
+trim and the link plan in :func:`prepare` and one ``exhausted()`` check
+per chunk of the adaptive horizon, which stops once every flow is
+finished or provably stuck; skipped steps are exact no-ops, so early exit
+returns what the full horizon would.
 
 Static lanes only: dynamic traffic (``active_step``), mid-run link death,
 link churn, loss recovery and per-step recording raise
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from .. import prng, resolve_device
-from ..kernels.waterfill import waterfill_step
+from ..kernels.waterfill import LinkPlan, link_plan, waterfill_step
 from . import paths as paths_mod
 from .layers import LayeredRouting
 from .topology import Topology
@@ -235,7 +238,8 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
             cfg: SimConfig, device="cuda"):
     """``(arrs, static)``: the scan's tensors on ``device`` — including
     the per-layer path-edge tensor, so the step body never re-derives
-    flow paths — and the static triple ``(e_tot, n_layers, n_steps)``."""
+    flow paths, and its :func:`~repro_torch.kernels.waterfill.link_plan`
+    — and the static triple ``(e_tot, n_layers, n_steps)``."""
     _check_static(routing, wl)
     dev = resolve_device(device)
     eix, n_edges, n_ep = _virtual_links(topo, wl)
@@ -263,8 +267,13 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
          src_e[None, :, None].expand(n_layers, n_flows, 1),
          dst_e[None, :, None].expand(n_layers, n_flows, 1)], dim=2)
     usable = routing.reach.to(dev)[:, src_r, dst_r].T          # (F, L)
+    # Each link's path entries in (flow, slot) order, for the card's
+    # water-filling kernel: built once per cell, never in a step.
+    plan_offsets, plan_entries, _ = link_plan(path_edges, e_tot)
     arrs = dict(
         path_edges=path_edges,                                   # (L, F, H+2)
+        plan_offsets=plan_offsets,                               # (E+1,)
+        plan_entries=plan_entries,
         routed=routed,                                           # (L, F)
         path_hops=n_hops.to(torch.float32),                      # (L, F)
         usable=usable,
@@ -349,6 +358,7 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
                                         device=dev))
 
     cap = torch.ones(e_tot, dtype=torch.float32, device=dev)
+    plan = LinkPlan(arrs["plan_offsets"], arrs["plan_entries"], f)
     frows = torch.arange(f, device=dev)
     # One packed (L, F, H+4) record — path edges | routed | hop count —
     # so the step gathers by current layer once.
@@ -381,8 +391,9 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
 
         w = send.to(torch.float32)
         desired = torch.clamp_max(st["rate"], 1.0) * w
-        sent, share = waterfill_step(edges, w, desired, cap, active=send,
-                                     fair_iters=cfg.fair_iters)
+        sent, share, sent_acc = waterfill_step(
+            edges, w, desired, cap, active=send, fair_iters=cfg.fair_iters,
+            acc=st["sent_acc"], plan=plan, layer=st["layer"])
 
         delivered = sent * line_bytes
         new_remaining = torch.clamp_min(st["remaining"] - delivered * w, 0.0)
@@ -410,7 +421,7 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
             layer = st["layer"]
         return dict(remaining=new_remaining, layer=layer, rate=rate,
                     hops=hops, depart_step=depart, w_acc=st["w_acc"] + w,
-                    sent_acc=st["sent_acc"] + sent)
+                    sent_acc=sent_acc)
 
     def run_chunk(st, c: int, length: int):
         u = _chunk_uniforms(flow_keys, c, chunk)[:length] if reroute else None

@@ -7,7 +7,10 @@ the same float32 operations in the same order:
 
 * scatter-adds run over the flattened ``(F, S)`` edge array in row-major
   order on a 1-D target (``index_add_``), which is the order XLA's CPU
-  scatter sums in;
+  scatter sums in, and the order the water-filling kernel sums each
+  link in on the card;
+* ``a + b * c`` where XLA contracts it into one fused multiply-add on
+  the CPU is emulated exactly (:func:`fused_add_mul`);
 * reductions that decide results (min, max) are order-free.
 
 The GF(p) product is exact integer arithmetic on both devices (float64
@@ -22,8 +25,8 @@ from typing import Optional
 import torch
 
 __all__ = ["SAT", "pathcount_ref", "semiring_matmul_ref",
-           "sparse_semiring_matmul_ref", "waterfill_ref", "gf_matmul_ref",
-           "attention_ref"]
+           "sparse_semiring_matmul_ref", "waterfill_ref", "fused_add_mul",
+           "gf_matmul_ref", "attention_ref"]
 
 SAT = 3.0e38
 
@@ -86,15 +89,39 @@ def sparse_semiring_matmul_ref(a: torch.Tensor, b: torch.Tensor,
 def _scatter_add(e_tot: int, idx: torch.Tensor,
                  val: torch.Tensor) -> torch.Tensor:
     """Per-link sums of ``val`` (F, S) over link ids ``idx`` (F, S),
-    accumulated in flat row-major order."""
+    accumulated in flat row-major order from +0.0."""
     out = torch.zeros(e_tot, dtype=torch.float32, device=idx.device)
     return out.index_add_(0, idx.reshape(-1), val.reshape(-1))
+
+
+def fused_add_mul(a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a + b * c`` rounded once, as a fused multiply-add rounds it.
+
+    The product of two f32 values is exact in float64, and TwoSum gives
+    the float64 sum ``s`` with its exact error.  Rounding ``s`` to f32 is
+    then the correct rounding of ``a + b * c`` unless ``s`` is an f32
+    midpoint; there the exact sum lies on the error's side of it."""
+    a64 = a.to(torch.float64)
+    p = b.to(torch.float64) * c.to(torch.float64)
+    s = a64 + p
+    bb = s - a64
+    err = (a64 - (s - bb)) + (p - bb)
+    r = s.to(torch.float32)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=r.device)
+    other = torch.nextafter(r, torch.where(s > r.to(torch.float64), inf, -inf))
+    tie = ((r.to(torch.float64) + other.to(torch.float64)) * 0.5 == s) \
+        & (err != 0)
+    side = torch.where(err > 0, torch.maximum(r, other),
+                       torch.minimum(r, other))
+    return torch.where(tie, side, r)
 
 
 def waterfill_ref(edges: torch.Tensor, w: torch.Tensor, desired: torch.Tensor,
                   cap: torch.Tensor, fair_iters: int = 2,
                   active: Optional[torch.Tensor] = None,
-                  want_util: bool = False):
+                  want_util: bool = False,
+                  acc: Optional[torch.Tensor] = None):
     """One max-min water-filling step (semantics of
     :func:`repro_torch.kernels.waterfill.waterfill_step`).
 
@@ -102,9 +129,12 @@ def waterfill_ref(edges: torch.Tensor, w: torch.Tensor, desired: torch.Tensor,
     the write-only trash link; ``w`` (F,) 0/1 weights; ``desired`` (F,)
     requested rates; ``cap`` (E,) capacities; ``active`` (F,) bool
     optional — inactive rows and -1 slots go to the trash link and their
-    weight and desire are zeroed.  Returns ``(sent, share)``, or
-    ``(sent, share, util)`` with ``want_util`` (the max over live slots
-    of load / cap, from round ``min(1, fair_iters)``).
+    weight and desire are zeroed.  Returns ``(sent, share)``, plus
+    ``util`` with ``want_util`` (the max over live slots of load / cap,
+    from round ``min(1, fair_iters)``), plus ``acc + sent`` with ``acc``
+    (F,) f32 given, rounded once: ``acc + d * s`` over the last round's
+    demand ``d`` and scale ``s`` as one fused multiply-add, as XLA
+    contracts the reference scan's ``sent_acc + sent``.
     """
     e_tot = cap.shape[0]
     w = w.to(torch.float32)
@@ -127,6 +157,7 @@ def waterfill_ref(edges: torch.Tensor, w: torch.Tensor, desired: torch.Tensor,
         link_util = count / torch.maximum(cap, tiny)
         util = torch.where(live, link_util[idx], 0.0).amax(dim=1)
     d = torch.minimum(desired, share)
+    acc_out = None if acc is None else acc + d
     for it in range(fair_iters):
         load = _scatter_add(e_tot, idx, d[:, None].expand(idx.shape))
         if want_util and it == 0:
@@ -135,10 +166,15 @@ def waterfill_ref(edges: torch.Tensor, w: torch.Tensor, desired: torch.Tensor,
         scale = torch.clamp_max(cap / torch.maximum(load, tiny), 1.0)
         s = torch.where(live, scale[idx], inf).amin(dim=1)
         s = torch.where(torch.isfinite(s), s, 0.0)
+        if acc is not None and it == fair_iters - 1:
+            acc_out = fused_add_mul(acc, d, s)
         d = d * s
+    out = (d, share)
     if want_util:
-        return d, share, util
-    return d, share
+        out += (util,)
+    if acc is not None:
+        out += (acc_out,)
+    return out
 
 
 def gf_matmul_ref(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:

@@ -14,6 +14,7 @@ from repro_torch.kernels import (LAUNCHES, flash_attention, gf_matmul, ref,
                                  semiring_matmul, sparse_semiring_matmul,
                                  waterfill_step)
 from repro_torch.kernels.semiring import SAT, count_split
+from repro_torch.kernels.waterfill import link_plan
 
 WF_SHAPES = [(7, 3, 19), (128, 7, 512), (200, 7, 751), (1, 5, 33),
              (130, 9, 513), (256, 4, 1024), (10830, 8, 42599)]
@@ -112,23 +113,48 @@ def test_cuda_count_saturates_once():
     assert count_split(1, 700, 700, 700)[0] > 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("pad", [0, 2])
-@pytest.mark.parametrize("f,s,e", WF_SHAPES)
-def test_cuda_waterfill_matches_plain_and_repeats(f, s, e, pad):
-    """``pad`` > 0 hands the kernel a strided (F, S) view of an (F, S + pad)
-    record, as the scan does with its packed path record."""
-    _need_card()
-    rng = np.random.default_rng(f + e)
+def _wf_inputs(f, s, e, seed, pad=0, scale=1.0):
+    """Random water-filling inputs on the card: (edges, w, desired, cap,
+    active), edges an (F, S) view of an (F, S + pad) record as the scan
+    hands the kernel; ``scale`` != 1 puts weights, demands and capacities
+    outside [0, 1]."""
+    rng = np.random.default_rng(seed)
     edges = rng.integers(0, e - 1, (f, s + pad)).astype(np.int32)
     edges[rng.random((f, s + pad)) < 0.3] = e - 1
     edges[rng.random((f, s + pad)) < 0.1] = -1
     w = (rng.random(f) >= 0.25).astype(np.float32)
     desired = rng.random(f).astype(np.float32) * w
-    args = [torch.from_numpy(x).cuda()
-            for x in (edges, w, desired, np.ones(e, np.float32))]
+    cap = np.ones(e, np.float32)
+    if scale != 1.0:
+        w = w * rng.uniform(0.5, scale, f).astype(np.float32)
+        desired = (desired * scale).astype(np.float32)
+        cap = rng.uniform(0.25, scale, e).astype(np.float32)
+    args = [torch.from_numpy(x).cuda() for x in (edges, w, desired, cap)]
     args[0] = args[0][:, :s]
-    act = torch.from_numpy(rng.random(f) < 0.7).cuda()
+    return args + [torch.from_numpy(rng.random(f) < 0.7).cuda()]
+
+
+def _cpu(xs):
+    return [None if x is None else x.cpu() for x in xs]
+
+
+def _assert_bitwise(out, exp):
+    assert len(out) == len(exp)
+    for x, y in zip(out, exp):
+        assert x.is_cuda
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", [0, 2])
+@pytest.mark.parametrize("f,s,e", WF_SHAPES)
+def test_cuda_waterfill_matches_plain_and_repeats(f, s, e, pad):
+    """Bitwise the plain version on CPU copies of the same inputs (the
+    kernel sums each link in its flat (flow, slot) order) and from launch
+    to launch; ``pad`` > 0 hands the kernel a strided (F, S) view of an
+    (F, S + pad) record, as the scan does with its packed path record."""
+    _need_card()
+    *args, act = _wf_inputs(f, s, e, f + e, pad)
     for fair_iters in (0, 1, 2):
         before = LAUNCHES["waterfill"]
         k1 = waterfill_step(*args, active=act, fair_iters=fair_iters,
@@ -136,14 +162,88 @@ def test_cuda_waterfill_matches_plain_and_repeats(f, s, e, pad):
         k2 = waterfill_step(*args, active=act, fair_iters=fair_iters,
                             want_util=True)
         assert LAUNCHES["waterfill"] == before + 2
-        r = ref.waterfill_ref(*args, active=act, fair_iters=fair_iters,
-                              want_util=True)
+        r = ref.waterfill_ref(*_cpu(args), active=act.cpu(),
+                              fair_iters=fair_iters, want_util=True)
         for x, y in zip(k1, k2):
             assert torch.equal(x, y)
-        assert torch.equal(k1[1], r[1])
-        for x, y in ((k1[0], r[0]), (k1[2], r[2])):
-            np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
-                                       rtol=1e-5, atol=1e-7)
+        _assert_bitwise(k1, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,s,e", WF_SHAPES[1::2])
+def test_cuda_waterfill_accumulator_is_one_rounding(f, s, e):
+    """``acc`` comes back as acc + d * s rounded once (one fmaf; acc + d
+    at fair_iters 0), bitwise the plain version's emulation, and the
+    input accumulator is left as it was."""
+    _need_card()
+    *args, act = _wf_inputs(f, s, e, 3 * f + e)
+    acc = torch.from_numpy(np.random.default_rng(f).random(f).astype(
+        np.float32) * 50).cuda()
+    kept = acc.clone()
+    for fair_iters in (0, 1, 2):
+        for want_util in (False, True):
+            out = waterfill_step(*args, active=act, fair_iters=fair_iters,
+                                 want_util=want_util, acc=acc)
+            exp = ref.waterfill_ref(*_cpu(args), active=act.cpu(),
+                                    fair_iters=fair_iters,
+                                    want_util=want_util, acc=acc.cpu())
+            assert len(out) == 4 if want_util else 3
+            _assert_bitwise(out, exp)
+    assert torch.equal(acc, kept)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [7.5, 300.0])
+def test_cuda_waterfill_values_outside_unit_range(scale):
+    """Weights, demands and capacities outside [0, 1] (and many flows
+    on one link): f32 sums in the plain version's order, bitwise."""
+    _need_card()
+    *args, act = _wf_inputs(4000, 6, 9001, int(scale), scale=scale)
+    acc = torch.zeros(4000, device="cuda")
+    for fair_iters in (0, 2):
+        out = waterfill_step(*args, active=act, fair_iters=fair_iters,
+                             want_util=True, acc=acc)
+        exp = ref.waterfill_ref(*_cpu(args), active=act.cpu(),
+                                fair_iters=fair_iters, want_util=True,
+                                acc=acc.cpu())
+        _assert_bitwise(out, exp)
+        assert float(out[0].max()) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers", [1, 3, 32])
+def test_cuda_waterfill_scan_style_call_with_plan(n_layers):
+    """As the scan calls it: the rows of a strided view of an (L, F, S + 2)
+    record gathered by each flow's layer, with the plan of the whole
+    stack built once.  Bitwise the plain version on the gathered edges,
+    one launch a call (the plan's own launches are not counted)."""
+    _need_card()
+    f, s, e = 3000, 7, 2001
+    rng = np.random.default_rng(n_layers)
+    stack = rng.integers(0, e - 1, (n_layers, f, s + 2)).astype(np.int32)
+    stack[rng.random(stack.shape) < 0.2] = -1
+    stack[rng.random(stack.shape) < 0.05] = e - 1
+    stack[:, :, s - 1] = stack[0, :, s - 1]        # a NIC-like shared slot
+    stack = torch.from_numpy(stack).cuda()
+    plan = link_plan(stack[:, :, :s], e)
+    w = torch.ones(f, device="cuda")
+    cap = torch.ones(e, device="cuda")
+    acc = torch.zeros(f, device="cuda")
+    frows = torch.arange(f, device="cuda")
+    for step in range(4):
+        layer = torch.from_numpy(rng.integers(0, n_layers, f).astype(
+            np.int32)).cuda()
+        send = torch.from_numpy(rng.random(f) < 0.8).cuda()
+        edges = stack[layer, frows][:, :s]
+        desired = torch.from_numpy(rng.random(f).astype(np.float32)).cuda()
+        before = LAUNCHES["waterfill"]
+        out = waterfill_step(edges, w, desired, cap, active=send, acc=acc,
+                             plan=plan, layer=layer)
+        assert LAUNCHES["waterfill"] == before + 1
+        exp = ref.waterfill_ref(*_cpu([edges, w, desired, cap]),
+                                active=send.cpu(), acc=acc.cpu())
+        _assert_bitwise(out, exp)
+        acc = out[2]
 
 
 SPARSE_SHAPES = [(1, 1, 1, 128), (100, 130, 70, 32), (97, 300, 65, 128),
@@ -356,6 +456,25 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     v = torch.ones(4, device="cuda")
     with pytest.raises(TypeError, match="int32"):
         waterfill_step(edges, v, v, torch.ones(5, device="cuda"))
+    # No F*S limit (it was 2^23 for the fixed-point sums): f32 sums in
+    # the plain version's order at any size.
+    rng = np.random.default_rng(0)
+    big = torch.from_numpy(rng.integers(0, 2 ** 17, (2 ** 20, 8)).astype(
+        np.int32)).cuda()
+    ones = torch.ones(2 ** 20, device="cuda")
+    cap = torch.ones(2 ** 17 + 1, device="cuda")
+    _assert_bitwise(waterfill_step(big, ones, ones, cap),
+                    ref.waterfill_ref(*_cpu([big, ones, ones, cap]),
+                                      active=torch.ones(2 ** 20,
+                                                        dtype=torch.bool)))
+    with pytest.raises(ValueError, match="layer"):
+        waterfill_step(big[:4].contiguous(), v, v,
+                       torch.ones(5, device="cuda"),
+                       layer=torch.zeros(4, dtype=torch.int32,
+                                         device="cuda"))
+    with pytest.raises(ValueError, match="plan is for 8 flows"):
+        waterfill_step(big[:4].contiguous(), v, v, cap,
+                       plan=link_plan(big[:8], cap.shape[0]))
     with pytest.raises(TypeError, match="bool operands"):
         sparse_semiring_matmul(a, a, "bool")
     q = torch.zeros((1, 2, 4, 300), device="cuda")

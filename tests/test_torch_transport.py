@@ -65,6 +65,10 @@ def test_scan_bitwise_on_reference_tables(cell, transport_name, balancing):
     ref, out, *_ = _both(cell, transport_name, balancing)
     for k in LANES:
         np.testing.assert_array_equal(np.asarray(ref[k]), out[k], err_msg=k)
+    # sent_acc to the bit: the reference's update is one FMA (XLA
+    # contracts sent_acc + d * s), and so is the port's.
+    np.testing.assert_array_equal(np.asarray(ref["sent_acc"]).view(np.int32),
+                                  out["sent_acc"].view(np.int32))
     assert int(ref["horizon_chunks"]) == out["horizon_chunks"]
     size = np.asarray(cell[1].size, np.float32)
     res_j = j_transport._to_result(size, ref, j_transport.SimConfig())
@@ -72,6 +76,17 @@ def test_scan_bitwise_on_reference_tables(cell, transport_name, balancing):
     np.testing.assert_array_equal(res_j.finished, res_t.finished)
     np.testing.assert_array_equal(res_j.fct, res_t.fct)
     assert res_j.link_util_mean == res_t.link_util_mean
+
+
+@pytest.mark.parametrize("fair_iters", [0, 1, 3])
+def test_scan_sent_acc_bitwise_for_any_fair_iters(cell, fair_iters):
+    """The accumulator is rounded once at every refinement depth (plain
+    f32 add at 0 rounds, one FMA after the last round otherwise)."""
+    ref, out, *_ = _both(cell, "tcp", "fatpaths", fair_iters=fair_iters)
+    for k in LANES:
+        np.testing.assert_array_equal(np.asarray(ref[k]), out[k], err_msg=k)
+    np.testing.assert_array_equal(np.asarray(ref["sent_acc"]).view(np.int32),
+                                  out["sent_acc"].view(np.int32))
 
 
 @pytest.mark.parametrize("balancing", ["ecmp", "fatpaths"])
