@@ -70,14 +70,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``torch.profiler`` device time, the link plan's entries and longest
    segment), and the same cells with 256 MiB flows, where all 2000 steps
    run;
-6. one ``{"kernels": [...]}`` line: launches on the main path (for the
-   block-sparse, GF(p) and attention kernels, on their own phase's path),
+6. the pi_min layer scheme: sf(q=19) x
+   fatpaths(n_layers=9,rho=0.6,scheme=pi_min) x permutation x
+   transport(steps=2000,transport=ndp) in a new session on the card
+   (launch counts 0 before, read after) and on the CPU port: the stacks'
+   ``layer_adj``, ``nh``, ``reach`` and ``pathlen`` bitwise, ``depart_step``
+   and metrics equal, the card's stack loop-free on every entry; the
+   build's boolean products recorded, held bitwise against the plain
+   version and timed (``per_semiring.bool.pi_min_build``) beside the
+   main sweep's;
+7. dynamic traffic at sf(q=19) x fatpaths(n_layers=9,rho=0.6): load over
+   a 96-step window, incast under the outcast evaluator and anycast to
+   the closest replica, each on the card (counts 0 before, read after)
+   and on the CPU port, ``depart_step`` and metrics equal; then the full
+   ``load(level=0.5)`` (256-step window, 630 493 flows) on the card only:
+   no flow departs before its activation step, metrics finite, and its
+   scan profiled over the whole run (µs per step, device time, idle
+   share, the water-filling kernel's device time per call, the link
+   plan's entries and longest segment, peak device memory);
+8. one ``{"kernels": [...]}`` line: launches on the main path (for the
+   block-sparse, GF(p) and attention kernels, on their own phase's path;
+   each path's own counts in ``path_launches``),
    error against the plain version (0 for the water-filling kernel, which
    phase 3 holds bitwise), kernel / plain / bound / library
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-7. the last line: ``{"ok": true, "device": {...}}``.
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -121,6 +140,21 @@ MAIN_EVAL = "transport(steps=2000,transport=ndp)"
 # 256 MiB per flow: more than 2000 steps at line rate (125 kB a step).
 LONG_PATTERN = "permutation(flow_size=268435456)"
 KSP_ROUTING = "fatpaths(n_layers=9,rho=0.6,scheme=ksp)"
+PIMIN_ROUTING = "fatpaths(n_layers=9,rho=0.6,scheme=pi_min)"
+DYN_ROUTING = "fatpaths(n_layers=9,rho=0.6)"
+# Dynamic cells held card vs CPU port: load over a 96-step window
+# (236 435 flows, so that its CPU-port run takes about a minute on the
+# card's host: 64 steps took 28 s there, 128 steps 91 s), incast waves
+# under the outcast evaluator, anycast to the closest replica.
+# Each with the steps its scan is profiled over: the whole run (None), or
+# anycast's first 320, since its four replicas' links keep it busy for
+# all 2000 steps.
+DYN_CELLS = (("load(level=0.5,window=96)", MAIN_EVAL, None),
+             ("incast", "outcast(steps=2000,transport=ndp)", None),
+             ("anycast(policy=closest)", MAIN_EVAL, 320))
+# The paper-scale load cell, card only: the default 256-step window,
+# 630 493 flows.
+FULL_LOAD = "load(level=0.5)"
 GF_TOPO_Q = 11          # sf(q=11): 242 routers, 4114 directed links
 GF_P = 1009
 GF_LEN = 4
@@ -496,6 +530,13 @@ def _wf_check(ref, waterfill_step, args, kw, what):
     return err
 
 
+def _wf_bound_s(f, s, e):
+    """Least time of one water-filling step in s: edges (F, S), w,
+    desired, active, acc and cap read; sent, share and acc written."""
+    nbytes = f * s * 4 + f * (4 + 4 + 1 + 4) + e * 4 + f * 4 * 3
+    return nbytes / HBM_BYTES_PER_S
+
+
 def phase_waterfill(ref, waterfill, main_calls):
     waterfill_step = waterfill.waterfill_step
     shapes = [(1, 5, 33, 1.0), (7, 3, 19, 1.0), (130, 9, 513, 1.0),
@@ -542,12 +583,7 @@ def phase_waterfill(ref, waterfill, main_calls):
           flush=True)
 
     def wf_bound(edges, w, desired, cap):
-        # edges, w, desired, active, acc and cap read; sent, share and
-        # acc written.
-        f, s = edges.shape
-        nbytes = f * s * 4 + f * (4 + 4 + 1 + 4) + cap.shape[0] * 4 \
-            + f * 4 * 3
-        return nbytes / HBM_BYTES_PER_S, 0.0
+        return _wf_bound_s(*edges.shape, cap.shape[0]), 0.0
 
     def kernel(args, kw):
         return waterfill_step(*args, **kw)
@@ -1192,8 +1228,10 @@ def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
                   profile_steps):
     """The scan of one cell alone, again: host wall around a synchronize,
     steps run and µs per step; then ``torch.profiler`` over the first
-    ``profile_steps`` steps with the adaptive horizon off (device time,
-    idle share and device events per step)."""
+    ``profile_steps`` steps with the adaptive horizon off, or with
+    ``profile_steps=None`` over the same run again (device time, idle
+    share, device events per step, and the water-filling kernel's device
+    time per call)."""
     cell = ses.resolve(ses.grid([MAIN_TOPO], [routing], [pattern])[0])
     cfg = transport.SimConfig(balancing=cell.bundle.balancing,
                               n_steps=n_steps, transport="ndp")
@@ -1207,11 +1245,15 @@ def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
     scan_s = time.perf_counter() - t1
     steps = int(final["horizon_chunks"]) * cfg.horizon_chunk \
         + cfg.n_steps % cfg.horizon_chunk
-    pcfg = dataclasses.replace(cfg, n_steps=profile_steps,
-                               adaptive_horizon=False)
-    pstatic = (static[0], static[1], profile_steps)
+    if profile_steps is None:
+        profile_steps, pcfg, pstatic = steps, cfg, static
+    else:
+        pcfg = dataclasses.replace(cfg, n_steps=profile_steps,
+                                   adaptive_horizon=False)
+        pstatic = (static[0], static[1], profile_steps)
     device_ms, n_dev, top = _profile(
-        lambda: transport._run_scan(arrs, key, pcfg, pstatic))
+        lambda: transport._run_scan(arrs, key, pcfg, pstatic), top_n=10 ** 6)
+    wf = [(ms, n) for name, ms, n in top if "waterfill" in name]
     # Idle share against the unprofiled wall of as many steps: the
     # profiler's own host cost would inflate a profiled wall.
     window_s = scan_s / steps * profile_steps
@@ -1219,7 +1261,11 @@ def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
                 profile_steps=profile_steps, scan_device_ms=device_ms,
                 scan_idle_share=1.0 - device_ms / 1e3 / window_s,
                 scan_device_events_per_step=n_dev / profile_steps,
-                scan_top_kernels_ms=top, e_tot=static[0],
+                scan_top_kernels_ms=top[:6],
+                waterfill_calls=sum(n for _, n in wf),
+                waterfill_ms_per_call=(sum(ms for ms, _ in wf)
+                                       / max(1, sum(n for _, n in wf))),
+                e_tot=static[0],
                 hop_slots=arrs["path_edges"].shape[2],
                 plan_entries=arrs["plan_entries"].numel(),
                 plan_max_segment=int((arrs["plan_offsets"][1:]
@@ -1316,6 +1362,159 @@ def phase_main(Session, transport, catalog, prng, LAUNCHES, reset_launches):
     return launches, cells
 
 
+def _same_metrics(a, b):
+    """``a == b`` for metric dicts, NaN equal to NaN."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
+def _card_and_cpu(Session, catalog, routing, pattern, evaluator, LAUNCHES,
+                  reset_launches, card_ctx=contextlib.nullcontext):
+    """One sf(q=19) cell in a new session on the card, with the launch
+    counts set to 0 just before and read just after, then on the CPU
+    port: its metrics (``==``) and every simulation's ``depart_step``
+    must be equal.  ``card_ctx()`` is entered around the card's run only.
+    Returns (card session, CPU-port session, card
+    RunResult, card SimResults, launches, CPU-port wall s)."""
+    card, cpu = [], []
+    ses = Session(device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    with _patched(catalog, "simulate_seeds", _sims_recorder(card)), \
+            card_ctx():
+        rr = ses.run(MAIN_TOPO, routing, pattern, evaluator)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _need_launches(launches, ("semiring", "waterfill"), rr.cell_id)
+    t0 = time.perf_counter()
+    ses_cpu = Session(device="cpu")
+    with _patched(catalog, "simulate_seeds", _sims_recorder(cpu)):
+        rc = ses_cpu.run(MAIN_TOPO, routing, pattern, evaluator)
+    cpu_s = time.perf_counter() - t0
+    if not _same_metrics(rr.metrics, rc.metrics) or rr.meta.get(
+            "offered_gbs") != rc.meta.get("offered_gbs"):
+        raise AssertionError(f"{rr.cell_id}: metrics differ card vs CPU: "
+                             f"{rr.metrics} vs {rc.metrics}")
+    for g, c in zip(card[0], cpu[0]):
+        if not np.array_equal(g.depart_step, c.depart_step):
+            raise AssertionError(f"{rr.cell_id}: depart_step differs card vs "
+                                 "CPU")
+    return ses, ses_cpu, rr, card[0], launches, cpu_s
+
+
+def phase_pimin(Session, catalog, paths, transport, prng, ref,
+                semiring_matmul, LAUNCHES, reset_launches, k2):
+    """6. The pi_min cell at sf(q=19) on the card and on the CPU port:
+    tables bitwise, ``depart_step`` and metrics equal; the card's stack
+    loop-free on every entry; K2 bool held against its plain version on
+    the build's own calls and timed there beside the main sweep's."""
+    calls = []
+    ses, ses_cpu, rr, _, launches, cpu_s = _card_and_cpu(
+        Session, catalog, PIMIN_ROUTING, MAIN_PATTERN, MAIN_EVAL, LAUNCHES,
+        reset_launches, lambda: _recording([paths], calls, "pi_min"))
+    if launches["semiring"] != len(calls) or \
+            {c[3] for c in calls} != {"bool"}:
+        raise AssertionError(f"the pi_min cell launched the semiring kernel "
+                             f"{launches['semiring']} times for "
+                             f"{len(calls)} recorded calls")
+    lr_g = ses.routing(MAIN_TOPO, PIMIN_ROUTING).routing
+    lr_c = ses_cpu.routing(MAIN_TOPO, PIMIN_ROUTING).routing
+    for name in ("layer_adj", "nh", "reach", "pathlen"):
+        if not torch.equal(getattr(lr_g, name).cpu(), getattr(lr_c, name)):
+            raise AssertionError(f"pi_min {name} differs card vs CPU")
+    report = lr_g.validate_loop_free(n_samples=10 ** 9)
+    mm = [(a, b, s) for _, a, b, s in calls]
+    max_err = max(_check_equal(semiring_matmul(*c),
+                               ref.semiring_matmul_ref(*c),
+                               f"semiring bool pi_min build call {i}")
+                  for i, c in enumerate(mm))
+    ms, wall = _replay_ms(semiring_matmul, mm, 20)
+    plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, mm, 5)
+    lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
+                                       for a, b, _ in mm], 20)
+    bound, by = _sum_bound([_mm_bound(*c) for c in mm])
+    k2["per_semiring"]["bool"]["pi_min_build"] = dict(
+        calls=len(mm), launches=launches["semiring"], ms=ms, wall_ms=wall,
+        plain_ms=plain_ms, bound_ms=bound / len(mm), bound_by=by,
+        library_ms=lib, max_abs_err=max_err,
+        shapes=sorted({(tuple(a.shape), tuple(b.shape)) for a, b, _ in mm}))
+    info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                build_s=rr.meta["build_s"], cell_wall_s=rr.wall_s,
+                cpu_port_wall_s=cpu_s, launches=launches,
+                loop_check=report.describe(),
+                **_scan_reading(ses, transport, prng, PIMIN_ROUTING,
+                                MAIN_PATTERN, 2000, 80))
+    print("# phase 6: pi_min tables (layer_adj, nh, reach, pathlen) bitwise, "
+          "depart_step and metrics equal card vs CPU port; "
+          + json.dumps(info), flush=True)
+    print("# phase 6: semiring bool on the pi_min build's calls: "
+          + json.dumps(k2["per_semiring"]["bool"]["pi_min_build"])
+          + "; on the main sweep's 7 calls "
+          f"{k2['per_semiring']['bool']['ms']:.5f} ms a call", flush=True)
+    return launches
+
+
+def phase_dynamic(Session, catalog, transport, prng, LAUNCHES,
+                  reset_launches, k1):
+    """7. Dynamic traffic at sf(q=19): the DYN_CELLS on the card and on
+    the CPU port (metrics and ``depart_step`` equal); then the full
+    ``load(level=0.5)`` cell on the card alone: no flow departs before it
+    arrives, finite metrics, and its scan's readings."""
+    path_launches = {}
+    for pattern, evaluator, profile_steps in DYN_CELLS:
+        ses, _, rr, _, launches, cpu_s = _card_and_cpu(
+            Session, catalog, DYN_ROUTING, pattern, evaluator, LAUNCHES,
+            reset_launches)
+        path_launches[rr.cell_id] = launches
+        info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                    n_flows=rr.meta["n_flows"],
+                    offered_gbs=rr.meta["offered_gbs"],
+                    build_s=rr.meta["build_s"], cell_wall_s=rr.wall_s,
+                    cpu_port_wall_s=cpu_s, launches=launches,
+                    **_scan_reading(ses, transport, prng, DYN_ROUTING,
+                                    pattern, 2000, profile_steps))
+        print("# phase 7: depart_step and metrics equal card vs CPU port; "
+              + json.dumps(info), flush=True)
+
+    sims = []
+    ses = Session(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _patched(catalog, "simulate_seeds", _sims_recorder(sims)):
+        rr = ses.run(MAIN_TOPO, DYN_ROUTING, FULL_LOAD, MAIN_EVAL)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _need_launches(launches, ("semiring", "waterfill"), rr.cell_id)
+    path_launches[rr.cell_id] = launches
+    sim = sims[0][0]
+    active_at = ses.workload(MAIN_TOPO, FULL_LOAD).active_step
+    dep = sim.depart_step
+    done = dep >= 0
+    if not (done.any() and (dep[done] >= active_at[done]).all()):
+        raise AssertionError(f"{rr.cell_id}: a flow departed before it "
+                             "arrived, or none departed")
+    if not all(math.isfinite(v) for v in rr.metrics.values()):
+        raise AssertionError(f"{rr.cell_id}: metrics {rr.metrics}")
+    reading = _scan_reading(ses, transport, prng, DYN_ROUTING, FULL_LOAD,
+                            2000, None)
+    info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                n_flows=rr.meta["n_flows"], offered_gbs=rr.meta["offered_gbs"],
+                build_s=rr.meta["build_s"], cell_wall_s=rr.wall_s,
+                launches=launches, peak_device_mib=peak / 2 ** 20, **reading)
+    print("# phase 7 (card only): every finished flow departs at or after "
+          "its activation step, metrics finite; " + json.dumps(info),
+          flush=True)
+    k1["per_path"] = {"full load cell": dict(
+        calls=reading["waterfill_calls"], ms=reading["waterfill_ms_per_call"],
+        bound_ms=_wf_bound_s(rr.meta["n_flows"], reading["hop_slots"],
+                             reading["e_tot"]) * 1e3, bound_by="bytes",
+        n_flows=rr.meta["n_flows"], plan_entries=reading["plan_entries"],
+        plan_max_segment=reading["plan_max_segment"])}
+    return path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1331,6 +1530,7 @@ def main() -> int:
     from repro_torch.kernels.gfmm import gf_plan
     from repro_torch.kernels.sparse import _occupancy
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, count = phase_card()
@@ -1361,6 +1561,22 @@ def main() -> int:
     k2["launches"] = launches["semiring"]
     k2["per_semiring"]["bool"]["launches"] = launches["semiring"]
     k1["launches"] = launches["waterfill"]
+    t6 = time.perf_counter()
+    pimin = phase_pimin(Session, catalog, paths, transport, prng, ref,
+                        semiring_matmul, LAUNCHES, reset_launches, k2)
+    t7 = time.perf_counter()
+    dyn = phase_dynamic(Session, catalog, transport, prng, LAUNCHES,
+                        reset_launches, k1)
+    t8 = time.perf_counter()
+    print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, script "
+          f"up to here {t8 - t_start:.1f}", flush=True)
+    k2["path_launches"].update(
+        {"pi_min cell": pimin["semiring"],
+         **{cell: n["semiring"] for cell, n in dyn.items()}})
+    k1["path_launches"] = {"main sweep": launches["waterfill"],
+                           "pi_min cell": pimin["waterfill"],
+                           **{cell: n["waterfill"]
+                              for cell, n in dyn.items()}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST

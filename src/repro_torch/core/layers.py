@@ -6,9 +6,12 @@ layers 1..n-1 are rho-sparsified and oriented into DAGs by random vertex
 permutations (Listing 1), so their "shortest paths" are non-minimal paths
 of the full network — the "fat" path diversity.
 
-Construction schemes (§5.3) ported here:
+Construction schemes (§5.3):
   * ``rand``    — Listing 1 verbatim: keep directed edge (u, v) with
                   pi(u) < pi(v) and probability rho.
+  * ``pi_min``  — overlap-minimising variant (§5.3.2): edge inclusion
+                  probability is biased against edges already heavily
+                  used by the shortest paths of earlier layers.
   * ``undir``   — ablation: sparsify without DAG orientation.
   * ``spain``   — SPAIN adaptation: each layer is a BFS spanning tree from a
                   random root.
@@ -18,12 +21,13 @@ Construction schemes (§5.3) ported here:
                   routes on randomly perturbed link weights, by (min, +)
                   all-pairs distances.
 
-The first four sample the layer adjacencies on the host with numpy (the
-JAX package's exact draws); every layer's APSP and forwarding tables then
-come out of one batched device pass (:mod:`repro_torch.core.paths`).
-``ksp`` draws its weights on the device from the threefry stream.
-``pi_min`` samples on the device from earlier layers' tables and is not
-ported yet (ROADMAP A4).
+``rand``, ``undir``, ``spain`` and ``past`` sample the layer adjacencies
+on the host with numpy (the JAX package's exact draws); every layer's
+APSP and forwarding tables then come out of one batched device pass
+(:mod:`repro_torch.core.paths`).  ``ksp`` draws its weights on the device
+from the threefry stream.  ``pi_min`` samples each layer on the device
+from the edge usage of the layers built before it, so its layers are
+built one after another.
 
 Forwarding is destination-based: ``nh[i, s, t]`` = next hop at router s for
 a packet tagged layer i, destination t; unreachable entries are -1.  The
@@ -34,19 +38,50 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import prng, resolve_device
+from ..kernels.ref import fused_add_mul
 from . import paths as paths_mod
 from .topology import Topology
 
-__all__ = ["LayeredRouting", "build_layers"]
+__all__ = ["LayeredRouting", "LoopCheckReport", "build_layers",
+           "layer_disjoint_paths", "layer_disjoint_paths_batch"]
 
 _UNREACH = 10_000
-_NOT_PORTED = {"pi_min": "A4"}
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopCheckReport:
+    """Outcome of :meth:`LayeredRouting.validate_loop_free`.
+
+    Truthy iff every checked entry delivered.  ``witnesses`` holds the
+    offending ``(layer, src, dst)`` triples (capped), each tagged in
+    ``kinds`` as ``"hole"`` (walk fell off the table) or ``"loop"``
+    (walk never reached dst within the hop budget).
+    """
+
+    ok: bool
+    n_checked: int
+    exhaustive: bool
+    witnesses: Tuple[Tuple[int, int, int], ...] = ()
+    kinds: Tuple[str, ...] = ()
+
+    def __bool__(self) -> bool:
+        return self.ok
+
+    def describe(self) -> str:
+        if self.ok:
+            mode = "exhaustive" if self.exhaustive else "sampled"
+            return f"loop-free ({self.n_checked} entries, {mode})"
+        shown = ", ".join(f"{k}@(l={li},s={s},t={t})" for (li, s, t), k
+                          in zip(self.witnesses, self.kinds))
+        return (f"{len(self.witnesses)} bad forwarding entr"
+                f"{'y' if len(self.witnesses) == 1 else 'ies'} "
+                f"of {self.n_checked} checked: {shown}")
 
 
 @dataclasses.dataclass
@@ -76,6 +111,53 @@ class LayeredRouting:
 
     def usable_layers(self, s: int, t: int) -> np.ndarray:
         return np.nonzero(self.reach[:, s, t].cpu().numpy())[0]
+
+    def validate_loop_free(self, n_samples: int = 200, seed: int = 0,
+                           max_hops: int = 64, raise_on_fail: bool = True,
+                           max_witnesses: int = 16) -> LoopCheckReport:
+        """Walk the tables for (layer, s, t) entries; every reachable
+        entry must hit t within max_hops (shortest-path forwarding =>
+        loop-free).  The samples are drawn on the host as the JAX package
+        draws them and walk in one batched walk on the tables' device.
+
+        When ``n_samples`` covers the whole ``L * N * (N - 1)`` entry
+        space every entry is checked instead of sampling with
+        replacement.  Returns a :class:`LoopCheckReport` naming the
+        offending ``(layer, src, dst)`` witnesses (capped at
+        ``max_witnesses``); with ``raise_on_fail`` (the default) a bad
+        table raises ``AssertionError`` carrying the same witnesses."""
+        L, N, _ = self.nh.shape
+        total = L * N * (N - 1)
+        exhaustive = n_samples >= total
+        if exhaustive:
+            li, s, t = np.nonzero(~np.eye(N, dtype=bool)[None]
+                                  & np.ones((L, N, N), dtype=bool))
+        else:
+            rng = np.random.default_rng(seed)
+            li = rng.integers(L, size=n_samples)
+            s = rng.integers(N, size=n_samples)
+            t = (s + 1 + rng.integers(N - 1, size=n_samples)) % N  # t != s
+        keep = self.reach.cpu().numpy()[li, s, t]
+        li, s, t = li[keep], s[keep], t[keep]
+        if len(li) == 0:
+            return LoopCheckReport(ok=True, n_checked=0,
+                                   exhaustive=exhaustive)
+        seqs = paths_mod.walk_paths_layers(self.nh, li, s, t, max_hops)
+        holes = (seqs < 0).any(axis=1)
+        stuck = ~holes & (seqs[:, -1] != t)
+        bad = holes | stuck
+        witnesses = []
+        kinds = []
+        for i in np.nonzero(bad)[0][:max_witnesses]:
+            witnesses.append((int(li[i]), int(s[i]), int(t[i])))
+            kinds.append("hole" if holes[i] else "loop")
+        report = LoopCheckReport(ok=not bad.any(), n_checked=int(len(li)),
+                                 exhaustive=exhaustive,
+                                 witnesses=tuple(witnesses),
+                                 kinds=tuple(kinds))
+        if raise_on_fail and not report.ok:
+            raise AssertionError(report.describe())
+        return report
 
 
 def _rand_layer(adj: np.ndarray, rho: float, rng: np.random.Generator,
@@ -119,6 +201,81 @@ def _bfs_tree(adj: np.ndarray, root: int, rng: np.random.Generator) -> np.ndarra
                     nxt.append(int(u))
         frontier = nxt
     return tree
+
+
+_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32 sum of a 1-D tensor in XLA:CPU's order, bitwise on any device.
+
+    XLA on the CPU rewrites a 1-D f32 reduce of more than 32 elements
+    into windows of 32 (zero padding split evenly, the odd element
+    after), each summed in order from +0.0, and repeats on the window
+    sums until at most 32 are left, which it sums in order.  Here every
+    level is one padded reshape and 32 elementwise adds, so the card and
+    the CPU round the same sums in the same order (``torch.sum`` does
+    not: each device has its own reduction tree)."""
+    x = x.to(torch.float32).reshape(-1)
+    while x.shape[0] > _WINDOW:
+        n = x.shape[0]
+        pad = -n % _WINDOW
+        rows = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)) \
+            .reshape(-1, _WINDOW)
+        x = torch.zeros(rows.shape[0], dtype=torch.float32, device=x.device)
+        for j in range(_WINDOW):
+            x = x + rows[:, j]
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(x.shape[0]):
+        acc = acc + x[j]
+    return acc
+
+
+def _pi_min_stack(adj: torch.Tensor, nbr: torch.Tensor, iu: torch.Tensor,
+                  ju: torch.Tensor, key: torch.Tensor, n_layers: int,
+                  rho: float, max_l: int):
+    """The §5.3.2 build: each layer a DAG whose edges are kept with a
+    probability that shrinks with their accumulated usage by the layers
+    before it (counting-semiring fixpoint), then its tables; the layers
+    are built one after another, as the JAX package's scan builds them.
+    Arithmetic follows its program: ``1 - 0.75 * norm`` is one fused
+    multiply-add (XLA contracts it) and the probabilities' normaliser is
+    :func:`xla_sum`."""
+    n = adj.shape[0]
+    e = iu.shape[0]
+    k0, krest = prng.split(key)
+    nh0, reach0, dist0 = paths_mod._layer_tables_core(adj[None], nbr, k0,
+                                                      max_l)
+    usage = paths_mod._edge_usage_core(nh0[0], reach0[0], max_l)
+    las, nhs, reaches, dists = [adj[None]], [nh0], [reach0], [dist0]
+    keys = prng.split(krest, n_layers - 1) if n_layers > 1 else []
+    scale = np.float32(rho) * np.float32(e)
+    one = torch.ones(e, dtype=torch.float32, device=adj.device)
+    for k in keys:
+        k_pi, k_keep, k_fw = prng.split(k, 3)
+        u_sym = usage + usage.T
+        mx = u_sym.max()
+        norm = torch.where(mx > 0, u_sym / torch.clamp_min(mx, 1e-30), 0.0)
+        pi = prng.permutation(k_pi, n)
+        # Edge keep-probability shrinks with historical usage but keeps
+        # expected density ~= rho.
+        raw = fused_add_mul(one, torch.full_like(one, -0.75), norm[iu, ju])
+        prob = raw * (float(scale) / torch.clamp_min(xla_sum(raw), 1e-9))
+        keep = prng.uniform(k_keep, (e,)) < torch.clamp(prob, 0.0, 1.0)
+        fwd = pi[iu] < pi[ju]
+        uu = torch.where(fwd, iu, ju)
+        vv = torch.where(fwd, ju, iu)
+        la = torch.zeros((n, n), dtype=torch.bool, device=adj.device)
+        la[uu, vv] = keep
+        nh, reach, dist = paths_mod._layer_tables_core(la[None], nbr, k_fw,
+                                                       max_l)
+        usage = usage + paths_mod._edge_usage_core(nh[0], reach[0], max_l)
+        las.append(la[None])
+        nhs.append(nh)
+        reaches.append(reach)
+        dists.append(dist)
+    return (torch.cat(las), torch.cat(nhs), torch.cat(reaches),
+            torch.cat(dists))
 
 
 def _ksp_stack(adj: torch.Tensor, nbr: torch.Tensor, key: torch.Tensor,
@@ -165,13 +322,11 @@ def build_layers(topo: Topology, n_layers: int, rho: float,
     """Construct the FatPaths layer stack (layer 0 = all links, minimal).
 
     Layer adjacencies are sampled on the host (``ksp``: every layer is the
-    whole graph, with weights drawn on the device); all L layers' tables
-    come out of one batched pass on ``device``.  ``build_stats`` records
-    the host (sampling) vs device (table construction) wall-time split."""
-    if scheme in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layer scheme {scheme!r} is not ported yet "
-            f"(ROADMAP {_NOT_PORTED[scheme]})")
+    whole graph, with weights drawn on the device; ``pi_min``: sampled on
+    the device, layer by layer); all L layers' tables come out of one
+    batched pass on ``device`` (``pi_min``: one pass a layer).
+    ``build_stats`` records the host (sampling) vs device (table
+    construction) wall-time split."""
     dev = resolve_device(device)
     adj = np.asarray(topo.adj, dtype=bool)
     n = adj.shape[0]
@@ -184,7 +339,14 @@ def build_layers(topo: Topology, n_layers: int, rho: float,
     nbr = torch.as_tensor(paths_mod.neighbor_table(adj), device=dev)
 
     t0 = time.perf_counter()
-    if scheme == "ksp":
+    if scheme == "pi_min":
+        iu, ju = np.nonzero(np.triu(adj, 1))
+        t_dev = time.perf_counter()
+        la, nh, reach, dist = _pi_min_stack(
+            torch.as_tensor(adj, device=dev), nbr,
+            torch.as_tensor(iu, device=dev), torch.as_tensor(ju, device=dev),
+            key, n_layers, float(rho), max_len)
+    elif scheme == "ksp":
         t_dev = time.perf_counter()
         la, nh, reach, dist = _ksp_stack(torch.as_tensor(adj, device=dev),
                                          nbr, key, n_layers, max_len)
@@ -217,3 +379,66 @@ def build_layers(topo: Topology, n_layers: int, rho: float,
         build_stats={"total_s": t2 - t0, "device_s": t1 - t_dev,
                      "host_s": t_dev - t0, "compress_s": t2 - t1},
     )
+
+
+def _greedy_disjoint(paths: np.ndarray, reach_lt: np.ndarray, t: int) -> int:
+    """Greedy edge-disjoint count over one (L, max_hops+1) path batch."""
+    kept_edges = set()
+    count = 0
+    for i in range(paths.shape[0]):
+        if not reach_lt[i]:
+            continue
+        path = paths[i]
+        edges = set()
+        ok = True
+        prev = int(path[0])
+        for v in path[1:]:
+            v = int(v)
+            if prev == t:
+                break
+            if v < 0:
+                ok = False
+                break
+            e = (min(prev, v), max(prev, v))
+            if e in kept_edges or e in edges:
+                ok = False
+                break
+            edges.add(e)
+            prev = v
+        if ok and prev == t and edges:
+            kept_edges |= edges
+            count += 1
+    return count
+
+
+def layer_disjoint_paths_batch(lr: LayeredRouting, s: np.ndarray,
+                               t: np.ndarray, max_hops: int = 16
+                               ) -> np.ndarray:
+    """:func:`layer_disjoint_paths` for many (s, t) pairs: every (pair,
+    layer) table walk happens in one batched walk on the tables' device;
+    only the greedy edge-disjointness filter runs per pair on the host."""
+    s = np.asarray(s, dtype=np.int32)
+    t = np.asarray(t, dtype=np.int32)
+    n_pairs = len(s)
+    L = lr.n_layers
+    li = np.tile(np.arange(L, dtype=np.int32), n_pairs)
+    walks = paths_mod.walk_paths_layers(lr.nh, li, np.repeat(s, L),
+                                        np.repeat(t, L), max_hops)
+    walks = walks.reshape(n_pairs, L, max_hops + 1)
+    reach = lr.reach.cpu().numpy()
+    out = np.zeros(n_pairs, dtype=np.int64)
+    for p in range(n_pairs):
+        out[p] = _greedy_disjoint(walks[p], reach[:, s[p], t[p]], int(t[p]))
+    return out
+
+
+def layer_disjoint_paths(lr: LayeredRouting, s: int, t: int,
+                         max_hops: int = 16) -> int:
+    """How many pairwise edge-disjoint (s->t) paths do the layers realise?
+
+    Greedy: walk each usable layer's path, keep it if it shares no
+    (undirected) edge with already-kept paths.  This is the quantity behind
+    the paper's "nine layers suffice for three disjoint paths" (Fig 12).
+    """
+    return int(layer_disjoint_paths_batch(lr, np.array([s]), np.array([t]),
+                                          max_hops)[0])

@@ -11,8 +11,9 @@ equal-cost next hop with one threefry uniform per table entry
 bit.
 
 The batched entry points (``apsp_batched``, ``forwarding_batched``,
-``layer_tables_batched``, ``minplus_apsp_batched``) work on an (L, N, N)
-stack of layer adjacencies on one device.  Each takes numpy arrays or tensors and a
+``layer_tables_batched``, ``minplus_apsp_batched``, ``edge_usage_batched``)
+work on an (L, N, N) stack of layer adjacencies on one device.  Each takes
+numpy arrays or tensors and a
 ``device`` (``"cuda"`` unless the caller asks for the CPU); tensors
 already on a device stay there when ``device=None``.
 
@@ -40,8 +41,15 @@ __all__ = [
     "forwarding_batched",
     "layer_tables_batched",
     "minplus_apsp_batched",
+    "edge_usage_batched",
+    "diameter",
+    "average_path_length",
     "path_counts_exact_length",
     "min_path_stats",
+    "next_hop_options",
+    "build_forwarding",
+    "walk_paths",
+    "walk_paths_layers",
     "neighbor_table",
     "path_engine",
     "to_device",
@@ -114,6 +122,32 @@ def _minplus_apsp_core(w: torch.Tensor, max_l: int) -> torch.Tensor:
     for _ in range(iters):
         d = semiring_matmul(d, d, "minplus")
     return d
+
+
+def _edge_usage_core(nh: torch.Tensor, reach: torch.Tensor,
+                     max_hops: int) -> torch.Tensor:
+    """Per-edge count of (s, t) pairs routed over each directed edge of
+    one (N, N) table: for a destination t the forwarding column is a
+    tree, and the sources crossing edge (u, nh[u, t]) number the subtree
+    size ``c[u, t] = r[u, t] + sum_{v : nh[v, t] = u} c[v, t]`` with
+    ``r = reach & off-diagonal``, reached after ``max_hops`` rounds.
+    Every sum is of integers below 2^24 in f32, so the scatter-adds are
+    exact in any order, on either device."""
+    n = nh.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=nh.device)
+    valid = (nh >= 0) & reach & ~eye
+    r = (reach & ~eye).to(torch.float32)
+    tgt = torch.clamp_min(nh, 0).long()
+    idx = torch.arange(n, device=nh.device)
+    tcols = idx[None, :].expand(n, n)
+    c = torch.zeros((n, n), dtype=torch.float32, device=nh.device)
+    for _ in range(max_hops):
+        contrib = torch.where(valid, c, 0.0)
+        c = r + torch.zeros_like(c).index_put_((tgt, tcols), contrib,
+                                               accumulate=True)
+    return torch.zeros_like(c).index_put_(
+        (idx[:, None].expand(n, n), tgt), torch.where(valid, c, 0.0),
+        accumulate=True)
 
 
 def neighbor_table(adj_union: np.ndarray) -> np.ndarray:
@@ -215,10 +249,33 @@ def minplus_apsp_batched(w, max_l: int, device=None) -> torch.Tensor:
     return _minplus_apsp_core(to_device(w, torch.float32, device), max_l)
 
 
+def edge_usage_batched(nh, reach, max_hops: int, device=None) -> torch.Tensor:
+    """Directed-edge usage counts for an (L, N, N) table stack (f32,
+    exact below 2**24)."""
+    nh_t = to_device(nh, torch.int32, device)
+    reach_t = to_device(reach, torch.bool, nh_t.device)
+    return torch.stack([_edge_usage_core(a, b, max_hops)
+                        for a, b in zip(nh_t, reach_t)])
+
+
 def shortest_path_lengths(adj, max_l: int = 64, device=None) -> torch.Tensor:
     """(N, N) int32 shortest path lengths via boolean adjacency powers;
     unreachable pairs get ``max_l + 1``, the diagonal is 0."""
     return _apsp_core(to_device(adj, torch.bool, device)[None], max_l)[0]
+
+
+def diameter(adj, max_l: int = 64, device=None) -> int:
+    """Longest finite shortest-path length."""
+    d = shortest_path_lengths(adj, max_l, device)
+    return int(d[d <= max_l].max())
+
+
+def average_path_length(adj, max_l: int = 64, device=None) -> float:
+    """Mean shortest-path length over ordered pairs s != t (unreachable
+    pairs count as ``max_l + 1``), summed in float64 on the host."""
+    d = shortest_path_lengths(adj, max_l, device).cpu().numpy()
+    off = ~np.eye(d.shape[0], dtype=bool)
+    return float(d.astype(np.float64)[off].mean())
 
 
 def path_counts_exact_length(adj, l: int, device=None) -> torch.Tensor:
@@ -256,3 +313,66 @@ def min_path_stats(adj, max_l: int = 8, engine: Optional[str] = None,
     dist, counts = _min_path_stats(to_device(adj, torch.float32, device),
                                    max_l)
     return dist.cpu().numpy(), counts.cpu().numpy().astype(np.float64)
+
+
+def next_hop_options(adj, dist=None, max_l: int = 64,
+                     device=None) -> np.ndarray:
+    """(N, N, N) bool: ``opt[s, t, u]`` — u is a valid shortest-path next
+    hop from s towards t (Appendix B.1.1's set-semiring tables as a
+    distance test: ``adj[s, u]`` and ``dist[u, t] == dist[s, t] - 1``).
+    O(N^3) memory; :func:`build_forwarding` keeps one choice per (s, t)."""
+    a = to_device(adj, torch.bool, device)
+    if dist is None:
+        d = shortest_path_lengths(a, max_l)
+    else:
+        d = to_device(dist, torch.int32, a.device)
+    out = a[:, None, :] & (d.T[None, :, :] == (d - 1)[:, :, None])
+    return out.cpu().numpy()
+
+
+def build_forwarding(adj, dist=None, seed: int = 0, max_l: int = 64,
+                     device=None) -> np.ndarray:
+    """Single-next-hop shortest-path table (§5.4): (N, N) int32
+    ``nh[s, t]``, a random choice among equal-cost next hops
+    (``nh[t, t] = t``, -1 where t is unreachable).  The L=1 case of
+    :func:`forwarding_batched`."""
+    a = to_device(adj, torch.bool, device)
+    if dist is None:
+        d = shortest_path_lengths(a, max_l)
+    else:
+        d = to_device(dist, torch.int32, a.device)
+    nh = forwarding_batched(a[None], d[None],
+                            prng.PRNGKey(seed, a.device))[0].cpu().numpy()
+    nh[~(d <= max_l).cpu().numpy()] = -1
+    np.fill_diagonal(nh, np.arange(a.shape[0]))
+    return nh
+
+
+def walk_paths(nh, s, t, max_hops: int, device=None) -> np.ndarray:
+    """Router sequences by iterating one (N, N) forwarding table from
+    ``s`` towards ``t`` (F,): (F, max_hops + 1) int32, repeating t once
+    reached, -1 from the first hole on."""
+    s = np.atleast_1d(np.asarray(s))
+    return walk_paths_layers(to_device(nh, torch.int32, device)[None],
+                             np.zeros(len(s), dtype=np.int32), s, t,
+                             max_hops)
+
+
+def walk_paths_layers(nh_stack, layer, s, t, max_hops: int,
+                      device=None) -> np.ndarray:
+    """Walk per-sample forwarding tables: sample i follows layer
+    ``layer[i]`` of the (L, N, N) stack, all samples in one batched walk
+    on the stack's device.  Returns (F, max_hops + 1) int32 router
+    sequences (semantics of :func:`walk_paths`)."""
+    nh = to_device(nh_stack, torch.int32, device)
+    dev = nh.device
+    layer = torch.as_tensor(np.asarray(layer, dtype=np.int64), device=dev)
+    t = torch.as_tensor(np.asarray(t, dtype=np.int64), device=dev)
+    cur = torch.as_tensor(np.asarray(s, dtype=np.int64), device=dev)
+    out = [cur]
+    for _ in range(max_hops):
+        nxt = nh[layer, torch.clamp_min(cur, 0), t].long()
+        dead = (nxt < 0) | (cur < 0)
+        cur = torch.where(dead, -1, torch.where(cur == t, t, nxt))
+        out.append(cur)
+    return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()

@@ -168,8 +168,8 @@ class FlowWorkload:
 
     ``active_step``/``is_ack`` are the open-loop dynamic-traffic lanes:
     when ``active_step`` is set, flow ``i`` only participates in the
-    transport scan from step ``active_step[i]`` on (the port's scan does
-    not take that lane yet, ROADMAP A7); ``None`` keeps the closed-loop
+    transport scan from step ``active_step[i]`` on (arrivals built by
+    :mod:`repro_torch.core.arrivals`); ``None`` keeps the closed-loop
     batch semantics (everyone active from step 0).  ``is_ack`` marks reverse
     ACK-path flows (see :func:`all_to_one` with ``acks=True``) so
     evaluators can separate data goodput from ACK traffic.

@@ -33,9 +33,16 @@ per chunk of the adaptive horizon, which stops once every flow is
 finished or provably stuck; skipped steps are exact no-ops, so early exit
 returns what the full horizon would.
 
-Static lanes only: dynamic traffic (``active_step``), mid-run link death,
-link churn, loss recovery and per-step recording raise
-``NotImplementedError`` until ported (ROADMAP A7, A8).
+Dynamic traffic: ``arrs["active_at"]`` is a per-flow activation step
+(from :attr:`FlowWorkload.active_step`, built by
+:mod:`repro_torch.core.arrivals`; zeros for a static workload).  A flow
+takes part once ``step >= active_at`` and ``start <= t``, so a workload
+whose activations are all zero gives the static result bitwise.  The
+adaptive horizon needs nothing more: a flow not yet active keeps
+``remaining > 0``.
+
+Mid-run link death, link churn, loss recovery and per-step recording
+raise ``NotImplementedError`` until ported (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -221,10 +228,7 @@ def shape_signature(topo: Topology, routing: LayeredRouting,
     return (len(wl.src), n_edges + 2 * n_ep + 1, int(routing.nh.shape[0]))
 
 
-def _check_static(routing: LayeredRouting, wl: FlowWorkload) -> None:
-    if getattr(wl, "active_step", None) is not None:
-        raise NotImplementedError("dynamic traffic (active_step) is not "
-                                  "ported yet (ROADMAP A7)")
+def _check_lanes_ported(routing: LayeredRouting) -> None:
     for lane in ("link_down_step", "link_churn"):
         if getattr(routing, lane, None) is not None:
             raise NotImplementedError(f"the {lane} lane is not ported yet "
@@ -240,7 +244,7 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
     the per-layer path-edge tensor, so the step body never re-derives
     flow paths, and its :func:`~repro_torch.kernels.waterfill.link_plan`
     — and the static triple ``(e_tot, n_layers, n_steps)``."""
-    _check_static(routing, wl)
+    _check_lanes_ported(routing)
     dev = resolve_device(device)
     eix, n_edges, n_ep = _virtual_links(topo, wl)
     # virtual links: [0, E) fabric, [E, E+n_ep) injection, [E+n_ep, ..) eject,
@@ -267,6 +271,12 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
          src_e[None, :, None].expand(n_layers, n_flows, 1),
          dst_e[None, :, None].expand(n_layers, n_flows, 1)], dim=2)
     usable = routing.reach.to(dev)[:, src_r, dst_r].T          # (F, L)
+    # Step before which a flow does not exist; zeros for a static workload.
+    if wl.active_step is None:
+        active_at = torch.zeros(n_flows, dtype=torch.int32, device=dev)
+    else:
+        active_at = torch.as_tensor(np.asarray(wl.active_step, np.int32),
+                                    device=dev)
     # Each link's path entries in (flow, slot) order, for the card's
     # water-filling kernel: built once per cell, never in a step.
     plan_offsets, plan_entries, _ = link_plan(path_edges, e_tot)
@@ -279,6 +289,7 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
         usable=usable,
         size=torch.as_tensor(wl.size, device=dev).to(torch.float32),
         start=torch.as_tensor(wl.start, device=dev).to(torch.float32),
+        active_at=active_at,                                     # (F,)
     )
     return arrs, (e_tot, int(n_layers), int(cfg.n_steps))
 
@@ -381,7 +392,7 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
 
     def step(st, i: int, u: Optional[torch.Tensor]):
         t = float(np.float32(i) * dt)
-        started = arrs["start"] <= t
+        started = (arrs["start"] <= t) & (i >= arrs["active_at"])
         done = st["remaining"] <= 0
         active = started & ~done
         g = packed[st["layer"], frows]                          # (F, H+4)

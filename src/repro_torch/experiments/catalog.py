@@ -9,17 +9,18 @@ traffic patterns, evaluators.
   :class:`RoutingCtx` whose ``stack`` memoizer keys expensive artifacts
   by ``(topo, scheme, seed)``, so ``ecmp``/``letflow`` share one table
   stack and a grid never rebuilds a layer stack.
-* ``TRAFFIC``    — the static §2.4 patterns plus ``collide`` (the Fig 5
-  microcase).
-* ``EVALUATORS`` — ``transport`` (the flow simulator).
+* ``TRAFFIC``    — the static §2.4 patterns, ``collide`` (the Fig 5
+  microcase), and the open-loop ``load``, ``incast`` and ``anycast``
+  streams (activation steps from :mod:`repro_torch.core.arrivals`).
+* ``EVALUATORS`` — ``transport`` (the flow simulator) and ``outcast``
+  (fairness under incast).
 
 Evaluators return ``(metrics, meta)``: plain-float metrics for the
 :class:`~repro_torch.experiments.results.RunResult` record, and
 bookkeeping meta.  Every builder gets the session's ``device``.
 
 The JAX package registers more: the ``failures``/``churn`` routing
-wrappers, the ``load``/``incast``/``anycast`` patterns and the
-``outcast``/``degradation``/``recovery``/``availability``/``mat``/
+wrappers and the ``degradation``/``recovery``/``availability``/``mat``/
 ``fabric`` evaluators.  :data:`NOT_PORTED` names the ROADMAP item each
 waits on.
 """
@@ -33,6 +34,8 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from .. import prng
+from ..core import arrivals
 from ..core import paths as paths_mod
 from ..core import routing as routing_mod
 from ..core import topology as topo_mod
@@ -54,9 +57,7 @@ EVALUATORS = Registry("evaluator")
 
 #: Axis entries of the JAX package not ported yet -> their ROADMAP item.
 NOT_PORTED = {
-    "failures": "A8", "churn": "A8",
-    "load": "A7", "incast": "A7", "anycast": "A7",
-    "outcast": "A7", "degradation": "A8", "recovery": "A8",
+    "failures": "A8", "churn": "A8", "degradation": "A8", "recovery": "A8",
     "availability": "A8", "mat": "A11", "fabric": "A11",
 }
 
@@ -285,6 +286,125 @@ def _collide(topo, seed, device, rounds, flow_size) -> FlowWorkload:
 
 
 # -----------------------------------------------------------------------------
+# Open-loop dynamic traffic: continuous arrivals, incast waves, anycast
+# placement.  Activation steps come from repro_torch.core.arrivals
+# (deterministic in (key, flow), prefix-stable).
+# -----------------------------------------------------------------------------
+@TRAFFIC.register("load", level=0.5, pattern="uniform",
+                  flow_size=float(256 << 10), window=256, process="poisson",
+                  shape=1.5, bound=64.0, dt=10e-6, line_rate=12.5e9,
+                  samples=32)
+def _load(topo, seed, device, level, pattern, flow_size, window, process,
+          shape, bound, dt, line_rate, samples) -> FlowWorkload:
+    """Open-loop stream offering ``level`` x bisection bandwidth over a
+    ``window``-step arrival window (endpoint pairs drawn from ``pattern``;
+    interarrivals from ``process`` = poisson | pareto)."""
+    level = float(level)
+    if not 0.0 < level:
+        raise SpecError(f"load level must be > 0 (got {level})")
+    bisect = arrivals.bisection_bandwidth(topo, line_rate=float(line_rate),
+                                          samples=int(samples),
+                                          seed=int(seed))
+    rate = level * bisect * float(dt) / float(flow_size)  # flows per step
+    n = max(1, int(round(rate * int(window))))
+    rounds = max(1, -(-n // max(1, topo.n_endpoints)))
+    base = make_workload(topo, str(pattern), flow_size=float(flow_size),
+                         n_rounds=rounds, randomize=True, seed=seed,
+                         device=device)
+    idx = np.arange(n) % base.n_flows
+    steps = arrivals.activation_steps(
+        prng.PRNGKey(int(seed), device), n, rate=rate, process=str(process),
+        shape=float(shape), bound=float(bound))
+    return FlowWorkload(
+        src=base.src[idx], dst=base.dst[idx], size=base.size[idx],
+        start=arrivals.activation_starts(steps, float(dt)),
+        src_router=base.src_router[idx], dst_router=base.dst_router[idx],
+        active_step=steps)
+
+
+@TRAFFIC.register("incast", fan_in=8, waves=4, wave_period=64,
+                  flow_size=float(256 << 10), acks=1, ack_frac=0.05,
+                  dt=10e-6)
+def _incast(topo, seed, device, fan_in, waves, wave_period, flow_size, acks,
+            ack_frac, dt) -> FlowWorkload:
+    """Synchronized incast waves: ``fan_in`` seeded senders fire at one
+    victim every ``wave_period`` steps; acks=1 adds the victim's reverse
+    ACK-path flows (the outcast evaluator's workload)."""
+    ep2r = endpoint_router_map(topo)
+    n = len(ep2r)
+    rng = np.random.default_rng(seed)
+    victim = int(rng.integers(n))
+    others = np.setdiff1d(np.arange(n), [victim])
+    fan_in = min(int(fan_in), len(others))
+    senders = np.concatenate([
+        np.random.default_rng(seed + 7 * w + 1).choice(
+            others, size=fan_in, replace=False)
+        for w in range(max(1, int(waves)))])
+    sched = arrivals.incast_schedule(len(senders), fan_in, int(wave_period))
+    src, dst, step = senders, np.full(len(senders), victim), sched
+    is_ack = np.zeros(len(senders), dtype=bool)
+    if acks:
+        src = np.concatenate([src, dst])
+        dst = np.concatenate([dst, senders])
+        step = np.concatenate([step, sched])
+        is_ack = np.concatenate([is_ack, np.ones(len(senders), dtype=bool)])
+    size = np.where(is_ack, float(flow_size) * float(ack_frac),
+                    float(flow_size))
+    step = step.astype(np.int32)
+    return FlowWorkload(
+        src=src.astype(np.int32), dst=dst.astype(np.int32),
+        size=size.astype(np.float64),
+        start=arrivals.activation_starts(step, float(dt)),
+        src_router=ep2r[src].astype(np.int32),
+        dst_router=ep2r[dst].astype(np.int32),
+        active_step=step, is_ack=is_ack)
+
+
+@TRAFFIC.register("anycast", replicas=4, policy="closest",
+                  flow_size=float(256 << 10), window=128, process="poisson",
+                  shape=1.5, bound=64.0, dt=10e-6)
+def _anycast(topo, seed, device, replicas, policy, flow_size, window,
+             process, shape, bound, dt) -> FlowWorkload:
+    """Anycast service placement: every client resolves to one of
+    ``replicas`` seeded replica endpoints by the router distance table
+    (boolean APSP on ``device``; policy = closest | farthest); window > 0
+    makes the request stream open-loop."""
+    ep2r = endpoint_router_map(topo)
+    n = len(ep2r)
+    if n < 2:
+        raise SpecError(f"anycast needs >= 2 endpoints on {topo.name}")
+    rng = np.random.default_rng(seed)
+    reps = np.sort(rng.choice(n, size=min(int(replicas), n - 1),
+                              replace=False))
+    clients = np.setdiff1d(np.arange(n), reps)
+    dist = paths_mod.shortest_path_lengths(
+        np.asarray(topo.adj, bool), max_l=16, device=device).cpu().numpy()
+    d = dist[ep2r[clients][:, None], ep2r[reps][None, :]]
+    if policy == "closest":
+        pick = np.argmin(d, axis=1)
+    elif policy == "farthest":
+        pick = np.argmax(d, axis=1)
+    else:
+        raise SpecError(f"unknown anycast policy {policy!r}; "
+                        "choose 'closest' or 'farthest'")
+    src, dst = clients, reps[pick]
+    f = len(src)
+    if int(window) > 0:
+        steps = arrivals.activation_steps(
+            prng.PRNGKey(int(seed), device), f, rate=f / float(int(window)),
+            process=str(process), shape=float(shape), bound=float(bound))
+    else:
+        steps = np.zeros(f, dtype=np.int32)
+    return FlowWorkload(
+        src=src.astype(np.int32), dst=dst.astype(np.int32),
+        size=np.full(f, float(flow_size)),
+        start=arrivals.activation_starts(steps, float(dt)),
+        src_router=ep2r[src].astype(np.int32),
+        dst_router=ep2r[dst].astype(np.int32),
+        active_step=steps)
+
+
+# -----------------------------------------------------------------------------
 # Evaluators.  Signature: (session, cell, **kw) -> (metrics, meta).
 # -----------------------------------------------------------------------------
 def _fct_metrics(sims) -> Dict[str, float]:
@@ -329,9 +449,15 @@ def transport_plan(cell, steps, transport, seeds, dt, flowlet_gap,
 
 
 def transport_meta(cell, cfg, sim_seeds) -> Dict[str, Any]:
-    """RunResult meta for a transport-family cell."""
-    return {"n_seeds": len(sim_seeds), "transport": cfg.transport,
+    """RunResult meta for a transport-family cell; a dynamic (open-loop)
+    workload also records its offered byte rate (host float64)."""
+    meta = {"n_seeds": len(sim_seeds), "transport": cfg.transport,
             "balancing": cell.bundle.balancing}
+    wl = cell.workload
+    if wl.active_step is not None:
+        meta["offered_gbs"] = arrivals.offered_gbs(wl.size, wl.active_step,
+                                                   cfg.dt)
+    return meta
 
 
 @EVALUATORS.register("transport", steps=2000, transport="ndp", seeds=1,
@@ -349,6 +475,42 @@ def _transport(session, cell, steps, transport, seeds, dt, flowlet_gap,
     sims = simulate_seeds(cell.topo, cell.bundle.routing, cell.workload,
                           cfg, sim_seeds, device=session.device)
     return _fct_metrics(sims), transport_meta(cell, cfg, sim_seeds)
+
+
+@EVALUATORS.register("outcast", steps=2000, transport="ndp", seeds=1,
+                     dt=10e-6, flowlet_gap=50e-6, adaptive=1, chunk=64)
+def _outcast(session, cell, steps, transport, seeds, dt, flowlet_gap,
+             adaptive, chunk) -> Tuple[Dict[str, float], Dict[str, Any]]:
+    """Outcast fairness under incast: the standard FCT metrics plus the
+    Jain fairness index over per-victim-flow goodput and the p99/p50 FCT
+    tail ratio, measured over the data flows into the modal destination
+    (ACK-path flows excluded)."""
+    cfg, sim_seeds = transport_plan(cell, steps, transport, seeds, dt,
+                                    flowlet_gap, adaptive, chunk)
+    sims = simulate_seeds(cell.topo, cell.bundle.routing, cell.workload,
+                          cfg, sim_seeds, device=session.device)
+    wl = cell.workload
+    dsts, counts = np.unique(wl.dst, return_counts=True)
+    victim = int(dsts[np.argmax(counts)])
+    data = wl.dst == victim
+    if wl.is_ack is not None:
+        data &= ~wl.is_ack
+    horizon_s = cfg.n_steps * cfg.dt
+    goodput, fcts = [], []
+    for r in sims:
+        elapsed = np.where(r.finished, np.maximum(r.fct, cfg.dt),
+                           np.maximum(horizon_s - wl.start, cfg.dt))
+        goodput.append((r.delivered / elapsed)[data])
+        fcts.append(r.fct[data & r.finished])
+    g = np.concatenate(goodput)
+    fct = np.concatenate(fcts)
+    jain = float(g.sum() ** 2 / (len(g) * (g ** 2).sum())) \
+        if g.size and (g ** 2).sum() > 0 else float("nan")
+    tail = float(np.quantile(fct, 0.99) / max(np.quantile(fct, 0.50), 1e-12)) \
+        if fct.size else float("nan")
+    metrics = dict(_fct_metrics(sims), jain_goodput=jain,
+                   fct_p99_over_p50=tail, victim_flows=float(data.sum()))
+    return metrics, transport_meta(cell, cfg, sim_seeds)
 
 
 def table_meta(bundle: RoutingBundle) -> Dict[str, int]:

@@ -16,6 +16,7 @@ add and shift (torch's uint32 support is partial).
   takes a batch of keys (``vmap(fold_in)`` in the JAX package).
 * :func:`uniform` — float32 U[0, 1) of a given shape; a batch of keys
   gives one block per key (``vmap(uniform)``).
+* :func:`permutation` — ``jax.random.permutation`` of ``arange(n)``.
 
 In partitionable mode the counter of output element ``i`` is the 64-bit
 flat index ``i`` split into (high, low) words, so a draw depends on the
@@ -27,12 +28,13 @@ from __future__ import annotations
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 from . import resolve_device
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform",
-           "threefry2x32"]
+           "permutation", "threefry2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -116,3 +118,19 @@ def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     out = fbits.view(torch.float32) - 1.0
     return torch.clamp_min(out, 0.0)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` shuffled by
+    ``ceil(3 ln n / ln(2^32 - 1))`` rounds (one up to n = 1625, two up to
+    about 2.6 million), each splitting the key, drawing 32-bit sort keys
+    from the subkey and sorting by them stably.  int64, on the key's
+    device."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(float(_MASK))))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -24,6 +24,10 @@ CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6)", "permutation",
               "transport(steps=400,transport=tcp)"))
 CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6,scheme=ksp)", "permutation",
               "transport(steps=400)"))
+CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6,scheme=pi_min)",
+              "permutation", "transport(steps=400)"))
+CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6)", "load(window=32)",
+              "transport(steps=400)"))
 # XLA contracts the reference scan's sent_acc + d * s into one FMA; these
 # two cells differ at rtol 0 unless the port rounds it once too.
 CELLS += [(t, "fatpaths(n_layers=9,rho=0.6,scheme=spain)", "stencil",
@@ -68,8 +72,6 @@ def test_unported_axes_and_engines_raise(monkeypatch):
     for routing, item in (("failures", "A8"), ("churn", "A8")):
         with pytest.raises(NotImplementedError, match=item):
             ts.run("sf", routing, "uniform")
-    with pytest.raises(NotImplementedError, match="A7"):
-        ts.run("sf", "ecmp", "load")
     with pytest.raises(NotImplementedError, match="A11"):
         ts.run("sf", "ecmp", "uniform", "mat")
     with pytest.raises(NotImplementedError, match="A10"):

@@ -483,3 +483,66 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         flash_attention(q[..., :8].half(), q[..., :8].half(),
                         q[..., :8].half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_pi_min_tables_equal_cpu(seed):
+    """The pi_min stack built on the card (K2 bool in each layer's APSP)
+    is bitwise the one built on the CPU, and loop-free."""
+    from repro_torch.core import layers, topology
+    _need_card()
+    tt = topology.slim_fly(5)
+    before = LAUNCHES["semiring"]
+    gpu = layers.build_layers(tt, 9, 0.6, scheme="pi_min", seed=seed,
+                              device="cuda")
+    assert LAUNCHES["semiring"] > before
+    cpu = layers.build_layers(tt, 9, 0.6, scheme="pi_min", seed=seed,
+                              device="cpu")
+    for name in ("layer_adj", "nh", "reach", "pathlen"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    assert gpu.validate_loop_free(n_samples=10 ** 6).ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 32, 33, 1025, 10509, 630493])
+def test_cuda_xla_sum_equals_cpu(n):
+    from repro_torch.core.layers import xla_sum
+    _need_card()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.random(n) * 10.0 ** rng.integers(-3, 5, n))
+                         .astype(np.float32))
+    got = xla_sum(x.cuda())
+    assert got.device.type == "cuda"
+    assert got.cpu().numpy().tobytes() == xla_sum(x).numpy().tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern,evaluator", [
+    ("load(window=24)", "transport(steps=400)"),
+    ("incast", "outcast(steps=400)"),
+    ("anycast", "transport(steps=400,transport=tcp)")])
+def test_cuda_dynamic_cell_equals_cpu(pattern, evaluator):
+    """An open-loop sf(q=5) cell on the card: the same departures and
+    metrics as on the CPU."""
+    from repro_torch.experiments import Session, catalog
+    _need_card()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sims = []
+        real = catalog.simulate_seeds
+
+        def rec(*a, **kw):
+            sims.append(real(*a, **kw))
+            return sims[-1]
+        catalog.simulate_seeds = rec
+        try:
+            rr = Session(device=dev).run("sf", "fatpaths(n_layers=9,rho=0.6)",
+                                         pattern, evaluator)
+        finally:
+            catalog.simulate_seeds = real
+        runs[dev] = (rr, sims[0][0])
+    assert runs["cuda"][0].metrics == runs["cpu"][0].metrics
+    np.testing.assert_array_equal(runs["cuda"][1].depart_step,
+                                  runs["cpu"][1].depart_step)
+    assert (runs["cuda"][1].depart_step >= 0).any()

@@ -65,7 +65,8 @@ def test_layer_tables_batched(topo_pair, seed):
     np.testing.assert_array_equal(np.asarray(f_j), f_t.numpy())
 
 
-@pytest.mark.parametrize("scheme", ["rand", "undir", "spain", "past", "ksp"])
+@pytest.mark.parametrize("scheme", ["rand", "undir", "spain", "past", "ksp",
+                                    "pi_min"])
 def test_build_layers_bitwise(topo_pair, scheme):
     jt, tt = topo_pair
     a = j_layers.build_layers(jt, 5, 0.6, scheme=scheme, seed=3)
@@ -134,8 +135,6 @@ def test_min_path_stats_bitwise(topo_pair, max_l):
 
 def test_unported_engines_and_schemes_raise(monkeypatch):
     tt = topology.slim_fly(5)
-    with pytest.raises(NotImplementedError, match="A4"):
-        layers.build_layers(tt, 3, 0.6, scheme="pi_min", device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         paths.min_path_stats(tt.adj, engine="blocked", device="cpu")
     monkeypatch.setenv("REPRO_PATH_ENGINE", "blocked")

@@ -109,11 +109,6 @@ def test_unported_lanes_raise(cell):
         with pytest.raises(NotImplementedError, match="A8"):
             transport.simulate(t_topo, lr, t_wl, transport.SimConfig(**kw),
                                device="cpu")
-    dyn = dataclasses.replace(t_wl, active_step=np.zeros(t_wl.n_flows,
-                                                         np.int32))
-    with pytest.raises(NotImplementedError, match="A7"):
-        transport.simulate(t_topo, lr, dyn, transport.SimConfig(),
-                           device="cpu")
     dead = dataclasses.replace(lr, link_down_step=np.zeros((50, 50), np.int32))
     with pytest.raises(NotImplementedError, match="A8"):
         transport.simulate(t_topo, dead, t_wl, transport.SimConfig(),
