@@ -88,7 +88,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    scan profiled over the whole run (µs per step, device time, idle
    share, the water-filling kernel's device time per call, the link
    plan's entries and longest segment, peak device memory);
-8. one ``{"kernels": [...]}`` line: launches on the main path (for the
+8. faults at sf(q=19) x fatpaths(n_layers=9,rho=0.6), each cell on the
+   card (counts 0 before, read after) and on the CPU port, metrics and
+   meta equal and every simulation's ``depart_step``, ``delivered``,
+   ``retrans_bytes`` and per-step goodput and stalled curves bitwise:
+   static damage (``failures(rate=0.05)`` with bernoulli/repair,
+   switch/drop and blast/repair) x permutation x
+   transport(steps=2000,transport=ndp), the degraded tables bitwise, the
+   reports equal, the card's stack loop-free on every entry, K2 bool held
+   against its plain version on each repair build's products and timed;
+   a mid-run death at step 40 x permutation(256 MiB) x
+   recovery(steps=400,transport=dctcp) for fatpaths and for ecmp, the
+   fatpaths scan profiled and K1 held against its plain version on its
+   own calls (dead links, ``util``) and timed with and without ``util``;
+   ``churn(rate=0.1)`` x permutation(256 MiB) x availability(steps=400);
+   and the ``degradation`` ladder over permutation (7 scenarios);
+9. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse, GF(p) and attention kernels, on their own phase's path;
    each path's own counts in ``path_launches``),
    error against the plain version (0 for the water-filling kernel, which
@@ -96,7 +111,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-9. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -155,6 +170,21 @@ DYN_CELLS = (("load(level=0.5,window=96)", MAIN_EVAL, None),
 # The paper-scale load cell, card only: the default 256-step window,
 # 630 493 flows.
 FULL_LOAD = "load(level=0.5)"
+# Phase 8, faults on the fatpaths stack: static damage for three (pattern,
+# mode) pairs; a mid-run death at step 40 under dctcp recovery for
+# fatpaths and for ecmp (layer-pinned: the never-recovers control); churn
+# under the availability evaluator; the degradation ladder at its default
+# rates and patterns.
+FAULT_RATE = 0.05
+STATIC_DAMAGE = (("bernoulli", "repair"), ("switch", "drop"),
+                 ("blast", "repair"))
+RECOVERY_ROUTINGS = tuple(f"failures(of={r},rate={FAULT_RATE},down_step=40)"
+                          for r in (DYN_ROUTING, "ecmp"))
+RECOVERY_PATTERN = LONG_PATTERN
+RECOVERY_EVAL = "recovery(steps=400,transport=dctcp)"
+CHURN_ROUTING = f"churn(of={DYN_ROUTING},rate=0.1)"
+AVAIL_EVAL = "availability(steps=400)"
+DEGRADE_EVAL = "degradation"
 GF_TOPO_Q = 11          # sf(q=11): 242 routers, 4114 directed links
 GF_P = 1009
 GF_LEN = 4
@@ -530,10 +560,11 @@ def _wf_check(ref, waterfill_step, args, kw, what):
     return err
 
 
-def _wf_bound_s(f, s, e):
+def _wf_bound_s(f, s, e, util=False):
     """Least time of one water-filling step in s: edges (F, S), w,
-    desired, active, acc and cap read; sent, share and acc written."""
-    nbytes = f * s * 4 + f * (4 + 4 + 1 + 4) + e * 4 + f * 4 * 3
+    desired, active, acc and cap read; sent, share and acc (and util)
+    written."""
+    nbytes = f * s * 4 + f * (4 + 4 + 1 + 4) + e * 4 + f * 4 * (3 + util)
     return nbytes / HBM_BYTES_PER_S
 
 
@@ -1225,16 +1256,18 @@ def _profile(fn, top_n: int = 6):
 
 
 def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
-                  profile_steps):
+                  profile_steps, cfg_kw=None):
     """The scan of one cell alone, again: host wall around a synchronize,
     steps run and µs per step; then ``torch.profiler`` over the first
     ``profile_steps`` steps with the adaptive horizon off, or with
     ``profile_steps=None`` over the same run again (device time, idle
     share, device events per step, and the water-filling kernel's device
-    time per call)."""
+    time per call).  ``cfg_kw`` holds further ``SimConfig`` fields (ndp
+    by default)."""
     cell = ses.resolve(ses.grid([MAIN_TOPO], [routing], [pattern])[0])
     cfg = transport.SimConfig(balancing=cell.bundle.balancing,
-                              n_steps=n_steps, transport="ndp")
+                              n_steps=n_steps,
+                              **{"transport": "ndp", **(cfg_kw or {})})
     arrs, static = transport.prepare(cell.topo, cell.bundle.routing,
                                      cell.workload, cfg, device="cuda")
     key = prng.PRNGKey(0, "cuda")
@@ -1362,20 +1395,22 @@ def phase_main(Session, transport, catalog, prng, LAUNCHES, reset_launches):
     return launches, cells
 
 
-def _same_metrics(a, b):
-    """``a == b`` for metric dicts, NaN equal to NaN."""
-    return a.keys() == b.keys() and all(
-        a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+_SIM_LANES = ("depart_step", "delivered", "retrans_bytes", "goodput_steps",
+              "stalled_steps")
 
 
 def _card_and_cpu(Session, catalog, routing, pattern, evaluator, LAUNCHES,
                   reset_launches, card_ctx=contextlib.nullcontext):
     """One sf(q=19) cell in a new session on the card, with the launch
     counts set to 0 just before and read just after, then on the CPU
-    port: its metrics (``==``) and every simulation's ``depart_step``
-    must be equal.  ``card_ctx()`` is entered around the card's run only.
-    Returns (card session, CPU-port session, card
-    RunResult, card SimResults, launches, CPU-port wall s)."""
+    port: its metrics and meta equal (``compare_results`` at rtol 0, NaN
+    equal to NaN), and every simulation's ``depart_step``, ``delivered``
+    and, where the cell has them, ``retrans_bytes`` and the per-step
+    ``goodput_steps`` and ``stalled_steps``, bitwise.  ``card_ctx()`` is
+    entered around the card's run only.  Returns (card session, CPU-port
+    session, card RunResult, card SimResults of the first simulation
+    call, launches, CPU-port wall s)."""
+    from repro_torch.experiments.results import compare_results
     card, cpu = [], []
     ses = Session(device="cuda")
     torch.cuda.synchronize()
@@ -1391,15 +1426,40 @@ def _card_and_cpu(Session, catalog, routing, pattern, evaluator, LAUNCHES,
     with _patched(catalog, "simulate_seeds", _sims_recorder(cpu)):
         rc = ses_cpu.run(MAIN_TOPO, routing, pattern, evaluator)
     cpu_s = time.perf_counter() - t0
-    if not _same_metrics(rr.metrics, rc.metrics) or rr.meta.get(
-            "offered_gbs") != rc.meta.get("offered_gbs"):
-        raise AssertionError(f"{rr.cell_id}: metrics differ card vs CPU: "
-                             f"{rr.metrics} vs {rc.metrics}")
-    for g, c in zip(card[0], cpu[0]):
-        if not np.array_equal(g.depart_step, c.depart_step):
-            raise AssertionError(f"{rr.cell_id}: depart_step differs card vs "
-                                 "CPU")
+    diffs = compare_results([rr], [rc], rtol=0.0)
+    if diffs:
+        raise AssertionError(f"{rr.cell_id}: card vs CPU: {diffs[:4]}")
+    if len(card) != len(cpu):
+        raise AssertionError(f"{rr.cell_id}: {len(card)} simulations on the "
+                             f"card, {len(cpu)} on the CPU")
+    for sims_g, sims_c in zip(card, cpu):
+        for g, c in zip(sims_g, sims_c):
+            for name in _SIM_LANES:
+                a, b = getattr(g, name), getattr(c, name)
+                if (a is None) != (b is None) or (
+                        a is not None and a.tobytes() != b.tobytes()):
+                    raise AssertionError(f"{rr.cell_id}: {name} differs "
+                                         "card vs CPU")
     return ses, ses_cpu, rr, card[0], launches, cpu_s
+
+
+def _bool_calls_entry(ref, semiring_matmul, calls, launches, what):
+    """K2 bool on one path's recorded products: each bitwise its plain
+    version, then timed beside it and ``torch.matmul`` of f32 copies."""
+    max_err = max(_check_equal(semiring_matmul(*c),
+                               ref.semiring_matmul_ref(*c),
+                               f"semiring bool {what} call {i}")
+                  for i, c in enumerate(calls))
+    ms, wall = _replay_ms(semiring_matmul, calls, 20)
+    plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, calls, 5)
+    lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
+                                       for a, b, _ in calls], 20)
+    bound, by = _sum_bound([_mm_bound(*c) for c in calls])
+    return dict(calls=len(calls), launches=launches, ms=ms, wall_ms=wall,
+                plain_ms=plain_ms, bound_ms=bound / len(calls), bound_by=by,
+                library_ms=lib, max_abs_err=max_err,
+                shapes=sorted({(tuple(a.shape), tuple(b.shape))
+                               for a, b, _ in calls}))
 
 
 def phase_pimin(Session, catalog, paths, transport, prng, ref,
@@ -1423,21 +1483,9 @@ def phase_pimin(Session, catalog, paths, transport, prng, ref,
         if not torch.equal(getattr(lr_g, name).cpu(), getattr(lr_c, name)):
             raise AssertionError(f"pi_min {name} differs card vs CPU")
     report = lr_g.validate_loop_free(n_samples=10 ** 9)
-    mm = [(a, b, s) for _, a, b, s in calls]
-    max_err = max(_check_equal(semiring_matmul(*c),
-                               ref.semiring_matmul_ref(*c),
-                               f"semiring bool pi_min build call {i}")
-                  for i, c in enumerate(mm))
-    ms, wall = _replay_ms(semiring_matmul, mm, 20)
-    plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, mm, 5)
-    lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
-                                       for a, b, _ in mm], 20)
-    bound, by = _sum_bound([_mm_bound(*c) for c in mm])
-    k2["per_semiring"]["bool"]["pi_min_build"] = dict(
-        calls=len(mm), launches=launches["semiring"], ms=ms, wall_ms=wall,
-        plain_ms=plain_ms, bound_ms=bound / len(mm), bound_by=by,
-        library_ms=lib, max_abs_err=max_err,
-        shapes=sorted({(tuple(a.shape), tuple(b.shape)) for a, b, _ in mm}))
+    k2["per_semiring"]["bool"]["pi_min_build"] = _bool_calls_entry(
+        ref, semiring_matmul, [(a, b, s) for _, a, b, s in calls],
+        launches["semiring"], "pi_min build")
     info = dict(cell=rr.cell_id, metrics=rr.metrics,
                 build_s=rr.meta["build_s"], cell_wall_s=rr.wall_s,
                 cpu_port_wall_s=cpu_s, launches=launches,
@@ -1515,13 +1563,178 @@ def phase_dynamic(Session, catalog, transport, prng, LAUNCHES,
     return path_launches
 
 
+def _static_routing(pattern, mode):
+    return (f"failures(of={DYN_ROUTING},rate={FAULT_RATE},pattern={pattern},"
+            f"mode={mode})")
+
+
+def _recovery_k1(ses, transport, prng, ref, waterfill_step, routing):
+    """K1 on the recovery cell's own calls (400 steps of the dctcp scan
+    with ``util``, dead links from step 40 on): a sample held bitwise
+    against the plain version with ``util`` on and off, and all of them
+    timed both ways."""
+    cell = ses.resolve(ses.grid([MAIN_TOPO], [routing],
+                                [RECOVERY_PATTERN])[0])
+    cfg = transport.SimConfig(balancing=cell.bundle.balancing,
+                              transport="dctcp", recovery="on", record=1,
+                              n_steps=400, adaptive_horizon=False)
+    arrs, static = transport.prepare(cell.topo, cell.bundle.routing,
+                                     cell.workload, cfg, device="cuda")
+    calls = []
+
+    def rec(fn):
+        def wrap(edges, w, desired, cap, **kw):
+            calls.append(((edges, w, desired, cap), kw))
+            return fn(edges, w, desired, cap, **kw)
+        return wrap
+
+    with _patched(transport, "waterfill_step", rec):
+        transport._run_scan(arrs, prng.PRNGKey(0, "cuda"), cfg, static)
+    torch.cuda.synchronize()
+    if not all(kw["want_util"] for _, kw in calls):
+        raise AssertionError("the dctcp recovery scan called K1 without util")
+    dead = [int((args[3] == 0).sum()) for args, _ in calls]
+    if dead[39] != 0 or dead[40] == 0:
+        raise AssertionError(f"dead links before/at step 40: {dead[39:41]}")
+    max_err = 0.0
+    for i in (0, 39, 40, 41, 200, len(calls) - 1):
+        args, kw = calls[i]
+        for wu in (True, False):
+            max_err = max(max_err, _wf_check(
+                ref, waterfill_step, args, dict(kw, want_util=wu),
+                f"recovery-cell call {i}"))
+
+    def kernel(args, kw):
+        return waterfill_step(*args, **kw)
+
+    on_ms, on_wall = _replay_ms(kernel, calls, 3)
+    off_ms, off_wall = _replay_ms(
+        kernel, [(a, dict(kw, want_util=False)) for a, kw in calls], 3)
+    edges, _, _, cap = calls[0][0]
+    return dict(calls=len(calls), ms=on_ms, wall_ms=on_wall,
+                ms_without_util=off_ms, wall_ms_without_util=off_wall,
+                bound_ms=_wf_bound_s(*edges.shape, cap.shape[0], util=True)
+                * 1e3, bound_by="bytes", n_flows=edges.shape[0],
+                dead_links=dead[-1], max_abs_err=max_err)
+
+
+def phase_faults(Session, catalog, failures, paths, transport, prng, ref,
+                 semiring_matmul, waterfill_step, LAUNCHES, reset_launches,
+                 k1, k2):
+    """8. Faults at sf(q=19), each cell on the card (launch counts 0
+    before, read after) and on the CPU port in the same process, held
+    equal by :func:`_card_and_cpu`: the static-damage cells (degraded
+    tables bitwise, the same report, the card's stack loop-free, K2 bool
+    on the repair build's products), the mid-run death cells under dctcp
+    recovery (the fatpaths one profiled, K1 timed on its calls with and
+    without ``util``), the churn cell under the availability evaluator,
+    and the degradation ladder."""
+    path_launches = {}
+    for pattern, mode in STATIC_DAMAGE:
+        routing = _static_routing(pattern, mode)
+        calls, marks = [], []
+
+        def mark(fn):
+            def rec(*a, **kw):
+                marks.append(len(calls))
+                out = fn(*a, **kw)
+                marks.append(len(calls))
+                return out
+            return rec
+
+        @contextlib.contextmanager
+        def card_ctx():
+            with _recording([paths], calls, routing), \
+                    _patched(failures, "apply_failures", mark):
+                yield
+
+        ses, ses_cpu, rr, _, launches, cpu_s = _card_and_cpu(
+            Session, catalog, routing, MAIN_PATTERN, MAIN_EVAL, LAUNCHES,
+            reset_launches, card_ctx)
+        path_launches[rr.cell_id] = launches
+        if launches["semiring"] != len(calls) or len(marks) != 2 or \
+                {c[3] for c in calls} != {"bool"}:
+            raise AssertionError(f"{rr.cell_id}: {launches['semiring']} "
+                                 f"semiring launches for {len(calls)} "
+                                 "recorded calls")
+        b_g = ses.routing(MAIN_TOPO, routing)
+        b_c = ses_cpu.routing(MAIN_TOPO, routing)
+        for name in ("layer_adj", "nh", "reach", "pathlen"):
+            if not torch.equal(getattr(b_g.routing, name).cpu(),
+                               getattr(b_c.routing, name)):
+                raise AssertionError(f"{rr.cell_id}: {name} differs card vs "
+                                     "CPU")
+        if b_g.failure_meta != b_c.failure_meta or \
+                not b_g.failure_meta["failed_links"] > 0:
+            raise AssertionError(f"{rr.cell_id}: reports {b_g.failure_meta} "
+                                 f"vs {b_c.failure_meta}")
+        report = b_g.routing.validate_loop_free(n_samples=10 ** 9)
+        info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                    failure=b_g.failure_meta, build_s=rr.meta["build_s"],
+                    cell_wall_s=rr.wall_s, cpu_port_wall_s=cpu_s,
+                    launches=launches, loop_check=report.describe(),
+                    rebuild_launches=marks[1] - marks[0])
+        repair = [(a, b, s) for _, a, b, s in calls[marks[0]:marks[1]]]
+        if mode == "repair":
+            entry = _bool_calls_entry(ref, semiring_matmul, repair,
+                                      len(repair), f"{pattern} repair build")
+            k2["per_semiring"]["bool"][f"repair_build_{pattern}"] = entry
+            info["semiring_bool_repair_build"] = entry
+        elif repair:
+            raise AssertionError(f"{rr.cell_id}: the drop mode made "
+                                 f"{len(repair)} semiring products")
+        print("# phase 8: degraded tables (layer_adj, nh, reach, pathlen) "
+              "bitwise, reports, depart_step and metrics equal card vs CPU "
+              "port; main stack's K2 bool "
+              f"{k2['per_semiring']['bool']['ms']:.5f} ms a call; "
+              + json.dumps(info), flush=True)
+
+    for routing in RECOVERY_ROUTINGS:
+        ses, _, rr, _, launches, cpu_s = _card_and_cpu(
+            Session, catalog, routing, RECOVERY_PATTERN, RECOVERY_EVAL,
+            LAUNCHES, reset_launches)
+        path_launches[rr.cell_id] = launches
+        info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                    build_s=rr.meta["build_s"], cell_wall_s=rr.wall_s,
+                    cpu_port_wall_s=cpu_s, launches=launches)
+        if routing == RECOVERY_ROUTINGS[0]:
+            info.update(_scan_reading(
+                ses, transport, prng, routing, RECOVERY_PATTERN, 400, None,
+                dict(transport="dctcp", recovery="on", record=1,
+                     adaptive_horizon=False)))
+            k1.setdefault("per_path", {})["recovery cell"] = _recovery_k1(
+                ses, transport, prng, ref, waterfill_step, routing)
+            info["waterfill_recovery_cell"] = k1["per_path"]["recovery cell"]
+        print("# phase 8: goodput and stalled curves, retrans_bytes, "
+              "depart_step and metrics equal card vs CPU port; "
+              + json.dumps(info), flush=True)
+
+    for routing, pattern, evaluator in ((CHURN_ROUTING, RECOVERY_PATTERN,
+                                         AVAIL_EVAL),
+                                        (DYN_ROUTING, MAIN_PATTERN,
+                                         DEGRADE_EVAL)):
+        _, _, rr, _, launches, cpu_s = _card_and_cpu(
+            Session, catalog, routing, pattern, evaluator, LAUNCHES,
+            reset_launches)
+        path_launches[rr.cell_id] = launches
+        info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                    build_s=rr.meta["build_s"], cell_wall_s=rr.wall_s,
+                    cpu_port_wall_s=cpu_s, launches=launches,
+                    **{k: rr.meta[k] for k in ("churn_links", "churn_events",
+                                               "churn_first_down")
+                       if k in rr.meta})
+        print("# phase 8: curves, depart_step and metrics equal card vs CPU "
+              "port; " + json.dumps(info), flush=True)
+    return path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import prng
-    from repro_torch.core import paths, topology, transport
+    from repro_torch.core import failures, paths, topology, transport
     from repro_torch.experiments import Session, catalog
     from repro_torch.kernels import (LAUNCHES, build, flash_attention,
                                      gf_matmul, ops, pathcount, ref,
@@ -1568,15 +1781,19 @@ def main() -> int:
     dyn = phase_dynamic(Session, catalog, transport, prng, LAUNCHES,
                         reset_launches, k1)
     t8 = time.perf_counter()
-    print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, script "
-          f"up to here {t8 - t_start:.1f}", flush=True)
+    faults = phase_faults(Session, catalog, failures, paths, transport, prng,
+                          ref, semiring_matmul, waterfill.waterfill_step,
+                          LAUNCHES, reset_launches, k1, k2)
+    t9 = time.perf_counter()
+    print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
+          f"{t9 - t8:.1f}, script up to here {t9 - t_start:.1f}", flush=True)
     k2["path_launches"].update(
         {"pi_min cell": pimin["semiring"],
-         **{cell: n["semiring"] for cell, n in dyn.items()}})
+         **{cell: n["semiring"] for cell, n in {**dyn, **faults}.items()}})
     k1["path_launches"] = {"main sweep": launches["waterfill"],
                            "pi_min cell": pimin["waterfill"],
                            **{cell: n["waterfill"]
-                              for cell, n in dyn.items()}}
+                              for cell, n in {**dyn, **faults}.items()}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST

@@ -97,8 +97,8 @@ class LayeredRouting:
     pathlen: torch.Tensor     # (L, N, N) int16 intra-layer shortest-path length
     layer_adj: torch.Tensor   # (L, N, N) bool directed layer adjacency
     build_stats: Optional[Dict[str, float]] = None  # wall-time split
-    # Fault lanes of the JAX package; the scan refuses them until they
-    # are ported (ROADMAP A8).
+    # Fault lanes (repro_torch.core.failures): per-link death step and
+    # churn intervals, (N, N) and (N, N, K, 2) int32 host arrays.
     link_down_step: Optional[np.ndarray] = None
     link_churn: Optional[np.ndarray] = None
     churn_conv: int = 0

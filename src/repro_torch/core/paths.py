@@ -48,6 +48,7 @@ __all__ = [
     "min_path_stats",
     "next_hop_options",
     "build_forwarding",
+    "table_validity_batched",
     "walk_paths",
     "walk_paths_layers",
     "neighbor_table",
@@ -256,6 +257,27 @@ def edge_usage_batched(nh, reach, max_hops: int, device=None) -> torch.Tensor:
     reach_t = to_device(reach, torch.bool, nh_t.device)
     return torch.stack([_edge_usage_core(a, b, max_hops)
                         for a, b in zip(nh_t, reach_t)])
+
+
+def table_validity_batched(nh, alive, max_hops: int,
+                           device=None) -> torch.Tensor:
+    """``valid[l, s, t]``: the (layer, s, t) forwarding entry still
+    delivers — every hop of the walk from s to t crosses an alive directed
+    edge (``alive[u, nh[u, t]]``) and the walk ends at t within
+    ``max_hops``.  A boolean fixpoint grown from the diagonal
+    (``valid = eye | (edge alive & valid at the next hop)``), so loops and
+    walks over dead edges never validate; gathers on the tables' device."""
+    nh_t = to_device(nh, torch.int32, device)
+    alive_t = to_device(alive, torch.bool, nh_t.device)
+    n_layers, n, _ = nh_t.shape
+    eye = torch.eye(n, dtype=torch.bool, device=nh_t.device)
+    nxt = torch.clamp_min(nh_t, 0).long()                       # (L, N, N)
+    rows = torch.arange(n, device=nh_t.device)[None, :, None]
+    edge_ok = (nh_t >= 0) & alive_t[rows, nxt]
+    valid = eye[None].expand(n_layers, n, n)
+    for _ in range(max_hops):
+        valid = eye[None] | (edge_ok & torch.gather(valid, 1, nxt))
+    return valid.contiguous()
 
 
 def shortest_path_lengths(adj, max_l: int = 64, device=None) -> torch.Tensor:

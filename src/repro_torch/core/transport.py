@@ -41,8 +41,29 @@ whose activations are all zero gives the static result bitwise.  The
 adaptive horizon needs nothing more: a flow not yet active keeps
 ``remaining > 0``.
 
-Mid-run link death, link churn, loss recovery and per-step recording
-raise ``NotImplementedError`` until ported (ROADMAP A8).
+Faults and loss recovery, each a lane that is absent, and adds no op to
+the step, unless the cell asks for it:
+
+* ``arrs["link_down_step"]`` (mid-run link death, from
+  :attr:`LayeredRouting.link_down_step`): a link's capacity drops to 0
+  at its step, so flows on it stall and re-pick at a flowlet boundary;
+* ``arrs["link_churn"]`` and ``arrs["churn_pick_at"]`` (link churn): zero
+  capacity inside each ``(down, up)`` outage, and a layer crossing a link
+  inside ``(down, up + conv)`` is not re-picked;
+* ``recovery="on"``: a stall timer, a retransmission timeout with
+  exponential backoff and a deterministic blackhole escape onto the next
+  surviving layer, the rollback of the bytes in flight when a path's
+  link dies (ndp pays one trimmed RTT, tcp a full RTO and slow start,
+  dctcp a quarter RTO and a gentle decrease), and for dctcp the ECN rate
+  rule on the water-filling step's ``util``;
+* ``record=1``: per-step goodput and stalled-flow counts written into
+  ``(n_steps,)`` device buffers by step index.
+
+The lanes' float expressions are rounded as XLA rounds the reference's
+compiled scan: ``remaining + lost * line_bytes`` and the ECN decrease
+``1 - (1 - md) * frac`` are fused multiply-adds, the division by ``dt``
+(and by the ECN band) a product with the f32 reciprocal, and the goodput
+sum runs in XLA:CPU's order (:func:`repro_torch.core.layers.xla_sum`).
 """
 
 from __future__ import annotations
@@ -55,9 +76,10 @@ import numpy as np
 import torch
 
 from .. import prng, resolve_device
+from ..kernels.ref import fused_add_mul
 from ..kernels.waterfill import LinkPlan, link_plan, waterfill_step
 from . import paths as paths_mod
-from .layers import LayeredRouting
+from .layers import LayeredRouting, xla_sum
 from .topology import Topology
 from .traffic import FlowWorkload
 
@@ -92,11 +114,12 @@ class SimConfig:
     # Kept so the fields match the JAX package's; kernels are chosen by
     # the tensors' device, so only "" is accepted.
     kernel_backend: str = ""
-    # Loss-recovery lanes: only recovery="off", record=0 is ported.
+    # Loss-recovery lanes (off: none of their ops runs).
     recovery: str = "off"           # off | on
-    rto_base: int = 16
-    rto_cap: int = 256
-    ecn_thresh: float = 0.65
+    rto_base: int = 16              # initial retransmission timeout (steps)
+    rto_cap: int = 256              # exponential-backoff ceiling (steps)
+    ecn_thresh: float = 0.65        # link claim-utilization ECN mark point
+    # record=1 keeps per-step goodput and stalled-flow counts.
     record: int = 0
     seed: int = 0
 
@@ -117,7 +140,8 @@ class SimResult:
     config: SimConfig
     # (F,) step index at which each flow completed; -1 = still in flight.
     depart_step: Optional[np.ndarray] = None
-    # Recovery lanes of the JAX package (always None here until ported).
+    # Recovery lanes (None unless cfg.recovery / cfg.record): per-flow
+    # retransmitted bytes, per-step goodput (line units) and stalled flows.
     retrans_bytes: Optional[np.ndarray] = None
     goodput_steps: Optional[np.ndarray] = None
     stalled_steps: Optional[np.ndarray] = None
@@ -229,10 +253,6 @@ def shape_signature(topo: Topology, routing: LayeredRouting,
 
 
 def _check_lanes_ported(routing: LayeredRouting) -> None:
-    for lane in ("link_down_step", "link_churn"):
-        if getattr(routing, lane, None) is not None:
-            raise NotImplementedError(f"the {lane} lane is not ported yet "
-                                      "(ROADMAP A8)")
     if getattr(routing, "compressed", None) is not None:
         raise NotImplementedError("compressed tables are not ported yet "
                                   "(ROADMAP A9)")
@@ -291,6 +311,25 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
         start=torch.as_tensor(wl.start, device=dev).to(torch.float32),
         active_at=active_at,                                     # (F,)
     )
+    # Fault lanes: per-virtual-link death step (INT32_MAX = never) and
+    # churn intervals with their re-pick steps (up + churn_conv,
+    # saturating).  The keys are absent for a fabric without them.
+    fabric = eix >= 0
+    imax = np.iinfo(np.int32).max
+    if routing.link_down_step is not None:
+        lds = np.full(e_tot, imax, dtype=np.int32)
+        lds[eix[fabric]] = np.asarray(routing.link_down_step,
+                                      dtype=np.int32)[fabric]
+        arrs["link_down_step"] = torch.as_tensor(lds, device=dev)
+    if routing.link_churn is not None:
+        lc_r = np.asarray(routing.link_churn, dtype=np.int32)
+        lc = np.full((e_tot,) + lc_r.shape[2:], imax, dtype=np.int32)
+        lc[eix[fabric]] = lc_r[fabric]
+        pick_at = np.minimum(lc[..., 1].astype(np.int64)
+                             + int(routing.churn_conv or 0), imax)
+        arrs["link_churn"] = torch.as_tensor(lc, device=dev)   # (E, K, 2)
+        arrs["churn_pick_at"] = torch.as_tensor(               # (E, K)
+            pick_at.astype(np.int32), device=dev)
     return arrs, (e_tot, int(n_layers), int(cfg.n_steps))
 
 
@@ -319,12 +358,47 @@ def _pick_layers(u: torch.Tensor, usable: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, pick, 0)
 
 
-def _check_lanes(cfg: SimConfig) -> None:
-    if str(cfg.recovery).lower() in ("on", "1", "true"):
-        raise NotImplementedError("recovery='on' is not ported yet "
-                                  "(ROADMAP A8)")
-    if int(cfg.record):
-        raise NotImplementedError("record=1 is not ported yet (ROADMAP A8)")
+def _rto_next(rto: torch.Tensor, delivered: torch.Tensor,
+              backoff: torch.Tensor, rto_base: int,
+              rto_cap: int) -> torch.Tensor:
+    """One step of the retransmission-timeout state machine, per flow:
+    ``backoff`` (stall-timer expiry, loss on link death) doubles the RTO
+    up to ``rto_cap``; a delivery resets it to ``rto_base`` and wins over
+    a backoff in the same step."""
+    bumped = torch.where(backoff, torch.clamp_max(rto * 2, rto_cap), rto)
+    return torch.where(delivered, torch.full_like(rto, rto_base), bumped)
+
+
+def _escape_layers(layer: torch.Tensor, esc_ok: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic blackhole escape: the next layer, cyclically after
+    the current one, that ``esc_ok`` (F, L) allows; flows with none keep
+    their layer (``valid`` False).  Draws nothing from the PRNG."""
+    n_layers = esc_ok.shape[1]
+    order = (layer.long()[:, None] + 1
+             + torch.arange(n_layers, device=layer.device)[None, :]) \
+        % n_layers
+    ok = torch.gather(esc_ok, 1, order)                        # (F, L)
+    first = ok.to(torch.int32).argmax(dim=1)
+    esc = torch.gather(order, 1, first[:, None])[:, 0]
+    valid = ok.any(dim=1)
+    return torch.where(valid, esc, layer.long()).to(torch.int32), valid
+
+
+def _churn_state(i: int, sched: torch.Tensor, pick_at: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-link churn predicates at step ``i``: ``dead`` inside a
+    ``(down, up)`` outage (capacity 0), ``unpickable`` inside the wider
+    ``(down, up + conv)`` window (no re-pick).  ``sched`` is ``(..., K,
+    2)`` int32 with INT32_MAX sentinels, ``pick_at`` the saturating
+    ``up + conv`` (``(..., K)``)."""
+    down = sched[..., 0]
+    dead = ((down <= i) & (i < sched[..., 1])).any(dim=-1)
+    unpickable = ((down <= i) & (i < pick_at)).any(dim=-1)
+    return dead, unpickable
+
+
+def _check_config(cfg: SimConfig) -> None:
     if cfg.transport not in ("ndp", "tcp", "dctcp"):
         raise ValueError(f"unknown transport {cfg.transport!r}")
     if cfg.balancing not in ("ecmp", "letflow", "fatpaths"):
@@ -335,8 +409,9 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
               cfg: SimConfig, static: Tuple[int, int, int]
               ) -> Dict[str, torch.Tensor]:
     """The chunked flow scan: returns the final per-flow state plus
-    ``horizon_chunks`` (how many full chunks ran)."""
-    _check_lanes(cfg)
+    ``horizon_chunks`` (how many full chunks ran) and, with
+    ``cfg.record``, the ``goodput_t`` and ``stalled_t`` buffers."""
+    _check_config(cfg)
     e_tot, n_layers, n_steps = static
     dev = arrs["size"].device
     f = arrs["size"].shape[0]
@@ -347,12 +422,22 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
     tcp_init, tcp_ai = _f32(cfg.tcp_init), _f32(cfg.tcp_ai)
     md = _f32(cfg.tcp_md if cfg.transport == "tcp" else cfg.dctcp_md)
     thresh = _f32(0.98)
+    tiny_sent = _f32(1e-6)
 
     reroute = cfg.balancing in ("letflow", "fatpaths")
     chunk = max(1, int(cfg.horizon_chunk))
     n_full, rem = divmod(n_steps, chunk)
     usable = arrs["usable"]
     routed_lf = arrs["routed"]
+    # Fault and recovery lanes: each adds its ops only when present.
+    recovery_on = str(cfg.recovery).lower() in ("on", "1", "true")
+    record_on = bool(int(cfg.record))
+    has_lds = "link_down_step" in arrs
+    has_churn = "link_churn" in arrs
+    has_death = has_lds or has_churn
+    # ECN marking on the links' load replaces the share-vs-rate signal as
+    # dctcp's congestion signal under recovery.
+    want_util = recovery_on and cfg.transport == "dctcp"
 
     k_init, k_scan = prng.split(key0.to(dev))
     layer0 = _pick_layers(_flow_uniforms(k_init, f)[:, 0], usable)
@@ -367,6 +452,20 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
                  hops=zeros, sent_acc=zeros, w_acc=zeros,
                  depart_step=torch.full((f,), -1, dtype=torch.int32,
                                         device=dev))
+    if recovery_on:
+        # stall: consecutive ~zero-share steps; rto: current timeout;
+        # blocked_until: the step before which a penalised flow may not
+        # send; retrans_acc: lost line units that had to be resent.
+        izeros = torch.zeros(f, dtype=torch.int32, device=dev)
+        state.update(stall=izeros, blocked_until=izeros, retrans_acc=zeros,
+                     rto=torch.full((f,), int(cfg.rto_base),
+                                    dtype=torch.int32, device=dev))
+    bufs = None
+    if record_on:
+        bufs = dict(goodput_t=torch.zeros(n_steps, dtype=torch.float32,
+                                          device=dev),
+                    stalled_t=torch.zeros(n_steps, dtype=torch.float32,
+                                          device=dev))
 
     cap = torch.ones(e_tot, dtype=torch.float32, device=dev)
     plan = LinkPlan(arrs["plan_offsets"], arrs["plan_entries"], f)
@@ -382,13 +481,38 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
     # Provably-stuck support for the adaptive horizon: a flow whose
     # current layer cannot route it and that can never re-roll onto a
     # routing layer has weight 0 on every future step.
+    esc_ok = None
     if reroute:
         first = (torch.arange(n_layers, device=dev) == 0)[None, :]
         pickable = torch.where(usable.any(dim=1, keepdim=True), usable,
                                first)
         pick_routable = (pickable & routed_lf.T).any(dim=1)
+        if recovery_on:
+            # The layers the blackhole escape may take: pickable ones
+            # that route the flow.
+            esc_ok = pickable & routed_lf.T                       # (F, L)
     else:
         pick_routable = torch.zeros(f, dtype=torch.bool, device=dev)
+    if has_churn:
+        pe_safe = torch.where(arrs["path_edges"] >= 0, arrs["path_edges"],
+                              e_tot - 1).long()                    # (L, F, S)
+        churn_down = arrs["link_churn"][..., 0]                    # (E, K)
+    if recovery_on and has_death:
+        # Bytes in flight on a path: rate x its latency in steps, per
+        # (layer, flow) once; the latency is one fused multiply-add, then
+        # a product with the f32 reciprocal of dt.
+        pipe_lf = fused_add_mul(
+            torch.tensor(_f32(cfg.sw_latency), device=dev),
+            arrs["path_hops"],
+            torch.tensor(_f32(cfg.link_latency), device=dev)) \
+            * float(np.float32(1.0) / dt)                       # (L, F)
+        line_t = torch.tensor(line_bytes, device=dev)
+        vector_rows = torch.arange(f, device=dev) < f - f % 8
+    if want_util:
+        ecn = _f32(cfg.ecn_thresh)
+        recip_band = float(np.float32(1.0) / np.float32(
+            max(1.0 - float(cfg.ecn_thresh), 1e-6)))
+        md_gap = torch.tensor(_f32(1.0 - cfg.dctcp_md), device=dev)
 
     def step(st, i: int, u: Optional[torch.Tensor]):
         t = float(np.float32(i) * dt)
@@ -397,23 +521,85 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
         active = started & ~done
         g = packed[st["layer"], frows]                          # (F, H+4)
         edges = g[:, :n_slots]
-        send = active & (g[:, n_slots] > 0)
+        routed = g[:, n_slots] > 0
         n_hops = g[:, n_slots + 1].to(torch.float32)
+        if recovery_on:
+            # A flow penalised by its transport's loss response sends
+            # nothing until its blocked_until step.
+            unblocked = i >= st["blocked_until"]
+            send = active & routed & unblocked
+        else:
+            send = active & routed
 
         w = send.to(torch.float32)
         desired = torch.clamp_max(st["rate"], 1.0) * w
-        sent, share, sent_acc = waterfill_step(
-            edges, w, desired, cap, active=send, fair_iters=cfg.fair_iters,
-            acc=st["sent_acc"], plan=plan, layer=st["layer"])
+        # Dead links (mid-run death, churn outages) have capacity 0.
+        cap_t = cap
+        if has_lds:
+            cap_t = torch.where(i < arrs["link_down_step"], cap, 0.0)
+        if has_churn:
+            churn_dead, link_unpick = _churn_state(
+                i, arrs["link_churn"], arrs["churn_pick_at"])
+            cap_t = torch.where(churn_dead, 0.0, cap_t)
+        wf = waterfill_step(
+            edges, w, desired, cap_t, active=send, fair_iters=cfg.fair_iters,
+            want_util=want_util, acc=st["sent_acc"], plan=plan,
+            layer=st["layer"])
+        if want_util:
+            sent, share, util, sent_acc = wf
+        else:
+            sent, share, sent_acc = wf
+
+        # Lost in flight: at the step a path's link dies, the bytes in
+        # the pipe (capped by what was sent) roll back from sent_acc into
+        # remaining.
+        if recovery_on and has_death:
+            safe_e = torch.where(edges >= 0, edges, e_tot - 1).long()
+            died_now = None
+            if has_lds:
+                died_now = (arrs["link_down_step"][safe_e] == i).any(dim=1)
+            if has_churn:
+                c_hit = (churn_down[safe_e] == i).flatten(1).any(dim=1)
+                died_now = c_hit if died_now is None else died_now | c_hit
+            hit = active & routed & died_now
+            pipe_steps = pipe_lf[st["layer"], frows]
+            lost = torch.where(
+                hit, torch.minimum(st["sent_acc"], st["rate"] * pipe_steps),
+                0.0)
 
         delivered = sent * line_bytes
-        new_remaining = torch.clamp_min(st["remaining"] - delivered * w, 0.0)
+        if recovery_on and has_death:
+            # Rounded as XLA:CPU rounds the reference here: in its 8-lane
+            # vector loop the select behind ``delivered * w`` folds into
+            # the subtraction, which then fuses with the product; its
+            # scalar remainder (the last F mod 8 flows) rounds the
+            # product first.  ``+ lost * line_bytes`` rounds the product
+            # first everywhere (+0.0 is no identity of an add).
+            sub = torch.where(
+                vector_rows & send,
+                fused_add_mul(st["remaining"], -sent, line_t),
+                st["remaining"] - delivered * w)
+            new_remaining = torch.clamp_min(sub, 0.0) + lost * line_bytes
+        else:
+            new_remaining = torch.clamp_min(st["remaining"] - delivered * w,
+                                            0.0)
         newly_done = (new_remaining <= 0) & ~done & started
         hops = torch.where(newly_done, n_hops, st["hops"])
         depart = torch.where(newly_done, i, st["depart_step"])
 
         if cfg.transport == "ndp":
             rate = torch.ones(f, dtype=torch.float32, device=dev)
+        elif want_util:
+            # ECN: a decrease graded by the worst link utilization on the
+            # path (full dctcp_md at saturation); a dead link reports a
+            # huge utilization.
+            frac = torch.clamp((util - ecn) * recip_band, 0.0, 1.0)
+            up = torch.where(st["rate"] < 0.5, st["rate"] * 2.0,
+                             st["rate"] + tcp_ai)
+            down = st["rate"] * fused_add_mul(torch.ones_like(frac), -md_gap,
+                                              frac)
+            rate = torch.where(frac > 0, torch.clamp_min(down, tcp_init),
+                               torch.clamp_max(up, 1.0))
         else:
             congested = share < st["rate"] * thresh
             up = torch.where(st["rate"] < 0.5, st["rate"] * 2.0,
@@ -422,17 +608,72 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
                                torch.clamp_min(share * md, tcp_init),
                                torch.clamp_max(up, 1.0))
 
+        if recovery_on:
+            progress = sent > tiny_sent
+            # Stall timer: consecutive steps an unblocked, wanting flow
+            # got ~zero share.
+            stalled = active & unblocked & ~progress
+            stall_new = torch.where(stalled, st["stall"] + 1, 0)
+            expire = stalled & (stall_new >= st["rto"])
+            backoff = expire
+            blocked = st["blocked_until"]
+            if has_death:
+                if cfg.transport == "ndp":
+                    pen = 1             # trimming: one trimmed RTT
+                elif cfg.transport == "tcp":
+                    pen = st["rto"]     # a full RTO and slow start
+                    rate = torch.where(hit, tcp_init, rate)
+                else:                   # dctcp: a quarter RTO, gentle
+                    pen = torch.clamp_min(st["rto"] // 4, 1)
+                    rate = torch.where(
+                        hit, torch.clamp_min(st["rate"] * md, tcp_init),
+                        rate)
+                blocked = torch.where(hit, i + pen, blocked)
+                if cfg.transport != "ndp":
+                    backoff = backoff | hit
+            rto = _rto_next(st["rto"], progress, backoff, int(cfg.rto_base),
+                            int(cfg.rto_cap))
+            stall_out = torch.where(expire, 0, stall_new)
+
         if reroute:
             slack = 1.0 - torch.clamp(sent, 0.0, 1.0)
             p_gap = torch.clamp(gap_rate * (slack + gap_eps), 0.0, 1.0)
             roll = u[:, 0] < p_gap
-            newpick = _pick_layers(u[:, 1], usable)
+            if has_churn:
+                # A layer crossing a link inside its (down, up + conv)
+                # window is not re-picked; with every candidate gated the
+                # flow keeps its layer.
+                layer_live = ~link_unpick[pe_safe].any(dim=2).T    # (F, L)
+                cand = usable & layer_live
+                newpick = _pick_layers(u[:, 1], cand)
+                roll = roll & cand.any(dim=1)
+            else:
+                newpick = _pick_layers(u[:, 1], usable)
             layer = torch.where(roll & active, newpick, st["layer"])
         else:
             layer = st["layer"]
-        return dict(remaining=new_remaining, layer=layer, rate=rate,
-                    hops=hops, depart_step=depart, w_acc=st["w_acc"] + w,
-                    sent_acc=sent_acc)
+        if recovery_on and reroute:
+            # Blackhole escape once the stall timer crosses the RTO; ecmp
+            # stays pinned (the never-recovers control).
+            esc_layer, esc_valid = _escape_layers(
+                st["layer"], esc_ok & layer_live if has_churn else esc_ok)
+            layer = torch.where(expire & esc_valid, esc_layer, layer)
+
+        out = dict(remaining=new_remaining, layer=layer, rate=rate,
+                   hops=hops, depart_step=depart, w_acc=st["w_acc"] + w,
+                   sent_acc=sent_acc)
+        if recovery_on:
+            out.update(stall=stall_out, rto=rto, blocked_until=blocked,
+                       retrans_acc=st["retrans_acc"])
+            if has_death:
+                # fma(d, s, acc) from the kernel, then - lost: the
+                # reference's sent_acc + sent - lost.
+                out["sent_acc"] = sent_acc - lost
+                out["retrans_acc"] = st["retrans_acc"] + lost
+        if record_on:
+            bufs["goodput_t"][i] = xla_sum(sent * w)
+            bufs["stalled_t"][i] = (active & (sent <= tiny_sent)).sum()
+        return out
 
     def run_chunk(st, c: int, length: int):
         u = _chunk_uniforms(flow_keys, c, chunk)[:length] if reroute else None
@@ -452,7 +693,7 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
     if rem:
         # The tail rides chunk index n_full unconditionally.
         state = run_chunk(state, n_full, rem)
-    return dict(state, horizon_chunks=c_run)
+    return dict(state, horizon_chunks=c_run, **(bufs or {}))
 
 
 def _to_result(size: np.ndarray, final, cfg: SimConfig,
@@ -474,6 +715,7 @@ def _to_result(size: np.ndarray, final, cfg: SimConfig,
     fct = ((dep.astype(np.float32) + f32(1.0)) * f32(cfg.dt) - start32
            + hops * f32(cfg.link_latency) + f32(cfg.sw_latency))
     fct = np.where(dep >= 0, fct, np.float32(np.nan))
+    ret = final.get("retrans_acc")
     return SimResult(
         fct=fct,
         delivered=size - remaining,
@@ -482,6 +724,10 @@ def _to_result(size: np.ndarray, final, cfg: SimConfig,
         link_util_mean=sent / max(want, 1.0),
         config=cfg,
         depart_step=dep,
+        retrans_bytes=(None if ret is None
+                       else ret * f32(cfg.line_rate * cfg.dt)),
+        goodput_steps=final.get("goodput_t"),
+        stalled_steps=final.get("stalled_t"),
     )
 
 

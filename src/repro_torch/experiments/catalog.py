@@ -4,38 +4,42 @@ traffic patterns, evaluators.
 * ``TOPOLOGIES`` — paper topologies at cost-matched "small" defaults
   (``sf`` == ``sf(q=5)``); compact ``by_name`` forms (``"sf:11"``) are
   accepted too via :func:`topo_spec`.
-* ``ROUTINGS``   — ``ecmp`` / ``letflow`` (minimal multi-table) and
-  ``fatpaths`` / ``minimal`` (layer stacks).  Builders receive a
-  :class:`RoutingCtx` whose ``stack`` memoizer keys expensive artifacts
-  by ``(topo, scheme, seed)``, so ``ecmp``/``letflow`` share one table
-  stack and a grid never rebuilds a layer stack.
+* ``ROUTINGS``   — ``ecmp`` / ``letflow`` (minimal multi-table),
+  ``fatpaths`` / ``minimal`` (layer stacks), and the ``failures`` /
+  ``churn`` wrappers that damage another scheme's stack (seeded dead
+  links before or during the run, or links that die and come back).
+  Builders receive a :class:`RoutingCtx` whose ``stack`` memoizer keys
+  expensive artifacts by ``(topo, scheme, seed)``, so ``ecmp``/``letflow``
+  share one table stack and a grid never rebuilds a layer stack.
 * ``TRAFFIC``    — the static §2.4 patterns, ``collide`` (the Fig 5
   microcase), and the open-loop ``load``, ``incast`` and ``anycast``
   streams (activation steps from :mod:`repro_torch.core.arrivals`).
-* ``EVALUATORS`` — ``transport`` (the flow simulator) and ``outcast``
-  (fairness under incast).
+* ``EVALUATORS`` — ``transport`` (the flow simulator), ``outcast``
+  (fairness under incast), and under faults ``degradation`` (a
+  failure-rate ladder), ``recovery`` (time to recover from a mid-run
+  fault) and ``availability`` (SLO compliance under churn).
 
 Evaluators return ``(metrics, meta)``: plain-float metrics for the
 :class:`~repro_torch.experiments.results.RunResult` record, and
 bookkeeping meta.  Every builder gets the session's ``device``.
 
-The JAX package registers more: the ``failures``/``churn`` routing
-wrappers and the ``degradation``/``recovery``/``availability``/``mat``/
-``fabric`` evaluators.  :data:`NOT_PORTED` names the ROADMAP item each
-waits on.
+The JAX package also registers the ``mat`` and ``fabric`` evaluators;
+:data:`NOT_PORTED` names the ROADMAP item each waits on.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable, Dict, Tuple
+import types
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import prng
 from ..core import arrivals
+from ..core import failures as failures_mod
 from ..core import paths as paths_mod
 from ..core import routing as routing_mod
 from ..core import topology as topo_mod
@@ -56,10 +60,7 @@ TRAFFIC = Registry("traffic pattern")
 EVALUATORS = Registry("evaluator")
 
 #: Axis entries of the JAX package not ported yet -> their ROADMAP item.
-NOT_PORTED = {
-    "failures": "A8", "churn": "A8", "degradation": "A8", "recovery": "A8",
-    "availability": "A8", "mat": "A11", "fabric": "A11",
-}
+NOT_PORTED = {"mat": "A11", "fabric": "A11"}
 
 
 def check_ported(spec: SpecLike) -> None:
@@ -161,10 +162,16 @@ def topo_spec(obj: SpecLike) -> Spec:
 # -----------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class RoutingBundle:
-    """A built routing stack + the load-balancing mode that drives it."""
+    """A built routing stack + the load-balancing mode that drives it.
+
+    ``failure_meta`` is set by the ``failures(...)`` and ``churn(...)``
+    axes: a JSON-safe summary of the damage (dead links and layers,
+    disconnected pairs, churn events), computed on the host at build time
+    and merged into cell meta by :func:`transport_meta`."""
 
     routing: LayeredRouting
     balancing: str            # ecmp | letflow | fatpaths
+    failure_meta: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +222,84 @@ def _minimal(ctx: RoutingCtx, n_layers) -> RoutingBundle:
     """Minimal-only ablation: a rho=1 stack driven by flowlet balancing
     (Fig 11's 'minimal' arm)."""
     return RoutingBundle(_layer_stack(ctx, "rand", n_layers, 1.0), "fatpaths")
+
+
+@ROUTINGS.register("failures", of="fatpaths", rate=0.05, pattern="bernoulli",
+                   mode="repair", down_step=-1, fseed=0)
+def _failures(ctx: RoutingCtx, of, rate, pattern, mode, down_step,
+              fseed) -> RoutingBundle:
+    """Degraded-fabric wrapper: build ``of``'s stack, then kill a seeded
+    set of links (``rate`` x ``pattern`` = bernoulli | switch | blast).
+    ``down_step < 0`` (default) damages the fabric before the run, with
+    ``mode="repair"`` (tables rebuilt on the masked adjacency) or
+    ``mode="drop"`` (broken entries invalidated, no re-convergence);
+    ``down_step >= 0`` keeps pristine tables and kills the links at that
+    scan step.  The mask key depends on the cell seed and ``fseed``, not
+    the scheme; an empty mask (rate=0) reproduces the undamaged cell."""
+    inner_spec = Spec.coerce(of)
+    if inner_spec.name == "failures":
+        raise SpecError("failures(of=...) cannot nest another failures spec")
+    fn, kw = ROUTINGS.resolve(inner_spec)
+    inner = fn(ctx, **kw)
+    rate, down_step = float(rate), int(down_step)
+    pattern, mode = str(pattern), str(mode)
+    key = failures_mod.scenario_key(ctx.seed, int(fseed), ctx.device)
+    dead = failures_mod.failure_mask(key, ctx.topo.adj, rate, pattern)
+    ckey = ("failed", ctx.topo_key, ROUTINGS.canonical(inner_spec), rate,
+            pattern, mode, down_step, int(fseed), ctx.seed)
+    if down_step >= 0 and dead.any():
+        lr = ctx.stack(ckey, lambda: dataclasses.replace(
+            inner.routing, build_stats=None,
+            link_down_step=failures_mod.link_down_schedule(dead, down_step)))
+        report = failures_mod.FailureReport(
+            failed_links=int(np.triu(dead, 1).sum()),
+            total_links=int(np.triu(np.asarray(ctx.topo.adj, bool), 1).sum()),
+            rate=rate, pattern=pattern, mode="midrun",
+            dead_layers=0, disconnected_pairs=0, down_step=down_step)
+    else:
+        lr, report = ctx.stack(ckey, lambda: failures_mod.apply_failures(
+            inner.routing, dead, mode=mode, seed=ctx.seed, rate=rate,
+            pattern=pattern))
+    return RoutingBundle(lr, inner.balancing, failure_meta=report.as_meta())
+
+
+@ROUTINGS.register("churn", of="fatpaths", rate=0.1, pattern="flap",
+                   mtbf=120.0, mttr=40.0, conv=8, events=4, proc="exp",
+                   shape=1.5, fseed=0)
+def _churn(ctx: RoutingCtx, of, rate, pattern, mtbf, mttr, conv, events,
+           proc, shape, fseed) -> RoutingBundle:
+    """Link-churn wrapper: build ``of``'s stack, then attach a seeded
+    schedule of per-link (down, up) outages (``pattern`` = flap | rolling
+    | repair; ``mtbf``/``mttr`` mean steps between / to repair, ``proc``
+    = exp | pareto, ``events`` cycles per flapping link).  Capacity
+    returns at ``up``; flowlets may re-pick the link ``conv`` steps
+    later.  An empty schedule (rate=0) returns the inner bundle itself.
+    Composes with ``failures(...)`` in either order."""
+    inner_spec = Spec.coerce(of)
+    if inner_spec.name == "churn":
+        raise SpecError("churn(of=...) cannot nest another churn spec")
+    fn, kw = ROUTINGS.resolve(inner_spec)
+    inner = fn(ctx, **kw)
+    rate = float(rate)
+    key = failures_mod.scenario_key(ctx.seed, int(fseed), ctx.device)
+    sched = failures_mod.churn_schedule(
+        key, ctx.topo.adj, rate, pattern=str(pattern), mtbf=float(mtbf),
+        mttr=float(mttr), events=int(events), proc=str(proc),
+        shape=float(shape))
+    summ = failures_mod.churn_summary(sched)
+    if summ["churn_events"] == 0:
+        return inner
+    ckey = ("churn", ctx.topo_key, ROUTINGS.canonical(inner_spec), rate,
+            str(pattern), float(mtbf), float(mttr), int(conv), int(events),
+            str(proc), float(shape), int(fseed), ctx.seed)
+    lr = ctx.stack(ckey, lambda: dataclasses.replace(
+        inner.routing, build_stats=None, link_churn=sched,
+        churn_conv=int(conv)))
+    fm = dict(inner.failure_meta or {})
+    fm.update(churn_pattern=str(pattern), churn_rate=rate,
+              churn_mtbf=float(mtbf), churn_mttr=float(mttr),
+              churn_conv=int(conv), **summ)
+    return RoutingBundle(lr, inner.balancing, failure_meta=fm)
 
 
 # -----------------------------------------------------------------------------
@@ -422,8 +507,14 @@ def _fct_metrics(sims) -> Dict[str, float]:
         tput_gbs = float(np.nanmean(tput) / 1e9)
     else:
         tput_gbs = float("nan")
-    return {"fct_p50_us": p50, "fct_p99_us": p99, "fct_mean_us": mean,
-            "finished": finished, "tput_gbs": tput_gbs, "link_util": util}
+    out = {"fct_p50_us": p50, "fct_p99_us": p99, "fct_mean_us": mean,
+           "finished": finished, "tput_gbs": tput_gbs, "link_util": util}
+    # Recovery cells also report retransmitted bytes (host float64).
+    rb = [r.retrans_bytes for r in sims if r.retrans_bytes is not None]
+    if rb:
+        out["retrans_mb"] = float(
+            np.mean([np.asarray(b, np.float64).sum() for b in rb]) / 2 ** 20)
+    return out
 
 
 def transport_plan(cell, steps, transport, seeds, dt, flowlet_gap,
@@ -450,13 +541,16 @@ def transport_plan(cell, steps, transport, seeds, dt, flowlet_gap,
 
 def transport_meta(cell, cfg, sim_seeds) -> Dict[str, Any]:
     """RunResult meta for a transport-family cell; a dynamic (open-loop)
-    workload also records its offered byte rate (host float64)."""
+    workload also records its offered byte rate (host float64), and a
+    fault-injected cell its damage summary."""
     meta = {"n_seeds": len(sim_seeds), "transport": cfg.transport,
             "balancing": cell.bundle.balancing}
     wl = cell.workload
     if wl.active_step is not None:
         meta["offered_gbs"] = arrivals.offered_gbs(wl.size, wl.active_step,
                                                    cfg.dt)
+    if cell.bundle.failure_meta is not None:
+        meta.update(cell.bundle.failure_meta)
     return meta
 
 
@@ -468,7 +562,8 @@ def _transport(session, cell, steps, transport, seeds, dt, flowlet_gap,
                adaptive, chunk, recovery, rto_base, rto_cap,
                ecn_thresh) -> Tuple[Dict[str, float], Dict[str, Any]]:
     """Flow-level simulation (§7); ``seeds`` > 1 runs a sim-seed sweep
-    over one prepared cell.  ``recovery=on`` is not ported yet."""
+    over one prepared cell.  ``recovery=on`` arms the loss-recovery lanes
+    (RTO, blackhole escape, lost-in-flight accounting)."""
     cfg, sim_seeds = transport_plan(cell, steps, transport, seeds, dt,
                                     flowlet_gap, adaptive, chunk, recovery,
                                     rto_base, rto_cap, ecn_thresh)
@@ -511,6 +606,260 @@ def _outcast(session, cell, steps, transport, seeds, dt, flowlet_gap,
     metrics = dict(_fct_metrics(sims), jain_goodput=jain,
                    fct_p99_over_p50=tail, victim_flows=float(data.sum()))
     return metrics, transport_meta(cell, cfg, sim_seeds)
+
+
+def _trailing_mean(x: np.ndarray, window: int) -> np.ndarray:
+    """Trailing ``window``-step moving mean with growing head windows
+    (the first k < window entries average what exists).  ONE shared
+    implementation for every plateau/band computation — the recovery,
+    availability, and degradation evaluators must smooth identically or
+    their thresholds drift apart."""
+    x = np.asarray(x, np.float64)
+    csum = np.concatenate([[0.0], np.cumsum(x)])
+    n = np.arange(1, len(x) + 1)
+    lo = np.maximum(0, n - window)
+    return (csum[n] - csum[lo]) / (n - lo)
+
+
+def _curve_points_meta(n: int, curve_points: int) -> np.ndarray:
+    """Downsampled step indices for trajectory meta (shared by the
+    recovery and availability evaluators)."""
+    return np.unique(np.linspace(0, max(0, n - 1),
+                                 min(int(curve_points), max(1, n)))
+                     .round().astype(int))
+
+
+def _run_alternate(session, cell, rspec, steps, transport, seeds, dt,
+                   flowlet_gap, adaptive=1, chunk=64, **plan_kw):
+    """Run THIS cell's workload under an alternate routing spec — the
+    scenario runner shared by the degradation and availability
+    evaluators (baseline / rate-ladder / pristine-control runs).
+    Returns ``(sims, bundle, cfg, sim_seeds)``; the alternate bundle is
+    memoized in the session like any other routing artifact."""
+    bundle = session.routing(cell.spec.topo, rspec, seed=cell.seed)
+    shim = types.SimpleNamespace(bundle=bundle, seed=cell.seed)
+    cfg, sim_seeds = transport_plan(shim, steps, transport, seeds, dt,
+                                    flowlet_gap, adaptive, chunk, **plan_kw)
+    sims = simulate_seeds(cell.topo, bundle.routing, cell.workload,
+                          cfg, sim_seeds, device=session.device)
+    return sims, bundle, cfg, sim_seeds
+
+
+@EVALUATORS.register("degradation", rates="0.05:0.15:0.3",
+                     patterns="bernoulli:switch", mode="repair", steps=400,
+                     transport="ndp", seeds=1, dt=10e-6, flowlet_gap=50e-6,
+                     adaptive=1, chunk=64)
+def _degradation(session, cell, rates, patterns, mode, steps, transport,
+                 seeds, dt, flowlet_gap, adaptive, chunk
+                 ) -> Tuple[Dict[str, float], Dict[str, Any]]:
+    """Degradation curves: re-run the cell's routing scheme under
+    escalating seeded link failures — one scenario per (pattern, rate),
+    plus the shared rate-0 baseline — and report absolute and
+    baseline-relative throughput/FCT alongside disconnection counts.
+    ``rates``/``patterns`` are colon-separated lists.  Failure masks are
+    NESTED in rate (see :mod:`repro_torch.core.failures`), so the
+    dead-link/disconnected-pair counts are monotone in rate by
+    construction, and the throughput curve degrades monotonically up to
+    simulation noise."""
+    rate_list = sorted({float(r) for r in str(rates).split(":") if r})
+    pattern_list = [p for p in str(patterns).split(":") if p]
+    if not rate_list or not pattern_list:
+        raise SpecError("degradation needs non-empty rates and patterns")
+
+    def run_scenario(fspec: Spec):
+        sims, bundle, _, _ = _run_alternate(
+            session, cell, fspec, steps, transport, seeds, dt,
+            flowlet_gap, adaptive, chunk)
+        return _fct_metrics(sims), bundle.failure_meta
+
+    of = cell.spec.routing.format()
+    base_m, _ = run_scenario(Spec("failures", (
+        ("of", of), ("rate", 0.0), ("mode", str(mode)))))
+    metrics = {"tput_base": base_m["tput_gbs"],
+               "fct_p99_base": base_m["fct_p99_us"],
+               "finished_base": base_m["finished"]}
+    meta: Dict[str, Any] = {"failure_mode": str(mode),
+                            "failure_rates": rate_list,
+                            "failure_patterns": pattern_list,
+                            "scenarios": {}}
+    base_tput = base_m["tput_gbs"]
+    for pat in pattern_list:
+        discs = []
+        for rate in rate_list:
+            m, fm = run_scenario(Spec("failures", (
+                ("of", of), ("rate", rate), ("pattern", pat),
+                ("mode", str(mode)))))
+            tag = f"{pat}_r{rate:g}"
+            rel = (m["tput_gbs"] / base_tput
+                   if base_tput and base_tput > 0 else float("nan"))
+            metrics.update({
+                f"tput_{tag}": m["tput_gbs"],
+                f"tput_rel_{tag}": rel,
+                f"fct_p99_{tag}": m["fct_p99_us"],
+                f"finished_{tag}": m["finished"],
+                f"disc_{tag}": float(fm["disconnected_pairs"]),
+                f"dead_layers_{tag}": float(fm["dead_layers"]),
+            })
+            discs.append(fm["disconnected_pairs"])
+            meta["scenarios"][tag] = fm
+        metrics[f"monotone_disc_{pat}"] = float(
+            all(a <= b for a, b in zip(discs, discs[1:])))
+    return metrics, meta
+
+
+@EVALUATORS.register("recovery", steps=400, transport="ndp", seeds=1,
+                     dt=10e-6, flowlet_gap=50e-6, chunk=64, rto_base=16,
+                     rto_cap=256, ecn_thresh=0.65, eps=0.05, window=16,
+                     curve_points=64)
+def _recovery(session, cell, steps, transport, seeds, dt, flowlet_gap,
+              chunk, rto_base, rto_cap, ecn_thresh, eps, window,
+              curve_points) -> Tuple[Dict[str, float], Dict[str, Any]]:
+    """Time-to-recover under a mid-run fault: run the cell with the
+    recovery lanes armed and the per-step record lane on (full horizon —
+    the trajectory must be exact), then measure how long aggregate
+    goodput takes to climb back within ``eps`` of its pre-fault plateau
+    after the ``failures(down_step=...)`` link death.
+
+    Reported metrics: ``ttr_steps`` (steps from the fault until the
+    trailing ``window``-step mean goodput re-enters the plateau band;
+    NaN if it never does inside the horizon), ``recovered`` (0/1),
+    ``dip_frac`` (deepest post-fault goodput dip relative to plateau),
+    ``plateau_goodput`` (line-rate units), ``stalled_peak`` (worst
+    post-fault stalled-flow count) — plus the standard FCT metrics
+    (which include ``retrans_mb``, the retransmitted-byte total).  Meta
+    carries the downsampled goodput/stalled trajectories (host float64
+    means over seeds, so both sweep engines serialize identical curves).
+    Composed without a mid-run fault the cell is trivially recovered
+    (``ttr_steps=0``); a layer-pinned scheme (ecmp) over a blackhole
+    never re-enters the band — the acceptance control."""
+    cfg, sim_seeds = transport_plan(
+        cell, steps, transport, seeds, dt, flowlet_gap, adaptive=0,
+        chunk=chunk, recovery="on", rto_base=rto_base, rto_cap=rto_cap,
+        ecn_thresh=ecn_thresh, record=1)
+    sims = simulate_seeds(cell.topo, cell.bundle.routing, cell.workload,
+                          cfg, sim_seeds, device=session.device)
+    g = np.mean([np.asarray(r.goodput_steps, np.float64) for r in sims],
+                axis=0)
+    st = np.mean([np.asarray(r.stalled_steps, np.float64) for r in sims],
+                 axis=0)
+    n = len(g)
+    window = max(1, int(window))
+    eps = float(eps)
+    fm = cell.bundle.failure_meta or {}
+    down = int(fm.get("link_down_step", -1))
+    if down < 0:
+        # No one-shot death: fall back to the first churn down-event, so
+        # recovery-from-first-outage is measurable on churn cells too.
+        down = int(fm.get("churn_first_down", -1))
+    if down < 1 or down >= n:
+        plateau = float(g[-window:].mean()) if n else float("nan")
+        ttr, recovered, dip = 0.0, 1.0, 0.0
+    else:
+        plateau = float(g[max(0, down - window):down].mean())
+        post = g[down:]
+        # Trailing moving mean over the POST-fault segment only (early
+        # windows are short) — pre-fault steps must not inflate it.
+        sm = _trailing_mean(post, window)
+        target = (1.0 - eps) * plateau
+        hits = np.nonzero(sm >= target)[0]
+        recovered = 1.0 if hits.size else 0.0
+        ttr = float(hits[0]) if hits.size else float("nan")
+        dip = (float((plateau - post.min()) / plateau)
+               if plateau > 0 else float("nan"))
+    metrics = dict(
+        _fct_metrics(sims), ttr_steps=ttr, recovered=recovered,
+        dip_frac=dip, plateau_goodput=plateau,
+        stalled_peak=float(st[down:].max() if 0 <= down < n else st.max()))
+    idx = _curve_points_meta(n, curve_points)
+    meta = dict(transport_meta(cell, cfg, sim_seeds),
+                recovery_eps=eps, recovery_window=window,
+                rto_base=int(rto_base), rto_cap=int(rto_cap),
+                curve_steps=[int(i) for i in idx],
+                goodput_curve=[float(g[i]) for i in idx],
+                stalled_curve=[float(st[i]) for i in idx])
+    return metrics, meta
+
+
+@EVALUATORS.register("availability", slo=0.8, steps=400, transport="ndp",
+                     seeds=1, dt=10e-6, flowlet_gap=50e-6, chunk=64,
+                     recovery="on", rto_base=16, rto_cap=256,
+                     ecn_thresh=0.65, window=16, curve_points=64)
+def _availability(session, cell, slo, steps, transport, seeds, dt,
+                  flowlet_gap, chunk, recovery, rto_base, rto_cap,
+                  ecn_thresh, window, curve_points
+                  ) -> Tuple[Dict[str, float], Dict[str, Any]]:
+    """Availability-SLO compliance under link churn: run the cell (full
+    horizon, per-step record lane on, recovery lanes armed by default)
+    and score every post-churn step against the PRISTINE plateau — the
+    tail trailing-mean goodput of a control run of the same cell with
+    its ``churn(...)`` wrapper stripped, same workload and seeds.
+
+    A step complies when the trailing ``window``-step mean goodput is
+    >= ``slo`` x plateau.  Reported metrics: ``availability`` (compliant
+    fraction of steps from the first churn down-event), ``violations``
+    (number of entries into violation), ``max_outage_steps`` (longest
+    violating stretch), ``plateau_goodput`` — plus the standard FCT
+    metrics.  Cells without a churn schedule are trivially available
+    (1.0).  Meant for saturating workloads (e.g. a huge permutation)
+    where pristine goodput holds a plateau; the acceptance pairing is
+    ``churn(of=fatpaths...)`` vs the layer-pinned ``churn(of=ecmp...)``
+    control on the same flapping fabric."""
+    cfg, sim_seeds = transport_plan(
+        cell, steps, transport, seeds, dt, flowlet_gap, adaptive=0,
+        chunk=chunk, recovery=str(recovery), rto_base=rto_base,
+        rto_cap=rto_cap, ecn_thresh=ecn_thresh, record=1)
+    sims = simulate_seeds(cell.topo, cell.bundle.routing, cell.workload,
+                          cfg, sim_seeds, device=session.device)
+    g = np.mean([np.asarray(r.goodput_steps, np.float64) for r in sims],
+                axis=0)
+    n = len(g)
+    window = max(1, int(window))
+    slo = float(slo)
+
+    # Pristine control: the same cell with the churn wrapper stripped
+    # (shared scenario runner; no-churn cells are their own control).
+    rspec = cell.spec.routing
+    if rspec.name == "churn":
+        _, rkw = ROUTINGS.resolve(rspec)
+        pristine_spec = Spec.coerce(rkw["of"])
+    else:
+        pristine_spec = rspec
+    sims0, _, _, _ = _run_alternate(
+        session, cell, pristine_spec, steps, transport, seeds, dt,
+        flowlet_gap, adaptive=0, chunk=chunk, recovery=str(recovery),
+        rto_base=rto_base, rto_cap=rto_cap, ecn_thresh=ecn_thresh,
+        record=1)
+    g0 = np.mean([np.asarray(r.goodput_steps, np.float64) for r in sims0],
+                 axis=0)
+    plateau = float(_trailing_mean(g0, window)[-1]) if len(g0) \
+        else float("nan")
+
+    fm = cell.bundle.failure_meta or {}
+    down = int(fm.get("churn_first_down", -1))
+    if down < 1 or down >= n or not plateau > 0:
+        availability, violations, max_outage = 1.0, 0.0, 0.0
+    else:
+        sm = _trailing_mean(g[down:], window)
+        ok = sm >= slo * plateau
+        availability = float(ok.mean())
+        bad = np.concatenate([[0], (~ok).astype(np.int64), [0]])
+        d = np.diff(bad)
+        starts = np.nonzero(d == 1)[0]
+        ends = np.nonzero(d == -1)[0]
+        violations = float(len(starts))
+        max_outage = float((ends - starts).max()) if len(starts) else 0.0
+    metrics = dict(
+        _fct_metrics(sims), availability=availability,
+        violations=violations, max_outage_steps=max_outage,
+        plateau_goodput=plateau)
+    idx = _curve_points_meta(n, curve_points)
+    meta = dict(transport_meta(cell, cfg, sim_seeds),
+                availability_slo=slo, availability_window=window,
+                pristine_routing=pristine_spec.format(),
+                curve_steps=[int(i) for i in idx],
+                goodput_curve=[float(g[i]) for i in idx],
+                pristine_curve=[float(g0[i]) for i in idx])
+    return metrics, meta
 
 
 def table_meta(bundle: RoutingBundle) -> Dict[str, int]:

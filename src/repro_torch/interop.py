@@ -45,8 +45,8 @@ def routing_from_arrays(topo: Topology, d: Mapping[str, Any],
                         device="cuda") -> LayeredRouting:
     """A :class:`LayeredRouting` from ``scheme``, ``rho`` and the numpy
     tables ``nh``, ``reach``, ``pathlen``, ``layer_adj``, placed on
-    ``device``.  The fault and compressed lanes are carried as given (the
-    scan refuses them until they are ported)."""
+    ``device``.  The fault lanes are carried as given (and the compressed
+    tables, which the scan refuses until they are ported)."""
     dev = resolve_device(device)
 
     def t(name, dtype):

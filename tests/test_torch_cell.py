@@ -28,6 +28,12 @@ CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6,scheme=pi_min)",
               "permutation", "transport(steps=400)"))
 CELLS.append(("sf", "fatpaths(n_layers=9,rho=0.6)", "load(window=32)",
               "transport(steps=400)"))
+# Static damage (repair) and a mid-run death under the recovery evaluator.
+CELLS.append(("sf", "failures(of=fatpaths(n_layers=9,rho=0.6),rate=0.05)",
+              "permutation", "transport(steps=400)"))
+CELLS.append(("sf", "failures(of=fatpaths(n_layers=9,rho=0.6),rate=0.05,"
+              "down_step=10)", "permutation(flow_size=4194304)",
+              "recovery(steps=200,transport=dctcp)"))
 # XLA contracts the reference scan's sent_acc + d * s into one FMA; these
 # two cells differ at rtol 0 unless the port rounds it once too.
 CELLS += [(t, "fatpaths(n_layers=9,rho=0.6,scheme=spain)", "stencil",
@@ -69,9 +75,6 @@ def test_cli_run_list_diff(tmp_path, capsys):
 
 def test_unported_axes_and_engines_raise(monkeypatch):
     ts = Session(device="cpu")
-    for routing, item in (("failures", "A8"), ("churn", "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            ts.run("sf", routing, "uniform")
     with pytest.raises(NotImplementedError, match="A11"):
         ts.run("sf", "ecmp", "uniform", "mat")
     with pytest.raises(NotImplementedError, match="A10"):

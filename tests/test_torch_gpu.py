@@ -546,3 +546,104 @@ def test_cuda_dynamic_cell_equals_cpu(pattern, evaluator):
     np.testing.assert_array_equal(runs["cuda"][1].depart_step,
                                   runs["cpu"][1].depart_step)
     assert (runs["cuda"][1].depart_step >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,s,e", WF_SHAPES[1::2])
+def test_cuda_waterfill_dead_links(f, s, e):
+    """Links with capacity 0 (a mid-run death, a churn outage): fair share
+    0, scale 0 and ``util = load / 1e-9`` on the card are bitwise the plain
+    version's, with and without ``want_util``."""
+    _need_card()
+    *args, act = _wf_inputs(f, s, e, 5 * f + e)
+    rng = np.random.default_rng(e)
+    args[3] = torch.where(torch.from_numpy(rng.random(e) < 0.2).cuda(),
+                          0.0, args[3])
+    acc = torch.zeros(f, device="cuda")
+    for fair_iters in (0, 2):
+        for want_util in (False, True):
+            out = waterfill_step(*args, active=act, fair_iters=fair_iters,
+                                 want_util=want_util, acc=acc)
+            exp = ref.waterfill_ref(*_cpu(args), active=act.cpu(),
+                                    fair_iters=fair_iters,
+                                    want_util=want_util, acc=acc.cpu())
+            _assert_bitwise(out, exp)
+            if want_util and fair_iters == 0 and f > 1:
+                # claim counts over a dead link's 1e-9 floor; from round
+                # 1 on, flows through a dead link demand nothing
+                assert float(out[2].max()) > 1e8
+
+
+def _cell_card_and_cpu(routing, pattern, evaluator):
+    """One sf(q=5) cell in a session on the card and on the CPU: both
+    RunResults and each run's first SimResult."""
+    from repro_torch.experiments import Session, catalog
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sims = []
+        real = catalog.simulate_seeds
+
+        def rec(*a, **kw):
+            sims.append(real(*a, **kw))
+            return sims[-1]
+        catalog.simulate_seeds = rec
+        try:
+            rr = Session(device=dev).run("sf", routing, pattern, evaluator)
+        finally:
+            catalog.simulate_seeds = real
+        runs[dev] = (rr, [s[0] for s in sims])
+    return runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing,evaluator", [
+    ("failures(of=fatpaths(n_layers=9,rho=0.6),rate=0.05,down_step=20)",
+     "recovery(steps=200,transport=dctcp)"),
+    ("churn(of=fatpaths(n_layers=9,rho=0.6),rate=0.2,mtbf=30,mttr=10)",
+     "availability(steps=200)")])
+def test_cuda_fault_cell_equals_cpu(routing, evaluator):
+    """A mid-run death under dctcp recovery (K1 with ``want_util`` and
+    zero capacities) and a churn cell with its pristine control: the
+    card's departures, retransmissions and per-step curves are the CPU's,
+    bitwise, and so are the metrics."""
+    _need_card()
+    before = LAUNCHES["waterfill"]
+    runs = _cell_card_and_cpu(routing, "permutation(flow_size=268435456)",
+                              evaluator)
+    assert LAUNCHES["waterfill"] > before
+    from repro_torch.experiments.results import compare_results
+    assert compare_results([runs["cuda"][0]], [runs["cpu"][0]]) == []
+    for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
+        for name in ("depart_step", "delivered", "retrans_bytes",
+                     "goodput_steps", "stalled_steps"):
+            assert getattr(g, name).tobytes() == getattr(c, name).tobytes(), \
+                name
+    assert runs["cuda"][1][0].goodput_steps.max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern,mode", [("bernoulli", "repair"),
+                                          ("switch", "drop"),
+                                          ("blast", "repair")])
+def test_cuda_degraded_tables_equal_cpu(pattern, mode):
+    """sf(q=5) stacks degraded on the card (repair: K2 bool in the APSP of
+    the masked stack; blast: K2 bool hop distances) are bitwise the CPU's,
+    with the same report, and loop-free."""
+    from repro_torch.core import failures, layers, topology
+    _need_card()
+    tt = topology.slim_fly(5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        lr = layers.build_layers(tt, 9, 0.6, seed=0, device=dev)
+        key = failures.scenario_key(0, 0, dev)
+        before = LAUNCHES["semiring"]
+        dead = failures.failure_mask(key, tt.adj, 0.1, pattern)
+        out[dev] = failures.apply_failures(lr, dead, mode=mode, rate=0.1,
+                                           pattern=pattern) + (dead,)
+        if dev == "cuda" and mode == "repair":
+            assert LAUNCHES["semiring"] > before
+    (g, g_rep, g_dead), (c, c_rep, c_dead) = out["cuda"], out["cpu"]
+    assert (g_dead == c_dead).all() and g_dead.any() and g_rep == c_rep
+    for name in ("layer_adj", "nh", "reach", "pathlen"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    assert g.validate_loop_free(n_samples=10 ** 6).ok

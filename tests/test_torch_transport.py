@@ -101,18 +101,8 @@ def test_adaptive_horizon_equals_full_horizon(cell, balancing):
 
 
 def test_unported_lanes_raise(cell):
-    topo, wl, routings, t_topo, t_wl, t_routings = cell
-    lr = t_routings["fatpaths"]
     with pytest.raises(ValueError, match="kernel_backend"):
         transport.SimConfig(kernel_backend="pallas")
-    for kw in ({"recovery": "on"}, {"record": 1}):
-        with pytest.raises(NotImplementedError, match="A8"):
-            transport.simulate(t_topo, lr, t_wl, transport.SimConfig(**kw),
-                               device="cpu")
-    dead = dataclasses.replace(lr, link_down_step=np.zeros((50, 50), np.int32))
-    with pytest.raises(NotImplementedError, match="A8"):
-        transport.simulate(t_topo, dead, t_wl, transport.SimConfig(),
-                           device="cpu")
 
 
 def test_simulate_seeds_equals_simulate(cell):
