@@ -103,7 +103,28 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    own calls (dead links, ``util``) and timed with and without ``util``;
    ``churn(rate=0.1)`` x permutation(256 MiB) x availability(steps=400);
    and the ``degradation`` ladder over permutation (7 scenarios);
-9. one ``{"kernels": [...]}`` line: launches on the main path (for the
+9. the blocked path engine (phases 1-8 build with ``REPRO_PATH_ENGINE=
+   dense``, as their launch counts assume; phase 9 sets each engine for
+   its own builds, in a new session per engine): (9.1) the sf(q=19) main
+   sweep under ``auto`` (blocked tables and compressed tables from 512
+   routers up), its RunResults and ``depart_step`` equal to phase 5's
+   dense run, the stacks bitwise across engines, the compressed tables
+   exactly ``nh``, each engine's build split over three builds; (9.2) the
+   sf(q=29) stacks (rand, ksp, pi_min, ecmp) under each engine, bitwise
+   equal, with peak device memory per build, and the blocked ksp build's
+   four (min, +) products of (8, 1682, 1682) held against the plain
+   version and timed; (9.3) ``min_path_stats(adj, max_l=8)`` of sf(q=29)
+   under each engine (distances bitwise, counts bitwise below 2^24), the
+   blocked engine's 49 count products of (256, 1682) x (1682, 1682) held
+   against the plain version and timed beside the dense engine's 7;
+   (9.4) the sf(q=29) fatpaths(n_layers=9,rho=0.6) and ecmp cells x
+   permutation x transport(steps=2000,transport=ndp) under ``auto`` on
+   the card and on the CPU port, held equal as phase 5 holds its cells,
+   with their scan readings and peak memory; (9.5) ``ft2eq(of=sf(q=29))``
+   x ecmp x the same pattern and evaluator under each engine on the card:
+   tables, RunResult and ``depart_step`` bitwise, the compressed tables'
+   block, build seconds and peak memory;
+10. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse, GF(p) and attention kernels, on their own phase's path;
    each path's own counts in ``path_launches``),
    error against the plain version (0 for the water-filling kernel, which
@@ -111,7 +132,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-10. the last line: ``{"ok": true, "device": {...}}``.
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -128,6 +149,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -148,6 +170,9 @@ SPIN_CYCLES = 4_000_000     # about 2 ms at the H100's 1980 MHz
 PROFILE_RETRIES: list = []
 # Lead spin kernels missing from each trace taken.
 PROFILE_LEAD_LOST: list = []
+# The lead of the last reading that held every event: the next trace
+# starts there, since the losses grow as the process ages.
+PROFILE_LEAD = [8]
 MAIN_TOPO = "sf(q=19)"
 MAIN_ROUTINGS = ("fatpaths(n_layers=9,rho=0.6)", "ecmp")
 MAIN_PATTERN = "permutation"
@@ -185,6 +210,14 @@ RECOVERY_EVAL = "recovery(steps=400,transport=dctcp)"
 CHURN_ROUTING = f"churn(of={DYN_ROUTING},rate=0.1)"
 AVAIL_EVAL = "availability(steps=400)"
 DEGRADE_EVAL = "degradation"
+# Phase 9, the blocked engine: the paper's scale, sf(q=29) (1 682 routers,
+# radix 43, 37 004 endpoints, its table 5), and its cost-equal two-layer
+# fat tree (903 routers, spine radix 861, 37 023 endpoints): the paper's
+# headline pair.
+PAPER_TOPO = "sf(q=29)"
+FT2_TOPO = f"ft2eq(of={PAPER_TOPO})"
+PAPER_STACKS = (DYN_ROUTING, KSP_ROUTING, PIMIN_ROUTING, "ecmp")
+BUILD_REPEATS = 3
 GF_TOPO_Q = 11          # sf(q=11): 242 routers, 4114 directed links
 GF_P = 1009
 GF_LEN = 4
@@ -1215,7 +1248,8 @@ def _profile(fn, top_n: int = 6):
     a reading counts only when the trace holds a device event for every
     launch, memset and copy call of ``fn`` (the trace's calls, less the
     spin kernels); otherwise ``lead`` doubles and the reading is taken
-    again.  The spin kernels are left out of the sums."""
+    again.  Each trace starts at the lead the last good reading needed
+    (8 at first).  The spin kernels are left out of the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1223,7 +1257,7 @@ def _profile(fn, top_n: int = 6):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    lead = 8
+    lead = PROFILE_LEAD[0]
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1241,6 +1275,7 @@ def _profile(fn, top_n: int = 6):
             1 for e in events if e.device_type == DeviceType.CUDA
             and "spin_kernel" in e.name))
         if n_dev == calls - lead:
+            PROFILE_LEAD[0] = lead
             break
         PROFILE_RETRIES.append((lead, calls - lead - n_dev))
         lead *= 2
@@ -1256,15 +1291,15 @@ def _profile(fn, top_n: int = 6):
 
 
 def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
-                  profile_steps, cfg_kw=None):
+                  profile_steps, cfg_kw=None, topo=MAIN_TOPO):
     """The scan of one cell alone, again: host wall around a synchronize,
     steps run and µs per step; then ``torch.profiler`` over the first
     ``profile_steps`` steps with the adaptive horizon off, or with
     ``profile_steps=None`` over the same run again (device time, idle
     share, device events per step, and the water-filling kernel's device
     time per call).  ``cfg_kw`` holds further ``SimConfig`` fields (ndp
-    by default)."""
-    cell = ses.resolve(ses.grid([MAIN_TOPO], [routing], [pattern])[0])
+    by default); ``topo`` is the cell's topology (sf(q=19) by default)."""
+    cell = ses.resolve(ses.grid([topo], [routing], [pattern])[0])
     cfg = transport.SimConfig(balancing=cell.bundle.balancing,
                               n_steps=n_steps,
                               **{"transport": "ndp", **(cfg_kw or {})})
@@ -1392,7 +1427,7 @@ def phase_main(Session, transport, catalog, prng, LAUNCHES, reset_launches):
             raise AssertionError(f"{rr.cell_id}: the long cell stopped at "
                                  f"{info['steps']} steps")
         print("# phase 5 (long flows): " + json.dumps(info), flush=True)
-    return launches, cells
+    return launches, ses, results, card_sims
 
 
 _SIM_LANES = ("depart_step", "delivered", "retrans_bytes", "goodput_steps",
@@ -1400,47 +1435,57 @@ _SIM_LANES = ("depart_step", "delivered", "retrans_bytes", "goodput_steps",
 
 
 def _card_and_cpu(Session, catalog, routing, pattern, evaluator, LAUNCHES,
-                  reset_launches, card_ctx=contextlib.nullcontext):
-    """One sf(q=19) cell in a new session on the card, with the launch
+                  reset_launches, card_ctx=contextlib.nullcontext,
+                  topo=MAIN_TOPO, need=("semiring", "waterfill")):
+    """One ``topo`` cell (sf(q=19) by default) in a new session on the
+    card, with the launch
     counts set to 0 just before and read just after, then on the CPU
     port: its metrics and meta equal (``compare_results`` at rtol 0, NaN
     equal to NaN), and every simulation's ``depart_step``, ``delivered``
     and, where the cell has them, ``retrans_bytes`` and the per-step
     ``goodput_steps`` and ``stalled_steps``, bitwise.  ``card_ctx()`` is
-    entered around the card's run only.  Returns (card session, CPU-port
-    session, card RunResult, card SimResults of the first simulation
-    call, launches, CPU-port wall s)."""
-    from repro_torch.experiments.results import compare_results
+    entered around the card's run only; each kernel of ``need`` must have
+    been launched.  Returns (card session, CPU-port session, card
+    RunResult, card SimResults of the first simulation call, launches,
+    CPU-port wall s)."""
     card, cpu = [], []
     ses = Session(device="cuda")
     torch.cuda.synchronize()
     reset_launches()
     with _patched(catalog, "simulate_seeds", _sims_recorder(card)), \
             card_ctx():
-        rr = ses.run(MAIN_TOPO, routing, pattern, evaluator)
+        rr = ses.run(topo, routing, pattern, evaluator)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    _need_launches(launches, ("semiring", "waterfill"), rr.cell_id)
+    _need_launches(launches, need, rr.cell_id)
     t0 = time.perf_counter()
     ses_cpu = Session(device="cpu")
     with _patched(catalog, "simulate_seeds", _sims_recorder(cpu)):
-        rc = ses_cpu.run(MAIN_TOPO, routing, pattern, evaluator)
+        rc = ses_cpu.run(topo, routing, pattern, evaluator)
     cpu_s = time.perf_counter() - t0
-    diffs = compare_results([rr], [rc], rtol=0.0)
+    _same_runs([rr], [rc], card, cpu, f"{rr.cell_id} card vs CPU")
+    return ses, ses_cpu, rr, card[0], launches, cpu_s
+
+
+def _same_runs(results_a, results_b, sims_a, sims_b, what):
+    """Raise unless two runs of the same cells agree: RunResults by
+    ``compare_results`` at rtol 0 (meta apart from timings), and every
+    simulation's ``_SIM_LANES`` bitwise."""
+    from repro_torch.experiments.results import compare_results
+    diffs = compare_results(results_a, results_b, rtol=0.0)
     if diffs:
-        raise AssertionError(f"{rr.cell_id}: card vs CPU: {diffs[:4]}")
-    if len(card) != len(cpu):
-        raise AssertionError(f"{rr.cell_id}: {len(card)} simulations on the "
-                             f"card, {len(cpu)} on the CPU")
-    for sims_g, sims_c in zip(card, cpu):
-        for g, c in zip(sims_g, sims_c):
+        raise AssertionError(f"{what}: {diffs[:4]}")
+    if len(sims_a) != len(sims_b):
+        raise AssertionError(f"{what}: {len(sims_a)} simulations against "
+                             f"{len(sims_b)}")
+    for run_a, run_b in zip(sims_a, sims_b):
+        for a_sim, b_sim in zip(run_a, run_b):
             for name in _SIM_LANES:
-                a, b = getattr(g, name), getattr(c, name)
+                a, b = getattr(a_sim, name), getattr(b_sim, name)
                 if (a is None) != (b is None) or (
                         a is not None and a.tobytes() != b.tobytes()):
-                    raise AssertionError(f"{rr.cell_id}: {name} differs "
-                                         "card vs CPU")
-    return ses, ses_cpu, rr, card[0], launches, cpu_s
+                    raise AssertionError(f"{what}: {name} differs in "
+                                         f"{results_a[0].cell_id}")
 
 
 def _bool_calls_entry(ref, semiring_matmul, calls, launches, what):
@@ -1728,13 +1773,332 @@ def phase_faults(Session, catalog, failures, paths, transport, prng, ref,
     return path_launches
 
 
+@contextlib.contextmanager
+def _engine(name):
+    """``REPRO_PATH_ENGINE`` set to ``name`` for the block."""
+    old = os.environ.get("REPRO_PATH_ENGINE")
+    os.environ["REPRO_PATH_ENGINE"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_PATH_ENGINE"]
+        else:
+            os.environ["REPRO_PATH_ENGINE"] = old
+
+
+_TABLES = ("layer_adj", "nh", "reach", "pathlen")
+
+
+def _same_stack(a, b, what):
+    """Raise unless two stacks' tables are bitwise equal."""
+    for name in _TABLES:
+        if not torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def _compressed_info(lr, what):
+    """The blocked stack's compressed tables: present, exactly its dense
+    ``nh``, and their size beside it."""
+    ct = lr.compressed
+    if ct is None or not torch.equal(ct.dense(), lr.nh):
+        raise AssertionError(f"{what}: compressed tables missing or not "
+                             "its dense nh")
+    return dict(block=ct.block, k=int(ct.nh_sets.shape[-1]),
+                nbytes=ct.nbytes,
+                dense_nh_bytes=lr.nh.numel() * lr.nh.element_size())
+
+
+def _build_peak(build):
+    """``build()`` with the device's peak memory reset before: (result,
+    MiB allocated above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = build()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def phase_blocked_main(Session, catalog, layers, transport, LAUNCHES,
+                       reset_launches, dense_ses, dense_results, dense_sims):
+    """9.1 The sf(q=19) main sweep under ``auto`` (blocked tables and
+    compressed tables from 512 routers up) in a new session: RunResults
+    and every ``depart_step`` equal to phase 5's dense run, the stacks
+    bitwise the dense ones, the compressed tables their ``nh``; then each
+    engine's build split over BUILD_REPEATS builds."""
+    sims = []
+    with _engine("auto"):
+        ses = Session(device="cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        with _patched(catalog, "simulate_seeds", _sims_recorder(sims)):
+            results = ses.sweep([MAIN_TOPO], list(MAIN_ROUTINGS),
+                                [MAIN_PATTERN], [MAIN_EVAL])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        blocked = {r: ses.routing(MAIN_TOPO, r).routing
+                   for r in MAIN_ROUTINGS}
+    _need_launches(launches, ("waterfill",), "the blocked sf(q=19) sweep")
+    if launches["semiring"]:
+        raise AssertionError("the blocked engine made semiring products")
+    _same_runs(dense_results, results, dense_sims, sims,
+               "sf(q=19) blocked vs dense")
+    info = {}
+    with _engine("dense"):
+        for r in MAIN_ROUTINGS:
+            dense = dense_ses.routing(MAIN_TOPO, r).routing
+            _same_stack(blocked[r], dense, f"sf(q=19) {r} blocked vs dense")
+            if dense.compressed is not None:
+                raise AssertionError("the dense engine attached compressed "
+                                     "tables")
+            info[r] = _compressed_info(blocked[r], r)
+    topo = ses.topology(MAIN_TOPO)
+    builds = {}
+    for eng in ("dense", "blocked"):
+        with _engine(eng):
+            for r in MAIN_ROUTINGS:
+                stats = [(layers.build_layers(topo, 9, 0.6, seed=0,
+                                              device="cuda")
+                          if r == DYN_ROUTING else
+                          transport.ecmp_routing(topo, n_tables=8, seed=0,
+                                                 device="cuda")).build_stats
+                         for _ in range(BUILD_REPEATS)]
+                builds[f"{r} {eng}"] = {k: [st.get(k) for st in stats]
+                                        for k in stats[0]}
+    print("# phase 9.1: sf(q=19) main sweep under auto (blocked + "
+          "compressed): RunResults and depart_step equal phase 5's dense "
+          "run, tables bitwise across engines, compressed tables exactly "
+          f"nh; launches {launches}; compressed {json.dumps(info)}; build "
+          f"s over {BUILD_REPEATS} builds (ecmp's compression is in its "
+          f"host_s) {json.dumps(builds)}", flush=True)
+    return launches
+
+
+def phase_paper_stacks(Session, paths, ref, semiring_matmul, LAUNCHES,
+                       reset_launches, k2):
+    """9.2 The four sf(q=29) stacks under each engine, each built in a new
+    session with the launch counts and the peak memory reset before it:
+    bitwise equal across engines; the blocked ksp stack's four (min, +)
+    products held against the plain version (whole products) and
+    timed."""
+    stacks, out, minplus = {}, {}, []
+    n = Session(device="cpu").topology(PAPER_TOPO).n_routers
+    for eng in ("auto", "dense"):
+        with _engine(eng):
+            ses = Session(device="cuda")
+            if paths.path_engine(n) != ("blocked" if eng == "auto"
+                                        else "dense"):
+                raise AssertionError(f"{eng} resolved otherwise at {n} "
+                                     "routers")
+            for r in PAPER_STACKS:
+                calls = []
+                reset_launches()
+                with _recording([paths], calls, r):
+                    lr, peak = _build_peak(
+                        lambda: ses.routing(PAPER_TOPO, r).routing)
+                if LAUNCHES["semiring"] != len(calls):
+                    raise AssertionError(f"{r} {eng}: {LAUNCHES['semiring']}"
+                                         f" launches, {len(calls)} calls")
+                kinds = {}
+                for _, a, b, sr in calls:
+                    kinds[sr] = kinds.get(sr, 0) + 1
+                stacks[(eng, r)] = lr
+                out[f"{r} {eng}"] = dict(
+                    semiring_launches=kinds, peak_mib=peak,
+                    **{k: v for k, v in lr.build_stats.items()})
+                if eng == "auto" and r == KSP_ROUTING:
+                    minplus = [(a, b, sr) for _, a, b, sr in calls]
+    for r in PAPER_STACKS:
+        _same_stack(stacks[("auto", r)], stacks[("dense", r)],
+                    f"sf(q=29) {r} blocked vs dense")
+        out[f"{r} auto"]["compressed"] = _compressed_info(stacks[("auto", r)],
+                                                          r)
+    if len(minplus) != 4 or {c[2] for c in minplus} != {"minplus"} or \
+            {tuple(c[0].shape) for c in minplus} != {(8, n, n)}:
+        raise AssertionError("the blocked sf(q=29) ksp build made "
+                             f"{[(tuple(a.shape), sr) for a, _, sr in minplus]}")
+    del stacks
+    max_err = max(_check_equal(semiring_matmul(*c),
+                               ref.semiring_matmul_ref(*c),
+                               f"sf(q=29) ksp minplus call {i}")
+                  for i, c in enumerate(minplus))
+    ms, wall = _replay_ms(semiring_matmul, minplus, 3)
+    plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, minplus, 1)
+    bound, by = _sum_bound([_mm_bound(*c) for c in minplus])
+    entry = dict(calls=len(minplus), launches=len(minplus), ms=ms,
+                 wall_ms=wall, plain_ms=plain_ms,
+                 bound_ms=bound / len(minplus), bound_by=by,
+                 library_ms=None, max_abs_err=max_err,
+                 plain_compared="whole products",
+                 shapes=[[8, n, n], [8, n, n]])
+    k2["per_semiring"]["minplus"]["paper_ksp_blocked"] = entry
+    print("# phase 9.2: sf(q=29) stacks (rand, ksp, pi_min, ecmp) bitwise "
+          "across engines on the card, compressed tables exactly nh; "
+          + json.dumps(out), flush=True)
+    print("# phase 9.2: semiring minplus on the blocked sf(q=29) ksp "
+          "build's 4 products, bitwise its plain version: "
+          + json.dumps(entry), flush=True)
+    return {"sf(q=29) ksp build (blocked)": len(minplus)}
+
+
+def phase_paper_stats(Session, paths, ref, semiring_matmul, LAUNCHES,
+                      reset_launches, k2):
+    """9.3 ``min_path_stats(adj, max_l=8)`` of sf(q=29) under each engine:
+    distances bitwise, counts bitwise below 2^24; the blocked engine's
+    count products (row blocks) held against the plain version and timed
+    beside the dense engine's."""
+    adj = np.asarray(Session(device="cpu").topology(PAPER_TOPO).adj)
+    res, recorded, launches = {}, {}, {}
+    for eng in ("dense", "blocked"):
+        calls = []
+        reset_launches()
+        with _recording([paths], calls, eng):
+            res[eng] = paths.min_path_stats(adj, max_l=8, engine=eng,
+                                            device="cuda")
+        torch.cuda.synchronize()
+        launches[eng] = LAUNCHES["semiring"]
+        if launches[eng] != len(calls):
+            raise AssertionError(f"min_path_stats {eng}: {launches[eng]} "
+                                 f"launches, {len(calls)} calls")
+        recorded[eng] = [(a, b, sr) for _, a, b, sr in calls
+                         if sr == "count"]
+    (d_d, c_d), (d_b, c_b) = res["dense"], res["blocked"]
+    exact = c_d < 2 ** 24
+    if not (np.array_equal(d_d, d_b) and np.array_equal(exact, c_b < 2 ** 24)
+            and np.array_equal(c_d[exact], c_b[exact])):
+        raise AssertionError("sf(q=29) min_path_stats differs across "
+                             "engines")
+    n_blocks = -(-adj.shape[0] // paths._CHUNK)
+    if len(recorded["blocked"]) != 7 * n_blocks or \
+            len(recorded["dense"]) != 7 or launches["blocked"] != 7 * n_blocks:
+        raise AssertionError(f"count products: dense "
+                             f"{len(recorded['dense'])}, blocked "
+                             f"{len(recorded['blocked'])}")
+    max_err, n_exact = 0.0, 0
+    for i, (a, b, sr) in enumerate(recorded["blocked"]):
+        err, ex = _check_count_call(semiring_matmul(a, b, sr),
+                                    ref.semiring_matmul_ref(a, b, sr), a, b,
+                                    f"sf(q=29) row-block count call {i}")
+        max_err, n_exact = max(max_err, err), n_exact + ex
+    entries = {}
+    for eng, mine in recorded.items():
+        ms, wall = _replay_ms(semiring_matmul, mine, 5)
+        plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, mine, 5)
+        lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
+                                           for a, b, _ in mine], 5)
+        bound, by = _sum_bound([_mm_bound(*c) for c in mine])
+        entries[eng] = dict(calls=len(mine), launches=launches[eng],
+                            ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                            bound_ms=bound / len(mine), bound_by=by,
+                            library_ms=lib, path_ms=ms * len(mine),
+                            shapes=sorted({(tuple(a.shape), tuple(b.shape))
+                                           for a, b, _ in mine}))
+    entries["blocked"].update(max_abs_err=max_err, bitwise_calls=n_exact)
+    k2["per_semiring"]["count"]["paper_min_path_stats"] = entries
+    print(f"# phase 9.3: sf(q=29) min_path_stats(max_l=8): distances "
+          f"bitwise and counts (max {c_b.max():.0f}) bitwise across "
+          f"engines; blocked count products held against the plain version "
+          f"({n_exact} bitwise, the rest above 2^24 within rtol 4e-6 of "
+          "float64); " + json.dumps(entries), flush=True)
+    return {"sf(q=29) min_path_stats (blocked)": launches["blocked"],
+            "sf(q=29) min_path_stats (dense)": launches["dense"]}
+
+
+def phase_paper_cells(Session, catalog, transport, prng, LAUNCHES,
+                      reset_launches, k1):
+    """9.4 The sf(q=29) main cells under ``auto`` on the card and on the
+    CPU port (blocked too) in the same process, held equal as phase 5
+    holds its cells, with their scan readings and peak memory."""
+    path_launches = {}
+    with _engine("auto"):
+        for r in (DYN_ROUTING, "ecmp"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ses, _, rr, _, launches, cpu_s = _card_and_cpu(
+                Session, catalog, r, MAIN_PATTERN, MAIN_EVAL, LAUNCHES,
+                reset_launches, topo=PAPER_TOPO, need=("waterfill",))
+            peak = torch.cuda.max_memory_allocated()
+            if ses.routing(PAPER_TOPO, r).routing.compressed is None:
+                raise AssertionError(f"{rr.cell_id}: no compressed tables")
+            reading = _scan_reading(ses, transport, prng, r, MAIN_PATTERN,
+                                    2000, 80, topo=PAPER_TOPO)
+            path_launches[rr.cell_id] = launches
+            info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                        n_flows=rr.meta["n_flows"],
+                        build_s=rr.meta["build_s"], cell_wall_s=rr.wall_s,
+                        cpu_port_wall_s=cpu_s, launches=launches,
+                        peak_device_mib=peak / 2 ** 20, **reading)
+            k1.setdefault("per_path", {})[rr.cell_id] = _k1_reading(
+                rr, reading)
+            print("# phase 9.4: depart_step and metrics equal card vs CPU "
+                  "port (both blocked); " + json.dumps(info), flush=True)
+    return path_launches
+
+
+def _k1_reading(rr, reading):
+    return dict(calls=reading["waterfill_calls"],
+                ms=reading["waterfill_ms_per_call"],
+                bound_ms=_wf_bound_s(rr.meta["n_flows"], reading["hop_slots"],
+                                     reading["e_tot"]) * 1e3,
+                bound_by="bytes", n_flows=rr.meta["n_flows"],
+                plan_entries=reading["plan_entries"],
+                plan_max_segment=reading["plan_max_segment"])
+
+
+def phase_ft2(Session, catalog, transport, prng, LAUNCHES, reset_launches,
+              k1):
+    """9.5 The cost-equal FT2 of sf(q=29) x ecmp x permutation x the main
+    evaluator under each engine on the card (no CPU run): tables,
+    RunResult and ``depart_step`` bitwise; the block the compressed
+    tables settle on, each engine's build seconds and peak memory."""
+    runs = {}
+    for eng in ("auto", "dense"):
+        with _engine(eng):
+            sims = []
+            ses = Session(device="cuda")
+            reset_launches()
+            lr, peak = _build_peak(lambda: ses.routing(FT2_TOPO,
+                                                       "ecmp").routing)
+            with _patched(catalog, "simulate_seeds", _sims_recorder(sims)):
+                rr = ses.run(FT2_TOPO, "ecmp", MAIN_PATTERN, MAIN_EVAL)
+            torch.cuda.synchronize()
+            runs[eng] = (ses, lr, rr, sims, dict(LAUNCHES), peak)
+    (ses, lr_b, rr, sims_b, launches, peak_b) = runs["auto"]
+    (_, lr_d, rr_d, sims_d, launches_d, peak_d) = runs["dense"]
+    _need_launches(launches, ("waterfill",), f"{rr.cell_id} blocked")
+    _need_launches(launches_d, ("semiring", "waterfill"),
+                   f"{rr.cell_id} dense")
+    _same_stack(lr_b, lr_d, "FT2 blocked vs dense")
+    _same_runs([rr_d], [rr], sims_d, sims_b, "FT2 blocked vs dense")
+    spine = int(np.asarray(ses.topology(FT2_TOPO).adj).sum(1).max())
+    with _engine("auto"):
+        reading = _scan_reading(ses, transport, prng, "ecmp", MAIN_PATTERN,
+                                2000, 80, topo=FT2_TOPO)
+    k1.setdefault("per_path", {})[rr.cell_id] = _k1_reading(rr, reading)
+    info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                n_routers=rr.meta["n_routers"], n_flows=rr.meta["n_flows"],
+                spine_radix=spine,
+                compressed=_compressed_info(lr_b, "FT2"),
+                build_stats={"blocked": lr_b.build_stats,
+                             "dense": lr_d.build_stats},
+                build_peak_mib={"blocked": peak_b, "dense": peak_d},
+                cell_wall_s={"blocked": rr.wall_s, "dense": rr_d.wall_s},
+                launches={"blocked": launches, "dense": launches_d},
+                **reading)
+    print("# phase 9.5: FT2 tables, RunResult and depart_step bitwise "
+          "blocked vs dense on the card; " + json.dumps(info), flush=True)
+    return {f"{rr.cell_id} (blocked)": launches,
+            f"{rr.cell_id} (dense)": launches_d}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import prng
-    from repro_torch.core import failures, paths, topology, transport
+    from repro_torch.core import failures, layers, paths, topology, transport
     from repro_torch.experiments import Session, catalog
     from repro_torch.kernels import (LAUNCHES, build, flash_attention,
                                      gf_matmul, ops, pathcount, ref,
@@ -1744,6 +2108,9 @@ def main() -> int:
     from repro_torch.kernels.sparse import _occupancy
 
     t_start = time.perf_counter()
+    # Phases 1-8 build with the dense engine, as before phase 9 existed:
+    # their launch counts (K2 bool in every APSP) depend on it.
+    os.environ["REPRO_PATH_ENGINE"] = "dense"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, count = phase_card()
@@ -1769,8 +2136,8 @@ def main() -> int:
     k5 = phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches)
     torch.cuda.empty_cache()
     phase_small_cell(Session, transport)
-    launches, _ = phase_main(Session, transport, catalog, prng, LAUNCHES,
-                             reset_launches)
+    launches, main_ses, main_results, main_sims = phase_main(
+        Session, transport, catalog, prng, LAUNCHES, reset_launches)
     k2["launches"] = launches["semiring"]
     k2["per_semiring"]["bool"]["launches"] = launches["semiring"]
     k1["launches"] = launches["waterfill"]
@@ -1785,21 +2152,40 @@ def main() -> int:
                           ref, semiring_matmul, waterfill.waterfill_step,
                           LAUNCHES, reset_launches, k1, k2)
     t9 = time.perf_counter()
+    blocked_main = phase_blocked_main(Session, catalog, layers, transport,
+                                      LAUNCHES, reset_launches, main_ses,
+                                      main_results, main_sims)
+    del main_ses, main_results, main_sims
+    torch.cuda.empty_cache()
+    k2_paper = phase_paper_stacks(Session, paths, ref, semiring_matmul,
+                                  LAUNCHES, reset_launches, k2)
+    k2_paper.update(phase_paper_stats(Session, paths, ref, semiring_matmul,
+                                      LAUNCHES, reset_launches, k2))
+    torch.cuda.empty_cache()
+    paper = phase_paper_cells(Session, catalog, transport, prng, LAUNCHES,
+                              reset_launches, k1)
+    paper.update(phase_ft2(Session, catalog, transport, prng, LAUNCHES,
+                           reset_launches, k1))
+    t10 = time.perf_counter()
     print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
-          f"{t9 - t8:.1f}, script up to here {t9 - t_start:.1f}", flush=True)
+          f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, script up to here "
+          f"{t10 - t_start:.1f}", flush=True)
+    cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
+             **paper}
     k2["path_launches"].update(
-        {"pi_min cell": pimin["semiring"],
-         **{cell: n["semiring"] for cell, n in {**dyn, **faults}.items()}})
+        {"pi_min cell": pimin["semiring"], **k2_paper,
+         **{cell: n["semiring"] for cell, n in cells.items()}})
     k1["path_launches"] = {"main sweep": launches["waterfill"],
                            "pi_min cell": pimin["waterfill"],
                            **{cell: n["waterfill"]
-                              for cell, n in {**dyn, **faults}.items()}}
+                              for cell, n in cells.items()}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST
     print(f"# profiler: {len(lost)} traces; lead spin kernels missing from "
           f"{sum(1 for x in lost if x)} of them ({sum(lost)} in all, at most "
-          f"{max(lost)} in one); readings taken again after losing device "
+          f"{max(lost)} in one; last lead {PROFILE_LEAD[0]}); readings taken "
+          "again after losing device "
           f"events of the call: {len(PROFILE_RETRIES)} ((lead, lost): "
           f"{PROFILE_RETRIES})", flush=True)
     # Every kernel's keys, then the breakdowns some of them carry.

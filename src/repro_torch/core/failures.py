@@ -185,7 +185,8 @@ def apply_failures(lr: LayeredRouting, dead: np.ndarray,
     built on the stack's device.
 
     ``mode="repair"``: every layer's tables are rebuilt on its masked
-    adjacency (APSP + forwarding, key ``fold_in(PRNGKey(seed), 0xF1)``,
+    adjacency (APSP + forwarding through the engine resolved at this
+    size, key ``fold_in(PRNGKey(seed), 0xF1)``,
     ``max_len = max(6, diameter_nominal + 6)`` by default).
     ``mode="drop"``: the pristine tables are kept and every entry whose
     walk crosses a dead link is invalidated; layers left with no usable
@@ -206,12 +207,16 @@ def apply_failures(lr: LayeredRouting, dead: np.ndarray,
         if max_len is None:
             # Re-converged paths detour around failures: build slack + 2.
             max_len = max(6, lr.topo.diameter_nominal + 6)
-        paths_mod.path_engine()
         union = masked_la.any(dim=0).cpu().numpy()
         nbr = torch.as_tensor(paths_mod.neighbor_table(union), device=dev)
         key = prng.fold_in(prng.PRNGKey(int(seed), dev), 0xF1)
+        eng = paths_mod.path_engine(n)
+        # The masked union is asymmetric where one direction of a link
+        # died: the frontier APSP relaxes over its in-neighbors.
+        nbr_in = (torch.as_tensor(paths_mod.neighbor_table(union.T),
+                                  device=dev) if eng == "blocked" else None)
         nh, reach, dist = paths_mod._layer_tables_core(masked_la, nbr, key,
-                                                       max_len)
+                                                       max_len, eng, nbr_in)
         pathlen = torch.where(reach, dist, _UNREACH).to(torch.int16)
     else:
         # Walks take exactly pathlen hops (shortest-path forwarding), so
@@ -230,10 +235,17 @@ def apply_failures(lr: LayeredRouting, dead: np.ndarray,
 
     report = _count_report(lr, reach_before, reach.cpu().numpy(), dead, rate,
                            pattern, mode)
+    # The tables changed, so a compressed form of the pristine stack is
+    # stale; one is attached again iff the input carried one, with the
+    # auto block (repair redistributes next hops, so the input's block
+    # may no longer fit the uint8 selector).
+    compressed = None
+    if lr.compressed is not None:
+        compressed = paths_mod.CompressedTables.from_dense(nh)
     degraded = dataclasses.replace(
         lr, nh=nh, reach=reach, pathlen=pathlen, layer_adj=masked_la,
         build_stats=None, link_down_step=None, link_churn=None,
-        compressed=None)
+        compressed=compressed)
     return degraded, report
 
 

@@ -24,7 +24,8 @@ Construction schemes (§5.3):
 ``rand``, ``undir``, ``spain`` and ``past`` sample the layer adjacencies
 on the host with numpy (the JAX package's exact draws); every layer's
 APSP and forwarding tables then come out of one batched device pass
-(:mod:`repro_torch.core.paths`).  ``ksp`` draws its weights on the device
+(:mod:`repro_torch.core.paths`, through the engine ``engine=`` or
+``REPRO_PATH_ENGINE`` resolves).  ``ksp`` draws its weights on the device
 from the threefry stream.  ``pi_min`` samples each layer on the device
 from the edge usage of the layers built before it, so its layers are
 built one after another.
@@ -102,8 +103,9 @@ class LayeredRouting:
     link_down_step: Optional[np.ndarray] = None
     link_churn: Optional[np.ndarray] = None
     churn_conv: int = 0
-    # Compressed tables come with the blocked engine (ROADMAP A9).
-    compressed: Optional[object] = None
+    # Set when the stack was built with representation="compressed" (the
+    # default under the blocked engine); nh stays the dense stack.
+    compressed: Optional[paths_mod.CompressedTables] = None
 
     @property
     def n_layers(self) -> int:
@@ -233,7 +235,7 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _pi_min_stack(adj: torch.Tensor, nbr: torch.Tensor, iu: torch.Tensor,
                   ju: torch.Tensor, key: torch.Tensor, n_layers: int,
-                  rho: float, max_l: int):
+                  rho: float, max_l: int, engine: str = "dense"):
     """The §5.3.2 build: each layer a DAG whose edges are kept with a
     probability that shrinks with their accumulated usage by the layers
     before it (counting-semiring fixpoint), then its tables; the layers
@@ -245,7 +247,7 @@ def _pi_min_stack(adj: torch.Tensor, nbr: torch.Tensor, iu: torch.Tensor,
     e = iu.shape[0]
     k0, krest = prng.split(key)
     nh0, reach0, dist0 = paths_mod._layer_tables_core(adj[None], nbr, k0,
-                                                      max_l)
+                                                      max_l, engine)
     usage = paths_mod._edge_usage_core(nh0[0], reach0[0], max_l)
     las, nhs, reaches, dists = [adj[None]], [nh0], [reach0], [dist0]
     keys = prng.split(krest, n_layers - 1) if n_layers > 1 else []
@@ -268,7 +270,7 @@ def _pi_min_stack(adj: torch.Tensor, nbr: torch.Tensor, iu: torch.Tensor,
         la = torch.zeros((n, n), dtype=torch.bool, device=adj.device)
         la[uu, vv] = keep
         nh, reach, dist = paths_mod._layer_tables_core(la[None], nbr, k_fw,
-                                                       max_l)
+                                                       max_l, engine)
         usage = usage + paths_mod._edge_usage_core(nh[0], reach[0], max_l)
         las.append(la[None])
         nhs.append(nh)
@@ -278,17 +280,34 @@ def _pi_min_stack(adj: torch.Tensor, nbr: torch.Tensor, iu: torch.Tensor,
             torch.cat(dists))
 
 
+def _ksp_next_hops(has_edge: torch.Tensor, w_nbr: torch.Tensor,
+                   d: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """Next hops minimising ``w[s, u] + D[u, t]`` over the neighbors u of
+    s (first minimum on ties) for the destination columns of ``d`` (N, C);
+    -1 where no neighbor reaches t."""
+    inf = torch.tensor(float("inf"), device=d.device)
+    cost = torch.where(has_edge[:, :, None],
+                       w_nbr[:, :, None] + d[nbr], inf)          # (N, D, C)
+    j = cost.argmin(dim=1)                                    # first minimum
+    best = torch.gather(nbr, 1, j).to(torch.int32)
+    return torch.where(torch.isfinite(cost.amin(dim=1)), best, -1)
+
+
 def _ksp_stack(adj: torch.Tensor, nbr: torch.Tensor, key: torch.Tensor,
-               n_layers: int, max_l: int):
+               n_layers: int, max_l: int, engine: str = "dense"):
     """k-shortest-paths-style layers: per-layer perturbed edge weights,
     (min, +) all-pairs distances, and next hops minimising
     ``w[s, u] + D[u, t]`` over neighbors u (first minimum on ties).
-    Every layer keeps all links; reach and dist are layer 0's."""
+    Every layer keeps all links; reach and dist are layer 0's.  The
+    blocked engine takes the destinations ``_CHUNK`` at a time, an
+    (N, Dmax, _CHUNK) cost slab instead of the (N, Dmax, N) cube; the
+    argmin is per column, so the tables are the same."""
     n = adj.shape[0]
     dev = adj.device
     idx = torch.arange(n, device=dev)
     k0, kw = prng.split(key)
-    nh0, _, dist0 = paths_mod._layer_tables_core(adj[None], nbr, k0, max_l)
+    nh0, _, dist0 = paths_mod._layer_tables_core(adj[None], nbr, k0, max_l,
+                                                 engine)
     hop = dist0[0]
     u01 = prng.uniform(kw, (n_layers - 1, n, n))
     inf = torch.tensor(float("inf"), device=dev)
@@ -299,14 +318,13 @@ def _ksp_stack(adj: torch.Tensor, nbr: torch.Tensor, key: torch.Tensor,
 
     nbr = nbr.long()
     has_edge = torch.gather(adj, 1, nbr)                      # (N, D)
+    chunk = paths_mod._CHUNK if engine == "blocked" else n
     nh = [nh0]
     for w_l, d_l in zip(w, d):
         w_nbr = torch.gather(w_l, 1, nbr)                     # (N, D)
-        cost = torch.where(has_edge[:, :, None],
-                           w_nbr[:, :, None] + d_l[nbr], inf)  # (N, D, N)
-        j = cost.argmin(dim=1)                                # first minimum
-        best = torch.gather(nbr, 1, j).to(torch.int32)
-        nh_l = torch.where(torch.isfinite(cost.amin(dim=1)), best, -1)
+        nh_l = torch.cat([_ksp_next_hops(has_edge, w_nbr, d_l[:, c:c + chunk],
+                                         nbr)
+                          for c in range(0, n, chunk)], dim=1)
         nh_l[idx, idx] = idx.to(torch.int32)
         nh.append(nh_l[None])
     shape = (n_layers, n, n)
@@ -318,6 +336,8 @@ def _ksp_stack(adj: torch.Tensor, nbr: torch.Tensor, key: torch.Tensor,
 def build_layers(topo: Topology, n_layers: int, rho: float,
                  scheme: str = "rand", seed: int = 0,
                  max_len: Optional[int] = None,
+                 engine: Optional[str] = None,
+                 representation: Optional[str] = None,
                  device="cuda") -> LayeredRouting:
     """Construct the FatPaths layer stack (layer 0 = all links, minimal).
 
@@ -325,12 +345,25 @@ def build_layers(topo: Topology, n_layers: int, rho: float,
     whole graph, with weights drawn on the device; ``pi_min``: sampled on
     the device, layer by layer); all L layers' tables come out of one
     batched pass on ``device`` (``pi_min``: one pass a layer).
-    ``build_stats`` records the host (sampling) vs device (table
-    construction) wall-time split."""
+    ``build_stats`` records the host (sampling), device (table
+    construction) and compression wall-time split.
+
+    ``engine`` overrides the ``REPRO_PATH_ENGINE`` resolution (``dense``
+    below 512 routers, ``blocked`` from there up; both give the same
+    tables).  ``representation="compressed"`` attaches
+    :class:`~repro_torch.core.paths.CompressedTables` (the default when
+    the engine resolves blocked), ``"dense"`` keeps the dense stack only.
+    """
     dev = resolve_device(device)
     adj = np.asarray(topo.adj, dtype=bool)
     n = adj.shape[0]
-    paths_mod.path_engine()
+    eng = paths_mod.path_engine(n, engine)
+    if representation in (None, "", "auto"):
+        rep = "compressed" if eng == "blocked" else "dense"
+    elif representation in ("dense", "compressed"):
+        rep = representation
+    else:
+        raise ValueError(f"unknown representation {representation!r}")
     if max_len is None:
         # Allow "almost minimal" detours: nominal diameter + slack.
         max_len = max(6, topo.diameter_nominal + 4)
@@ -345,11 +378,11 @@ def build_layers(topo: Topology, n_layers: int, rho: float,
         la, nh, reach, dist = _pi_min_stack(
             torch.as_tensor(adj, device=dev), nbr,
             torch.as_tensor(iu, device=dev), torch.as_tensor(ju, device=dev),
-            key, n_layers, float(rho), max_len)
+            key, n_layers, float(rho), max_len, eng)
     elif scheme == "ksp":
         t_dev = time.perf_counter()
         la, nh, reach, dist = _ksp_stack(torch.as_tensor(adj, device=dev),
-                                         nbr, key, n_layers, max_len)
+                                         nbr, key, n_layers, max_len, eng)
     else:
         layer_adjs: List[np.ndarray] = [adj.copy()]
         if scheme in ("rand", "undir"):
@@ -367,17 +400,23 @@ def build_layers(topo: Topology, n_layers: int, rho: float,
             raise ValueError(f"unknown scheme {scheme!r}")
         la = torch.as_tensor(np.stack(layer_adjs), device=dev)
         t_dev = time.perf_counter()
-        nh, reach, dist = paths_mod._layer_tables_core(la, nbr, key, max_len)
+        nh, reach, dist = paths_mod._layer_tables_core(la, nbr, key, max_len,
+                                                       eng)
     paths_mod._sync(dev)
     t1 = time.perf_counter()
 
     pathlen = torch.where(reach, dist, _UNREACH).to(torch.int16)
+    compressed = None
+    if rep == "compressed":
+        compressed = paths_mod.CompressedTables.from_dense(nh)
+    paths_mod._sync(dev)
     t2 = time.perf_counter()
     return LayeredRouting(
         topo=topo, scheme=scheme, rho=rho,
         nh=nh, reach=reach, pathlen=pathlen, layer_adj=la,
         build_stats={"total_s": t2 - t0, "device_s": t1 - t_dev,
                      "host_s": t_dev - t0, "compress_s": t2 - t1},
+        compressed=compressed,
     )
 
 
@@ -415,14 +454,16 @@ def layer_disjoint_paths_batch(lr: LayeredRouting, s: np.ndarray,
                                t: np.ndarray, max_hops: int = 16
                                ) -> np.ndarray:
     """:func:`layer_disjoint_paths` for many (s, t) pairs: every (pair,
-    layer) table walk happens in one batched walk on the tables' device;
-    only the greedy edge-disjointness filter runs per pair on the host."""
+    layer) table walk happens in one batched walk on the tables' device
+    (off the compressed tables when the routing carries them); only the
+    greedy edge-disjointness filter runs per pair on the host."""
     s = np.asarray(s, dtype=np.int32)
     t = np.asarray(t, dtype=np.int32)
     n_pairs = len(s)
     L = lr.n_layers
     li = np.tile(np.arange(L, dtype=np.int32), n_pairs)
-    walks = paths_mod.walk_paths_layers(lr.nh, li, np.repeat(s, L),
+    tables = lr.compressed if lr.compressed is not None else lr.nh
+    walks = paths_mod.walk_paths_layers(tables, li, np.repeat(s, L),
                                         np.repeat(t, L), max_hops)
     walks = walks.reshape(n_pairs, L, max_hops + 1)
     reach = lr.reach.cpu().numpy()

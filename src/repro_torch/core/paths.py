@@ -1,5 +1,4 @@
-"""Path analysis via adjacency-matrix algebra (paper Appendix B.1), dense
-engine.
+"""Path analysis via adjacency-matrix algebra (paper Appendix B.1).
 
 APSP is a sequence of boolean-semiring frontier products through
 :func:`repro_torch.kernels.semiring.semiring_matmul` (the CUDA kernel on
@@ -17,17 +16,29 @@ numpy arrays or tensors and a
 ``device`` (``"cuda"`` unless the caller asks for the CPU); tensors
 already on a device stay there when ``device=None``.
 
-Only the ``dense`` engine exists here.  The JAX package's ``auto`` picks
-its ``blocked`` frontier engine from 512 routers up; that engine is
-asserted bit-identical to ``dense`` by the JAX package's own tests, so a
-dense table here equals the table the JAX package builds at any size.
-``REPRO_PATH_ENGINE=blocked`` raises until the blocked engine is ported.
+Two *engines* build the tables, as in the JAX package:
+
+* ``dense``   — (L, N, N) boolean-semiring products for APSP and an
+                (N, Dmax, N) candidate cube a layer for forwarding;
+* ``blocked`` — the frontier APSP, which relaxes through the (N, Dmax)
+                in-neighbor table instead of multiplying, and forwarding
+                built ``_CHUNK`` destinations at a time, so no
+                intermediate exceeds O(N * Dmax * _CHUNK).  Both compute
+                exact BFS levels and consume the same per-entry uniforms,
+                so their tables are bitwise equal.
+
+``REPRO_PATH_ENGINE=dense|blocked|auto`` selects, read at each call
+(default ``auto``: ``blocked`` from 512 routers up); an ``engine=``
+argument overrides it.  :class:`CompressedTables` is the blocked engine's
+table representation: per (layer, router, destination block) the set of
+next hops and a uint8 index into it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,25 +64,50 @@ __all__ = [
     "walk_paths_layers",
     "neighbor_table",
     "path_engine",
+    "representation_for",
+    "CompressedTables",
     "to_device",
 ]
 
 PATH_ENGINES = ("dense", "blocked", "auto")
 
+# auto threshold, the JAX package's: from this router count up ``auto``
+# resolves to the blocked engine.
+_BLOCKED_MIN_N = 512
 
-def path_engine(override: Optional[str] = None) -> str:
+# Destination chunk of the blocked engine's gathers (and row block of its
+# walk counts): every intermediate stays O(N * Dmax * _CHUNK).
+_CHUNK = 256
+
+
+def path_engine(n: Optional[int] = None,
+                override: Optional[str] = None) -> str:
     """Resolve the engine: an explicit ``override`` wins, then
-    ``REPRO_PATH_ENGINE`` (``dense|blocked|auto``, default ``auto``);
-    every choice but ``blocked`` is ``dense``."""
+    ``REPRO_PATH_ENGINE`` (``dense|blocked|auto``, default ``auto``),
+    read at each call; ``auto`` is ``blocked`` from ``_BLOCKED_MIN_N``
+    routers up (``n=None``, no size in hand, resolves to ``dense``)."""
     eng = override or os.environ.get("REPRO_PATH_ENGINE", "") or "auto"
     if eng not in PATH_ENGINES:
         raise ValueError(f"unknown path engine {eng!r}; "
                          f"choose from {PATH_ENGINES}")
-    if eng == "blocked":
-        raise NotImplementedError(
-            "the blocked path engine is not ported yet (ROADMAP A9); "
-            "the dense engine builds bit-identical tables")
-    return "dense"
+    if eng == "auto":
+        return "blocked" if (n is not None and n >= _BLOCKED_MIN_N) \
+            else "dense"
+    return eng
+
+
+def representation_for(n: Optional[int] = None,
+                       override: Optional[str] = None) -> str:
+    """Resolve the table representation (``dense`` | ``compressed``): an
+    explicit override wins, else it follows the engine — the blocked
+    engine carries :class:`CompressedTables`, the dense one plain
+    (L, N, N) tables only."""
+    if override in ("dense", "compressed"):
+        return override
+    if override not in (None, "", "auto"):
+        raise ValueError(f"unknown table representation {override!r}; "
+                         "choose 'dense', 'compressed' or 'auto'")
+    return "compressed" if path_engine(n) == "blocked" else "dense"
 
 
 def to_device(x, dtype: torch.dtype, device=None) -> torch.Tensor:
@@ -162,6 +198,67 @@ def neighbor_table(adj_union: np.ndarray) -> np.ndarray:
     return np.argsort(~a, axis=1, kind="stable")[:, :dmax].astype(np.int32)
 
 
+def _apsp_blocked_core(adj: torch.Tensor, nbr_in: torch.Tensor,
+                       max_l: int) -> torch.Tensor:
+    """Frontier APSP, the blocked engine's :func:`_apsp_core`.
+
+    The relaxation ``nreach[s, t] = OR_u reach[s, u] & adj[u, t]`` has
+    candidates u only among the in-neighbors of t, so it is gathered
+    through the (N, Dmax) in-neighbor table ``nbr_in`` instead of
+    multiplied, ``_CHUNK`` destinations at a time: an (N, C, Dmax)
+    intermediate.  ``edge_ok[t, j]`` masks the slots whose edge
+    ``nbr_in[t, j] -> t`` the layer lacks (pad slots included).  Each
+    sweep is one exact BFS level, as in the dense engine, so the
+    distances are bitwise equal; one host sync per sweep decides whether
+    another is needed.  Columns are independent, so the last chunk is
+    just shorter (the JAX package pads it with masked rows)."""
+    n_layers, n, _ = adj.shape
+    nbr_in = nbr_in.long()
+    eye = torch.eye(n, dtype=torch.bool, device=adj.device)
+    out = torch.empty((n_layers, n, n), dtype=torch.int32, device=adj.device)
+    for li in range(n_layers):
+        adj_l = adj[li]
+        edge_ok = torch.gather(adj_l.T, 1, nbr_in)              # (N, D)
+        dist = torch.where(eye, 0,
+                           torch.where(adj_l, 1, max_l + 1)).to(torch.int32)
+        reach = adj_l | eye
+        l, go = 1, True
+        while go and l < max_l:
+            nreach = torch.cat(
+                [(reach[:, nbr_in[c:c + _CHUNK]]                # (N, C, D)
+                  & edge_ok[None, c:c + _CHUNK]).any(dim=2)
+                 for c in range(0, n, _CHUNK)], dim=1)
+            newly = nreach & ~reach
+            dist = torch.where(newly & (dist > l + 1), l + 1,
+                               dist).to(torch.int32)
+            reach = reach | nreach
+            l += 1
+            go = bool(newly.any())
+        out[li] = dist
+    return out
+
+
+def _next_hops(has_edge: torch.Tensor, dist_nbr: torch.Tensor,
+               dist: torch.Tensor, u: torch.Tensor,
+               nbr: torch.Tensor) -> torch.Tensor:
+    """One layer's next hops for a set of destination columns: with
+    ``dist`` (N, C), ``dist_nbr = dist[nbr]`` (N, D, C) and uniforms
+    ``u`` (N, C), entry (s, t) is the r-th of the valid candidates
+    ``{nbr[s, j] : has_edge[s, j], dist[nbr[s, j], t] == dist[s, t] - 1}``
+    with ``r = floor(u * count)``; -1 where there is none.  Every column
+    is computed on its own."""
+    # ok[s, j, t]: edge s->nbr[s,j] in this layer, one hop closer to t.
+    ok = has_edge[:, :, None] & (dist_nbr + 1 == dist[:, None, :])
+    cnt = ok.sum(dim=1, dtype=torch.int32)                      # (N, C)
+    r = torch.minimum(torch.clamp_min((u * cnt).to(torch.int32), 0),
+                      torch.clamp_min(cnt - 1, 0))
+    csum = torch.cumsum(ok.to(torch.int32), dim=1, dtype=torch.int32)
+    pick = ok & (csum == (r + 1)[:, None, :])
+    j = pick.to(torch.int32).argmax(dim=1)                      # first True
+    nh = torch.gather(nbr, 1, j).to(torch.int32)
+    return torch.where(cnt > 0, nh, -1)
+
+
 def _forwarding_core(adj: torch.Tensor, dist: torch.Tensor, nbr: torch.Tensor,
                      key: torch.Tensor) -> torch.Tensor:
     """Single-next-hop tables for an (L, N, N) stack.
@@ -175,66 +272,106 @@ def _forwarding_core(adj: torch.Tensor, dist: torch.Tensor, nbr: torch.Tensor,
     nbr = nbr.long()
     out = torch.empty((L, n, n), dtype=torch.int32, device=adj.device)
     for li in range(L):
-        adj_l, dist_l, u_l = adj[li], dist[li], u01[li]
-        has_edge = torch.gather(adj_l, 1, nbr)                  # (N, D)
-        dist_nbr = dist_l[nbr]                                  # (N, D, N)
-        # ok[s, j, t]: edge s->nbr[s,j] in this layer, one hop closer to t.
-        ok = has_edge[:, :, None] & (dist_nbr + 1 == dist_l[:, None, :])
-        cnt = ok.sum(dim=1, dtype=torch.int32)                  # (N, N)
-        r = torch.minimum(torch.clamp_min((u_l * cnt).to(torch.int32), 0),
-                          torch.clamp_min(cnt - 1, 0))
-        csum = torch.cumsum(ok.to(torch.int32), dim=1, dtype=torch.int32)
-        pick = ok & (csum == (r + 1)[:, None, :])
-        j = pick.to(torch.int32).argmax(dim=1)                  # first True
-        nh = torch.gather(nbr, 1, j).to(torch.int32)
-        out[li] = torch.where(cnt > 0, nh, -1)
+        has_edge = torch.gather(adj[li], 1, nbr)                # (N, D)
+        out[li] = _next_hops(has_edge, dist[li][nbr], dist[li], u01[li], nbr)
+    idx = torch.arange(n, device=adj.device)
+    out[:, idx, idx] = idx.to(torch.int32)
+    return out
+
+
+def _forwarding_blocked_core(adj: torch.Tensor, dist: torch.Tensor,
+                             nbr: torch.Tensor,
+                             key: torch.Tensor) -> torch.Tensor:
+    """Destination-chunked :func:`_forwarding_core`: each chunk gathers an
+    (N, Dmax, _CHUNK) candidate-distance slab instead of the whole
+    (N, Dmax, N) cube.  The uniforms are the same single (L, N, N) draw,
+    sliced per chunk, and every column is computed on its own, so the
+    tables are bitwise the dense engine's."""
+    L, n, _ = adj.shape
+    u01 = prng.uniform(key, (L, n, n))
+    nbr = nbr.long()
+    out = torch.empty((L, n, n), dtype=torch.int32, device=adj.device)
+    for li in range(L):
+        has_edge = torch.gather(adj[li], 1, nbr)                # (N, D)
+        for c in range(0, n, _CHUNK):
+            dist_c = dist[li, :, c:c + _CHUNK]                  # (N, C)
+            out[li, :, c:c + _CHUNK] = _next_hops(
+                has_edge, dist_c[nbr], dist_c, u01[li, :, c:c + _CHUNK], nbr)
     idx = torch.arange(n, device=adj.device)
     out[:, idx, idx] = idx.to(torch.int32)
     return out
 
 
 def _layer_tables_core(adj: torch.Tensor, nbr: torch.Tensor, key: torch.Tensor,
-                       max_l: int) -> Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]:
-    """APSP + forwarding: ``(nh, reach, dist)``, each (L, N, N)."""
-    dist = _apsp_core(adj, max_l)
-    nh = _forwarding_core(adj, dist, nbr, key)
+                       max_l: int, engine: str = "dense",
+                       nbr_in: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """APSP + forwarding through either engine: ``(nh, reach, dist)``,
+    each (L, N, N).  ``nbr_in`` is the in-neighbor table the frontier APSP
+    relaxes through; ``None`` reuses ``nbr``, which is right whenever
+    ``nbr`` comes from a symmetric superset of every layer (the topology's
+    graph, as in every builder of :mod:`repro_torch.core.layers`)."""
+    if engine == "blocked":
+        dist = _apsp_blocked_core(adj, nbr if nbr_in is None else nbr_in,
+                                  max_l)
+        nh = _forwarding_blocked_core(adj, dist, nbr, key)
+    else:
+        dist = _apsp_core(adj, max_l)
+        nh = _forwarding_core(adj, dist, nbr, key)
     return nh, dist <= max_l, dist
+
+
+def _nbr_tensor(adj_union: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(neighbor_table(adj_union), device=device)
 
 
 # -----------------------------------------------------------------------------
 # Batched entry points.
 # -----------------------------------------------------------------------------
-def apsp_batched(adj, max_l: int = 64, device=None) -> torch.Tensor:
+def apsp_batched(adj, max_l: int = 64, device=None,
+                 engine: Optional[str] = None) -> torch.Tensor:
     """All-pairs shortest path lengths for an (L, N, N) adjacency stack;
-    unreachable pairs get ``max_l + 1``."""
-    path_engine()
-    return _apsp_core(to_device(adj, torch.bool, device), max_l)
+    unreachable pairs get ``max_l + 1``.  ``engine`` overrides the
+    ``REPRO_PATH_ENGINE`` resolution; both engines give the same bits
+    (the blocked one relaxes over the stack union's in-neighbors, so an
+    asymmetric stack is right too)."""
+    adj_t = to_device(adj, torch.bool, device)
+    if path_engine(adj_t.shape[-1], engine) == "blocked":
+        union = adj_t.any(dim=0).cpu().numpy()
+        return _apsp_blocked_core(adj_t, _nbr_tensor(union.T, adj_t.device),
+                                  max_l)
+    return _apsp_core(adj_t, max_l)
 
 
-def forwarding_batched(adj, dist, key: torch.Tensor,
-                       device=None) -> torch.Tensor:
+def forwarding_batched(adj, dist, key: torch.Tensor, device=None,
+                       engine: Optional[str] = None) -> torch.Tensor:
     """Random-tie-break forwarding tables for an (L, N, N) stack; ``key``
     seeds the per-entry uniform choice (one stream for the stack)."""
-    path_engine()
     adj_t = to_device(adj, torch.bool, device)
-    nbr = neighbor_table(adj_t.any(dim=0).cpu().numpy())
-    return _forwarding_core(adj_t, to_device(dist, torch.int32, adj_t.device),
-                            torch.as_tensor(nbr, device=adj_t.device),
-                            key.to(adj_t.device))
+    core = (_forwarding_blocked_core
+            if path_engine(adj_t.shape[-1], engine) == "blocked"
+            else _forwarding_core)
+    return core(adj_t, to_device(dist, torch.int32, adj_t.device),
+                _nbr_tensor(adj_t.any(dim=0).cpu().numpy(), adj_t.device),
+                key.to(adj_t.device))
 
 
-def layer_tables_batched(adj, key: torch.Tensor, max_l: int, device=None
+def layer_tables_batched(adj, key: torch.Tensor, max_l: int, device=None,
+                         engine: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """APSP + forwarding for a whole layer stack on one device.
 
     Returns ``(nh, reach, dist)`` each (L, N, N).  The host's only job is
-    the (N, Dmax) union neighbor table."""
-    path_engine()
+    the (N, Dmax) union neighbor table (and, for the blocked engine, the
+    union's in-neighbor table: a failure-masked stack is asymmetric)."""
     adj_t = to_device(adj, torch.bool, device)
-    nbr = neighbor_table(adj_t.any(dim=0).cpu().numpy())
-    return _layer_tables_core(adj_t, torch.as_tensor(nbr, device=adj_t.device),
-                              key.to(adj_t.device), max_l)
+    union = adj_t.any(dim=0).cpu().numpy()
+    eng = path_engine(adj_t.shape[-1], engine)
+    nbr_in = (_nbr_tensor(union.T, adj_t.device) if eng == "blocked"
+              else None)
+    return _layer_tables_core(adj_t, _nbr_tensor(union, adj_t.device),
+                              key.to(adj_t.device), max_l, eng, nbr_in)
 
 
 def minplus_apsp_batched(w, max_l: int, device=None) -> torch.Tensor:
@@ -246,7 +383,6 @@ def minplus_apsp_batched(w, max_l: int, device=None) -> torch.Tensor:
     what the ``ksp`` scheme's 1 + 0.25*U(0,1) perturbed unit weights
     guarantee.  Sub-unit weights would admit longer optimal paths than
     the iteration covers and silently overestimate distances."""
-    path_engine()
     return _minplus_apsp_core(to_device(w, torch.float32, device), max_l)
 
 
@@ -280,6 +416,93 @@ def table_validity_batched(nh, alive, max_hops: int,
     return valid.contiguous()
 
 
+# -----------------------------------------------------------------------------
+# Compressed forwarding tables: per-router (dst-block, next-hop set).
+# -----------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CompressedTables:
+    """Forwarding tables as per-router next-hop *sets* per destination
+    block, instead of a dense (L, N, N) int32 stack.
+
+    A shortest-path table row has at most ``Dmax`` distinct next hops and
+    neighboring destinations mostly share them, so each (layer, router,
+    destination block) keeps the sorted set of next hops seen in that
+    block (``nh_sets[l, s, b, :]``, -1 padded) and the dense entry becomes
+    a uint8 index into it (``sel``).  Exact:
+    ``nh[l, s, t] == nh_sets[l, s, t // block, sel[l, s, t]]``.
+
+    ``block=None`` starts at 512 destinations and halves until the
+    largest set ``K`` fits the uint8 selector (``K <= 255``; a high-radix
+    FT2 spine needs a smaller block).  The tensors lie on the device of
+    the tables they were built from, and equal the JAX package's numpy
+    arrays bitwise (a stable sort stands in for numpy's stable
+    argsort)."""
+
+    nh_sets: torch.Tensor   # (L, N, nb, K) int32, -1 padded
+    sel: torch.Tensor       # (L, N, N) uint8 index into nh_sets' last axis
+    block: int
+    n: int
+
+    _AUTO_BLOCK = 512
+
+    @classmethod
+    def from_dense(cls, nh, block: Optional[int] = None) -> "CompressedTables":
+        nh = to_device(nh, torch.int32)
+        L, n, _ = nh.shape
+        auto = block is None
+        block = cls._AUTO_BLOCK if auto else int(block)
+        while True:
+            nb = -(-n // block)
+            v = torch.full((L, n, nb * block), -1, dtype=torch.int32,
+                           device=nh.device)
+            v[:, :, :n] = nh
+            v = v.reshape(L, n, nb, block)
+            sv, order = torch.sort(v, dim=-1, stable=True)
+            new = torch.ones(sv.shape, dtype=torch.bool, device=nh.device)
+            new[..., 1:] = sv[..., 1:] != sv[..., :-1]
+            rank_sorted = torch.cumsum(new, dim=-1, dtype=torch.int32) - 1
+            k = int(rank_sorted[..., -1].max()) + 1
+            if k <= 255:
+                break
+            if not auto or block <= 2:
+                raise ValueError(f"next-hop set size {k} exceeds uint8 "
+                                 f"selector at block={block}")
+            block //= 2
+        rank_sorted = rank_sorted.long()
+        # Entries of one rank hold equal values, so the scatter is exact.
+        nh_sets = torch.full((L, n, nb, k), -1, dtype=torch.int32,
+                             device=nh.device).scatter_(-1, rank_sorted, sv)
+        sel = torch.empty(v.shape, dtype=torch.uint8, device=nh.device) \
+            .scatter_(-1, order, rank_sorted.to(torch.uint8))
+        return cls(nh_sets=nh_sets,
+                   sel=sel.reshape(L, n, nb * block)[:, :, :n].contiguous(),
+                   block=block, n=n)
+
+    def to(self, device) -> "CompressedTables":
+        """The same tables on ``device``."""
+        return dataclasses.replace(self, nh_sets=self.nh_sets.to(device),
+                                   sel=self.sel.to(device))
+
+    def dense(self) -> torch.Tensor:
+        """The exact dense (L, N, N) int32 stack this was built from."""
+        L, n, nb, k = self.nh_sets.shape
+        t = torch.arange(n, device=self.sel.device)
+        flat = (t // self.block * k)[None, None, :] + self.sel.long()
+        return torch.gather(self.nh_sets.reshape(L, n, nb * k), 2, flat)
+
+    def lookup(self, layer: torch.Tensor, cur: torch.Tensor,
+               t: torch.Tensor) -> torch.Tensor:
+        """Next hops ``nh[layer, cur, t]`` off the compressed form (index
+        tensors on the tables' device, broadcast together)."""
+        k = self.sel[layer, cur, t].long()
+        return self.nh_sets[layer, cur, t // self.block, k]
+
+    @property
+    def nbytes(self) -> int:
+        return (self.nh_sets.numel() * self.nh_sets.element_size()
+                + self.sel.numel() * self.sel.element_size())
+
+
 def shortest_path_lengths(adj, max_l: int = 64, device=None) -> torch.Tensor:
     """(N, N) int32 shortest path lengths via boolean adjacency powers;
     unreachable pairs get ``max_l + 1``, the diagonal is 0."""
@@ -303,7 +526,6 @@ def average_path_length(adj, max_l: int = 64, device=None) -> float:
 def path_counts_exact_length(adj, l: int, device=None) -> torch.Tensor:
     """Number of length-``l`` walks between every pair (Theorem 1), by
     saturating ``count`` products."""
-    path_engine()
     a = to_device(adj, torch.float32, device)
     out = a
     for _ in range(l - 1):
@@ -324,16 +546,48 @@ def _min_path_stats(adj: torch.Tensor, max_l: int
     return dist, counts
 
 
+def _min_path_counts_rows(adj: torch.Tensor, dist: torch.Tensor,
+                          max_l: int) -> torch.Tensor:
+    """Shortest-walk counts with the power sequence advanced one
+    ``(_CHUNK, N)`` row block at a time, so that the only (N, N) f32
+    tensors alive are the adjacency and the result.  Rows are padded with
+    zeros to whole blocks, as the JAX package pads them (their distances
+    0 select nothing), so every product is (_CHUNK, N) x (N, N)."""
+    n = adj.shape[0]
+    npad = -(-n // _CHUNK) * _CHUNK
+    a_rows = torch.zeros((npad, n), dtype=torch.float32, device=adj.device)
+    a_rows[:n] = adj
+    d_rows = torch.zeros((npad, n), dtype=torch.int32, device=adj.device)
+    d_rows[:n] = dist
+    out = torch.empty((npad, n), dtype=torch.float32, device=adj.device)
+    for r in range(0, npad, _CHUNK):
+        cur, d_r = a_rows[r:r + _CHUNK], d_rows[r:r + _CHUNK]
+        counts = torch.where(d_r == 1, cur, 0.0)
+        for l in range(2, max_l + 1):
+            cur = semiring_matmul(cur, adj, "count")
+            counts = torch.where(d_r == l, cur, counts)
+        out[r:r + _CHUNK] = counts
+    return out[:n]
+
+
 def min_path_stats(adj, max_l: int = 8, engine: Optional[str] = None,
                    device=None) -> Tuple[np.ndarray, np.ndarray]:
     """Per-pair (l_min, c_min): shortest-path length and multiplicity
     (§4.2.1), as numpy arrays (int32 and float64).
 
     c_min counts *shortest walks*, which for the minimal length equal
-    shortest paths (no repeated vertex fits in a minimal walk)."""
-    path_engine(engine)
-    dist, counts = _min_path_stats(to_device(adj, torch.float32, device),
-                                   max_l)
+    shortest paths (no repeated vertex fits in a minimal walk).  Under
+    the blocked engine the distances come from the frontier APSP and the
+    counts from row-blocked powers of the 0/1 adjacency."""
+    a = to_device(adj, torch.float32, device)
+    if path_engine(a.shape[-1], engine) == "blocked":
+        a_bool = a != 0
+        dist = _apsp_blocked_core(
+            a_bool[None], _nbr_tensor(a_bool.cpu().numpy().T, a.device),
+            max_l)[0]
+        counts = _min_path_counts_rows(a_bool.to(torch.float32), dist, max_l)
+    else:
+        dist, counts = _min_path_stats(a, max_l)
     return dist.cpu().numpy(), counts.cpu().numpy().astype(np.float64)
 
 
@@ -380,20 +634,32 @@ def walk_paths(nh, s, t, max_hops: int, device=None) -> np.ndarray:
                              max_hops)
 
 
-def walk_paths_layers(nh_stack, layer, s, t, max_hops: int,
+def walk_paths_layers(nh_stack: Union[torch.Tensor, np.ndarray,
+                                       CompressedTables],
+                      layer, s, t, max_hops: int,
                       device=None) -> np.ndarray:
     """Walk per-sample forwarding tables: sample i follows layer
     ``layer[i]`` of the (L, N, N) stack, all samples in one batched walk
-    on the stack's device.  Returns (F, max_hops + 1) int32 router
-    sequences (semantics of :func:`walk_paths`)."""
-    nh = to_device(nh_stack, torch.int32, device)
-    dev = nh.device
+    on the stack's device.  ``nh_stack`` may be a
+    :class:`CompressedTables`: the walk then never touches a dense table,
+    and its lookups are exact, so the sequences are the same.  Returns
+    (F, max_hops + 1) int32 router sequences (semantics of
+    :func:`walk_paths`)."""
+    if isinstance(nh_stack, CompressedTables):
+        ct = nh_stack if device is None else nh_stack.to(resolve_device(device))
+        dev, lookup = ct.sel.device, ct.lookup
+    else:
+        nh = to_device(nh_stack, torch.int32, device)
+        dev = nh.device
+
+        def lookup(li, cur, tt):
+            return nh[li, cur, tt]
     layer = torch.as_tensor(np.asarray(layer, dtype=np.int64), device=dev)
     t = torch.as_tensor(np.asarray(t, dtype=np.int64), device=dev)
     cur = torch.as_tensor(np.asarray(s, dtype=np.int64), device=dev)
     out = [cur]
     for _ in range(max_hops):
-        nxt = nh[layer, torch.clamp_min(cur, 0), t].long()
+        nxt = lookup(layer, torch.clamp_min(cur, 0), t).long()
         dead = (nxt < 0) | (cur < 0)
         cur = torch.where(dead, -1, torch.where(cur == t, t, nxt))
         out.append(cur)

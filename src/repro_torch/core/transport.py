@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -170,21 +170,30 @@ def ecmp_routing(topo: Topology, n_tables: int = 8, seed: int = 0,
                  device="cuda") -> LayeredRouting:
     """Minimal-path-only multi-table routing: n differently tie-broken
     shortest-path tables (flow-hash ECMP / LetFlow substrate).  APSP runs
-    once; the n tables come out of one batched forwarding pass."""
+    once; the n tables come out of one batched forwarding pass, through
+    the engine ``REPRO_PATH_ENGINE`` resolves at this size, which also
+    decides whether compressed tables are attached."""
     dev = resolve_device(device)
     adj_np = np.asarray(topo.adj, dtype=bool)
     n = adj_np.shape[0]
     if max_len is None:
         max_len = max(6, topo.diameter_nominal + 2)
     t0 = time.perf_counter()
-    paths_mod.path_engine()
+    engine = paths_mod.path_engine(n)
     nbr = torch.as_tensor(paths_mod.neighbor_table(adj_np), device=dev)
     adj = torch.as_tensor(adj_np, device=dev)
     stack = adj[None].expand((n_tables, n, n))
     t_dev = time.perf_counter()
-    dist = paths_mod._apsp_core(adj[None], max_len)[0]
-    nh = paths_mod._forwarding_core(stack, dist[None].expand(stack.shape), nbr,
-                                    prng.PRNGKey(seed, dev))
+    # The topology is symmetric, so its neighbor table is its in-neighbor
+    # table too.
+    if engine == "blocked":
+        dist = paths_mod._apsp_blocked_core(adj[None], nbr, max_len)[0]
+        forwarding = paths_mod._forwarding_blocked_core
+    else:
+        dist = paths_mod._apsp_core(adj[None], max_len)[0]
+        forwarding = paths_mod._forwarding_core
+    nh = forwarding(stack, dist[None].expand(stack.shape), nbr,
+                    prng.PRNGKey(seed, dev))
     paths_mod._sync(dev)
     t1 = time.perf_counter()
     reach = dist <= max_len
@@ -192,6 +201,10 @@ def ecmp_routing(topo: Topology, n_tables: int = 8, seed: int = 0,
     idx = torch.arange(n, device=dev)
     nh[:, idx, idx] = idx.to(torch.int32)
     plen = torch.where(reach, dist, 10_000).to(torch.int16)
+    compressed = None
+    if paths_mod.representation_for(n) == "compressed":
+        compressed = paths_mod.CompressedTables.from_dense(nh)
+    paths_mod._sync(dev)
     t2 = time.perf_counter()
     return LayeredRouting(
         topo=topo, scheme="ecmp", rho=1.0,
@@ -200,22 +213,33 @@ def ecmp_routing(topo: Topology, n_tables: int = 8, seed: int = 0,
         layer_adj=stack.clone(),
         build_stats={"total_s": t2 - t0, "device_s": t1 - t_dev,
                      "host_s": (t_dev - t0) + (t2 - t1)},
+        compressed=compressed,
     )
 
 
-def _path_edge_tensor(nh: torch.Tensor, eix: torch.Tensor, src_r: torch.Tensor,
+def _path_edge_tensor(tables: Union[torch.Tensor,
+                                    paths_mod.CompressedTables],
+                      eix: torch.Tensor, src_r: torch.Tensor,
                       dst_r: torch.Tensor, max_hops: int):
     """Walk every layer's table once, ahead of the scan: (L, F, max_hops)
     int32 directed fabric edge ids along each flow's path in each layer
     (-1 once the destination router is reached or the table has a hole)
-    plus an (L, F) routed-ok mask."""
-    n_layers = nh.shape[0]
-    lidx = torch.arange(n_layers, device=nh.device)[:, None]
+    plus an (L, F) routed-ok mask.  ``tables`` is the dense (L, N, N)
+    stack or :class:`~repro_torch.core.paths.CompressedTables`, whose
+    exact lookups give the same edges without a dense table row."""
+    if isinstance(tables, paths_mod.CompressedTables):
+        n_layers, lookup = tables.sel.shape[0], tables.lookup
+    else:
+        n_layers = tables.shape[0]
+
+        def lookup(li, cur, dst):
+            return tables[li, cur, dst]
+    lidx = torch.arange(n_layers, device=eix.device)[:, None]
     cur = src_r[None].expand(n_layers, -1)
     dst = dst_r[None]
     es = []
     for _ in range(max_hops):
-        nxt = nh[lidx, cur, dst].long()
+        nxt = lookup(lidx, cur, dst).long()
         at_dst = cur == dst
         hole = nxt < 0
         stop = at_dst | hole
@@ -226,7 +250,7 @@ def _path_edge_tensor(nh: torch.Tensor, eix: torch.Tensor, src_r: torch.Tensor,
         edges = torch.stack(es, dim=2).to(torch.int32)
     else:
         edges = torch.empty(cur.shape + (0,), dtype=torch.int32,
-                            device=nh.device)
+                            device=eix.device)
     return edges, cur == dst
 
 
@@ -252,19 +276,14 @@ def shape_signature(topo: Topology, routing: LayeredRouting,
     return (len(wl.src), n_edges + 2 * n_ep + 1, int(routing.nh.shape[0]))
 
 
-def _check_lanes_ported(routing: LayeredRouting) -> None:
-    if getattr(routing, "compressed", None) is not None:
-        raise NotImplementedError("compressed tables are not ported yet "
-                                  "(ROADMAP A9)")
-
-
 def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
             cfg: SimConfig, device="cuda"):
     """``(arrs, static)``: the scan's tensors on ``device`` — including
     the per-layer path-edge tensor, so the step body never re-derives
     flow paths, and its :func:`~repro_torch.kernels.waterfill.link_plan`
-    — and the static triple ``(e_tot, n_layers, n_steps)``."""
-    _check_lanes_ported(routing)
+    — and the static triple ``(e_tot, n_layers, n_steps)``.  The paths
+    are walked off the routing's compressed tables when it carries them
+    (the same edges, bitwise)."""
     dev = resolve_device(device)
     eix, n_edges, n_ep = _virtual_links(topo, wl)
     # virtual links: [0, E) fabric, [E, E+n_ep) injection, [E+n_ep, ..) eject,
@@ -274,9 +293,10 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
     e_tot = n_edges + 2 * n_ep + 1
     src_r = torch.as_tensor(wl.src_router, device=dev).long()
     dst_r = torch.as_tensor(wl.dst_router, device=dev).long()
+    ct = routing.compressed
     edges, routed = _path_edge_tensor(
-        routing.nh.to(dev), torch.as_tensor(eix, device=dev), src_r, dst_r,
-        cfg.max_hops)
+        routing.nh.to(dev) if ct is None else ct.to(dev),
+        torch.as_tensor(eix, device=dev), src_r, dst_r, cfg.max_hops)
     # Trim the hop axis to the longest realised path (one host sync).
     n_hops = (edges >= 0).sum(dim=2)
     hmax = max(1, int(n_hops.max())) if edges.numel() else 1

@@ -52,7 +52,7 @@ from .specs import Spec, SpecError, SpecLike
 
 __all__ = ["TOPOLOGIES", "ROUTINGS", "TRAFFIC", "EVALUATORS", "NOT_PORTED",
            "RoutingBundle", "RoutingCtx", "topo_spec", "transport_plan",
-           "transport_meta", "table_meta", "check_ported"]
+           "transport_meta", "table_meta", "check_ported", "stack_rep_key"]
 
 TOPOLOGIES = Registry("topology")
 ROUTINGS = Registry("routing scheme")
@@ -186,10 +186,20 @@ class RoutingCtx:
     device: torch.device
 
 
+def stack_rep_key(topo: Topology) -> tuple:
+    """Memo-key suffix for routing stacks: the path engine and table
+    representation resolved at this topology's size.  ``REPRO_PATH_ENGINE``
+    can change within one process, and a stack built by one engine must
+    not be served to a caller of the other (nor one without compressed
+    tables to a caller expecting them), so every stack key carries it."""
+    n = topo.n_routers
+    return (paths_mod.path_engine(n), paths_mod.representation_for(n))
+
+
 def _minimal_tables(ctx: RoutingCtx, n: int) -> LayeredRouting:
     # ecmp and letflow differ only in balancing — one shared table stack.
     return ctx.stack(
-        ("tables", ctx.topo_key, int(n), ctx.seed),
+        ("tables", ctx.topo_key, int(n), ctx.seed) + stack_rep_key(ctx.topo),
         lambda: ecmp_routing(ctx.topo, n_tables=int(n), seed=ctx.seed,
                              device=ctx.device))
 
@@ -197,7 +207,8 @@ def _minimal_tables(ctx: RoutingCtx, n: int) -> LayeredRouting:
 def _layer_stack(ctx: RoutingCtx, scheme: str, n_layers: int,
                  rho: float) -> LayeredRouting:
     return ctx.stack(
-        ("layers", ctx.topo_key, scheme, int(n_layers), float(rho), ctx.seed),
+        ("layers", ctx.topo_key, scheme, int(n_layers), float(rho), ctx.seed)
+        + stack_rep_key(ctx.topo),
         lambda: build_layers(ctx.topo, int(n_layers), float(rho),
                              scheme=scheme, seed=ctx.seed, device=ctx.device))
 
@@ -246,7 +257,8 @@ def _failures(ctx: RoutingCtx, of, rate, pattern, mode, down_step,
     key = failures_mod.scenario_key(ctx.seed, int(fseed), ctx.device)
     dead = failures_mod.failure_mask(key, ctx.topo.adj, rate, pattern)
     ckey = ("failed", ctx.topo_key, ROUTINGS.canonical(inner_spec), rate,
-            pattern, mode, down_step, int(fseed), ctx.seed)
+            pattern, mode, down_step, int(fseed), ctx.seed) \
+        + stack_rep_key(ctx.topo)
     if down_step >= 0 and dead.any():
         lr = ctx.stack(ckey, lambda: dataclasses.replace(
             inner.routing, build_stats=None,
@@ -291,7 +303,8 @@ def _churn(ctx: RoutingCtx, of, rate, pattern, mtbf, mttr, conv, events,
         return inner
     ckey = ("churn", ctx.topo_key, ROUTINGS.canonical(inner_spec), rate,
             str(pattern), float(mtbf), float(mttr), int(conv), int(events),
-            str(proc), float(shape), int(fseed), ctx.seed)
+            str(proc), float(shape), int(fseed), ctx.seed) \
+        + stack_rep_key(ctx.topo)
     lr = ctx.stack(ckey, lambda: dataclasses.replace(
         inner.routing, build_stats=None, link_churn=sched,
         churn_conv=int(conv)))

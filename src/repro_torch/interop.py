@@ -18,6 +18,7 @@ import torch
 
 from . import resolve_device
 from .core.layers import LayeredRouting
+from .core.paths import CompressedTables
 from .core.topology import Topology
 from .core.traffic import FlowWorkload
 from .core.transport import SimConfig
@@ -41,16 +42,31 @@ def topology_from_arrays(d: Mapping[str, Any]) -> Topology:
     return Topology(**kw)
 
 
+def _compressed_from_arrays(d: Mapping[str, Any],
+                           device="cuda") -> CompressedTables:
+    """:class:`CompressedTables` from its fields: ``nh_sets`` (int32) and
+    ``sel`` (uint8) as numpy arrays, placed on ``device``, and the ints
+    ``block`` and ``n``."""
+    dev = resolve_device(device)
+    return CompressedTables(
+        nh_sets=torch.tensor(np.asarray(d["nh_sets"], np.int32), device=dev),
+        sel=torch.tensor(np.asarray(d["sel"], np.uint8), device=dev),
+        block=int(d["block"]), n=int(d["n"]))
+
+
 def routing_from_arrays(topo: Topology, d: Mapping[str, Any],
                         device="cuda") -> LayeredRouting:
     """A :class:`LayeredRouting` from ``scheme``, ``rho`` and the numpy
     tables ``nh``, ``reach``, ``pathlen``, ``layer_adj``, placed on
-    ``device``.  The fault lanes are carried as given (and the compressed
-    tables, which the scan refuses until they are ported)."""
+    ``device``.  The fault lanes are carried as given; ``compressed``,
+    when present, is a dict of :class:`CompressedTables`' fields
+    (``nh_sets`` and ``sel`` as numpy arrays, ``block`` and ``n``)."""
     dev = resolve_device(device)
 
     def t(name, dtype):
         return torch.tensor(np.asarray(d[name]), device=dev).to(dtype)
+
+    ct = d.get("compressed")
 
     return LayeredRouting(
         topo=topo, scheme=str(d["scheme"]), rho=float(d["rho"]),
@@ -61,7 +77,7 @@ def routing_from_arrays(topo: Topology, d: Mapping[str, Any],
         link_down_step=d.get("link_down_step"),
         link_churn=d.get("link_churn"),
         churn_conv=int(d.get("churn_conv") or 0),
-        compressed=d.get("compressed"))
+        compressed=None if ct is None else _compressed_from_arrays(ct, dev))
 
 
 def workload_from_arrays(d: Mapping[str, Any]) -> FlowWorkload:

@@ -647,3 +647,88 @@ def test_cuda_degraded_tables_equal_cpu(pattern, mode):
     for name in ("layer_adj", "nh", "reach", "pathlen"):
         assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
     assert g.validate_loop_free(n_samples=10 ** 6).ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["rand", "ksp", "pi_min", "ecmp"])
+def test_cuda_blocked_engine_equals_dense_and_cpu(monkeypatch, scheme):
+    """At sf(q=13) (338 routers: two destination chunks) the blocked
+    engine's tables on the card are bitwise the dense engine's on the
+    card and the blocked engine's on the CPU, and its compressed tables
+    are the CPU's."""
+    from repro_torch.core import layers, topology, transport
+    _need_card()
+    tt = topology.slim_fly(13)
+
+    def build(engine, dev):
+        if scheme == "ecmp":
+            monkeypatch.setenv("REPRO_PATH_ENGINE", engine)
+            return transport.ecmp_routing(tt, n_tables=4, seed=1, device=dev)
+        return layers.build_layers(tt, 5, 0.6, scheme=scheme, seed=1,
+                                   engine=engine, device=dev)
+
+    blocked, dense, cpu = (build("blocked", "cuda"), build("dense", "cuda"),
+                           build("blocked", "cpu"))
+    for name in ("layer_adj", "nh", "reach", "pathlen"):
+        assert torch.equal(getattr(blocked, name), getattr(dense, name)), name
+        assert torch.equal(getattr(blocked, name).cpu(),
+                           getattr(cpu, name)), name
+    ct, ct_cpu = blocked.compressed, cpu.compressed
+    assert ct.sel.is_cuda and dense.compressed is None
+    assert (ct.block, ct.n) == (ct_cpu.block, ct_cpu.n)
+    assert torch.equal(ct.nh_sets.cpu(), ct_cpu.nh_sets)
+    assert torch.equal(ct.sel.cpu(), ct_cpu.sel)
+    assert torch.equal(ct.dense(), blocked.nh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,block", [(338, None), (903, None), (722, 64)])
+def test_cuda_compressed_tables_equal_cpu(n, block):
+    """``CompressedTables.from_dense`` on the card (stable sort, scatter)
+    gives the CPU's ``nh_sets``, ``sel`` and block bitwise, on tables with
+    holes and with next-hop sets wide enough to halve the block."""
+    from repro_torch.core.paths import CompressedTables
+    _need_card()
+    rng = np.random.default_rng(n)
+    width = 300 if n == 903 else 40
+    nh = rng.integers(-1, width, (3, n, n)).astype(np.int32)
+    nh[:, :, : n // 3] = np.sort(nh[:, :, : n // 3], axis=-1)
+    cpu = CompressedTables.from_dense(torch.from_numpy(nh), block)
+    gpu = CompressedTables.from_dense(torch.from_numpy(nh).cuda(), block)
+    assert (gpu.block, gpu.n) == (cpu.block, cpu.n)
+    if n == 903:
+        assert cpu.block < 512
+    assert torch.equal(gpu.nh_sets.cpu(), cpu.nh_sets)
+    assert torch.equal(gpu.sel.cpu(), cpu.sel)
+    assert torch.equal(gpu.dense().cpu(), torch.from_numpy(nh))
+    li, s, t = (torch.from_numpy(rng.integers(hi, size=1000)).cuda()
+                for hi in (3, n, n))
+    assert torch.equal(gpu.lookup(li, s, t).cpu(),
+                       torch.from_numpy(nh)[li.cpu(), s.cpu(), t.cpu()])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [338, 1682])
+def test_cuda_count_row_block_bitwise(n):
+    """K2 count on the blocked ``min_path_stats`` shapes, a (256, N) row
+    block times the (N, N) adjacency, bitwise its plain version while the
+    exact sums stay below 2^24; and the blocked statistics on the card
+    equal the CPU's."""
+    from repro_torch.core import paths, topology
+    _need_card()
+    q = {338: 13, 1682: 29}[n]
+    adj = torch.from_numpy(np.asarray(topology.slim_fly(q).adj,
+                                      np.float32)).cuda()
+    cur = adj[:256]
+    for _ in range(3):
+        before = LAUNCHES["semiring"]
+        out = semiring_matmul(cur, adj, "count")
+        assert LAUNCHES["semiring"] == before + 1
+        assert float(out.max()) < 2 ** 24
+        assert torch.equal(out, ref.semiring_matmul_ref(cur, adj, "count"))
+        cur = out
+    if n == 338:
+        g = paths.min_path_stats(adj, max_l=8, engine="blocked")
+        c = paths.min_path_stats(adj.cpu(), max_l=8, engine="blocked")
+        for x, y in zip(g, c):
+            assert np.array_equal(x, y)

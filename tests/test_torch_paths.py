@@ -134,19 +134,24 @@ def test_min_path_stats_bitwise(topo_pair, max_l):
 
 
 def test_unported_engines_and_schemes_raise(monkeypatch):
+    """Both engines are ported: only an unknown engine raises, ``auto``
+    resolves by size as the JAX package's does, and ``blocked`` builds
+    what ``dense`` builds, with compressed tables attached."""
     tt = topology.slim_fly(5)
-    with pytest.raises(NotImplementedError, match="A9"):
-        paths.min_path_stats(tt.adj, engine="blocked", device="cpu")
-    monkeypatch.setenv("REPRO_PATH_ENGINE", "blocked")
-    with pytest.raises(NotImplementedError, match="A9"):
-        layers.build_layers(tt, 3, 0.6, device="cpu")
-    for fn in (paths.minplus_apsp_batched, paths.path_counts_exact_length,
-               paths.min_path_stats):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn(np.zeros((1, 4, 4), np.float32) if fn is
-               paths.minplus_apsp_batched else tt.adj, 2, device="cpu")
     monkeypatch.setenv("REPRO_PATH_ENGINE", "auto")
     assert paths.path_engine() == "dense"
+    assert paths.path_engine(tt.n_routers) == j_paths.path_engine(
+        tt.n_routers) == "dense"
+    assert paths.path_engine(512) == j_paths.path_engine(512) == "blocked"
+    dense = layers.build_layers(tt, 3, 0.6, device="cpu")
+    d_d, c_d = paths.min_path_stats(tt.adj, 4, device="cpu")
+    monkeypatch.setenv("REPRO_PATH_ENGINE", "blocked")
+    blocked = layers.build_layers(tt, 3, 0.6, device="cpu")
+    assert dense.compressed is None and blocked.compressed is not None
+    assert torch.equal(blocked.nh, dense.nh)
+    d_b, c_b = paths.min_path_stats(tt.adj, 4, device="cpu")
+    np.testing.assert_array_equal(d_b, d_d)
+    np.testing.assert_array_equal(c_b, c_d)
     monkeypatch.setenv("REPRO_PATH_ENGINE", "sparse")
     with pytest.raises(ValueError, match="unknown path engine"):
         paths.path_engine()
