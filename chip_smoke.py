@@ -124,7 +124,28 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    x ecmp x the same pattern and evaluator under each engine on the card:
    tables, RunResult and ``depart_step`` bitwise, the compressed tables'
    block, build seconds and peak memory;
-10. one ``{"kernels": [...]}`` line: launches on the main path (for the
+10. the batched sweep engine, with the engine phases 1-8 force: (10.1)
+   ``Session(device="cuda").sweep(..., devices=1)`` over sf(q=19) x
+   {fatpaths(n_layers=9,rho=0.6), ecmp} x {permutation, uniform} x
+   transport(steps=2000,transport=ndp,seeds=4) x cell seeds {0, 1} (8
+   cells, 32 elements, one union scan a bucket; counts 0 before, read
+   after) against the sequential sweep on the card: RunResults equal
+   (``compare_results`` at rtol 0), every element's ``depart_step``,
+   ``delivered`` and ``retrans_bytes`` bitwise, the water-filling kernel
+   launched once a step a bucket (the tail included) and held bitwise
+   against its plain version on a step of each union; each bucket's
+   union read again over 80 profiled steps (elements, union flows and
+   links, plan entries and longest segment, the kernel's ms a call, µs a
+   step, device events a step, idle share, peak memory) beside the µs an
+   element-step of the same elements' sequential scans; (10.2) sf(q=19)
+   x failures(of=fatpaths(n_layers=9,rho=0.6),rate=0.05,down_step=40) x
+   permutation x transport(steps=400,recovery=on,transport=dctcp) and x
+   load(level=0.5,window=96) x transport(steps=200), cell seeds {0, 1,
+   2}, batched against sequential; (10.3) 10.1's ecmp permutation cell
+   (seed 0), batched on the card, against the CPU port's sequential run;
+   (10.4) half of 10.1 into a checkpoint directory, then the whole grid
+   resumed from it (``sweep_resumed``), equal to 10.1;
+11. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse, GF(p) and attention kernels, on their own phase's path;
    each path's own counts in ``path_launches``),
    error against the plain version (0 for the water-filling kernel, which
@@ -132,7 +153,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-11. the last line: ``{"ok": true, "device": {...}}``.
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -218,6 +239,18 @@ PAPER_TOPO = "sf(q=29)"
 FT2_TOPO = f"ft2eq(of={PAPER_TOPO})"
 PAPER_STACKS = (DYN_ROUTING, KSP_ROUTING, PIMIN_ROUTING, "ecmp")
 BUILD_REPEATS = 3
+# Phase 10, the batched sweep engine: the main cells' grid widened to two
+# patterns, two cell seeds and four sim seeds a cell (8 cells, 32
+# elements); a mixed grid of a mid-run death under dctcp recovery and a
+# dynamic load cell over the same failures routing, three cell seeds each.
+SWEEP_PATTERNS = (MAIN_PATTERN, "uniform")
+SWEEP_EVAL = "transport(steps=2000,transport=ndp,seeds=4)"
+SWEEP_SEEDS = (0, 1)
+MIXED_ROUTING = f"failures(of={DYN_ROUTING},rate={FAULT_RATE},down_step=40)"
+MIXED_CELLS = ((MAIN_PATTERN, "transport(steps=400,recovery=on,"
+                "transport=dctcp)"),
+               ("load(level=0.5,window=96)", "transport(steps=200)"))
+MIXED_SEEDS = (0, 1, 2)
 GF_TOPO_Q = 11          # sf(q=11): 242 routers, 4114 directed links
 GF_P = 1009
 GF_LEN = 4
@@ -1305,14 +1338,21 @@ def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
                               **{"transport": "ndp", **(cfg_kw or {})})
     arrs, static = transport.prepare(cell.topo, cell.bundle.routing,
                                      cell.workload, cfg, device="cuda")
-    key = prng.PRNGKey(0, "cuda")
+    return _arrs_reading(transport, arrs, prng.PRNGKey(0, "cuda"), cfg,
+                         static, profile_steps)
+
+
+def _arrs_reading(transport, arrs, key, cfg, static, profile_steps,
+                  n_real=None):
+    """:func:`_scan_reading` of prepared scan operands: one cell's with
+    one key, or a union's with a key stack and its ``n_real`` (steps run:
+    its longest element horizon and the tail)."""
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    final = transport._run_scan(arrs, key, cfg, static)
+    final = transport._run_scan(arrs, key, cfg, static, n_real=n_real)
     torch.cuda.synchronize()
     scan_s = time.perf_counter() - t1
-    steps = int(final["horizon_chunks"]) * cfg.horizon_chunk \
-        + cfg.n_steps % cfg.horizon_chunk
+    steps = _steps_run(final, cfg)
     if profile_steps is None:
         profile_steps, pcfg, pstatic = steps, cfg, static
     else:
@@ -1320,7 +1360,8 @@ def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
                                    adaptive_horizon=False)
         pstatic = (static[0], static[1], profile_steps)
     device_ms, n_dev, top = _profile(
-        lambda: transport._run_scan(arrs, key, pcfg, pstatic), top_n=10 ** 6)
+        lambda: transport._run_scan(arrs, key, pcfg, pstatic, n_real=n_real),
+        top_n=10 ** 6)
     wf = [(ms, n) for name, ms, n in top if "waterfill" in name]
     # Idle share against the unprofiled wall of as many steps: the
     # profiler's own host cost would inflate a profiled wall.
@@ -1338,6 +1379,28 @@ def _scan_reading(ses, transport, prng, routing, pattern, n_steps,
                 plan_entries=arrs["plan_entries"].numel(),
                 plan_max_segment=int((arrs["plan_offsets"][1:]
                                       - arrs["plan_offsets"][:-1]).max()))
+
+
+def _steps_run(final, cfg):
+    """Steps a scan ran: its (longest) horizon's chunks and the tail."""
+    return int(np.max(final["horizon_chunks"])) * cfg.horizon_chunk \
+        + cfg.n_steps % cfg.horizon_chunk
+
+
+def _timed_scans(scans):
+    """Wrap ``_run_scan``: each call's balancing, synchronized wall and
+    steps run go to ``scans``."""
+    def wrap(fn):
+        def rec(arrs, key0, cfg, static, n_real=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = fn(arrs, key0, cfg, static, n_real=n_real)
+            torch.cuda.synchronize()
+            scans.append((cfg.balancing, time.perf_counter() - t0,
+                          _steps_run(final, cfg)))
+            return final
+        return rec
+    return wrap
 
 
 def _sims_recorder(sims):
@@ -2092,6 +2155,295 @@ def phase_ft2(Session, catalog, transport, prng, LAUNCHES, reset_launches,
             f"{rr.cell_id} (dense)": launches_d}
 
 
+@contextlib.contextmanager
+def _batched_recorder(transport, dist_sweep, sims, buckets, unions=None):
+    """Record what the batched engine does: each SimResult it assembles
+    (``sims``, in its order), each bucket's wall, peak device memory
+    above the memory allocated before it, elements and union scans
+    (``buckets``), and, with ``unions`` given, each union scan's operands
+    for a reading afterwards."""
+    def scan_wrap(fn):
+        def rec(arrs, key0, cfg, static, n_real=None):
+            final = fn(arrs, key0, cfg, static, n_real=n_real)
+            if key0.dim() == 2:
+                buckets[-1]["scans"].append(dict(
+                    elements=int(key0.shape[0]),
+                    union_flows=int(arrs["size"].shape[0]),
+                    union_links=int(static[0]),
+                    plan_entries=int(arrs["plan_entries"].numel()),
+                    plan_max_segment=int((arrs["plan_offsets"][1:]
+                                          - arrs["plan_offsets"][:-1]).max()),
+                    horizon_chunks=final["horizon_chunks"],
+                    steps=_steps_run(final, cfg)))
+                if unions is not None:
+                    unions.append((arrs, key0, cfg, static, n_real))
+            return final
+        return rec
+
+    def bucket_wrap(fn):
+        def rec(works, *args, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            buckets.append(dict(cells=len(works), scans=[], element_cells=[
+                w.spec.cell_id for w in works for _ in w.sim_seeds]))
+            t0 = time.perf_counter()
+            out = fn(works, *args, **kw)
+            torch.cuda.synchronize()
+            buckets[-1].update(
+                wall_s=time.perf_counter() - t0, mode=out[2],
+                peak_mib=(torch.cuda.max_memory_allocated() - base)
+                / 2 ** 20)
+            return out
+        return rec
+
+    def result_wrap(fn):
+        def rec(*args, **kw):
+            sims.append(fn(*args, **kw))
+            return sims[-1]
+        return rec
+
+    with _patched(transport, "_run_scan", scan_wrap), \
+            _patched(transport, "batch_result", result_wrap), \
+            _patched(dist_sweep, "_run_bucket", bucket_wrap):
+        yield
+
+
+def _by_cell(cells, sims, buckets):
+    """The batched engine's SimResults (in bucket order) in the order of
+    ``cells``, each cell's sim seeds in turn."""
+    by_id = {}
+    for cid, sim in zip([c for b in buckets for c in b["element_cells"]],
+                        sims):
+        by_id.setdefault(cid, []).append(sim)
+    return [sim for c in cells for sim in by_id[c.cell_id]]
+
+
+def _same_departures(sims_a, sims_b, what):
+    """Raise unless two flat lists of SimResults have equal departures,
+    delivered bytes and retransmitted bytes; the departures' digests."""
+    if len(sims_a) != len(sims_b):
+        raise AssertionError(f"{what}: {len(sims_a)} simulations against "
+                             f"{len(sims_b)}")
+    for i, (a, b) in enumerate(zip(sims_a, sims_b)):
+        for name in ("depart_step", "delivered", "retrans_bytes"):
+            x, y = getattr(a, name), getattr(b, name)
+            if (x is None) != (y is None) or (
+                    x is not None and x.tobytes() != y.tobytes()):
+                raise AssertionError(f"{what}: {name} differs in "
+                                     f"simulation {i}")
+    return [hashlib.sha256(a.depart_step.tobytes()).hexdigest()[:12]
+            for a in sims_a]
+
+
+def _union_k1_check(ref, waterfill_step, arrs, static, seed):
+    """The water-filling kernel on one step of a union, over its link
+    plan (random layers, weights and accumulators): bitwise its plain
+    version on CPU copies."""
+    from repro_torch.kernels.waterfill import LinkPlan
+    g = torch.Generator().manual_seed(seed)
+    n = arrs["size"].shape[0]
+    layer = torch.randint(0, static[1], (n,), generator=g,
+                          dtype=torch.int32).cuda()
+    w = (torch.rand(n, generator=g) >= 0.2).float().cuda()
+    desired = torch.rand(n, generator=g).cuda() * w
+    edges = arrs["path_edges"][layer.long(), torch.arange(n, device="cuda")]
+    return _wf_check(
+        ref, waterfill_step,
+        [edges, w, desired, torch.ones(static[0], device="cuda")],
+        dict(active=w > 0, acc=torch.rand(n, generator=g).cuda(),
+             plan=LinkPlan(arrs["plan_offsets"], arrs["plan_entries"], n),
+             layer=layer), "union plan")
+
+
+def phase_sweep(Session, catalog, transport, dist_sweep, prng, ref,
+                waterfill_step, LAUNCHES, reset_launches, k1):
+    """10. The batched sweep engine on the card (the engine phases 1-8
+    force): (10.1) the sf(q=19) grid of fatpaths(9, 0.6) and ecmp x
+    permutation and uniform x transport(steps=2000,seeds=4) x cell seeds
+    0 and 1 (8 cells, 32 elements) through ``sweep(devices=1)`` and the
+    sequential sweep, each in a new session: RunResults equal
+    (``compare_results`` at rtol 0) and every element's departures,
+    delivered and retransmitted bytes bitwise; the water-filling kernel
+    launched once a step a bucket; each bucket's union read over 80
+    profiled steps; (10.2) a death under dctcp recovery and a dynamic load
+    cell over the same failures routing, three cell seeds each, batched
+    against sequential; (10.3) 10.1's ecmp permutation cell (seed 0),
+    batched on the card, against the CPU port's sequential run; (10.4)
+    half of 10.1 into a checkpoint directory, then the whole grid resumed
+    from it, equal to 10.1."""
+    import tempfile
+
+    from repro_torch.experiments.results import compare_results
+    t_phase = time.perf_counter()
+    grid = ([MAIN_TOPO], list(MAIN_ROUTINGS), list(SWEEP_PATTERNS),
+            [SWEEP_EVAL], list(SWEEP_SEEDS))
+
+    def seq_run(cells, card_sims, scans=None):
+        ses = Session(device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_patched(catalog, "simulate_seeds",
+                                         _sims_recorder(card_sims)))
+            if scans is not None:
+                stack.enter_context(_patched(transport, "_run_scan",
+                                             _timed_scans(scans)))
+            out = [ses.run(c) for c in cells]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 10.1 batched, then sequential.
+    b_sims, buckets, unions = [], [], []
+    ses = Session(device="cuda")
+    cells = ses.grid(*grid)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _batched_recorder(transport, dist_sweep, b_sims, buckets, unions):
+        batched = ses.sweep(*grid, devices=1)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    b_sims = _by_cell(cells, b_sims, buckets)
+    steps = sum(sc["steps"] for b in buckets for sc in b["scans"])
+    _need_launches(launches, ("semiring", "waterfill"), "10.1 batched")
+    if launches["waterfill"] != steps \
+            or any(len(b["scans"]) != 1 for b in buckets):
+        raise AssertionError(f"10.1: {launches['waterfill']} water-filling "
+                             f"launches for {steps} union steps over "
+                             f"{len(buckets)} buckets")
+    s_sims, s_scans = [], []
+    sequential, s_wall = seq_run(cells, s_sims, s_scans)
+    s_sims = [r for run in s_sims for r in run]
+    diffs = compare_results(sequential, batched, rtol=0.0)
+    if diffs:
+        raise AssertionError(f"10.1 batched vs sequential: {diffs[:4]}")
+    digests = _same_departures(s_sims, b_sims, "10.1 batched vs sequential")
+    for rr in batched:
+        m = rr.metrics
+        if not (m["finished"] > 0 and math.isfinite(m["fct_p99_us"])):
+            raise AssertionError(f"{rr.cell_id}: {m}")
+    print(f"# phase 10.1: {len(cells)} cells, {len(b_sims)} elements; "
+          f"RunResults and every element's depart_step, delivered and "
+          f"retrans_bytes equal batched vs sequential on the card; "
+          f"water-filling launches {launches['waterfill']} = union steps "
+          f"{steps}; batched grid wall {b_wall:.3f} s, sequential "
+          f"{s_wall:.3f} s; depart_step sha256 {digests[::4]}", flush=True)
+    for bi, (b, (arrs, keys, cfg, static, n_real)) in enumerate(
+            zip(buckets, unions)):
+        reading = _arrs_reading(transport, arrs, keys, cfg, static, 80,
+                                n_real=n_real)
+        scan = b["scans"][0]
+        f_u = scan["union_flows"]
+        if reading["steps"] != scan["steps"]:
+            raise AssertionError(f"10.1 {b['mode']}: the union ran "
+                                 f"{reading['steps']} steps again, not "
+                                 f"{scan['steps']}")
+        # The same elements' sequential scans in this run, per step.
+        seq = [(t, n) for bal, t, n in s_scans if bal == cfg.balancing]
+        seq_us = sum(t for t, _ in seq) / sum(n for _, n in seq) * 1e6
+        per_elem = reading["us_per_step"] / scan["elements"]
+        info = dict(bucket=b["mode"], cells=b["cells"],
+                    elements=scan["elements"], union_flows=f_u,
+                    union_links=scan["union_links"],
+                    horizon_chunks=scan["horizon_chunks"],
+                    bucket_wall_s=b["wall_s"],
+                    peak_device_mib=b["peak_mib"],
+                    us_per_element_step=per_elem,
+                    sequential_scans=len(seq),
+                    sequential_us_per_element_step=seq_us,
+                    batched_speedup_per_element_step=seq_us / per_elem,
+                    **reading)
+        k1.setdefault("per_path", {})[f"batched bucket {b['mode']} "
+                                      f"{cfg.balancing}"] = dict(
+            calls=reading["waterfill_calls"],
+            ms=reading["waterfill_ms_per_call"],
+            bound_ms=_wf_bound_s(f_u, reading["hop_slots"],
+                                 reading["e_tot"]) * 1e3,
+            bound_by="bytes", n_flows=f_u,
+            plan_entries=scan["plan_entries"],
+            plan_max_segment=scan["plan_max_segment"],
+            max_abs_err=_union_k1_check(ref, waterfill_step, arrs, static,
+                                        bi))
+        print(f"# phase 10.1 bucket ({cfg.balancing}): " + json.dumps(info),
+              flush=True)
+    del unions
+
+    # 10.2 the mixed bucket: a death under recovery and dynamic load.
+    mixed = [c for pattern, ev in MIXED_CELLS
+             for c in ses.grid([MAIN_TOPO], [MIXED_ROUTING], [pattern],
+                               [ev], list(MIXED_SEEDS))]
+    m_sims, m_buckets = [], []
+    ses2 = Session(device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _batched_recorder(transport, dist_sweep, m_sims, m_buckets):
+        m_batched = dist_sweep.dist_sweep(ses2, mixed, devices=1)
+    torch.cuda.synchronize()
+    m_wall = time.perf_counter() - t0
+    m_launches = dict(LAUNCHES)
+    m_steps = sum(sc["steps"] for b in m_buckets for sc in b["scans"])
+    if m_launches["waterfill"] != m_steps:
+        raise AssertionError(f"10.2: {m_launches['waterfill']} water-"
+                             f"filling launches for {m_steps} union steps")
+    ms_sims = []
+    m_seq, m_seq_wall = seq_run(mixed, ms_sims)
+    diffs = compare_results(m_seq, m_batched, rtol=0.0)
+    if diffs:
+        raise AssertionError(f"10.2 batched vs sequential: {diffs[:4]}")
+    _same_departures([r for run in ms_sims for r in run],
+                     _by_cell(mixed, m_sims, m_buckets),
+                     "10.2 batched vs sequential")
+    print("# phase 10.2: " + json.dumps(dict(
+        cells=[c.cell_id for c in mixed], batched_wall_s=m_wall,
+        sequential_wall_s=m_seq_wall, launches=m_launches,
+        buckets=[{k: v for k, v in b.items() if k != "element_cells"}
+                 for b in m_buckets],
+        metrics=[r.metrics for r in m_batched])), flush=True)
+
+    # 10.3 one ecmp cell of 10.1, batched on the card, vs the CPU port.
+    i = next(j for j, c in enumerate(cells)
+             if c.routing.name == "ecmp" and c.seed == 0
+             and c.pattern.name == MAIN_PATTERN)
+    n_seeds = batched[i].meta["n_seeds"]
+    cpu_sims = []
+    t0 = time.perf_counter()
+    with _patched(catalog, "simulate_seeds", _sims_recorder(cpu_sims)):
+        rc = Session(device="cpu").run(cells[i])
+    cpu_s = time.perf_counter() - t0
+    if compare_results([batched[i]], [rc], rtol=0.0):
+        raise AssertionError(f"10.3 {rc.cell_id}: batched card vs CPU: "
+                             f"{compare_results([batched[i]], [rc])[:4]}")
+    _same_departures(b_sims[i * n_seeds:(i + 1) * n_seeds], cpu_sims[0],
+                     "10.3 batched card vs CPU port")
+    print(f"# phase 10.3: {rc.cell_id} batched on the card equals the CPU "
+          f"port's sequential run ({n_seeds} sim seeds; CPU port "
+          f"{cpu_s:.2f} s)", flush=True)
+
+    # 10.4 resume from a checkpoint of half the grid.
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.perf_counter()
+        dist_sweep.dist_sweep(Session(device="cuda"), cells[:len(cells) // 2],
+                              devices=1, checkpoint_dir=ckdir)
+        logs = []
+        resumed = dist_sweep.dist_sweep(Session(device="cuda"), cells,
+                                        devices=1, checkpoint_dir=ckdir,
+                                        log=logs.append)
+        r_wall = time.perf_counter() - t0
+    n_res = sum(1 for r in resumed if r.meta.get("sweep_resumed"))
+    diffs = compare_results(batched, resumed, rtol=0.0)
+    if diffs or n_res != len(cells) // 2:
+        raise AssertionError(f"10.4 resume: {n_res} resumed, {diffs[:4]}")
+    print(f"# phase 10.4: {n_res} of {len(cells)} cells resumed from the "
+          f"checkpoint, the rest run, artifact equal to 10.1 ({r_wall:.2f} "
+          f"s; {logs[0] if logs else ''})", flush=True)
+    print(f"# phase 10: wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"batched sweep": launches, "batched mixed bucket": m_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2099,7 +2451,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import prng
     from repro_torch.core import failures, layers, paths, topology, transport
-    from repro_torch.experiments import Session, catalog
+    from repro_torch.experiments import Session, catalog, dist_sweep
     from repro_torch.kernels import (LAUNCHES, build, flash_attention,
                                      gf_matmul, ops, pathcount, ref,
                                      reset_launches, semiring_matmul,
@@ -2167,11 +2519,17 @@ def main() -> int:
     paper.update(phase_ft2(Session, catalog, transport, prng, LAUNCHES,
                            reset_launches, k1))
     t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sweep = phase_sweep(Session, catalog, transport, dist_sweep, prng, ref,
+                        waterfill.waterfill_step, LAUNCHES, reset_launches,
+                        k1)
+    t11 = time.perf_counter()
     print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
-          f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, script up to here "
-          f"{t10 - t_start:.1f}", flush=True)
+          f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
+          f"{t11 - t10:.1f}, script up to here {t11 - t_start:.1f}",
+          flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
-             **paper}
+             **paper, **sweep}
     k2["path_launches"].update(
         {"pi_min cell": pimin["semiring"], **k2_paper,
          **{cell: n["semiring"] for cell, n in cells.items()}})

@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,7 +84,10 @@ from .topology import Topology
 from .traffic import FlowWorkload
 
 __all__ = ["SimConfig", "SimResult", "simulate", "simulate_seeds",
-           "ecmp_routing", "prepare", "shape_signature"]
+           "ecmp_routing", "prepare", "shape_signature", "pad_prepared",
+           "union_prepared", "split_union", "batch_result"]
+
+_IMAX = np.iinfo(np.int32).max
 
 
 def _f32(x: float) -> float:
@@ -354,7 +357,8 @@ def prepare(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,
 
 
 def _flow_uniforms(key: torch.Tensor, f: int) -> torch.Tensor:
-    """(F, 2) U[0,1) draws where row ``i`` depends only on ``(key, i)``."""
+    """(F, 2) U[0,1) draws where row ``i`` depends only on ``(key, i)``;
+    a (B, 1, 2) key stack gives (B, F, 2)."""
     keys = prng.fold_in(key, torch.arange(f, device=key.device))
     return prng.uniform(keys, (2,))
 
@@ -426,15 +430,34 @@ def _check_config(cfg: SimConfig) -> None:
 
 
 def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
-              cfg: SimConfig, static: Tuple[int, int, int]
+              cfg: SimConfig, static: Tuple[int, int, int],
+              n_real: Optional[Sequence[int]] = None
               ) -> Dict[str, torch.Tensor]:
     """The chunked flow scan: returns the final per-flow state plus
     ``horizon_chunks`` (how many full chunks ran) and, with
-    ``cfg.record``, the ``goodput_t`` and ``stalled_t`` buffers."""
+    ``cfg.record``, the ``goodput_t`` and ``stalled_t`` buffers.
+
+    ``key0`` is one PRNG key (2,), or a stack (B, 2) of keys for the B
+    elements of a union (:func:`union_prepared`): element b owns flow rows
+    ``[b*F_pad, (b+1)*F_pad)`` and draws from its own key with its local
+    flow index, exactly as it would alone; one key is a stack of one.
+    ``n_real`` is each element's real flow count (default: all rows),
+    which the rollback's rounding rule reads.  ``horizon_chunks`` has the
+    key's batch shape: an int for one key, a list for a stack.
+    ``cfg.record`` takes one element only."""
     _check_config(cfg)
     e_tot, n_layers, n_steps = static
     dev = arrs["size"].device
     f = arrs["size"].shape[0]
+    keys = key0.reshape(-1, 2)
+    n_elem = keys.shape[0]
+    if f % n_elem:
+        raise ValueError(f"{f} flow rows do not split into {n_elem} elements")
+    fp = f // n_elem
+    n_real = [fp] * n_elem if n_real is None else [int(n) for n in n_real]
+    if len(n_real) != n_elem or not all(0 <= n <= fp for n in n_real):
+        raise ValueError(f"n_real {n_real} does not fit {n_elem} elements "
+                         f"of {fp} rows")
     line_bytes = _f32(cfg.line_rate * cfg.dt)          # bytes per step at line
     dt = np.float32(cfg.dt)
     gap_rate = _f32(cfg.dt / cfg.flowlet_gap)
@@ -452,6 +475,10 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
     # Fault and recovery lanes: each adds its ops only when present.
     recovery_on = str(cfg.recovery).lower() in ("on", "1", "true")
     record_on = bool(int(cfg.record))
+    if record_on and n_elem > 1:
+        # The goodput sum's order follows the unpadded flow count.
+        raise ValueError("record=1 takes one element, not a union of "
+                         f"{n_elem}")
     has_lds = "link_down_step" in arrs
     has_churn = "link_churn" in arrs
     has_death = has_lds or has_churn
@@ -459,9 +486,14 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
     # dctcp's congestion signal under recovery.
     want_util = recovery_on and cfg.transport == "dctcp"
 
-    k_init, k_scan = prng.split(key0.to(dev))
-    layer0 = _pick_layers(_flow_uniforms(k_init, f)[:, 0], usable)
-    flow_keys = prng.fold_in(k_scan, torch.arange(f, device=dev))
+    # Per element: split its key, then fold in the local flow index
+    # (folding in the union's index would change every other element's
+    # draws).
+    k_init, k_scan = prng.split(keys.to(dev)).movedim(1, 0)[:, :, None]
+    layer0 = _pick_layers(_flow_uniforms(k_init, fp).reshape(f, 2)[:, 0],
+                          usable)
+    flow_keys = prng.fold_in(k_scan, torch.arange(fp, device=dev)
+                             ).reshape(f, 2)
 
     if cfg.transport == "ndp":
         rate0 = torch.ones(f, dtype=torch.float32, device=dev)
@@ -527,7 +559,10 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
             torch.tensor(_f32(cfg.link_latency), device=dev)) \
             * float(np.float32(1.0) / dt)                       # (L, F)
         line_t = torch.tensor(line_bytes, device=dev)
-        vector_rows = torch.arange(f, device=dev) < f - f % 8
+        # Taken per element, on its real flow count.
+        lim = torch.tensor([n - n % 8 for n in n_real], device=dev)
+        vector_rows = (torch.arange(fp, device=dev)[None]
+                       < lim[:, None]).reshape(f)
     if want_util:
         ecn = _f32(cfg.ecn_thresh)
         recip_band = float(np.float32(1.0) / np.float32(
@@ -701,19 +736,37 @@ def _run_scan(arrs: Dict[str, torch.Tensor], key0: torch.Tensor,
             st = step(st, c * chunk + s, u[s] if reroute else None)
         return st
 
-    def exhausted(st) -> bool:
+    def exhausted(st) -> list:
+        """Per element: is every flow done or provably stuck (one sync)."""
         routed_cur = routed_lf[st["layer"], frows]
         stuck = ~routed_cur & ~pick_routable
-        return bool(((st["remaining"] <= 0.0) | stuck).all())
+        gone = (st["remaining"] <= 0.0) | stuck
+        return gone.view(n_elem, fp).all(dim=1).tolist()
 
+    # Each element's horizon is the first chunk at which it was found
+    # exhausted, as it would be alone; the loop runs while any element is
+    # live.  Running an exhausted element on changes no field _to_result
+    # reads: its done flows have ~done False and its stuck flows send
+    # False, so w = 0, nothing is delivered, rolled back or newly done,
+    # and the water-filling step's fma(acc, 0, s) leaves sent_acc as it
+    # was.  The same holds for the steps that early exit skips.
+    horizon = [None] * n_elem
     c_run = 0
-    while c_run < n_full and not (cfg.adaptive_horizon and exhausted(state)):
+    while c_run < n_full:
+        if cfg.adaptive_horizon:
+            for b, done_b in enumerate(exhausted(state)):
+                if done_b and horizon[b] is None:
+                    horizon[b] = c_run
+            if None not in horizon:
+                break
         state = run_chunk(state, c_run, chunk)
         c_run += 1
+    horizon = [c_run if h is None else h for h in horizon]
     if rem:
         # The tail rides chunk index n_full unconditionally.
         state = run_chunk(state, n_full, rem)
-    return dict(state, horizon_chunks=c_run, **(bufs or {}))
+    return dict(state, horizon_chunks=(horizon if key0.dim() > 1
+                                       else horizon[0]), **(bufs or {}))
 
 
 def _to_result(size: np.ndarray, final, cfg: SimConfig,
@@ -749,6 +802,145 @@ def _to_result(size: np.ndarray, final, cfg: SimConfig,
         goodput_steps=final.get("goodput_t"),
         stalled_steps=final.get("stalled_t"),
     )
+
+
+def pad_prepared(arrs: Dict[str, torch.Tensor], static: Tuple[int, int, int],
+                 *, n_flows: int, n_edges: int, hop_slots: int):
+    """One cell's :func:`prepare` output padded to a bucket's shape, so
+    that cells of different sizes join one union scan, without changing
+    what the real flows do:
+
+    * flows: a padded flow has ``start=inf``, ``active_at=INT32_MAX``,
+      size 0, ``usable``/``routed`` False and ``-1`` hop slots, so it never
+      starts and sends with weight 0; draws are keyed by flow index, so
+      real flows draw as before;
+    * hop slots: ``-1`` columns, which the scan maps to the trash link;
+    * links: extra slots have capacity 1 and no flow indexes them; only
+      the trash id moves to ``n_edges - 1``.  ``link_down_step`` and
+      ``link_churn`` are padded with INT32_MAX (never down); the churn
+      event axis K is never padded.
+
+    The link plan keeps its entries (flow ids are unchanged) and gains
+    empty segments for the new links.  The layer count and the step count
+    are never padded.  Returns ``(arrs, static)``."""
+    e_tot, n_layers, n_steps = static
+    f, h = arrs["size"].shape[0], arrs["path_edges"].shape[2]
+    if n_flows < f or n_edges < e_tot or hop_slots < h:
+        raise ValueError(f"pad target ({n_flows},{n_edges},{hop_slots}) "
+                         f"smaller than cell ({f},{e_tot},{h})")
+    pf = n_flows - f
+
+    def padf(x, fill, dim):
+        shape = list(x.shape)
+        shape[dim] = pf
+        return torch.cat([x, torch.full(shape, fill, dtype=x.dtype,
+                                        device=x.device)], dim=dim)
+
+    def padl(x):
+        shape = (n_edges - e_tot,) + tuple(x.shape[1:])
+        return torch.cat([x, torch.full(shape, _IMAX, dtype=x.dtype,
+                                        device=x.device)])
+
+    pe = arrs["path_edges"]
+    pe = torch.cat([pe, torch.full(pe.shape[:2] + (hop_slots - h,), -1,
+                                   dtype=pe.dtype, device=pe.device)], dim=2)
+    off = arrs["plan_offsets"]
+    out = dict(
+        path_edges=padf(pe, -1, 1),
+        plan_offsets=torch.cat([off, off[-1:].expand(n_edges - e_tot)]),
+        plan_entries=arrs["plan_entries"],
+        routed=padf(arrs["routed"], False, 1),
+        path_hops=padf(arrs["path_hops"], 0.0, 1),
+        usable=padf(arrs["usable"], False, 0),
+        size=padf(arrs["size"], 0.0, 0),
+        start=padf(arrs["start"], float("inf"), 0),
+        active_at=padf(arrs["active_at"], _IMAX, 0),
+    )
+    for k in ("link_down_step", "link_churn", "churn_pick_at"):
+        if k in arrs:
+            out[k] = padl(arrs[k])
+    return out, (int(n_edges), n_layers, n_steps)
+
+
+def union_prepared(elements: Sequence[Dict[str, torch.Tensor]],
+                   static: Tuple[int, int, int]):
+    """B padded cells (:func:`pad_prepared`, one shape ``static``) as one
+    flow set for :func:`_run_scan`: element b's flows are rows
+    ``[b*F_pad, (b+1)*F_pad)`` and its live link e < E_pad - 1 is link
+    ``b*(E_pad - 1) + e``; one trash link sits at the end, and ``-1``
+    stays ``-1``, so no element's own trash slot becomes a neighbour's
+    link.  The link plan is the elements' plans laid end to end, flow ids
+    shifted by ``b*F_pad`` and offsets by the entries before: each link's
+    entries belong to one element and keep its (flow, slot) order, so the
+    water-filling step sums every element's links as it would alone.
+    An element may appear more than once (one per sim seed).  Returns
+    ``(arrs, static)`` of the union."""
+    e_pad, n_layers, n_steps = static
+    live = e_pad - 1
+    fp = elements[0]["size"].shape[0]
+    keys = set(elements[0])
+    if any(set(a) != keys or a["size"].shape[0] != fp
+           or a["plan_offsets"].shape[0] != e_pad + 1 for a in elements):
+        raise ValueError("union elements must share one padded shape and "
+                         "the same lanes")
+    cat = torch.cat
+    out = dict(
+        path_edges=cat([torch.where(a["path_edges"] >= 0,
+                                    a["path_edges"] + b * live, -1)
+                        for b, a in enumerate(elements)], dim=1),
+        routed=cat([a["routed"] for a in elements], dim=1),
+        path_hops=cat([a["path_hops"] for a in elements], dim=1),
+    )
+    for k in ("usable", "size", "start", "active_at"):
+        out[k] = cat([a[k] for a in elements])
+    offsets, base = [], 0
+    for a in elements:
+        offsets.append(a["plan_offsets"][:live].to(torch.int64) + base)
+        base += int(a["plan_entries"].shape[0])
+    if base >= 2 ** 31:
+        raise ValueError(f"{base} plan entries overflow int32 offsets")
+    # The end of the last live link, and the trash link's empty segment.
+    offsets.append(torch.tensor([base, base], dtype=torch.int64,
+                                device=elements[0]["size"].device))
+    out["plan_offsets"] = cat(offsets).to(torch.int32)
+    out["plan_entries"] = cat([a["plan_entries"] + b * fp
+                               for b, a in enumerate(elements)])
+    for k in ("link_down_step", "link_churn", "churn_pick_at"):
+        if k in keys:
+            out[k] = cat([a[k][:live] for a in elements]
+                         + [elements[0][k][live:]])
+    return out, (len(elements) * live + 1, n_layers, n_steps)
+
+
+_PER_FLOW = ("remaining", "layer", "rate", "hops", "sent_acc", "w_acc",
+             "depart_step", "stall", "rto", "blocked_until", "retrans_acc")
+
+
+def split_union(final: Dict, n_elem: int) -> List[Dict[str, np.ndarray]]:
+    """A union scan's final state (run with a key stack) as one host dict
+    per element: its padded rows and its own ``horizon_chunks``."""
+    host = {k: v.cpu().numpy() for k, v in final.items()
+            if k in _PER_FLOW}
+    fp = final["remaining"].shape[0] // n_elem
+    return [dict({k: v[b * fp:(b + 1) * fp] for k, v in host.items()},
+                 horizon_chunks=final["horizon_chunks"][b])
+            for b in range(n_elem)]
+
+
+def batch_result(size: np.ndarray, final, cfg: SimConfig,
+                 n_flows: Optional[int] = None,
+                 start: Optional[np.ndarray] = None) -> SimResult:
+    """One element of a batched scan -> :class:`SimResult`, stripping the
+    flow padding (``n_flows`` = the cell's real flow count).  ``start``
+    is the cell's flow start times; omit for all-start-at-zero
+    workloads."""
+    if n_flows is not None:
+        final = {k: (v[:n_flows] if k in _PER_FLOW else v)
+                 for k, v in final.items()}
+        size = size[:n_flows]
+        if start is not None:
+            start = np.asarray(start)[:n_flows]
+    return _to_result(np.asarray(size), final, cfg, start=start)
 
 
 def simulate(topo: Topology, routing: LayeredRouting, wl: FlowWorkload,

@@ -52,7 +52,8 @@ from .specs import Spec, SpecError, SpecLike
 
 __all__ = ["TOPOLOGIES", "ROUTINGS", "TRAFFIC", "EVALUATORS", "NOT_PORTED",
            "RoutingBundle", "RoutingCtx", "topo_spec", "transport_plan",
-           "transport_meta", "table_meta", "check_ported", "stack_rep_key"]
+           "transport_meta", "table_meta", "check_ported", "stack_rep_key",
+           "fct_metrics"]
 
 TOPOLOGIES = Registry("topology")
 ROUTINGS = Registry("routing scheme")
@@ -528,6 +529,10 @@ def _fct_metrics(sims) -> Dict[str, float]:
         out["retrans_mb"] = float(
             np.mean([np.asarray(b, np.float64).sum() for b in rb]) / 2 ** 20)
     return out
+
+
+#: Public alias: the batched sweep assembles the same record from its sims.
+fct_metrics = _fct_metrics
 
 
 def transport_plan(cell, steps, transport, seeds, dt, flowlet_gap,

@@ -150,10 +150,16 @@ class Session:
 
     def finish_result(self, spec: ExperimentSpec, cell: ResolvedCell,
                       metrics: Dict[str, float], ev_meta: Dict[str, Any],
-                      pre: Dict[str, float], wall: float) -> RunResult:
+                      pre: Dict[str, float], wall: float,
+                      extra_meta: Optional[Dict[str, Any]] = None,
+                      post: Optional[Dict[str, float]] = None) -> RunResult:
         """Assemble the canonical :class:`RunResult` for one evaluated
-        cell (the same record the JAX package emits)."""
-        post = self.stats_snapshot()
+        cell (the same record the JAX package emits).  Both engines, the
+        sequential loop and the batched one, go through this.  ``post``
+        closes the cell's build-accounting window when other cells have
+        been built since (the batched engine resolves every cell before
+        it simulates any)."""
+        post = post if post is not None else self.stats_snapshot()
         meta = {"n_routers": cell.topo.n_routers,
                 "n_endpoints": cell.topo.n_endpoints,
                 "n_flows": int(cell.workload.n_flows),
@@ -165,7 +171,8 @@ class Session:
                                     - pre["stack_build"]),
                 "cache_hits": int(post["stack_hit"]
                                   - pre["stack_hit"]),
-                **table_meta(cell.bundle), **ev_meta}
+                **table_meta(cell.bundle), **ev_meta,
+                **(extra_meta or {})}
         return RunResult(
             topo=spec.topo.format(), routing=spec.routing.format(),
             pattern=spec.pattern.format(), evaluator=spec.evaluator.format(),
@@ -189,13 +196,21 @@ class Session:
               callback: Optional[Callable[[RunResult], None]] = None,
               devices: Optional[int] = None,
               checkpoint_dir: Optional[str] = None) -> List[RunResult]:
-        """Run the full grid, one cell after another, through this
-        session's caches.  The batched multi-device engine behind
-        ``devices`` and ``checkpoint_dir`` is not ported yet (ROADMAP
-        A10)."""
+        """Run the full grid through this session's caches.
+
+        ``devices`` or ``checkpoint_dir`` routes the grid through the
+        batched engine (:func:`repro_torch.experiments.dist_sweep
+        .dist_sweep`): cells bucketed by shape, each bucket's (cell,
+        sim-seed) elements one union scan, split over ``devices``.
+        ``devices=1`` runs the same engine on this session's device.
+        Results equal this sequential path's either way;
+        ``checkpoint_dir`` makes the sweep resumable cell by cell."""
         if devices is not None or checkpoint_dir is not None:
-            raise NotImplementedError("devices= and checkpoint_dir= need the "
-                                      "batched sweep engine (ROADMAP A10)")
+            from .dist_sweep import dist_sweep
+            return dist_sweep(
+                self, self.grid(topos, routings, patterns, evaluators, seeds),
+                devices=devices, checkpoint_dir=checkpoint_dir,
+                callback=callback)
         results: List[RunResult] = []
         for spec in self.grid(topos, routings, patterns, evaluators, seeds):
             rr = self.run(spec)

@@ -82,8 +82,9 @@ def _keywords(key: torch.Tensor):
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` for one key: ``(num, 2)``."""
-    k1, k2 = key[0], key[1]
+    """``jax.random.split(key, num)``: ``(num, 2)`` for one key, and
+    ``(B, num, 2)`` for a batch of keys ``(B, 2)``, each split alone."""
+    k1, k2 = _keywords(key)
     lo = torch.arange(num, dtype=torch.int64, device=key.device)
     a, b = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return torch.stack([a, b], dim=-1)

@@ -77,8 +77,11 @@ def test_unported_axes_and_engines_raise(monkeypatch):
     ts = Session(device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         ts.run("sf", "ecmp", "uniform", "mat")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ts.sweep(["sf"], ["ecmp"], ["uniform"], devices=2)
+    # The batched engine (A10) is ported: two CPU shards give the
+    # sequential sweep's results.
+    grid = (["sf"], ["ecmp", "fatpaths(n_layers=9,rho=0.6)"], ["uniform"])
+    assert compare_results(ts.sweep(*grid),
+                           ts.sweep(*grid, devices=2), rtol=0) == []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Session()

@@ -732,3 +732,103 @@ def test_cuda_count_row_block_bitwise(n):
         c = paths.min_path_stats(adj.cpu(), max_l=8, engine="blocked")
         for x, y in zip(g, c):
             assert np.array_equal(x, y)
+
+
+def _union_case(dev):
+    """Three sf(q=5) elements of different sizes under a death and dctcp
+    recovery, padded to one shape: (padded, static, unpadded, seeds)."""
+    from repro_torch.core import transport as T
+    from repro_torch.experiments import Session
+    ses = Session(device=dev)
+    routing = "failures(of=fatpaths(n_layers=9,rho=0.6),rate=0.05,down_step=10)"
+    cells = [ses.resolve(ses.grid(["sf"], [routing],
+                                  [f"{p}(flow_size=4194304)"])[0])
+             for p in ("uniform", "anycast", "shuffle")]
+    cfg = T.SimConfig(balancing="fatpaths", n_steps=200, recovery="on",
+                      transport="dctcp")
+    prep = [T.prepare(c.topo, c.bundle.routing, c.workload, cfg, device=dev)
+            for c in cells]
+    nf = max(a["size"].shape[0] for a, _ in prep)
+    ne = max(st[0] for _, st in prep)
+    nh = max(a["path_edges"].shape[2] for a, _ in prep)
+    padded = [T.pad_prepared(a, st, n_flows=nf, n_edges=ne, hop_slots=nh)
+              for a, st in prep]
+    return cfg, [p for p, _ in padded], padded[0][1], prep, [0, 1000, 7]
+
+
+@pytest.mark.gpu
+def test_cuda_union_scan_equals_each_element():
+    """On the card the union scan of three elements gives each element
+    the bits of its own scan (every per-flow lane), with one water-filling
+    launch a step for the union."""
+    from repro_torch import prng
+    from repro_torch.core import transport as T
+    _need_card()
+    cfg, padded, static, prep, seeds = _union_case("cuda")
+    uarrs, ustatic = T.union_prepared(padded, static)
+    keys = torch.stack([prng.PRNGKey(s, "cuda") for s in seeds])
+    n_real = [a["size"].shape[0] for a, _ in prep]
+    before = LAUNCHES["waterfill"]
+    final = T._run_scan(uarrs, keys, cfg, ustatic, n_real=n_real)
+    steps = max(final["horizon_chunks"]) * cfg.horizon_chunk \
+        + cfg.n_steps % cfg.horizon_chunk
+    assert LAUNCHES["waterfill"] - before == steps
+    per = T.split_union(final, 3)
+    for b, ((arrs, st), s) in enumerate(zip(prep, seeds)):
+        alone = T._run_scan(arrs, prng.PRNGKey(s, "cuda"), cfg, st)
+        assert alone["horizon_chunks"] == per[b]["horizon_chunks"]
+        for k in ("remaining", "sent_acc", "w_acc", "depart_step", "hops",
+                  "retrans_acc"):
+            got = per[b][k][:n_real[b]]
+            assert alone[k].cpu().numpy().tobytes() == got.tobytes(), (b, k)
+
+
+@pytest.mark.gpu
+def test_cuda_waterfill_on_a_union_plan_equals_each_element():
+    """K1 over a union's plan returns each element's rows bitwise as K1
+    over the element's own plan does."""
+    from repro_torch.core import transport as T
+    from repro_torch.kernels.waterfill import LinkPlan
+    _need_card()
+    _, padded, static, _, _ = _union_case("cuda")
+    uarrs, ustatic = T.union_prepared(padded, static)
+    fp = padded[0]["size"].shape[0]
+    rng = np.random.default_rng(3)
+    n = len(padded) * fp
+    layer = torch.from_numpy(rng.integers(0, 9, n).astype(np.int32)).cuda()
+    w = torch.from_numpy((rng.random(n) < 0.8).astype(np.float32)).cuda()
+    w[torch.cat([torch.arange(b * fp + 190, (b + 1) * fp)
+                 for b in range(len(padded))]).cuda()] = 0.0
+    desired = torch.from_numpy(rng.random(n).astype(np.float32)).cuda() * w
+    acc = torch.from_numpy(rng.random(n).astype(np.float32)).cuda()
+    frows = torch.arange(n, device="cuda")
+    edges = uarrs["path_edges"][layer.long(), frows]
+    cap = torch.from_numpy(rng.random(ustatic[0]).astype(np.float32)).cuda()
+    got = waterfill_step(edges, w, desired, cap, active=w > 0,
+                         want_util=True, acc=acc, layer=layer,
+                         plan=LinkPlan(uarrs["plan_offsets"],
+                                       uarrs["plan_entries"], n))
+    live = static[0] - 1
+    for b, a in enumerate(padded):
+        rows = slice(b * fp, (b + 1) * fp)
+        cap_b = torch.cat([cap[b * live:(b + 1) * live], cap[-1:]])
+        exp = waterfill_step(
+            a["path_edges"][layer[rows].long(), torch.arange(fp,
+                                                             device="cuda")],
+            w[rows], desired[rows], cap_b, active=w[rows] > 0,
+            want_util=True, acc=acc[rows], layer=layer[rows],
+            plan=LinkPlan(a["plan_offsets"], a["plan_entries"], fp))
+        for x, y in zip(got, exp):
+            assert x[rows].cpu().numpy().tobytes() == \
+                y.cpu().numpy().tobytes(), b
+
+
+@pytest.mark.gpu
+def test_cuda_session_devices_beyond_the_visible_cards_raise():
+    from repro_torch.experiments import Session
+    _need_card()
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Session(device="cuda").sweep(["sf"], ["ecmp"], ["uniform"],
+                                     ["transport(steps=40)"],
+                                     devices=n + 1)
