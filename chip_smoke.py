@@ -145,7 +145,23 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (seed 0), batched on the card, against the CPU port's sequential run;
    (10.4) half of 10.1 into a checkpoint directory, then the whole grid
    resumed from it (``sweep_resumed``), equal to 10.1;
-11. one ``{"kernels": [...]}`` line: launches on the main path (for the
+11. the evaluators off the scan, each on ``Session(device="cuda")`` and
+   ``Session(device="cpu")`` in this process (one numpy, one scipy; their
+   versions printed first, and without scipy the phase fails): (11.1)
+   sf(q=19) x {fatpaths(n_layers=9,rho=0.6), ecmp} x permutation x
+   ``mat`` (the stacks built through the boolean semiring kernel, counts
+   0 before and read after), card against CPU port at rtol 0, with the
+   wall split into the stack build, the batched table walk (sequences,
+   wall to the copy back, and its device time profiled once), the path
+   assembly, ``linprog`` and the greedy; (11.2) the same two schemes x
+   permutation x ``fabric`` on the same sessions' stacks, at rtol 0, with
+   the walk's and the flowlet greedy's seconds; (11.3)
+   ``diversity_report(sf(q=11))`` card against CPU port field by field,
+   the semiring kernel's launches in it counted and each of its
+   recorded products held against the plain version; (11.4)
+   ``GFConnectivity.build(sf(q=7).adj, max_len=3)``: ``M`` on the card
+   bitwise the CPU port's, ``query_pairs`` on 64 pairs equal;
+12. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse, GF(p) and attention kernels, on their own phase's path;
    each path's own counts in ``path_launches``),
    error against the plain version (0 for the water-filling kernel, which
@@ -153,7 +169,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-12. the last line: ``{"ok": true, "device": {...}}``.
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -251,6 +267,14 @@ MIXED_CELLS = ((MAIN_PATTERN, "transport(steps=400,recovery=on,"
                 "transport=dctcp)"),
                ("load(level=0.5,window=96)", "transport(steps=200)"))
 MIXED_SEEDS = (0, 1, 2)
+# Phase 11, the evaluators off the scan: the main cells' topology, schemes
+# and pattern under ``mat`` and ``fabric``; the diversity report of
+# sf(q=11) (242 routers) and the Cheung GF(p) oracle of sf(q=7) (98
+# routers, 1 078 directed links; sf(q=11)'s 4 114 is above its limit).
+OFFSCAN_EVALS = ("mat", "fabric")
+DIVERSITY_TOPO = "sf(q=11)"
+GF_BUILD_TOPO = "sf(q=7)"
+GF_BUILD_LEN = 3
 GF_TOPO_Q = 11          # sf(q=11): 242 routers, 4114 directed links
 GF_P = 1009
 GF_LEN = 4
@@ -2444,13 +2468,219 @@ def phase_sweep(Session, catalog, transport, dist_sweep, prng, ref,
     return {"batched sweep": launches, "batched mixed bucket": m_launches}
 
 
+@contextlib.contextmanager
+def _timed(targets, acc):
+    """Wrap each ``(owner, attr, key)`` of ``targets`` so that every call
+    appends its wall seconds to the list ``acc[key]``."""
+    def wrap(key):
+        def outer(fn):
+            def timed(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    acc.setdefault(key, []).append(time.perf_counter() - t0)
+            return timed
+        return outer
+
+    with contextlib.ExitStack() as stack:
+        for owner, attr, key in targets:
+            stack.enter_context(_patched(owner, attr, wrap(key)))
+        yield
+
+
+def _walk_recorder(walks):
+    """A recorder for ``usable_walks``: appends (wall s, walks) per call.
+    The walk ends in its sequences' copy to the host, so the wall closes
+    on the device's work."""
+    def outer(fn):
+        def rec(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            walks.append((time.perf_counter() - t0, int(len(out[2]))))
+            return out
+        return rec
+    return outer
+
+
+def phase_offscan(Session, catalog, layers, paths, throughput, fabric,
+                  diversity, ref, semiring_matmul, LAUNCHES, reset_launches):
+    """11. The evaluators off the scan, on the card and on the CPU port in
+    this process: the sf(q=19) ``mat`` and ``fabric`` cells (RunResults at
+    rtol 0), ``diversity_report(sf(q=11))`` field by field, and the sf(q=7)
+    GF(p) oracle's ``M`` bitwise.  Each card run has the launch counts set
+    to 0 just before and read just after."""
+    import scipy
+    import scipy.optimize
+    from repro_torch.experiments.results import compare_results
+
+    t_phase = time.perf_counter()
+    print(f"# phase 11: scipy {scipy.__version__}, numpy {np.__version__}",
+          flush=True)
+    ses = {"cuda": Session(device="cuda"), "cpu": Session(device="cpu")}
+    targets = [(throughput, "_candidate_paths", "candidates"),
+               (scipy.optimize, "linprog", "linprog"),
+               (catalog, "mat_lp", "mat_lp"),
+               (catalog, "mat_single_layer", "single"),
+               (fabric.ClusterFabric, "_walk_pairs", "pair_paths"),
+               (fabric.ClusterFabric, "_fabric_loads", "loads")]
+    path_launches = {}
+    for ev in OFFSCAN_EVALS:
+        for routing in MAIN_ROUTINGS:
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                walks, acc = [], {}
+                torch.cuda.synchronize()
+                reset_launches()
+                with _timed(targets, acc), \
+                        _patched(throughput, "usable_walks",
+                                 _walk_recorder(walks)), \
+                        _patched(fabric, "usable_walks",
+                                 _walk_recorder(walks)):
+                    rr = ses[dev].run(MAIN_TOPO, routing, MAIN_PATTERN, ev)
+                torch.cuda.synchronize()
+                runs[dev] = (rr, dict(LAUNCHES), walks, acc)
+            rr, launches, walks, acc = runs["cuda"]
+            rc = runs["cpu"][0]
+            diffs = compare_results([rr], [rc], rtol=0.0)
+            if diffs:
+                raise AssertionError(f"{rr.cell_id} card vs CPU: {diffs[:4]}")
+            if not all(math.isfinite(v) for v in rr.metrics.values()):
+                raise AssertionError(f"{rr.cell_id}: metrics {rr.metrics}")
+            info = dict(cell=rr.cell_id, metrics=rr.metrics,
+                        cell_wall_s=rr.wall_s, cpu_port_wall_s=rc.wall_s,
+                        build_s=rr.meta["build_s"],
+                        build_device_s=rr.meta["build_device_s"],
+                        launches=launches)
+            if ev == "mat":
+                # The cell builds its stack: APSP through K2 bool.
+                _need_launches(launches, ("semiring",), rr.cell_id)
+                path_launches[f"mat {routing} stack build"] = \
+                    launches["semiring"]
+                if rr.meta["lp_status"] != "optimal" or \
+                        not rr.metrics["n_paths"] >= rr.metrics["n_demands"]:
+                    raise AssertionError(f"{rr.cell_id}: {rr.meta['lp_status']}"
+                                         f", {rr.metrics}")
+                if len(walks) != 2 or len(acc["candidates"]) != 2:
+                    raise AssertionError(f"{rr.cell_id}: {len(walks)} walks "
+                                         "for two candidate-path lists")
+                lr = ses["cuda"].routing(MAIN_TOPO, routing).routing
+                demands = throughput.router_demands(
+                    ses["cuda"].workload(MAIN_TOPO, MAIN_PATTERN),
+                    lr.topo.n_routers)
+                s = np.array([k[0] for k in demands])
+                t = np.array([k[1] for k in demands])
+                walk_ms, walk_events, walk_top = _profile(
+                    lambda: layers.usable_walks(lr, s, t, 16), top_n=4)
+                info.update(
+                    lp_status=rr.meta["lp_status"],
+                    walk_sequences=walks[0][1],
+                    walk_wall_s=[w[0] for w in walks],
+                    walk_device_ms=walk_ms, walk_device_events=walk_events,
+                    walk_top=walk_top,
+                    assembly_host_s=[c - w[0] for c, w in
+                                     zip(acc["candidates"], walks)],
+                    lp_matrices_host_s=(acc["mat_lp"][0]
+                                        - acc["candidates"][0]
+                                        - acc["linprog"][0]),
+                    linprog_host_s=acc["linprog"][0],
+                    greedy_host_s=acc["single"][0] - acc["candidates"][1])
+            else:
+                if len(walks) != 1:
+                    raise AssertionError(f"{rr.cell_id}: {len(walks)} walks, "
+                                         "not one")
+                info.update(
+                    fabric_scheme=rr.meta["fabric_scheme"],
+                    walk_sequences=walks[0][1], walk_wall_s=walks[0][0],
+                    assembly_host_s=acc["pair_paths"][0] - walks[0][0],
+                    greedy_host_s=acc["loads"][0] - acc["pair_paths"][0])
+            print(f"# phase 11 ({ev}): " + json.dumps(info), flush=True)
+    print("# phase 11: sf(q=19) mat and fabric cells equal card vs CPU port "
+          "(RunResults at rtol 0, lp_status and fabric_scheme included)",
+          flush=True)
+
+    # diversity_report: min_path_stats through K2 bool (APSP) and count.
+    calls = []
+    topo_g = ses["cuda"].topology(DIVERSITY_TOPO)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _recording([paths], calls, "diversity_report"):
+        rep_g = diversity.diversity_report(topo_g, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    div_launches = dict(LAUNCHES)
+    _need_launches(div_launches, ("semiring",), "diversity_report",
+                   exactly=len(calls))
+    kinds = {}
+    for _, a, b, sr in calls:
+        kinds[sr] = kinds.get(sr, 0) + 1
+    if not kinds.get("count"):
+        raise AssertionError(f"diversity_report made no count product: "
+                             f"{kinds}")
+    t0 = time.perf_counter()
+    rep_c = diversity.diversity_report(ses["cpu"].topology(DIVERSITY_TOPO),
+                                       device="cpu")
+    cpu_s = time.perf_counter() - t0
+    dg, dc = dataclasses.asdict(rep_g), dataclasses.asdict(rep_c)
+    for k in dc:
+        if dg[k] != dc[k] or type(dg[k]) is not type(dc[k]):
+            raise AssertionError(f"diversity_report {k}: card {dg[k]!r}, "
+                                 f"CPU port {dc[k]!r}")
+    max_err, n_exact = 0.0, 0
+    for i, (_, a, b, sr) in enumerate(calls):
+        what = f"semiring {sr} call {i} (diversity_report)"
+        out = semiring_matmul(a, b, sr)
+        exp = ref.semiring_matmul_ref(a, b, sr)
+        if sr == "count":
+            err, exact = _check_count_call(out, exp, a, b, what)
+        else:
+            err, exact = _check_equal(out, exp, what), True
+        max_err, n_exact = max(max_err, err), n_exact + exact
+    path_launches[f"diversity_report {DIVERSITY_TOPO}"] = \
+        div_launches["semiring"]
+    print(f"# phase 11: diversity_report({DIVERSITY_TOPO}) equal card vs CPU "
+          f"port field by field: {json.dumps(dg)}; card {card_s:.2f} s, CPU "
+          f"port {cpu_s:.2f} s; launches {div_launches}; semiring products "
+          f"{kinds}, held against the plain version: {n_exact} bitwise, "
+          f"{len(calls) - n_exact} count products above 2^24 within rtol "
+          f"4e-6 of float64 (max abs err {max_err:.6g})", flush=True)
+
+    # The Cheung GF(p) oracle: float64 Horner products, exact integers.
+    adj = ses["cpu"].topology(GF_BUILD_TOPO).adj
+    t0 = time.perf_counter()
+    gf_g = diversity.GFConnectivity.build(adj, GF_BUILD_LEN, device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gf_c = diversity.GFConnectivity.build(adj, GF_BUILD_LEN, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if gf_g.M.dtype != np.float64 or gf_g.M.tobytes() != gf_c.M.tobytes():
+        raise AssertionError("GFConnectivity.M differs card vs CPU port")
+    rng = np.random.default_rng(0)
+    pairs = [tuple(int(v) for v in rng.choice(len(adj), 2, replace=False))
+             for _ in range(64)]
+    q_g, q_c = gf_g.query_pairs(pairs), gf_c.query_pairs(pairs)
+    if not np.array_equal(q_g, q_c):
+        raise AssertionError("GFConnectivity.query_pairs differs card vs CPU")
+    print(f"# phase 11: GFConnectivity.build({GF_BUILD_TOPO}, max_len="
+          f"{GF_BUILD_LEN}): M ({gf_g.M.shape[0]}^2, p {gf_g.p}) bitwise card "
+          f"vs CPU port ({card_s:.3f} against {cpu_s:.3f} s); query_pairs on "
+          f"64 pairs equal (ranks {int(q_g.min())}-{int(q_g.max())}, mean "
+          f"{float(q_g.mean()):.3f})", flush=True)
+    print(f"# phase 11: wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return path_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import prng
-    from repro_torch.core import failures, layers, paths, topology, transport
+    from repro_torch.core import (diversity, failures, layers, paths,
+                                  throughput, topology, transport)
+    from repro_torch.dist import fabric
     from repro_torch.experiments import Session, catalog, dist_sweep
     from repro_torch.kernels import (LAUNCHES, build, flash_attention,
                                      gf_matmul, ops, pathcount, ref,
@@ -2524,15 +2754,20 @@ def main() -> int:
                         waterfill.waterfill_step, LAUNCHES, reset_launches,
                         k1)
     t11 = time.perf_counter()
+    torch.cuda.empty_cache()
+    offscan = phase_offscan(Session, catalog, layers, paths, throughput,
+                            fabric, diversity, ref, semiring_matmul,
+                            LAUNCHES, reset_launches)
+    t12 = time.perf_counter()
     print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
           f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
-          f"{t11 - t10:.1f}, script up to here {t11 - t_start:.1f}",
-          flush=True)
+          f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, script up to here "
+          f"{t12 - t_start:.1f}", flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
              **paper, **sweep}
     k2["path_launches"].update(
         {"pi_min cell": pimin["semiring"], **k2_paper,
-         **{cell: n["semiring"] for cell, n in cells.items()}})
+         **{cell: n["semiring"] for cell, n in cells.items()}, **offscan})
     k1["path_launches"] = {"main sweep": launches["waterfill"],
                            "pi_min cell": pimin["waterfill"],
                            **{cell: n["waterfill"]

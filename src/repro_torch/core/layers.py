@@ -50,7 +50,8 @@ from . import paths as paths_mod
 from .topology import Topology
 
 __all__ = ["LayeredRouting", "LoopCheckReport", "build_layers",
-           "layer_disjoint_paths", "layer_disjoint_paths_batch"]
+           "layer_disjoint_paths", "layer_disjoint_paths_batch",
+           "usable_walks", "walk_edges"]
 
 _UNREACH = 10_000
 
@@ -483,3 +484,43 @@ def layer_disjoint_paths(lr: LayeredRouting, s: int, t: int,
     """
     return int(layer_disjoint_paths_batch(lr, np.array([s]), np.array([t]),
                                           max_hops)[0])
+
+
+def usable_walks(lr: LayeredRouting, s: np.ndarray, t: np.ndarray,
+                 max_hops: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Walk every usable (pair, layer) of the pairs ``(s[k], t[k])``: the
+    layers whose ``reach`` holds, in one batched walk on the tables'
+    device (off the compressed tables when the routing carries them).
+
+    Returns ``(pair, layer, seqs)``: the (W,) pair and layer index of each
+    walk, pairs in the given order and layers ascending within a pair, and
+    the (W, max_hops + 1) int32 router sequences of
+    :func:`paths.walk_paths_layers`."""
+    s = np.asarray(s, dtype=np.int64)
+    t = np.asarray(t, dtype=np.int64)
+    dev = lr.reach.device
+    usable = lr.reach[:, torch.as_tensor(s, device=dev),
+                      torch.as_tensor(t, device=dev)].T.cpu().numpy()
+    pair, layer = np.nonzero(usable)
+    tables = lr.compressed if lr.compressed is not None else lr.nh
+    seqs = paths_mod.walk_paths_layers(tables, layer, s[pair], t[pair],
+                                       max_hops)
+    return pair, layer, seqs
+
+
+def walk_edges(seqs: np.ndarray, t: np.ndarray, eix: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The hops of (W, H + 1) walks towards ``t`` (W,) as edge ids.
+
+    Returns ``(edges, stop)``: (W, H) directed edge ids of the hops
+    ``(seq[j], seq[j + 1])`` from the (N, N) ``eix`` (-1 where there is
+    no such edge or the walk holds a hole), and per walk the first hop
+    ``j`` at which ``seq[j] == t`` or ``seq[j + 1] < 0`` (H if none): the
+    hop where a reading of the walk stops.  Which walks a caller accepts
+    is the caller's rule."""
+    a, b = seqs[:, :-1], seqs[:, 1:]
+    edges = np.where((a >= 0) & (b >= 0),
+                     eix[np.maximum(a, 0), np.maximum(b, 0)], -1)
+    halt = (a == t[:, None]) | (b < 0)
+    stop = np.where(halt.any(axis=1), halt.argmax(axis=1), halt.shape[1])
+    return edges, stop

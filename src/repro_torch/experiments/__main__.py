@@ -183,7 +183,7 @@ def cmd_run(args) -> int:
 
 
 def cmd_list(_args) -> int:
-    from .catalog import EVALUATORS, NOT_PORTED, ROUTINGS, TOPOLOGIES, TRAFFIC
+    from .catalog import EVALUATORS, ROUTINGS, TOPOLOGIES, TRAFFIC
 
     for title, reg in (("topologies", TOPOLOGIES),
                        ("routing schemes", ROUTINGS),
@@ -197,8 +197,6 @@ def cmd_list(_args) -> int:
             doc = reg.doc(name)
             if doc:
                 print(f"      {doc}")
-    print("not ported yet: " + ", ".join(
-        f"{k} ({v})" for k, v in sorted(NOT_PORTED.items())))
     return 0
 
 

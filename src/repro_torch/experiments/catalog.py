@@ -15,16 +15,15 @@ traffic patterns, evaluators.
   microcase), and the open-loop ``load``, ``incast`` and ``anycast``
   streams (activation steps from :mod:`repro_torch.core.arrivals`).
 * ``EVALUATORS`` — ``transport`` (the flow simulator), ``outcast``
-  (fairness under incast), and under faults ``degradation`` (a
-  failure-rate ladder), ``recovery`` (time to recover from a mid-run
-  fault) and ``availability`` (SLO compliance under churn).
+  (fairness under incast), under faults ``degradation`` (a failure-rate
+  ladder), ``recovery`` (time to recover from a mid-run fault) and
+  ``availability`` (SLO compliance under churn), and off the scan ``mat``
+  (the §6.4 throughput LP) and ``fabric`` (link loads on a modelled
+  cluster fabric).
 
 Evaluators return ``(metrics, meta)``: plain-float metrics for the
 :class:`~repro_torch.experiments.results.RunResult` record, and
 bookkeeping meta.  Every builder gets the session's ``device``.
-
-The JAX package also registers the ``mat`` and ``fabric`` evaluators;
-:data:`NOT_PORTED` names the ROADMAP item each waits on.
 """
 
 from __future__ import annotations
@@ -44,34 +43,21 @@ from ..core import paths as paths_mod
 from ..core import routing as routing_mod
 from ..core import topology as topo_mod
 from ..core.layers import LayeredRouting, build_layers
+from ..core.throughput import mat_lp, mat_single_layer
 from ..core.topology import Topology
 from ..core.traffic import FlowWorkload, endpoint_router_map, make_workload
 from ..core.transport import SimConfig, ecmp_routing, simulate_seeds
 from .registry import Registry
 from .specs import Spec, SpecError, SpecLike
 
-__all__ = ["TOPOLOGIES", "ROUTINGS", "TRAFFIC", "EVALUATORS", "NOT_PORTED",
+__all__ = ["TOPOLOGIES", "ROUTINGS", "TRAFFIC", "EVALUATORS",
            "RoutingBundle", "RoutingCtx", "topo_spec", "transport_plan",
-           "transport_meta", "table_meta", "check_ported", "stack_rep_key",
-           "fct_metrics"]
+           "transport_meta", "table_meta", "stack_rep_key", "fct_metrics"]
 
 TOPOLOGIES = Registry("topology")
 ROUTINGS = Registry("routing scheme")
 TRAFFIC = Registry("traffic pattern")
 EVALUATORS = Registry("evaluator")
-
-#: Axis entries of the JAX package not ported yet -> their ROADMAP item.
-NOT_PORTED = {"mat": "A11", "fabric": "A11"}
-
-
-def check_ported(spec: SpecLike) -> None:
-    """Raise ``NotImplementedError`` for an axis entry that exists in the
-    JAX package but not yet here."""
-    name = Spec.coerce(spec).name
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name!r} is not ported yet "
-                                  f"(ROADMAP {NOT_PORTED[name]})")
-
 
 # -----------------------------------------------------------------------------
 # Topologies.  Defaults are the repo's "small" cost-matched set.
@@ -878,6 +864,48 @@ def _availability(session, cell, slo, steps, transport, seeds, dt,
                 goodput_curve=[float(g[i]) for i in idx],
                 pristine_curve=[float(g0[i]) for i in idx])
     return metrics, meta
+
+
+@EVALUATORS.register("mat", max_hops=16, capacity=1.0)
+def _mat(session, cell, max_hops, capacity
+         ) -> Tuple[Dict[str, float], Dict[str, Any]]:
+    """Maximum achievable throughput: LP relaxation + greedy single-layer
+    rounding (§6.4)."""
+    lp = mat_lp(cell.bundle.routing, cell.workload, max_hops=int(max_hops),
+                capacity=capacity)
+    single = mat_single_layer(cell.bundle.routing, cell.workload,
+                              max_hops=int(max_hops), capacity=capacity)
+    metrics = {"mat_T": float(lp.throughput),
+               "mat_T_single": float(single.throughput),
+               "n_paths": float(lp.n_paths),
+               "n_demands": float(lp.n_demands)}
+    return metrics, {"lp_status": lp.status}
+
+
+@EVALUATORS.register("fabric", line_rate=12.5e9, quanta=32)
+def _fabric(session, cell, line_rate, quanta
+            ) -> Tuple[Dict[str, float], Dict[str, Any]]:
+    """Route the workload's flows over a modelled ClusterFabric and report
+    link loads (ECMP hash-split for ecmp/letflow cells, greedy flowlets
+    for fatpaths/minimal cells).  The fabric's candidate paths are the
+    cell's OWN routing stack — a 'minimal' cell is measured over its
+    minimal-only layers, not a default FatPaths stack."""
+    fb = session.bundle_fabric(cell.spec.topo, cell.spec.routing,
+                               seed=cell.seed, line_rate=line_rate,
+                               flowlet_quanta=int(quanta))
+    scheme = "fatpaths" if cell.bundle.balancing == "fatpaths" else "ecmp"
+    wl = cell.workload
+    flows = list(zip(wl.src.tolist(), wl.dst.tolist(), wl.size.tolist()))
+    rep = fb.evaluate_flows(flows, scheme=scheme,
+                            kind=cell.spec.pattern.name,
+                            n_ranks=cell.topo.n_endpoints,
+                            payload_bytes=float(wl.size.sum()))
+    metrics = {"bottleneck_mb": rep.bottleneck_bytes / 2 ** 20,
+               "time_ms": rep.time_s * 1e3,
+               "util_gini": rep.util_gini,
+               "links_used": float(rep.n_links_used),
+               "fabric_gb": rep.fabric_bytes / 1e9}
+    return metrics, {"fabric_scheme": scheme}
 
 
 def table_meta(bundle: RoutingBundle) -> Dict[str, int]:

@@ -21,10 +21,12 @@ import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 from .. import resolve_device
+from ..core.layers import build_layers
 from ..core.topology import Topology
 from ..core.traffic import FlowWorkload
+from ..core.transport import ecmp_routing
 from .catalog import (EVALUATORS, ROUTINGS, TOPOLOGIES, TRAFFIC,
-                      RoutingBundle, RoutingCtx, check_ported, table_meta,
+                      RoutingBundle, RoutingCtx, stack_rep_key, table_meta,
                       topo_spec)
 from .results import RunResult
 from .specs import ExperimentSpec, Spec, SpecLike
@@ -85,7 +87,6 @@ class Session:
                 seed: int = 0) -> RoutingBundle:
         tspec = topo_spec(topo)
         rspec = Spec.coerce(scheme)
-        check_ported(rspec)
         fn, kw = ROUTINGS.resolve(rspec)   # validate before building topo
         ctx = RoutingCtx(topo=self.topology(tspec),
                          topo_key=TOPOLOGIES.canonical(tspec),
@@ -97,13 +98,65 @@ class Session:
                  seed: int = 0) -> FlowWorkload:
         tspec = topo_spec(topo)
         pspec = Spec.coerce(pattern)
-        check_ported(pspec)
         fn, kw = TRAFFIC.resolve(pspec)
         t = self.topology(tspec)
         return self._memo(
             ("workload", TOPOLOGIES.canonical(tspec),
              TRAFFIC.canonical(pspec), int(seed)),
             lambda: fn(t, int(seed), self.device, **kw))
+
+    def fabric(self, topo: SpecLike, n_layers: int = 9, rho: float = 0.6,
+               seed: int = 0, layer_scheme: str = "rand", n_tables: int = 8,
+               line_rate: float = 12.5e9, flowlet_quanta: int = 32):
+        """A ClusterFabric sharing this session's cached routing stacks."""
+        from ..dist.fabric import ClusterFabric
+
+        tspec = topo_spec(topo)
+        t = self.topology(tspec)
+        tkey = TOPOLOGIES.canonical(tspec)
+        # Same key tuples as catalog._layer_stack/_minimal_tables (incl.
+        # the stack_rep_key suffix) so fabric cells share the transport
+        # cells' stacks.
+        layers = self._stack_memo(
+            ("layers", tkey, layer_scheme, int(n_layers), float(rho),
+             int(seed)) + stack_rep_key(t),
+            lambda: build_layers(t, int(n_layers), float(rho),
+                                 scheme=layer_scheme, seed=int(seed),
+                                 device=self.device))
+        tables = self._stack_memo(
+            ("tables", tkey, int(n_tables), int(seed)) + stack_rep_key(t),
+            lambda: ecmp_routing(t, n_tables=int(n_tables), seed=int(seed),
+                                 device=self.device))
+        key = ("fabric", tkey, layer_scheme, int(n_layers), float(rho),
+               int(seed), int(n_tables), float(line_rate),
+               int(flowlet_quanta))
+        return self._memo(key, lambda: ClusterFabric(
+            t, n_layers=int(n_layers), rho=float(rho), seed=int(seed),
+            layer_scheme=layer_scheme, n_tables=int(n_tables),
+            line_rate=float(line_rate), flowlet_quanta=int(flowlet_quanta),
+            layers=layers, ecmp=tables, device=self.device))
+
+    def bundle_fabric(self, topo: SpecLike, scheme: SpecLike, seed: int = 0,
+                      line_rate: float = 12.5e9, flowlet_quanta: int = 32):
+        """A ClusterFabric whose candidate paths are exactly the given
+        routing scheme's stack — 'minimal(...)' cells are evaluated over
+        their minimal-only layers, not a default FatPaths stack.  Both
+        fabric sides point at the bundle's stack; only the side matching
+        the scheme's balancing mode is meaningful."""
+        from ..dist.fabric import ClusterFabric
+
+        tspec = topo_spec(topo)
+        rspec = Spec.coerce(scheme)
+        bundle = self.routing(tspec, rspec, seed=seed)
+        lr = bundle.routing
+        key = ("fabric_cell", TOPOLOGIES.canonical(tspec),
+               ROUTINGS.canonical(rspec), int(seed), float(line_rate),
+               int(flowlet_quanta))
+        return self._memo(key, lambda: ClusterFabric(
+            self.topology(tspec), n_layers=lr.n_layers, rho=lr.rho,
+            seed=int(seed), line_rate=float(line_rate),
+            flowlet_quanta=int(flowlet_quanta), layers=lr, ecmp=lr,
+            device=self.device))
 
     # ---- cell execution ------------------------------------------------------
     def resolve(self, spec: ExperimentSpec) -> ResolvedCell:
@@ -131,7 +184,6 @@ class Session:
                                   pattern=Spec.coerce(pattern),
                                   evaluator=Spec.coerce(evaluator),
                                   seed=int(seed))
-        check_ported(spec.evaluator)
         fn, kw = EVALUATORS.resolve(spec.evaluator)
         t0 = time.perf_counter()
         pre = self.stats_snapshot()

@@ -12,7 +12,7 @@ import torch
 
 from repro.experiments import Session as JSession
 from repro.experiments.results import compare_results
-from repro_torch.experiments import Session
+from repro_torch.experiments import RunResult, Session
 from repro_torch.experiments import __main__ as cli
 from repro_torch.experiments.results import results_from_json
 
@@ -69,19 +69,27 @@ def test_cli_run_list_diff(tmp_path, capsys):
     out = capsys.readouterr().out
     assert json.loads(out.strip().splitlines()[-1])["pattern"] == "collide"
     assert cli.main(["list"]) == 0
-    assert "not ported yet" in capsys.readouterr().out
+    listed = capsys.readouterr().out
+    assert "  mat(capacity=1.0, max_hops=16)" in listed
+    assert "  fabric(line_rate=12500000000.0, quanta=32)" in listed
+    assert "not ported" not in listed
     assert cli.main(["sweep", *args, "--filter", "nomatch"]) == 2
 
 
 def test_unported_axes_and_engines_raise(monkeypatch):
     ts = Session(device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ts.run("sf", "ecmp", "uniform", "mat")
+    # Every axis entry of the JAX package is ported, the off-scan
+    # evaluators (A11) last.
+    rr = ts.run("sf", "ecmp", "uniform", "mat")
+    assert isinstance(rr, RunResult) and rr.meta["lp_status"] == "optimal"
     # The batched engine (A10) is ported: two CPU shards give the
-    # sequential sweep's results.
-    grid = (["sf"], ["ecmp", "fatpaths(n_layers=9,rho=0.6)"], ["uniform"])
-    assert compare_results(ts.sweep(*grid),
-                           ts.sweep(*grid, devices=2), rtol=0) == []
+    # sequential sweep's results, with mat and fabric cells (which take
+    # the sequential path inside it) mixed among the transport cells.
+    grid = (["sf"], ["ecmp", "fatpaths(n_layers=9,rho=0.6)"], ["uniform"],
+            ["mat", "transport", "fabric"])
+    seq = ts.sweep(*grid)
+    assert [r.evaluator for r in seq] == ["mat", "transport", "fabric"] * 2
+    assert compare_results(seq, ts.sweep(*grid, devices=2), rtol=0) == []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Session()

@@ -832,3 +832,53 @@ def test_cuda_session_devices_beyond_the_visible_cards_raise():
         Session(device="cuda").sweep(["sf"], ["ecmp"], ["uniform"],
                                      ["transport(steps=40)"],
                                      devices=n + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["dense", "blocked"])
+def test_cuda_usable_walks_equal_cpu(monkeypatch, engine):
+    """The off-scan evaluators' batched walk over every usable (pair,
+    layer) on the card (the dense tables, or the compressed ones under the
+    blocked engine) gives the CPU's pairs, layers and sequences."""
+    from repro_torch.core import layers, topology
+    _need_card()
+    monkeypatch.setenv("REPRO_PATH_ENGINE", engine)
+    tt = topology.slim_fly(13)
+    rng = np.random.default_rng(0)
+    s, t = rng.integers(0, tt.n_routers, (2, 3000))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        lr = layers.build_layers(tt, 9, 0.6, seed=0, device=dev)
+        assert (lr.compressed is not None) == (engine == "blocked")
+        out[dev] = layers.usable_walks(lr, s, t, 12)
+    for got, exp in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,max_len", [(5, 3), (7, 3), (7, 5)])
+def test_cuda_gf_connectivity_bitwise_cpu(q, max_len):
+    """GFConnectivity's float64 Horner product on the card is bitwise the
+    CPU's (every partial sum an exact integer below 2^53)."""
+    from repro_torch.core import diversity, topology
+    _need_card()
+    adj = topology.slim_fly(q).adj
+    got = diversity.GFConnectivity.build(adj, max_len, device="cuda")
+    exp = diversity.GFConnectivity.build(adj, max_len, device="cpu")
+    np.testing.assert_array_equal(got.M.view(np.int64), exp.M.view(np.int64))
+    pairs = [(0, 1), (3, 40), (17, 2), (49, 48)]
+    np.testing.assert_array_equal(got.query_pairs(pairs),
+                                  exp.query_pairs(pairs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", ["fatpaths(n_layers=9,rho=0.6)", "ecmp"])
+@pytest.mark.parametrize("evaluator", ["mat", "fabric"])
+def test_cuda_off_scan_cell_equals_cpu(routing, evaluator):
+    """An sf(q=5) ``mat`` or ``fabric`` cell on the card equals the CPU
+    port's at rtol 0."""
+    from repro_torch.experiments import Session, compare_results
+    _need_card()
+    got = Session(device="cuda").run("sf", routing, "permutation", evaluator)
+    exp = Session(device="cpu").run("sf", routing, "permutation", evaluator)
+    assert compare_results([got], [exp], rtol=0) == []
