@@ -161,15 +161,43 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    recorded products held against the plain version; (11.4)
    ``GFConnectivity.build(sf(q=7).adj, max_len=3)``: ``M`` on the card
    bitwise the CPU port's, ``query_pairs`` on 64 pairs equal;
-12. one ``{"kernels": [...]}`` line: launches on the main path (for the
-   block-sparse, GF(p) and attention kernels, on their own phase's path;
-   each path's own counts in ``path_launches``),
+12. the LM serving path, last, after the card's cache is emptied: (12.1)
+   yi-9b at full width (8.83e9 parameters drawn on the card in f32 from
+   the seed, held by the engine in bf16) through
+   ``repro_torch.launch.serve``'s engine and request loop at the
+   launcher's defaults (batch 4, max_len 128, 8 requests of 2-8 tokens,
+   16 new tokens each, seed 0), counts 0 before and read after: flash
+   attention launched exactly 48 x (1 + 16) x 2 = 1632 times (every
+   prefill and decode attention of the path), tokens in the vocabulary
+   and logits finite; prefill ms, decode ms per step (host wall ending
+   in a synchronize), tokens/s, peak memory, one decode step profiled
+   (device time split into flash attention, the matmuls and the rest)
+   beside its bound (every bf16 weight read once, the embedding at its
+   rows) and the all-weights figure (17.7 GB at 3.35 TB/s, 5.27 ms), and
+   the transposed copy of the live prefix a decode attention makes;
+   (12.2) the path's own first prefill attention call and a decode call
+   (the first batch's last step), held against the plain version at
+   bf16's rounding (rtol 1e-2, atol 1e-3) and timed beside it, their
+   bounds and ``scaled_dot_product_attention(enable_gqa=True)``; (12.3)
+   yi-9b at full width and 2 layers, weights drawn on the host from the
+   seed and copied to the card: the CPU port's prefill and 16 decode
+   steps teacher-forced on the card, every step's logits within bf16
+   compute's tolerance, |err| <= 0.1 (1 + |exp|), of the CPU port's and
+   of the same model run in f32 on the card, and how many free-running
+   greedy tokens agree; (12.4) on the card, an 11-token prefill and one
+   decode step give a 12-token forward's last logits, in f32 with an f32
+   cache (rtol = atol = 2e-2, the JAX package's test) and in bf16 with
+   a bf16 cache (0.1);
+13. one ``{"kernels": [...]}`` line: launches on the main path (for the
+   block-sparse and GF(p) kernels, on their own phase's path, for flash
+   attention the serving path's; each path's own counts in
+   ``path_launches``),
    error against the plain version (0 for the water-filling kernel, which
    phase 3 holds bitwise), kernel / plain / bound / library
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-13. the last line: ``{"ok": true, "device": {...}}``.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -183,6 +211,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -278,6 +307,16 @@ GF_BUILD_LEN = 3
 GF_TOPO_Q = 11          # sf(q=11): 242 routers, 4114 directed links
 GF_P = 1009
 GF_LEN = 4
+# Phase 12, the LM serving path: yi-9b (48 layers, d_model 4096, 32
+# query heads : 4 KV heads, d_head 128), the launcher's defaults; the
+# same width at 2 layers, card against the CPU port.  bf16 compute's
+# tolerance there: |err| <= 0.1 (1 + |exp|).  bf16 rounding through two
+# layers leaves either side up to 0.092 from the same model in f32, on
+# logits up to 6.1, and the two round differently (0.054 apart at most);
+# measured on an H100 with this script's 12.3.
+SERVE_ARCH = "yi-9b"
+SERVE_SHORT_LAYERS = 2
+SERVE_BF16_TOL = 0.1
 # Attention layouts at full width, from src/repro/configs/*.py; S is the
 # model's context (gemma2) or a long prompt (yi-9b).
 ATTN_LAYOUTS = {
@@ -2672,6 +2711,349 @@ def phase_offscan(Session, catalog, layers, paths, throughput, fabric,
     return path_launches
 
 
+def _serve_timed(eng, times, lgs):
+    """Wrap ``eng``'s prefill and decode steps: each call's host wall,
+    ending in a synchronize, appended to ``times[step]``; each decode
+    step's logits kept in ``lgs``."""
+    prefill, decode = eng.prefill, eng.decode
+
+    def timed_prefill(params, batch):
+        t0 = time.perf_counter()
+        out = prefill(params, batch)
+        torch.cuda.synchronize()
+        times["prefill"].append(time.perf_counter() - t0)
+        lgs.append(out[0])
+        return out
+
+    def timed_decode(params, cache, toks):
+        t0 = time.perf_counter()
+        out = decode(params, cache, toks)
+        torch.cuda.synchronize()
+        times["decode"].append(time.perf_counter() - t0)
+        lgs.append(out[1])
+        return out
+
+    eng.prefill, eng.decode = timed_prefill, timed_decode
+
+
+def _step_bound(cfg, params, b, sq, n_keys):
+    """Least time in ms of one forward of ``b`` rows of ``sq`` new tokens
+    over ``n_keys`` cached keys a layer (the new ones included), and
+    what bounds it: every weight read once (the embedding table only at
+    its ``b * sq`` rows), the cache's live keys and values read and the
+    new ones written, the logits written in bf16; operations 2 per
+    weight and token for the products, 4 D per (query, key) pair and
+    head for attention, at the bf16 tensor-core rate."""
+    weight_bytes = mm_params = 0
+    for path, t in _leaves(params).items():
+        if path == "/embed/tok":
+            weight_bytes += b * sq * t.shape[1] * t.element_size()
+        else:
+            weight_bytes += t.numel() * t.element_size()
+            if t.ndim >= 3 or path == "/lm_head/w":
+                mm_params += t.numel()
+    kv = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.d_head * 2
+    t_bytes = (weight_bytes + kv * n_keys + b * sq * cfg.vocab * 2) \
+        / HBM_BYTES_PER_S
+    pairs = sq * n_keys if sq == 1 else _attn_pairs(sq, sq, cfg.causal, 0)
+    t_ops = (2.0 * b * sq * mm_params + 4.0 * cfg.n_layers * b * cfg.n_heads
+             * cfg.d_head * pairs) / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _to_card(tree):
+    return {k: _to_card(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def _k5_call_reading(ref, flash_attention, call, what):
+    """One recorded attention call of the served path: held against the
+    plain version at bf16's rounding, timed beside it, its bound and
+    ``scaled_dot_product_attention(enable_gqa=True)`` on the same
+    inputs."""
+    q, k, v, kw = call
+    out = flash_attention(q, k, v, **kw)
+    err, rel = _attn_close(out, ref.attention_ref(q, k, v, **kw), 1e-2, 1e-3,
+                           f"attention on the served path's {what} call")
+    ms, wall = _replay_ms(lambda *x: flash_attention(*x, **kw), [(q, k, v)],
+                          20)
+    plain_ms, _ = _replay_ms(lambda *x: ref.attention_ref(*x, **kw),
+                             [(q, k, v)], 5)
+
+    def sdpa(*x):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *x, is_causal=kw["causal"], scale=kw["scale"], enable_gqa=True)
+    # SDPA has no window and no softcap: no library time for such a call.
+    lib = None if kw["window"] or kw["softcap"] else \
+        _replay_ms(sdpa, [(q, k, v)], 20)[0]
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    pairs = b * _attn_pairs(sq, sk, kw["causal"], kw["window"])
+    t_ops = 4.0 * h * d * pairs / BF16_FLOP_PER_S
+    t_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
+        / HBM_BYTES_PER_S
+    return dict(shape=dict(b=b, h=h, hkv=k.shape[1], sq=sq, sk=sk, d=d),
+                dtype=str(q.dtype).replace("torch.", ""), ms=ms, wall_ms=wall,
+                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=lib, max_abs_err=err, rel_frobenius_err=rel)
+
+
+def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
+    """12. The LM serving path on the card (see the module docstring)."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    args = launch.parse_args(["--arch", SERVE_ARCH])   # the CLI's defaults
+    cfg, rt = configs.get_config(SERVE_ARCH), Runtime()
+    sc = ServeConfig(batch=args.batch, max_len=args.max_len)
+    n_batches = -(-args.n_requests // args.batch)
+    want = cfg.n_layers * (1 + args.max_new) * n_batches
+
+    # 12.1: yi-9b at full width, the launcher's path with its defaults.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model_mod.init_params(cfg, rt, gen, "cuda")
+    eng = ServingEngine(cfg, rt, params, sc, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    held = sum(t.numel() * t.element_size()
+               for t in _leaves(eng.params).values())
+    calls, n_decode = {}, [0]
+    layers_x_steps = cfg.n_layers * args.max_new
+
+    def rec(fn):
+        """Keep copies of the first prefill call and of layer 0's call at
+        the first batch's last decode step: the path's own K5 inputs."""
+        def call(q, k, v, **kw):
+            if kw["causal"] and "prefill" not in calls:
+                calls["prefill"] = (q.contiguous().clone(),
+                                    k.contiguous().clone(),
+                                    v.contiguous().clone(), kw)
+            elif not kw["causal"]:
+                if n_decode[0] == layers_x_steps - cfg.n_layers:
+                    calls["decode"] = (q.contiguous().clone(),
+                                       k.contiguous().clone(),
+                                       v.contiguous().clone(), kw)
+                n_decode[0] += 1
+            return fn(q, k, v, **kw)
+        return call
+
+    times = {"prefill": [], "decode": []}
+    lgs = []
+    _serve_timed(eng, times, lgs)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _patched(attn_mod, "flash_attention", rec):
+        outs = launch.serve_requests(eng, cfg.vocab, args.n_requests,
+                                     args.max_new, args.seed,
+                                     log=lambda line: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated()
+    _need_launches(launches, ("flash_attention",), "yi-9b serve",
+                   exactly=want)
+    if len(outs) != args.n_requests or any(
+            len(o) != args.max_new + 1 or not all(0 <= t < cfg.vocab
+                                                   for t in o)
+            for o in outs):
+        raise AssertionError(f"yi-9b serve: unexpected outputs {outs}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in lgs):
+        raise AssertionError("yi-9b serve: logits not finite")
+    tokens = args.n_requests * (args.max_new + 1)
+    prefill_s, decode_s = list(times["prefill"]), list(times["decode"])
+    last = torch.from_numpy(eng.last.astype(np.int64)).cuda()[:, None]
+    n_keys = int(eng.cache["0"]["pos"][0]) + 1
+    device_ms, n_events, top = _profile(
+        lambda: eng.decode(eng.params, eng.cache, last), top_n=10 ** 6)
+    split = {"flash_attention": 0.0, "matmul": 0.0, "rest": 0.0}
+    for kname, ms, _ in top:
+        low = kname.lower()
+        if "flash" in low:
+            split["flash_attention"] += ms
+        elif any(m in low for m in ("gemm", "gemv", "xmma", "cutlass",
+                                    "nvjet", "splitk", "cublas")):
+            split["matmul"] += ms
+        else:
+            split["rest"] += ms
+    bound, by = _step_bound(cfg, eng.params, args.batch, 1, n_keys)
+    width = calls["prefill"][0].shape[2]
+    p_bound, p_by = _step_bound(cfg, eng.params, args.batch, width, width)
+    # The transposed copy of the live prefix a decode attention makes (K
+    # and V of one layer), as the engine's cache holds them now.
+    kc, vc = eng.cache["0"]["k"][0], eng.cache["0"]["v"][0]
+    copy_ms, _ = _replay_ms(
+        lambda n: (kc[:, :n].transpose(1, 2).contiguous(),
+                   vc[:, :n].transpose(1, 2).contiguous()), [(n_keys,)], 20)
+    info = dict(
+        arch=SERVE_ARCH, batch=args.batch, max_len=args.max_len,
+        n_requests=args.n_requests, max_new=args.max_new, seed=args.seed,
+        params=cfg.param_count(), init_s=init_s,
+        init_peak_gb=init_peak / 1e9, held_weights_gb=held / 1e9,
+        serve_peak_gb=serve_peak / 1e9, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        prefill_ms=[t * 1e3 for t in prefill_s],
+        decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
+        decode_ms_min=1e3 * min(decode_s), decode_ms_max=1e3 * max(decode_s),
+        decode_steps=len(decode_s), launches=launches,
+        profiled_decode_step=dict(keys=n_keys, device_ms=device_ms,
+                                  device_events=n_events, split_ms=split,
+                                  top=top[:12]),
+        decode_bound_ms=bound, decode_bound_by=by,
+        all_weights_bound_ms=held / HBM_BYTES_PER_S * 1e3,
+        prefill_width=width, prefill_bound_ms=p_bound, prefill_bound_by=p_by,
+        prefix_copy_ms_per_layer=copy_ms,
+        prefix_copy_ms_per_step=copy_ms * cfg.n_layers)
+    print("# phase 12.1: " + json.dumps(info), flush=True)
+    del eng, lgs, kc, vc, last
+    torch.cuda.empty_cache()
+
+    # 12.2: K5 on the path's own inputs.
+    per = {f"yi-9b serve {what}": _k5_call_reading(ref, flash_attention,
+                                                   calls[what], what)
+           for what in ("prefill", "decode")}
+    del calls
+    print("# phase 12.2: " + json.dumps(per), flush=True)
+
+    # 12.3: yi-9b at full width and 2 layers, card against the CPU port on
+    # the same weights (drawn on the host from the seed), the CPU port's
+    # tokens teacher-forced on the card; both beside the same model in f32
+    # on the card.
+    cfg2 = dataclasses.replace(cfg, n_layers=SERVE_SHORT_LAYERS)
+    cfg2_f32 = dataclasses.replace(cfg2, dtype="float32")
+    host = model_mod.init_params(cfg2, rt,
+                                 torch.Generator().manual_seed(args.seed),
+                                 "cpu")
+    card = _to_card(host)
+    eng_c = ServingEngine(cfg2, rt, host, sc, device="cpu")
+    eng_g = ServingEngine(cfg2, rt, card, sc, device="cuda")
+    eng_t = ServingEngine(cfg2_f32, rt, card, sc, device="cuda")
+    del host, card
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(2, 9))
+               for _ in range(args.batch)]
+    cpu_logits, cpu_fed = [], []
+    pre_c, dec_c = eng_c.prefill, eng_c.decode
+
+    def rec_prefill(params, batch):
+        lg, cache = pre_c(params, batch)
+        cpu_logits.append(lg.float())
+        return lg, cache
+
+    def rec_decode(params, cache, toks):
+        cpu_fed.append(toks)
+        nxt, lg, cache = dec_c(params, cache, toks)
+        cpu_logits.append(lg)
+        return nxt, lg, cache
+
+    eng_c.prefill, eng_c.decode = rec_prefill, rec_decode
+    t0 = time.perf_counter()
+    out_c = eng_c.run(prompts, max_new=args.max_new)
+    cpu_s = time.perf_counter() - t0
+    toks = np.zeros((args.batch, max(len(p) for p in prompts)), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+
+    def forced(eng):
+        """The prefill's and each teacher-forced decode step's logits."""
+        lg, cache = eng.prefill(eng.params,
+                                {"tokens": torch.from_numpy(toks).cuda()})
+        out = [lg.float().cpu()]
+        for fed in cpu_fed:
+            _, lg, cache = eng.decode(eng.params, cache, fed.cuda())
+            out.append(lg.cpu())
+        return out
+
+    card_logits, f32_logits = forced(eng_g), forced(eng_t)
+    del eng_t
+
+    def gap(got, exp):
+        """Per step: max |got - exp| and max |got - exp| / (1 + |exp|)."""
+        return ([float((g - e).abs().max()) for g, e in zip(got, exp)],
+                max(float(((g - e).abs() / (1 + e.abs())).max())
+                    for g, e in zip(got, exp)))
+
+    gaps = {"card vs CPU port": gap(card_logits, cpu_logits),
+            "card vs f32": gap(card_logits, f32_logits),
+            "CPU port vs f32": gap(cpu_logits, f32_logits)}
+    for what in ("card vs CPU port", "card vs f32"):
+        if gaps[what][1] > SERVE_BF16_TOL:
+            raise AssertionError(
+                f"2-layer yi-9b, {what}: logits not within rtol = atol = "
+                f"{SERVE_BF16_TOL} ({gaps[what]})")
+    out_g = eng_g.run(prompts, max_new=args.max_new)
+    agree = sum(a == b for o_g, o_c in zip(out_g, out_c)
+                for a, b in zip(o_g, o_c))
+    prefix = [next((j for j, (a, b) in enumerate(zip(o_g, o_c)) if a != b),
+                   len(o_c)) for o_g, o_c in zip(out_g, out_c)]
+    print(f"# phase 12.3: yi-9b at full width and {SERVE_SHORT_LAYERS} "
+          f"layers on the same weights: the CPU port's prefill and "
+          f"{len(cpu_fed)} decode steps teacher-forced on the card, every "
+          f"step's logits within rtol = atol = {SERVE_BF16_TOL} of the CPU "
+          "port's and of the same model in f32 on the card (bf16 compute; "
+          "per pair: max abs err per step, max |err| / (1 + |exp|)) "
+          f"{json.dumps(gaps)}; logits up to "
+          f"{float(max(c.abs().max() for c in f32_logits)):.3f}; "
+          f"free-running greedy tokens agree at {agree} of "
+          f"{sum(len(o) for o in out_c)} positions (first disagreement per "
+          f"request at {prefix}); CPU port run {cpu_s:.1f} s", flush=True)
+
+    # 12.4: decode matches prefill on the card, in f32 (the JAX package's
+    # test: f32 smoke configs and cache, rtol = atol = 2e-2) and in bf16
+    # with a bf16 cache (at bf16 compute's tolerance).
+    b, s = 2, 12
+    tk = torch.from_numpy(np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (b, s))).cuda()
+    errs = {}
+    for c2, dt, tol in ((cfg2_f32, torch.float32, 2e-2),
+                        (cfg2, torch.bfloat16, SERVE_BF16_TOL)):
+        params = eng_g.params if dt == torch.bfloat16 else \
+            model_mod.cast_params(eng_g.params, c2)
+        full, _ = model_mod.forward(params, c2, rt, {"tokens": tk})
+        cache = model_mod.init_cache(c2, rt, b, 32, dt, device="cuda")
+        _, cache, _ = model_mod.forward(params, c2, rt,
+                                        {"tokens": tk[:, :-1]}, cache=cache)
+        step, _, _ = model_mod.forward(params, c2, rt, {"tokens": tk[:, -1:]},
+                                       cache=cache)
+        full, step = full[:, -1].float(), step[:, 0].float()
+        errs[str(dt)] = float((step - full).abs().max())
+        if not bool(((step - full).abs() <= tol * full.abs() + tol).all()):
+            raise AssertionError(f"{dt}: decode does not match prefill on "
+                                 f"the card (max abs err {errs[str(dt)]})")
+        del params, full, step, cache
+    print(f"# phase 12.4: an {s - 1}-token prefill and one decode step give "
+          f"the {s}-token forward's last logits on the card: f32 within "
+          f"rtol = atol = 2e-2, bf16 within {SERVE_BF16_TOL} (max abs err "
+          f"{json.dumps(errs)})", flush=True)
+    del eng_c, eng_g, tk
+    torch.cuda.empty_cache()
+    wall12 = time.perf_counter() - t_phase
+    print(f"# phase 12: wall {wall12:.1f} s", flush=True)
+    return dict(launches=launches["flash_attention"], per_layout=per,
+                wall_s=wall12)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2759,10 +3141,15 @@ def main() -> int:
                             fabric, diversity, ref, semiring_matmul,
                             LAUNCHES, reset_launches)
     t12 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = phase_serve(ref, flash_attention, LAUNCHES, reset_launches)
+    t13 = time.perf_counter()
     print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
           f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
-          f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, script up to here "
-          f"{t12 - t_start:.1f}", flush=True)
+          f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, phase 12 "
+          f"{t13 - t12:.1f}, script up to here {t13 - t_start:.1f}",
+          flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
              **paper, **sweep}
     k2["path_launches"].update(
@@ -2772,6 +3159,19 @@ def main() -> int:
                            "pi_min cell": pimin["waterfill"],
                            **{cell: n["waterfill"]
                               for cell, n in cells.items()}}
+    # Flash attention's main path is the serving path: its launches and
+    # its decode call (1536 of the 1632 launches) lead the entry, phase
+    # (d)'s layouts and the prefill call stay in per_layout.
+    k5["path_launches"] = {"phase (d)": k5["launches"],
+                           f"{SERVE_ARCH} serve": serve["launches"]}
+    k5["per_layout"].update(serve["per_layout"])
+    top = serve["per_layout"][f"{SERVE_ARCH} serve decode"]
+    k5.update(launches=serve["launches"],
+              max_abs_err=max([k5["max_abs_err"]] + [
+                  r["max_abs_err"] for r in serve["per_layout"].values()]),
+              **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+              entry_layout=f"{SERVE_ARCH} serve decode bf16")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST

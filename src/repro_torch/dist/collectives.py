@@ -9,7 +9,7 @@ different set of links (quantified by :mod:`repro_torch.dist.fabric`).
 Only :func:`layer_strides` is here so far, the integer part the fabric
 model needs.  The ring collectives themselves (reduce-scatter,
 all-gather and the multi-ring all-reduce over ``torch.distributed``)
-come with the LM substrate (ROADMAP A13).
+come with the LM substrate's multi-device slice (ROADMAP A13.5).
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ arrays and plain Python values — the fields of the corresponding
 dataclass.  A caller that holds the JAX package's objects (a parity
 test, say) flattens them into such dicts itself; this module never sees
 them, so the port can run its scan on exactly the tables, workload and
-configuration another implementation built.
+configuration another implementation built, and its models on exactly
+the parameters and KV caches another implementation made (nested dicts
+of numpy arrays, as the JAX package's trees are).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from .core.traffic import FlowWorkload
 from .core.transport import SimConfig
 
 __all__ = ["topology_from_arrays", "routing_from_arrays",
-           "workload_from_arrays", "config_from_dict"]
+           "workload_from_arrays", "config_from_dict",
+           "model_params_from_arrays", "kv_cache_from_arrays"]
 
 
 def _fields(cls, d: Mapping[str, Any]) -> dict:
@@ -93,3 +96,57 @@ def config_from_dict(d: Mapping[str, Any]) -> SimConfig:
     kw = _fields(SimConfig, d)
     kw["kernel_backend"] = ""
     return SimConfig(**kw)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A tensor from a numpy array; bfloat16 arrays (``ml_dtypes``' type,
+    which ``torch.from_numpy`` does not take) go across as their bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _tree(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def model_params_from_arrays(cfg, tree: Mapping[str, Any],
+                             device="cuda") -> dict:
+    """The port's parameter tree for ``cfg`` (a
+    :class:`~repro_torch.models.config.ModelConfig`) from the same nested
+    dict of numpy arrays, placed on ``device`` in ``cfg.param_dtype``:
+    the JAX package's ``init_params`` tree, once converted leaf by leaf,
+    is already in the port's layout."""
+    from .models.common import dtype_of
+
+    dev = resolve_device(device)
+    blocks = tree["blocks"]
+    if sorted(blocks) != [str(i) for i in range(len(cfg.layer_pattern))]:
+        raise ValueError(f"blocks {sorted(blocks)} do not match the layer "
+                         f"pattern {cfg.layer_pattern!r}")
+    for i, block in blocks.items():
+        _tree(lambda a, i=i: _check_repeats(a, cfg.pattern_repeats, i),
+              block)
+    dt = dtype_of(cfg.param_dtype)
+    return _tree(lambda a: _tensor(a, dev).to(dt), tree)
+
+
+def _check_repeats(a, r, i):
+    if np.shape(a)[:1] != (r,):
+        raise ValueError(f"block {i}: a leaf of shape {np.shape(a)} is not "
+                         f"stacked over the {r} pattern repeats")
+
+
+def kv_cache_from_arrays(tree: Mapping[str, Any], device="cuda") -> dict:
+    """The port's KV cache from the JAX package's ``init_cache`` tree as
+    numpy arrays: k/v on ``device`` in their dtype, ``pos`` as int32 on
+    the host (where the port keeps it)."""
+    dev = resolve_device(device)
+    return {i: {"k": _tensor(c["k"], dev), "v": _tensor(c["v"], dev),
+                "pos": torch.from_numpy(np.asarray(c["pos"], np.int32)
+                                        .copy())}
+            for i, c in tree.items()}

@@ -882,3 +882,72 @@ def test_cuda_off_scan_cell_equals_cpu(routing, evaluator):
     got = Session(device="cuda").run("sf", routing, "permutation", evaluator)
     exp = Session(device="cpu").run("sf", routing, "permutation", evaluator)
     assert compare_results([got], [exp], rtol=0) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, (1e-2, 1e-3)),
+                                       (torch.float32, (1e-4, 1e-4))])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("sk", [1, 5, 24, 128])
+def test_cuda_flash_attention_at_decode_shapes(sk, group, dtype, tol):
+    """A decode step's attention: one query row per head over the cache's
+    ``sk`` live keys, non-causal (Sk = 1 is the first step after a
+    one-token prompt), GQA groups of 1 and 8 at yi-9b's head size; bf16
+    at bf16's rounding, f32 at rtol = atol = 1e-4."""
+    _need_card()
+    rng = np.random.default_rng(sk * 10 + group)
+    b, hkv, d = 4, 4, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to("cuda", dtype) for s in ((b, hkv * group, 1, d),
+                                             (b, hkv, sk, d), (b, hkv, sk, d)))
+    kw = dict(causal=False, window=0, softcap=0.0, scale=d ** -0.5)
+    before = LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, **kw)
+    assert LAUNCHES["flash_attention"] == before + 1
+    exp = ref.attention_ref(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == exp.shape
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=tol[0],
+                               atol=tol[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,lengths", [("yi-9b", (1, 1, 1)),
+                                          ("gemma2-27b", (20, 8, 5))])
+def test_cuda_engine_equals_cpu_port(arch, lengths):
+    """A smoke config served on the card and on the CPU port with the same
+    weights: equal tokens, every step's logits within rtol 1e-4 (f32
+    compute; the f32 kernel is held to 1e-4 of the plain version), and
+    flash attention launched for every layer of every step.  One-token
+    prompts make the prefill a decode over one key; gemma2's 20-token
+    prompt fills its 16-slot window ring from a longer sequence."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    _need_card()
+    cfg, rt = configs.get_smoke(arch), Runtime()
+    params = model.init_params(cfg, rt, torch.Generator().manual_seed(0),
+                               "cpu")
+    sc = ServeConfig(batch=4, max_len=32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in lengths]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, rt, params, sc, device=dev)
+        logits = []
+        decode = eng.decode
+
+        def rec(p, cache, toks, decode=decode, logits=logits):
+            out = decode(p, cache, toks)
+            logits.append(out[1].cpu().numpy())
+            return out
+        eng.decode = rec
+        before = LAUNCHES["flash_attention"]
+        outs = eng.run(prompts, max_new=6)
+        runs[dev] = (outs, logits, LAUNCHES["flash_attention"] - before)
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert runs["cuda"][2] == cfg.n_layers * (1 + 6) and runs["cpu"][2] == 0
+    for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
+        np.testing.assert_allclose(g, c, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(c).max()))
