@@ -188,16 +188,34 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    decode step give a 12-token forward's last logits, in f32 with an f32
    cache (rtol = atol = 2e-2, the JAX package's test) and in bf16 with
    a bf16 cache (0.1);
-13. one ``{"kernels": [...]}`` line: launches on the main path (for the
+13. training, last (see ``phase_train``): (13.1) K5's backward at
+   yi-9b's training layout (B 2, H 32, Hkv 4, S 4096, D 128, causal) in
+   bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels) and at
+   gemma2-27b's (B 1, S 8192, window 4096, softcap 50) in bf16, held
+   against the plain version one KV head at a time (|err| <= 2e-2
+   max|exp| bf16, 1e-4 f32), the forward's LSE against the plain
+   version's, timed beside the bound (10 D flops a pair) and, at yi's
+   layout, ``scaled_dot_product_attention(enable_gqa=True)``'s backward;
+   (13.2) yi-9b at full width and 1 layer in f32, two train steps on the
+   card and on the CPU port from the same host-drawn weights (loss,
+   grad norm and every gradient leaf held), ``remat="full"`` bitwise
+   ``"none"`` on the card; (13.3) yi-9b at full width with n_layers cut
+   to 8 (the one cut: AdamW's f32 state of 48 layers exceeds the card)
+   through ``TrainLoop``, batch 2 x 4096 ``lm`` tokens, 6 steps, counts 0
+   before and read after: exactly 96 K5 forward and 48 backward
+   launches, no plain-version call, finite losses; losses, step wall,
+   tokens/s, peak memory, one more step profiled (K5 forward, K5
+   backward, cuBLAS, the optimizer, the rest) beside its bound;
+14. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
-   attention the serving path's; each path's own counts in
-   ``path_launches``),
+   attention the serving path's, for its backward the training path's;
+   each path's own counts in ``path_launches``),
    error against the plain version (0 for the water-filling kernel, which
    phase 3 holds bitwise), kernel / plain / bound / library
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-14. the last line: ``{"ok": true, "device": {...}}``.
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -213,6 +231,7 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -324,6 +343,30 @@ ATTN_LAYOUTS = {
                        window=4096, softcap=50.0),
     "yi-9b": dict(h=32, hkv=4, d=128, s=4096, causal=True, window=0,
                   softcap=0.0),
+}
+# Phase 13, training: yi-9b at full width with n_layers cut from 48 to 8
+# (AdamW's f32 masters and moments of all 48 layers, 106 GB before any
+# gradient, exceed the card's 80 GB; 8 layers hold 1.908e9 parameters,
+# 22.9 GB with their moments), its own bf16 compute, f32 parameters and
+# full remat, batch 2 x 4096 tokens (Yi's pretraining context), 6 steps.
+# K5's backward is held against its plain version at yi-9b's training
+# layout (batch 2) in bf16 and f32 and at gemma2-27b's (softcap, window,
+# S 8192) in bf16: |err| <= 1e-4 max|exp| in f32 (both sum f32 products
+# in other orders, as the forward's 1e-4), 2e-2 max|exp| in bf16 (one
+# bf16 rounding of each gradient, 2^-8, with room for the sums' order).
+# The card against the CPU port at full width and 1 layer in f32, batch
+# 1 x 128 (the CPU side about 30 s on the card's host): loss rtol 1e-5,
+# grad norm rtol 1e-4, every gradient leaf within 1e-4 of its largest
+# (K5 and its backward hold 1e-4 to the plain version; cuBLAS and the
+# CPU sum in other orders); the losses of step 2 within 1e-4.
+TRAIN_ARCH = "yi-9b"
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
+TRAIN_SHORT_SEQ = 128
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_LAYOUTS = {
+    "yi-9b": dict(b=2, **ATTN_LAYOUTS["yi-9b"]),
+    "gemma2-27b": dict(b=1, **ATTN_LAYOUTS["gemma2-27b"]),
 }
 
 
@@ -3054,6 +3097,365 @@ def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
                 wall_s=wall12)
 
 
+def _bwd_bound(lay, dtype):
+    """(least ms, what bounds it) of K5's backward at layout ``lay``:
+    5 products of 2 D flops per unmasked (q, k) pair and head at the
+    dtype's rate; q, k, v, o, dO and the LSE read once, dQ, dK, dV
+    written once."""
+    b, h, hkv, s, d = lay["b"], lay["h"], lay["hkv"], lay["s"], lay["d"]
+    pairs = b * h * _attn_pairs(s, s, lay["causal"], lay["window"])
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * 4 * (b * h * s * d + b * hkv * s * d) + 4 * b * h * s
+    t_ops, t_bytes = 10.0 * d * pairs / rate, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw):
+    """The plain backward one KV head (and its query heads) at a time:
+    the groups are independent, and their (B, G, S, S) f32 products
+    fit."""
+    group = q.shape[1] // k.shape[1]
+    parts = [ref.flash_attention_bwd_ref(
+        q[:, g * group:(g + 1) * group], k[:, g:g + 1], v[:, g:g + 1],
+        out[:, g * group:(g + 1) * group], lse[:, g * group:(g + 1) * group],
+        do[:, g * group:(g + 1) * group], **kw)
+        for g in range(k.shape[1])]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+
+
+def _lse_plain_sliced(ref, q, k, v, kw):
+    group = q.shape[1] // k.shape[1]
+    return torch.cat([ref.attention_ref(
+        q[:, g * group:(g + 1) * group], k[:, g:g + 1], v[:, g:g + 1],
+        return_lse=True, **kw)[1] for g in range(k.shape[1])], dim=1)
+
+
+def phase_bwd(ref, fa_mod):
+    """13.1 K5's backward at full-width layouts against its plain version
+    (see the constants above), its forward's LSE against the plain
+    version's, each timed beside its bound and, for yi-9b's layout,
+    ``scaled_dot_product_attention(enable_gqa=True)``'s backward under
+    autograd (gemma2's softcap has no library call)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    per, errs = {}, []
+    for name, lay in BWD_LAYOUTS.items():
+        dtypes = (torch.bfloat16, torch.float32) if name == "yi-9b" \
+            else (torch.bfloat16,)
+        b, h, hkv, s, d = lay["b"], lay["h"], lay["hkv"], lay["s"], lay["d"]
+        base = [torch.randn(sh, generator=g, device="cuda") for sh in
+                ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, h, s, d))]
+        kw = dict(causal=lay["causal"], window=lay["window"],
+                  softcap=lay["softcap"], scale=d ** -0.5)
+        for dt in dtypes:
+            q, k, v, do = (t.to(dt) for t in base)
+            out, lse = fa_mod._launch(q, k, v, kw["causal"], kw["window"],
+                                      kw["softcap"], kw["scale"],
+                                      with_lse=True)
+            lse_exp = _lse_plain_sliced(ref, q, k, v, kw)
+            lse_err = float((lse - lse_exp).abs().max())
+            if not bool(((lse - lse_exp).abs()
+                         <= 1e-4 + 1e-5 * lse_exp.abs()).all()):
+                raise AssertionError(f"K5 LSE {name} {dt}: max abs err "
+                                     f"{lse_err}")
+            del lse_exp
+            got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            exp = _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw)
+            err = {}
+            for gname, a, e in zip(("dq", "dk", "dv"), got, exp):
+                e_max = float(e.float().abs().max())
+                err[gname] = float((a.float() - e.float()).abs().max())
+                if err[gname] > BWD_TOL[dt] * e_max:
+                    raise AssertionError(
+                        f"K5 backward {name} {dt} {gname}: max abs err "
+                        f"{err[gname]} above {BWD_TOL[dt]} x {e_max}")
+            errs += list(err.values())
+            del got, exp
+            ms, wall = _replay_ms(lambda *x: fa_mod.flash_attention_bwd(
+                *x, **kw), [(q, k, v, out, lse, do)], 2)
+            plain_ms, _ = _replay_ms(
+                lambda *x: _bwd_plain_sliced(ref, *x, kw),
+                [(q, k, v, out, lse, do)], 1)
+            lib = None
+            if not lay["softcap"] and not lay["window"]:
+                xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    *xs, is_causal=lay["causal"], scale=kw["scale"],
+                    enable_gqa=True)
+                lib, _ = _replay_ms(lambda: torch.autograd.grad(
+                    o, xs, do, retain_graph=True), [()], 2)
+                del xs, o
+            bound, by = _bwd_bound(lay, dt)
+            key = f"{name} {str(dt).replace('torch.', '')}"
+            per[key] = dict(shape=dict(b=b, h=h, hkv=hkv, s=s, d=d),
+                            ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by, library_ms=lib,
+                            max_abs_err=err, lse_max_abs_err=lse_err)
+            print(f"# phase 13.1 K5 backward {key}: " + json.dumps(per[key]),
+                  flush=True)
+            del q, k, v, do, out, lse
+            torch.cuda.empty_cache()
+    return per, max(errs)
+
+
+def _grad_gap(got, exp):
+    """Per leaf max |got - exp| / max |exp|, and the largest."""
+    from repro_torch.train.optimizer import tree_leaves
+    gaps = [float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(tree_leaves(got), tree_leaves(exp))]
+    return gaps, max(gaps)
+
+
+def phase_train_short(configs, Runtime, model_mod, tts, topt, DataConfig,
+                      SyntheticDataset, LAUNCHES, reset_launches):
+    """13.2 yi-9b at full width and 1 layer in f32, card against the CPU
+    port on the same weights (drawn on the host from the seed) and the
+    same batch of 1 x 128 ``lm`` tokens: two train steps a side, the
+    first step's loss, grad norm and every gradient leaf held (see the
+    constants above); on the card ``remat="full"`` gives the same
+    gradients as ``remat="none"``, bitwise."""
+    rt = Runtime()
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_layers=1,
+                              dtype="float32", remat="none")
+    tc = tts.TrainConfig(opt=topt.AdamWConfig(warmup_steps=1,
+                                              total_steps=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    host = model_mod.init_params(cfg, rt, torch.Generator().manual_seed(0),
+                                 "cpu")
+    card = _to_card(host)
+    init_s = time.perf_counter() - t0
+    data = {dev: SyntheticDataset(cfg, DataConfig(1, TRAIN_SHORT_SEQ),
+                                  rt, dev) for dev in ("cuda", "cpu")}
+    # remat full against none on the card, from the same weights.
+    full = dataclasses.replace(cfg, remat="full")
+    reset_launches()
+    runs = {r: tts.loss_and_grads(card, c, rt, data["cuda"].batch(0))
+            for r, c in (("none", cfg), ("full", full))}
+    remat_launches = dict(LAUNCHES)
+    if remat_launches["flash_attention"] != 3 or \
+            remat_launches["flash_attention_bwd"] != 2:
+        raise AssertionError(f"13.2: remat none + full launched K5 "
+                             f"{remat_launches} (3 forward, 2 backward)")
+    if not torch.equal(runs["none"][0], runs["full"][0]) or not all(
+            torch.equal(a, b) for a, b in zip(
+                topt.tree_leaves(runs["none"][2]),
+                topt.tree_leaves(runs["full"][2]))):
+        raise AssertionError("13.2: remat='full' gradients differ from "
+                             "remat='none' on the card")
+    del runs
+    out = {}
+    for dev, params in (("cuda", card), ("cpu", host)):
+        first = []
+
+        def rec(fn):
+            def call(*a, **kw):
+                res = fn(*a, **kw)
+                if not first:
+                    first.append(res)
+                return res
+            return call
+        step = tts.make_train_step(cfg, rt, tc)
+        opt = topt.adamw_init(params)
+        t0 = time.perf_counter()
+        metrics = []
+        with _patched(tts, "loss_and_grads", rec):
+            for i in range(2):
+                params, opt, m = step(params, opt, data[dev].batch(i), i)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[dev] = dict(metrics=metrics, first=first[0],
+                        wall_s=time.perf_counter() - t0)
+    g_card, g_cpu = out["cuda"]["first"][2], out["cpu"]["first"][2]
+    gaps, worst = _grad_gap(g_card, g_cpu)
+    (l1g, n1g), (l2g, n2g) = out["cuda"]["metrics"]
+    (l1c, n1c), (l2c, n2c) = out["cpu"]["metrics"]
+    if abs(l1g - l1c) > 1e-5 * abs(l1c) or abs(n1g - n1c) > 1e-4 * n1c \
+            or worst > 1e-4 or abs(l2g - l2c) > 1e-4 * abs(l2c):
+        raise AssertionError(
+            f"13.2: card {out['cuda']['metrics']} vs CPU port "
+            f"{out['cpu']['metrics']}; worst gradient leaf gap {worst}")
+    info = dict(arch=TRAIN_ARCH, n_layers=1, dtype="float32",
+                tokens=TRAIN_SHORT_SEQ, params=cfg.param_count(),
+                card=out["cuda"]["metrics"], cpu_port=out["cpu"]["metrics"],
+                worst_gradient_leaf_gap=worst, leaves=len(gaps),
+                remat_full_equals_none=True, init_s=init_s,
+                card_two_steps_s=out["cuda"]["wall_s"],
+                cpu_two_steps_s=out["cpu"]["wall_s"])
+    print("# phase 13.2: " + json.dumps(info), flush=True)
+    del host, card, out, g_card, g_cpu
+
+
+def _step_split(top):
+    split = {"k5_forward": 0.0, "k5_backward": 0.0, "cublas": 0.0,
+             "rest": 0.0}
+    for kname, ms, _ in top:
+        low = kname.lower()
+        if "flash_tc_kernel" in low or "flash_kernel" in low:
+            split["k5_forward"] += ms
+        elif any(m in low for m in ("dkdv_", "dq_kernel", "dq_tc_kernel",
+                                    "delta_kernel")):
+            split["k5_backward"] += ms
+        elif any(m in low for m in ("gemm", "gemv", "xmma", "cutlass",
+                                    "nvjet", "splitk", "cublas")):
+            split["cublas"] += ms
+        else:
+            split["rest"] += ms
+    return split
+
+
+def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
+    """13. Training on the card.  (13.1) K5's backward against its plain
+    version; (13.2) the card against the CPU port at 1 layer; (13.3)
+    yi-9b at full width and 8 layers through ``TrainLoop`` (the
+    launcher's path) on ``lm`` data, counts 0 before and read after:
+    exactly 8 x 2 x 6 = 96 K5 forward launches (each layer's forward and
+    its recompute under full remat, a step) and 48 backward launches, no
+    call of either plain version, finite losses and grad norms; then one
+    more step profiled (the gradient pass and the optimizer apart).
+
+    Should the loss fall in 6 steps?  Not steadily.  The ``lm`` stream's
+    Zipf unigram is learnable through the LM head, but with one warmup
+    step AdamW's first updates are about lr = 3e-4 in each weight's
+    gradient sign, and summed coherently over d_model = 4096 inputs of
+    unit scale they move every pre-activation by about lr d = 1.2, as
+    much as its size at init (0.02 sqrt(d) = 1.3): the first steps
+    overshoot, and the loss can rise above its ln(64 000) = 11.07 start
+    before it falls.  The step is the JAX package's, held to it step by
+    step on the CPU (``tests/test_torch_train_steps.py``).  The
+    trajectory is reported, not tuned."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    t_phase = time.perf_counter()
+    per, bwd_err = phase_bwd(ref, fa_mod)
+    t13_2 = time.perf_counter()
+    phase_train_short(configs, Runtime, model_mod, tts, topt, DataConfig,
+                      SyntheticDataset, LAUNCHES, reset_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13.3 the full-width run.
+    t13_3 = time.perf_counter()
+    rt = Runtime()
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    tc = tts.TrainConfig(opt=topt.AdamWConfig(warmup_steps=1,
+                                              total_steps=TRAIN_STEPS))
+    loop = tloop.TrainLoop(
+        cfg, rt, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0), tc,
+        tloop.LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+        device="cuda")
+    plain_calls = {"attention_ref": 0, "flash_attention_bwd_ref": 0}
+
+    def counted(name):
+        def wrap(fn):
+            def call(*a, **kw):
+                plain_calls[name] += 1
+                return fn(*a, **kw)
+            return call
+        return wrap
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _patched(ref, "attention_ref", counted("attention_ref")), \
+            _patched(ref, "flash_attention_bwd_ref",
+                     counted("flash_attention_bwd_ref")):
+        res = loop.run(seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_LAYERS * 2 * TRAIN_STEPS
+    _need_launches(launches, ("flash_attention",), "yi-9b train",
+                   exactly=want)
+    _need_launches(launches, ("flash_attention_bwd",), "yi-9b train",
+                   exactly=TRAIN_LAYERS * TRAIN_STEPS)
+    if any(plain_calls.values()):
+        raise AssertionError(f"yi-9b train called a plain version: "
+                             f"{plain_calls}")
+    hist = res["history"]
+    if len(hist) != TRAIN_STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in hist):
+        raise AssertionError(f"yi-9b train: history {hist}")
+    walls = [h["wall_s"] for h in hist]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # One more step, profiled: the gradient pass (with the wire cast),
+    # then the optimizer.
+    state = res["state"]
+    batch = loop.data.batch(TRAIN_STEPS)
+    grads = {}
+
+    def grad_pass():
+        grads.clear()   # a retaken reading replaces the last one's
+        grads["g"] = topt.tree_map(rt.astype, tts.loss_and_grads(
+            state["params"], cfg, rt, batch)[2])
+    g_ms, g_events, g_top = _profile(grad_pass, top_n=10 ** 6)
+    o_ms, o_events, o_top = _profile(lambda: topt.adamw_update(
+        tc.opt, state["params"], grads["g"], state["opt"]), top_n=10 ** 6)
+    split = _step_split(g_top)
+    split["optimizer"] = o_ms
+    # The step's bound: the matmuls' 8 N T (forward, recompute, backward
+    # twice) and the attention's pair products (4 D forward twice, 10 D
+    # backward) at the bf16 rate, plus the optimizer's bytes (f32
+    # parameter, m and v read and written, the bf16 gradient read: 26
+    # bytes a parameter) at 3.35 TB/s.
+    n_mm = sum(t.numel() for path, t in _leaves(state["params"]).items()
+               if t.ndim >= 3 or path == "/lm_head/w")
+    n_all = sum(t.numel() for t in _leaves(state["params"]).values())
+    pairs = TRAIN_BATCH * _attn_pairs(TRAIN_SEQ, TRAIN_SEQ, True, 0)
+    t_mm = 8.0 * n_mm * tokens / BF16_FLOP_PER_S
+    t_attn = 18.0 * cfg.d_head * cfg.n_heads * TRAIN_LAYERS * pairs \
+        / BF16_FLOP_PER_S
+    t_opt = 26.0 * n_all / HBM_BYTES_PER_S
+    steady = float(np.median(walls[1:]))
+    info = dict(
+        arch=TRAIN_ARCH, n_layers=TRAIN_LAYERS, cut="n_layers 48 -> 8",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        params=cfg.param_count(), matmul_params=n_mm,
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, remat=cfg.remat,
+        losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist],
+        step_wall_s=walls, steady_step_s=steady,
+        tokens_per_s=tokens / steady, run_s=run_s, peak_gb=peak / 1e9,
+        launches={k: launches[k] for k in ("flash_attention",
+                                            "flash_attention_bwd")},
+        plain_calls=plain_calls,
+        profiled_step=dict(device_ms=g_ms + o_ms, events=g_events + o_events,
+                           split_ms=split, optimizer_events=o_events,
+                           top=g_top[:12] + o_top[:4]),
+        device_idle_share=1.0 - (g_ms + o_ms) / 1e3 / steady,
+        bound_ms=(t_mm + t_attn + t_opt) * 1e3,
+        bound_parts_ms=dict(matmuls=t_mm * 1e3, attention=t_attn * 1e3,
+                            optimizer_bytes=t_opt * 1e3))
+    print("# phase 13.3: " + json.dumps(info), flush=True)
+    del loop, res, state, batch, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall13 = time.perf_counter() - t_phase
+    print(f"# phase 13: wall {wall13:.1f} s (13.1 {t13_2 - t_phase:.1f}, "
+          f"13.2 {t13_3 - t13_2:.1f}, 13.3 {time.perf_counter() - t13_3:.1f})",
+          flush=True)
+    top = per[f"{TRAIN_ARCH} bfloat16"]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/attention.py:257",
+                launches=launches["flash_attention_bwd"],
+                max_abs_err=bwd_err,
+                **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                entry_layout=f"{TRAIN_ARCH} training bf16 (B 2, S 4096)",
+                per_layout=per,
+                path_launches={f"{TRAIN_ARCH} train": launches[
+                    "flash_attention_bwd"]}), launches["flash_attention"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3068,6 +3470,8 @@ def main() -> int:
                                      gf_matmul, ops, pathcount, ref,
                                      reset_launches, semiring_matmul,
                                      sparse_semiring_matmul, waterfill)
+    # The module itself: the package's ``flash_attention`` is the function.
+    fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels.gfmm import gf_plan
     from repro_torch.kernels.sparse import _occupancy
 
@@ -3145,11 +3549,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = phase_serve(ref, flash_attention, LAUNCHES, reset_launches)
     t13 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k5b, train_k5 = phase_train(ref, fa_mod, LAUNCHES, reset_launches)
+    t14 = time.perf_counter()
     print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
           f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
           f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, phase 12 "
-          f"{t13 - t12:.1f}, script up to here {t13 - t_start:.1f}",
-          flush=True)
+          f"{t13 - t12:.1f}, phase 13 {t14 - t13:.1f}, script up to here "
+          f"{t14 - t_start:.1f}", flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
              **paper, **sweep}
     k2["path_launches"].update(
@@ -3163,7 +3571,8 @@ def main() -> int:
     # its decode call (1536 of the 1632 launches) lead the entry, phase
     # (d)'s layouts and the prefill call stay in per_layout.
     k5["path_launches"] = {"phase (d)": k5["launches"],
-                           f"{SERVE_ARCH} serve": serve["launches"]}
+                           f"{SERVE_ARCH} serve": serve["launches"],
+                           f"{TRAIN_ARCH} train": train_k5}
     k5["per_layout"].update(serve["per_layout"])
     top = serve["per_layout"][f"{SERVE_ARCH} serve decode"]
     k5.update(launches=serve["launches"],
@@ -3185,7 +3594,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {**{k: d[k] for k in keys}, **{k: v for k, v in d.items()
                                         if k not in keys}}
-        for d in (k2, k1, k3, k4, k5)]}))
+        for d in (k2, k1, k3, k4, k5, k5b)]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

@@ -27,7 +27,8 @@ from .core.transport import SimConfig
 
 __all__ = ["topology_from_arrays", "routing_from_arrays",
            "workload_from_arrays", "config_from_dict",
-           "model_params_from_arrays", "kv_cache_from_arrays"]
+           "model_params_from_arrays", "kv_cache_from_arrays",
+           "opt_state_from_arrays"]
 
 
 def _fields(cls, d: Mapping[str, Any]) -> dict:
@@ -150,3 +151,21 @@ def kv_cache_from_arrays(tree: Mapping[str, Any], device="cuda") -> dict:
                 "pos": torch.from_numpy(np.asarray(c["pos"], np.int32)
                                         .copy())}
             for i, c in tree.items()}
+
+
+def opt_state_from_arrays(tree: Mapping[str, Any], device="cuda") -> dict:
+    """The port's AdamW state from the JAX package's ``adamw_init`` /
+    ``adamw_update`` state as numpy arrays: the moments ``m`` and ``v``
+    (and the error-feedback ``ef`` residual, when present) as f32 trees
+    on ``device``, ``step`` as an int32 scalar there."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(dev)
+
+    out = {"m": _tree(f32, tree["m"]), "v": _tree(f32, tree["v"]),
+           "step": torch.tensor(int(np.asarray(tree["step"])),
+                                dtype=torch.int32, device=dev)}
+    if "ef" in tree:
+        out["ef"] = _tree(f32, tree["ef"])
+    return out

@@ -9,7 +9,8 @@
 * ``pathcount`` — the ``count`` semiring under its historical name.
 * ``gfmm``      — GF(p) modular product, Cheung connectivity (App. B.3).
 * ``flash_attention`` — online-softmax attention (GQA, window, softcap)
-                  for the LM substrate.
+                  for the LM substrate, and its backward pass
+                  (``flash_attention_bwd``, behind an autograd Function).
 * ``ops``       — walk-count powers, the GF(p) power sum, attention.
 * ``ref``       — the plain PyTorch versions.
 * ``build``     — nvcc build and ``ctypes`` loading of ``csrc/*.cu``.
@@ -24,10 +25,12 @@ from typing import Dict
 
 __all__ = ["LAUNCHES", "reset_launches", "semiring_matmul",
            "sparse_semiring_matmul", "tile_occupancy", "pathcount_matmul",
-           "waterfill_step", "gf_matmul", "flash_attention", "ops", "ref"]
+           "waterfill_step", "gf_matmul", "flash_attention",
+           "flash_attention_bwd", "ops", "ref"]
 
 LAUNCHES: Dict[str, int] = {"semiring": 0, "waterfill": 0, "sparse": 0,
-                            "gfmm": 0, "flash_attention": 0}
+                            "gfmm": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -37,7 +40,8 @@ def reset_launches() -> None:
 
 
 from . import ops, ref  # noqa: E402
-from .flash_attention import flash_attention  # noqa: E402
+from .flash_attention import (flash_attention,  # noqa: E402
+                              flash_attention_bwd)
 from .gfmm import gf_matmul  # noqa: E402
 from .pathcount import pathcount_matmul  # noqa: E402
 from .semiring import semiring_matmul  # noqa: E402

@@ -30,7 +30,8 @@ __all__ = ["KERNELS", "load", "build_all", "check", "BUILD_DIR",
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("semiring", "waterfill", "sparse", "gfmm", "flash_attention")
+KERNELS = ("semiring", "waterfill", "sparse", "gfmm", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 

@@ -11,7 +11,13 @@
 //     with query and key positions both counted from 0;
 //   - rows whose keys are all masked: m stays -inf, p and alpha are
 //     zeroed, and the output is 0, never NaN.
-// Accumulation in f32, output in the input's type.
+// Accumulation in f32, output in the input's type.  With a non-null `lse`
+// pointer each row's f32 log-sum-exp of its (scaled, capped) logits is
+// written too, m + log(l), the JAX package's _flash_fwd_scan rule: a fully
+// masked row's is finfo(f32).min.  It is what the backward pass
+// (flash_attention_bwd.cu) recomputes P from.  Each kernel is instantiated
+// with and without that output (kLse), so that without it the code is the
+// same as before it existed.
 //
 // What bounds it on the H100: operations (4 D flops per unmasked (q, k)
 // pair and head; the tensor-core rate in bf16 is the bound's yardstick).
@@ -64,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 // ---- f32 on the CUDA cores -------------------------------------------------
@@ -74,6 +82,8 @@ constexpr int kSide = 16;
 constexpr int kThreads = kSide * kSide;
 constexpr int kRows = kBQ / kSide;      // rows per thread
 constexpr int kKeys = kBK / kSide;      // logit columns per thread
+constexpr float kNegInf = -3.4028234663852886e38f;   // finfo(f32).min
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DP>
 constexpr size_t smem_bytes() {
@@ -94,11 +104,11 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-template <int DP>
+template <int DP, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int h,
-             int hkv,
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int h, int hkv,
              int sq, int sk, int d, float scale, int causal, int window,
              float softcap) {
   extern __shared__ float smem[];
@@ -121,6 +131,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   o += q_off;
   k += k_off;
   v += k_off;
+  if constexpr (kLse) lse += (static_cast<long long>(bb) * h + hh) * sq;
 
   load_tile<DP>(qs, q, q0, kBQ, sq, d);
   if (tid < kBQ) {
@@ -233,6 +244,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (gq >= sq) continue;
     const float l = row_l[r];
     const float denom = l == 0.0f ? 1.0f : l;
+    if constexpr (kLse) {
+      if (tx == 0)
+        lse[gq] = (row_m[r] == -INFINITY ? kNegInf : row_m[r]) + logf(denom);
+    }
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = tx + kSide * j;
@@ -243,16 +258,19 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int b, int h, int hkv, int sq, int sk, int d, float scale,
-               int causal, int window, float softcap, cudaStream_t s) {
+               float* lse, int b, int h, int hkv, int sq, int sk, int d,
+               float scale, int causal, int window, float softcap,
+               cudaStream_t s) {
   constexpr size_t smem = smem_bytes<DP>();
+  const auto kernel = lse != nullptr ? flash_kernel<DP, true>
+                                     : flash_kernel<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_kernel<DP><<<grid, kThreads, smem, s>>>(
-      q, k, v, o, h, hkv, sq, sk, d, scale, causal, window, softcap);
+  kernel<<<grid, kThreads, smem, s>>>(
+      q, k, v, o, lse, h, hkv, sq, sk, d, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,51 +295,10 @@ struct Cfg {
   static constexpr size_t kSmem = sizeof(bf16) * LD * (kBQ + 4 * BK);
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src into dst, of which the first `bytes` are read and
-// the rest zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.  Not
-// volatile: registers only, so the compiler may interleave the products.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using mma_bf16::ldmatrix_x4;
+using mma_bf16::ldmatrix_x4_trans;
+using mma_bf16::mma;
+using mma_bf16::pack_bf16;
 
 // (hi, lo) bf16 pairs of two f32 values: hi = bf16(x), lo = bf16(x - hi).
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
@@ -331,38 +308,19 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
-// `rows` rows of a row-major (n_rows, d) bf16 source, from row0 on, into
-// dst (row stride LD), DP columns, zeros past n_rows and past d.  With
-// `vec` (d a multiple of 8, 16-byte aligned rows) by cp.async, else by
-// plain loads and stores.
 template <int DP, int LD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           int row0, int rows, int n_rows,
                                           int d, bool vec) {
-  constexpr int kChunks = DP / 8;
-  for (int e = threadIdx.x; e < rows * kChunks; e += kThreads) {
-    const int r = e / kChunks, c = (e % kChunks) * 8, g = row0 + r;
-    bf16* to = dst + r * LD + c;
-    const bf16* from = src + static_cast<long long>(g) * d + c;
-    const int n = g < n_rows ? max(0, min(8, d - c)) : 0;
-    if (vec) {
-      cp_async16(to, n ? from : src, 2 * n);
-    } else {
-      alignas(16) bf16 t[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        t[i] = i < n ? from[i] : __float2bfloat16(0.0f);
-      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(t);
-    }
-  }
+  mma_bf16::load_rows<DP, LD, kThreads>(dst, src, row0, rows, n_rows, d, vec);
 }
 
-template <int DP>
+template <int DP, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, int h,
-                int hkv, int sq, int sk, int d, float scale, int causal,
-                int window, float softcap, int vec) {
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, int h, int hkv, int sq, int sk, int d,
+                float scale, int causal, int window, float softcap, int vec) {
   using C = Cfg<DP>;
   constexpr int BK = C::BK, LD = C::LD;
   constexpr int NC = DP / 16;   // 16-wide chunks of D (QK^T's K steps)
@@ -384,6 +342,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   o += q_off;
   k += k_off;
   v += k_off;
+  if constexpr (kLse) lse += (static_cast<long long>(bb) * h + hh) * sq;
 
   // Key tiles that any row of the block may see.
   const int k_hi = causal ? min(sk, q0 + kBQ) : sk;
@@ -558,6 +517,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float inv_a = l_a == 0.0f ? 0.0f : 1.0f / l_a;
   const float inv_b = l_b == 0.0f ? 0.0f : 1.0f / l_b;
+  if (kLse && t4 == 0) {
+    // m is in log2 units: lse = ln 2 (m + log2 l).
+    if (r_a < sq)
+      lse[r_a] = m_a == -INFINITY ? kNegInf
+                                  : kLn2 * (m_a + log2f(l_a));
+    if (r_b < sq)
+      lse[r_b] = m_b == -INFINITY ? kNegInf
+                                  : kLn2 * (m_b + log2f(l_b));
+  }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int c = 8 * j + 2 * t4;
@@ -574,12 +542,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP>
-int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b,
-           int h, int hkv, int sq, int sk, int d, float scale, int causal,
-           int window, float softcap, cudaStream_t s) {
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+           float* lse, int b, int h, int hkv, int sq, int sk, int d,
+           float scale, int causal, int window, float softcap,
+           cudaStream_t s) {
   constexpr size_t smem = Cfg<DP>::kSmem;
+  const auto kernel = lse != nullptr ? flash_tc_kernel<DP, true>
+                                     : flash_tc_kernel<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // cp.async takes 16-byte rows: d a multiple of 8 and aligned bases.
@@ -588,8 +559,9 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b,
   };
   const int vec = d % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_tc_kernel<DP><<<grid, kThreads, smem, s>>>(
-      q, k, v, o, h, hkv, sq, sk, d, scale, causal, window, softcap, vec);
+  kernel<<<grid, kThreads, smem, s>>>(
+      q, k, v, o, lse, h, hkv, sq, sk, d, scale, causal, window, softcap,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -602,29 +574,31 @@ extern "C" {
 // q, o (b, h, sq, d) and k, v (b, hkv, sk, d), contiguous; dtype 0 is f32
 // (the CUDA-core kernel), 1 bf16 (the tensor-core kernel).  h % hkv == 0,
 // 1 <= d <= 256.  causal != 0 masks kpos > qpos, window > 0 masks
-// qpos - kpos >= window, softcap > 0 caps the logits.  Returns
+// qpos - kpos >= window, softcap > 0 caps the logits.  lse, when not null,
+// is f32 (b, h, sq) and receives each row's log-sum-exp.  Returns
 // cudaGetLastError() (or the error of raising the block's shared memory
 // limit).
 int flash_launch(int dtype, const void* q, const void* k, const void* v,
                  void* o, int b, int h, int hkv, int sq, int sk, int d,
                  float scale, int causal, int window, float softcap,
-                 void* stream) {
+                 void* lse, void* stream) {
   if (b < 1 || h < 1 || hkv < 1 || h % hkv != 0 || sq < 1 || sk < 1 ||
       d < 1 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* fl = static_cast<float*>(lse);
   if (dtype == 0) {
     const auto* fq = static_cast<const float*>(q);
     const auto* fk = static_cast<const float*>(k);
     const auto* fv = static_cast<const float*>(v);
     auto* fo = static_cast<float*>(o);
     if (d <= 64)
-      return launch_f32<64>(fq, fk, fv, fo, b, h, hkv, sq, sk, d, scale,
+      return launch_f32<64>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, scale,
                             causal, window, softcap, s);
     if (d <= 128)
-      return launch_f32<128>(fq, fk, fv, fo, b, h, hkv, sq, sk, d, scale,
+      return launch_f32<128>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, scale,
                              causal, window, softcap, s);
-    return launch_f32<256>(fq, fk, fv, fo, b, h, hkv, sq, sk, d, scale,
+    return launch_f32<256>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, scale,
                            causal, window, softcap, s);
   }
   if (dtype == 1) {
@@ -634,12 +608,12 @@ int flash_launch(int dtype, const void* q, const void* k, const void* v,
     const auto* bv = static_cast<const bf16*>(v);
     auto* bo = static_cast<bf16*>(o);
     if (d <= 64)
-      return tc::launch<64>(bq, bk, bv, bo, b, h, hkv, sq, sk, d, scale,
+      return tc::launch<64>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, scale,
                             causal, window, softcap, s);
     if (d <= 128)
-      return tc::launch<128>(bq, bk, bv, bo, b, h, hkv, sq, sk, d, scale,
+      return tc::launch<128>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, scale,
                              causal, window, softcap, s);
-    return tc::launch<256>(bq, bk, bv, bo, b, h, hkv, sq, sk, d, scale,
+    return tc::launch<256>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, scale,
                            causal, window, softcap, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

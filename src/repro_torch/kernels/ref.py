@@ -26,9 +26,12 @@ import torch
 
 __all__ = ["SAT", "pathcount_ref", "semiring_matmul_ref",
            "sparse_semiring_matmul_ref", "waterfill_ref", "fused_add_mul",
-           "gf_matmul_ref", "attention_ref"]
+           "gf_matmul_ref", "attention_ref", "flash_attention_bwd_ref"]
 
 SAT = 3.0e38
+# The JAX package's stand-in for -inf in attention (``finfo(f32).min``):
+# the log-sum-exp of a row whose keys are all masked.
+NEG_INF = float(torch.finfo(torch.float32).min)
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -198,36 +201,97 @@ def gf_matmul_ref(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+def _attention_mask(sq: int, sk: int, causal: bool, window: int,
+                    device) -> torch.Tensor:
+    """(Sq, Sk) bool: the keys each query sees, positions from 0."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _logits(q, k, group, scale, softcap):
+    """f32 (B, H, Sq, Sk) logits ``q k^T * scale`` (capped), GQA by
+    repeating each KV head over its group; and the cap's uncapped
+    argument ``u`` (None without a cap)."""
+    kk = torch.repeat_interleave(k, group, dim=1)
+    u = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     kk.to(torch.float32)) * scale
+    if softcap > 0:
+        return softcap * torch.tanh(u / softcap), u
+    return u, None
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, softcap: float = 0.0,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  scale: Optional[float] = None, return_lse: bool = False):
     """Naive (materialised-logits) attention with GQA, causal and sliding
     window masks and gemma2 logit soft-capping, over (B, H, S, D).
 
     Query and key positions both start at 0.  A row whose keys are all
-    masked gives 0.  Computes in f32 and returns q's dtype."""
+    masked gives 0.  Computes in f32 and returns q's dtype; with
+    ``return_lse`` also the f32 (B, H, Sq) log-sum-exp of each row's
+    logits, ``m + log(l)`` with ``l`` taken as 1 where it is 0, so that a
+    fully masked row's is ``NEG_INF`` (the JAX package's
+    ``_flash_fwd_scan`` rule)."""
     _, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = h // hkv
     if scale is None:
         scale = float(d) ** -0.5
-    kk = torch.repeat_interleave(k, group, dim=1)
     vv = torch.repeat_interleave(v, group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                     kk.to(torch.float32)) * scale
-    if softcap > 0:
-        s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window > 0:
-        mask &= (qpos - kpos) < window
+    s, _ = _logits(q, k, group, scale, softcap)
+    mask = _attention_mask(sq, sk, causal, window, q.device)
     s = torch.where(mask[None, None], s, float("-inf"))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     p = torch.where(torch.isnan(p), 0.0, p)  # fully masked rows
     denom = p.sum(dim=-1, keepdim=True)
-    p = p / torch.where(denom == 0, 1.0, denom)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, vv.to(torch.float32))
-    return out.to(q.dtype)
+    denom = torch.where(denom == 0, 1.0, denom)
+    out = torch.einsum("bhqk,bhkd->bhqd", p / denom,
+                       vv.to(torch.float32)).to(q.dtype)
+    if not return_lse:
+        return out
+    m = torch.where(torch.isinf(m), NEG_INF, m)
+    return out, (m + torch.log(denom))[..., 0]
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv) of :func:`attention_ref` from its saved output and
+    log-sum-exp: the JAX package's ``_flash_chunked_bwd`` without the
+    chunk loop.  ``delta = rowsum(dO * O)``, ``P = exp(S - lse)`` under the
+    mask, ``dV = P^T dO``, ``dS = P (dO V^T - delta)`` (times ``1 -
+    (S / softcap)^2`` under a cap), ``dQ = dS K * scale``, ``dK = dS^T Q *
+    scale``, GQA's grouped heads summed back onto their KV head.  All in
+    f32; each gradient in its input's dtype.  A fully masked row gives 0."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    if scale is None:
+        scale = float(d) ** -0.5
+    qf, do = q.to(torch.float32), dout.to(torch.float32)
+    kk = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    vv = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    delta = torch.sum(do * out.to(torch.float32), dim=-1, keepdim=True)
+    s, _ = _logits(q, k, group, scale, softcap)
+    mask = _attention_mask(sq, sk, causal, window, q.device)[None, None]
+    p = torch.where(mask, torch.exp(s - lse.to(torch.float32)[..., None]),
+                    0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vv) - delta)
+    if softcap > 0:
+        ds = ds * (1.0 - torch.square(s / softcap))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(b, hkv, group, sk, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, group, sk, v.shape[-1]).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -6,9 +6,8 @@ without a default and draws from an explicit ``torch.Generator`` that
 lives on that device.
 
 Left out: M-RoPE (qwen2-vl's sections) raises until the frontends' slice
-(ROADMAP A13.11); ``cast_cotangent_bf16`` is the identity on the forward
-pass and belongs to training (ROADMAP A13.3); the ``*_specs`` builders
-belong to the mesh (ROADMAP A13.5).
+(ROADMAP A13.11); the ``*_specs`` builders belong to the mesh (ROADMAP
+A13.5).
 """
 
 from __future__ import annotations
@@ -99,6 +98,24 @@ def mlp_apply(params, x):
     h = torch.einsum("bsd,dcf->bscf", x, params["wi"].to(dt))
     gate, up = h[:, :, 0], h[:, :, 1]
     return torch.einsum("bsf,fd->bsd", F.silu(gate) * up, params["wo"].to(dt))
+
+
+class _CastGradBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def cast_cotangent_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward casts the cotangent to bf16 (the JAX
+    package's ``cast_cotangent_bf16``): placed at the logits, the loss
+    math stays f32 while the gradient flowing back through the layers is
+    bf16."""
+    return _CastGradBf16.apply(x)
 
 
 # ---- Embedding / unembedding ---------------------------------------------------

@@ -7,28 +7,35 @@ qwen2.5-32b and gemma2-27b.  The parameter tree is the JAX package's:
 stacked per repeat with a leading ``pattern_repeats`` dimension, and
 caches are stacked the same way.
 
-The repeats run as a Python loop over that leading dimension.  The JAX
-package's ``scan_layers`` and ``remat`` are XLA compile knobs (one scan
-over the repeats, rematerialisation for the backward pass); eager PyTorch
-has no counterpart, and the forward reads neither.
+The repeats run as a Python loop over that leading dimension (the JAX
+package's ``scan_layers`` is an XLA compile knob; eager PyTorch has no
+counterpart).  Each stacked leaf is unbound once a forward, so that its
+gradient comes back as one stacked tensor.  ``cfg.remat``: under grad
+mode, ``"full"`` runs each unit of the layer pattern (one repeat)
+through ``torch.utils.checkpoint`` without saving anything inside it,
+the JAX package's ``nothing_saveable`` on its unit; ``"none"`` saves
+every activation; ``"dots"`` (matmul outputs saveable) raises, ROADMAP
+A13.13.  Without grad the forward is the same either way.
 
 Not ported yet, and raising ``NotImplementedError``: the shared
 attention block ``a`` and the Mamba2 blocks ``m`` (zamba2, ROADMAP
 A13.9), RWKV blocks ``r`` (A13.10), mixture-of-experts MLPs (A13.7),
 multi-head latent attention (A13.8), the audio and vision frontends and
-M-RoPE (A13.11).  ``loss_fn`` belongs to training (A13.3), and
-``param_specs`` / ``cache_specs`` to the mesh (A13.5).
+M-RoPE (A13.11).  ``param_specs`` / ``cache_specs`` belong to the mesh
+(A13.5).
 
 Public API:
   init_params / init_cache / cast_params
   forward(params, cfg, rt, batch, cache=None)  -> logits (+ cache) + aux
+  loss_fn(params, cfg, rt, batch)              -> (loss, {"ce", "aux"})
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..dist.sharding import Runtime
@@ -37,7 +44,9 @@ from . import common
 from .config import ModelConfig
 
 __all__ = ["check_supported", "init_params", "init_cache", "cast_params",
-           "forward"]
+           "forward", "loss_fn", "AUX_COEF"]
+
+AUX_COEF = 0.01
 
 _BLOCKS = {"a": "the shared attention block (zamba2), ROADMAP A13.9",
            "m": "Mamba2 blocks (zamba2), ROADMAP A13.9",
@@ -215,12 +224,31 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
                               cfg.mrope_sections)
 
     unit = cfg.layer_pattern
-    for j in range(cfg.pattern_repeats):
+    r = cfg.pattern_repeats
+    # Each stacked leaf as r views, taken once: their gradients return to
+    # the (R, ...) leaf as one stacked tensor.
+    blocks = {i: _tree_map(lambda p: torch.unbind(p, 0),
+                           params["blocks"][str(i)])
+              for i in range(len(unit))}
+    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: remat={cfg.remat!r} (matmul outputs saveable) is "
+            "not ported; ROADMAP A13.13.  Use 'full' or 'none'")
+
+    def unit_body(x, j):
         for i, ch in enumerate(unit):
-            bp = _tree_map(lambda p: p[j], params["blocks"][str(i)])
+            bp = _tree_map(lambda views: views[j], blocks[i])
             c = (_tree_map(lambda t: t[j], cache[str(i)])
                  if cache is not None else None)
             x, _ = _apply_block(bp, cfg, rt, ch, x, rope, c)
+        return x
+
+    for j in range(r):
+        if remat:
+            x = checkpoint(unit_body, x, j, use_reentrant=False)
+        else:
+            x = unit_body(x, j)
 
     x = common.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -229,7 +257,25 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
     else:
         logits = torch.einsum("bsd,dv->bsv", x,
                               params["lm_head"]["w"].to(x.dtype))
+    if logits.dtype == torch.bfloat16:
+        logits = common.cast_cotangent_bf16(logits)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         return logits, cache, aux
     return logits, aux
+
+
+def loss_fn(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss: next-token cross-entropy (f32, final softcap
+    applied) over the batch's tokens shifted by one, plus ``AUX_COEF``
+    times the auxiliary loss; returns ``(total, {"ce", "aux"})``."""
+    logits, aux = forward(params, cfg, rt, batch)
+    labels = batch["labels"]
+    if cfg.causal and cfg.frontend is None:
+        loss = common.cross_entropy(logits[:, :-1], labels[:, 1:],
+                                    cfg.final_softcap)
+    else:
+        loss = common.cross_entropy(logits, labels, cfg.final_softcap)
+    total = loss + AUX_COEF * aux
+    return total, {"ce": loss, "aux": aux}

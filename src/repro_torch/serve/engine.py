@@ -7,6 +7,10 @@ cast once to the compute dtype (:func:`repro_torch.models.model.
 cast_params`), where the JAX package casts them at every use: the same
 bits, and a decode step reads the compute-dtype weights only.
 
+Prefill and decode run under ``torch.no_grad()``: parameters that come
+out of training still requiring grad build no autograd graph and keep no
+activations here.
+
 The ``ServingEngine`` is a minimal continuous-batching loop: a
 fixed-size slot table, greedy sampling, per-request budgets, prompts
 right-aligned with zeros on their left.  Encoder-only models, which have
@@ -43,6 +47,7 @@ def make_prefill_step(cfg: ModelConfig, rt: Runtime, sc: ServeConfig,
     """(params, {"tokens"}) -> (last-token logits, primed cache)."""
     dev = resolve_device(device)
 
+    @torch.no_grad()
     def prefill(params, batch: Dict[str, Any]):
         cache = model_mod.init_cache(cfg, rt, sc.batch, sc.max_len,
                                      dtype_of(sc.cache_dtype), device=dev)
@@ -57,6 +62,7 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime, sc: ServeConfig):
     """(params, cache, last_token) -> (next_token, f32 logits, cache)."""
     assert cfg.decoder, f"{cfg.name} is encoder-only: no decode step"
 
+    @torch.no_grad()
     def decode(params, cache, tokens):
         logits, cache, _ = model_mod.forward(params, cfg, rt,
                                              {"tokens": tokens}, cache=cache)
@@ -78,7 +84,8 @@ class ServingEngine:
         model_mod.check_supported(cfg)
         self.cfg, self.rt, self.sc = cfg, rt, sc
         self.device = resolve_device(device)
-        self.params = model_mod.cast_params(params, cfg, self.device)
+        with torch.no_grad():
+            self.params = model_mod.cast_params(params, cfg, self.device)
         self.prefill = make_prefill_step(cfg, rt, sc, self.device)
         self.decode = make_decode_step(cfg, rt, sc)
         self.reset()

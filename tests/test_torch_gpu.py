@@ -951,3 +951,121 @@ def test_cuda_engine_equals_cpu_port(arch, lengths):
     for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
         np.testing.assert_allclose(g, c, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(c).max()))
+
+
+# (b, h, hkv, sq, sk, d, causal, window, softcap): K5's backward.
+BWD_CASES = [(1, 4, 2, 200, 200, 64, True, 0, 0.0),
+             (2, 4, 1, 130, 130, 128, False, 0, 0.0),
+             (1, 2, 2, 300, 300, 96, True, 50, 0.0),
+             (1, 4, 2, 190, 190, 128, True, 64, 50.0),
+             (1, 2, 1, 100, 77, 200, False, 0, 0.0),
+             (1, 2, 1, 150, 60, 32, True, 16, 0.0),     # rows 75.. dead
+             (1, 8, 1, 130, 130, 256, True, 0, 30.0),
+             (2, 8, 1, 257, 257, 16, True, 0, 0.0),     # GQA group 8
+             (1, 4, 4, 1, 33, 128, False, 0, 0.0)]      # Sq 1
+
+
+def _bwd_inputs(b, h, hkv, sq, sk, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to("cuda", dtype) for s in ((b, h, sq, d), (b, hkv, sk, d),
+                                          (b, hkv, sk, d), (b, h, sq, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,softcap", BWD_CASES)
+def test_cuda_flash_attention_bwd_matches_plain(dtype, tol, b, h, hkv, sq,
+                                                sk, d, causal, window,
+                                                softcap):
+    """K5's backward against its plain version on the same inputs (the
+    kernel's forward output and log-sum-exp): |err| <= tol max|exp| per
+    gradient, tol 1e-4 in f32 and 2e-2 in bf16 (both sum f32 products in
+    other orders; bf16 rounds each gradient once); the forward's LSE
+    within 1e-4 of the plain version's, ``finfo(f32).min`` on dead rows,
+    and its output bitwise the output of a launch without the LSE."""
+    from repro_torch.kernels.flash_attention import (_launch,
+                                                     flash_attention_bwd)
+    _need_card()
+    q, k, v, do = _bwd_inputs(b, h, hkv, sq, sk, d, dtype, sq + d + h)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale=d ** -0.5)
+    out, lse = _launch(q, k, v, causal, window, softcap, d ** -0.5,
+                       with_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    _, lse_exp = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_exp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    before = LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert LAUNCHES["flash_attention_bwd"] == before + 1
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for name, g, e in zip("qkv", got, exp):
+        assert g.dtype == dtype and g.shape == e.shape, name
+        err = float((g.float() - e.float()).abs().max())
+        assert err <= tol * float(e.float().abs().max()) + 1e-30, (name, err)
+    if causal and window and sq > sk + window - 1:
+        dead = sk + window - 1
+        assert bool((lse[:, :, dead:] == ref.NEG_INF).all())
+        assert bool((got[0][:, :, dead:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_autograd_launches_the_kernels():
+    """Under autograd a CUDA attention runs one forward launch (with the
+    LSE) and one backward launch, and gives the plain version's
+    gradients."""
+    _need_card()
+    q, k, v, do = _bwd_inputs(2, 8, 2, 100, 100, 64, torch.float32, 5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
+    out = flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert LAUNCHES["flash_attention"] == f0 + 1
+    assert LAUNCHES["flash_attention_bwd"] == b0 + 1
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    exp = torch.autograd.grad(ref.attention_ref(qc, kc, vc), (qc, kc, vc),
+                              do.cpu())
+    for g, e in zip(grads, exp):
+        assert float((g.cpu() - e).abs().max()) <= 1e-4 * float(
+            e.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"])
+def test_cuda_train_step_equals_cpu_port(arch):
+    """A smoke config's loss and gradients, and one train step, on the
+    card against the CPU port from the same parameters (f32 compute):
+    loss within rtol 1e-5, every gradient leaf within 1e-4 of its largest
+    (K5 and its backward hold 1e-4 to the plain version), K5 forward and
+    backward launched once a layer."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model
+    from repro_torch.train import optimizer, train_step
+    _need_card()
+    cfg, rt = configs.get_smoke(arch), Runtime()
+    host = model.init_params(cfg, rt, torch.Generator().manual_seed(0),
+                             "cpu")
+    card = optimizer.tree_map(lambda t: t.cuda(), host)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 40)))
+    f0, b0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
+    lg, _, gg = train_step.loss_and_grads(
+        card, cfg, rt, {"tokens": tok.cuda(), "labels": tok.cuda()})
+    assert LAUNCHES["flash_attention"] - f0 == cfg.n_layers
+    assert LAUNCHES["flash_attention_bwd"] - b0 == cfg.n_layers
+    lc, _, gc = train_step.loss_and_grads(
+        host, cfg, rt, {"tokens": tok, "labels": tok})
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for a, b in zip(optimizer.tree_leaves(gg), optimizer.tree_leaves(gc)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    step = train_step.make_train_step(cfg, rt)
+    out = {}
+    for name, p, t in (("cuda", card, tok.cuda()), ("cpu", host, tok)):
+        p, st, m = step(p, optimizer.adamw_init(p),
+                        {"tokens": t, "labels": t})
+        out[name] = (float(m["loss"]), float(m["grad_norm"]))
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
