@@ -191,11 +191,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 13. training, last (see ``phase_train``): (13.1) K5's backward at
    yi-9b's training layout (B 2, H 32, Hkv 4, S 4096, D 128, causal) in
    bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels) and at
-   gemma2-27b's (B 1, S 8192, window 4096, softcap 50) in bf16, held
-   against the plain version one KV head at a time (|err| <= 2e-2
-   max|exp| bf16, 1e-4 f32), the forward's LSE against the plain
-   version's, timed beside the bound (10 D flops a pair) and, at yi's
-   layout, ``scaled_dot_product_attention(enable_gqa=True)``'s backward;
+   gemma2-27b's (B 1, S 8192, window 4096, softcap 50) and olmoe-1b-7b's
+   (B 2, H = Hkv = 16, S 4096, D 128, causal) in bf16, held against the
+   plain version one KV head at a time (|err| <= 2e-2 max|exp| bf16,
+   1e-4 f32), the forward's output (rtol 1e-2 / atol 1e-3 bf16, 1e-4
+   f32) and LSE against the plain version's, timed beside the bound (10
+   D flops a pair) and, without softcap or window,
+   ``scaled_dot_product_attention(enable_gqa=True)``'s backward;
    (13.2) yi-9b at full width and 1 layer in f32, two train steps on the
    card and on the CPU port from the same host-drawn weights (loss,
    grad norm and every gradient leaf held), ``remat="full"`` bitwise
@@ -206,7 +208,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    launches, no plain-version call, finite losses; losses, step wall,
    tokens/s, peak memory, one more step profiled (K5 forward, K5
    backward, cuBLAS, the optimizer, the rest) beside its bound;
-14. one ``{"kernels": [...]}`` line: launches on the main path (for the
+14. the mixture-of-experts family, after phase 13 with the card's cache
+   emptied (see ``phase_moe`` and the constants above): (14.1) K5 with a
+   V head dimension below Q's at deepseek-v2's layout (H 128, S 2048, D
+   192, Dv 128, causal), forward with its LSE and backward in bf16 and
+   f32, held against the plain versions one KV head at a time and timed
+   beside their bounds and ``scaled_dot_product_attention``'s where a
+   fused backend takes Dv != D; (14.2) olmoe-1b-7b served uncut and
+   (14.3) deepseek-v2-236b served at 2 of its 60 layers, both drawn on
+   the card in f32 from the seed and served in bf16 through
+   ``launch.serve``'s engine at the launcher's defaults, counts 0 before
+   and read after (K5 exactly 544 and 4 times: deepseek's absorbed
+   decode launches none), tokens in the vocabulary, finite logits; K5
+   on the path's own prefill call and (olmoe) decode call held against
+   the plain version as in 12.2 and timed beside it;
+   prefill and decode ms, tokens/s, peak memory, one decode step
+   profiled and split into K5, the expert products, the router and the
+   rest beside its bound (the weights it touches, the chosen experts
+   only); (14.4) at full width and 1 layer, decode against prefill in
+   f32 and bf16, and the share of expert choices bf16 and f32 agree on;
+   (14.5) the MLA and MoE blocks' gradients at full width in f32, card
+   against the CPU port, and ``remat="full"`` bitwise ``"none"``;
+   (14.6) olmoe-1b-7b at 4 layers through ``TrainLoop``, phase 13.3's
+   batch and steps: exactly 48 K5 forward and 24 backward launches, no
+   plain-version call, finite losses, aux and grad norms, one more step
+   profiled beside its bound;
+15. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
    attention the serving path's, for its backward the training path's;
    each path's own counts in ``path_launches``),
@@ -215,7 +242,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-15. the last line: ``{"ok": true, "device": {...}}``.
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -367,7 +394,36 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_LAYOUTS = {
     "yi-9b": dict(b=2, **ATTN_LAYOUTS["yi-9b"]),
     "gemma2-27b": dict(b=1, **ATTN_LAYOUTS["gemma2-27b"]),
+    # olmoe-1b-7b's training layout (phase 14.6): MHA, 16 heads of 128.
+    "olmoe-1b-7b": dict(b=2, h=16, hkv=16, d=128, s=4096, causal=True,
+                        window=0, softcap=0.0),
 }
+# Phase 14, the mixture-of-experts family (src/repro/configs/olmoe_1b_7b.py
+# and deepseek_v2_236b.py, arXiv:2409.02060 and 2405.04434).  K5 at
+# deepseek-v2's prefill and training attention: 128 heads, q and k nope +
+# rope = 192 wide, v 128, causal, S 2048 (its bounds as phase 13's).
+# olmoe-1b-7b served uncut (16 layers, 6.92e9 parameters); deepseek-v2-236b
+# served with n_layers cut from 60 to 2, the one cut (a layer holds 3.97e9
+# parameters: 60 are 476 GB in bf16; 2 and the 1.05e9 of embedding and
+# head are 9.0e9, 36 GB to draw in f32 and 18 GB held in bf16).  Decode
+# against prefill at full width and 1 layer: f32 with an f32 cache at
+# rtol = atol = 2e-2 (the JAX package's test), bf16 with a bf16 cache at
+# 0.1 (phase 12's bf16 bound).  The two new blocks' gradients at full width
+# in f32, card against the CPU port: every leaf within 1e-4 of its largest
+# (K5 and its backward hold 1e-4 to the plain version; cuBLAS and the CPU
+# sum in other orders).  olmoe-1b-7b trained with n_layers cut from 16 to
+# 4, the one cut (AdamW's f32 masters and two moments of 16 layers are
+# 6.92e9 x 16 B = 111 GB; 4 layers 1.89e9 x 16 B = 30 GB): phase 13's
+# batch, steps, compute and remat.  deepseek-v2 does not train on the card
+# at full width (one layer's f32 parameters, gradients and moments are
+# about 5.0e9 x 16 B = 80 GB): its training is held on the CPU at smoke
+# size, here through 14.1 and 14.5.
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-236b")
+MOE_SERVE_LAYERS = {"olmoe-1b-7b": 16, "deepseek-v2-236b": 2}
+MLA_LAYOUT = dict(b=1, h=128, hkv=128, s=2048, d=192, dv=128, causal=True,
+                  window=0, softcap=0.0)
+MOE_GRAD_TOKENS, MLA_GRAD_SEQ = 512, 64
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "olmoe-1b-7b", 4
 
 
 def _time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2779,30 +2835,48 @@ def _serve_timed(eng, times, lgs):
     eng.prefill, eng.decode = timed_prefill, timed_decode
 
 
-def _step_bound(cfg, params, b, sq, n_keys):
+def _step_bound(cfg, params, b, sq, n_keys, chosen=None):
     """Least time in ms of one forward of ``b`` rows of ``sq`` new tokens
-    over ``n_keys`` cached keys a layer (the new ones included), and
-    what bounds it: every weight read once (the embedding table only at
-    its ``b * sq`` rows), the cache's live keys and values read and the
-    new ones written, the logits written in bf16; operations 2 per
-    weight and token for the products, 4 D per (query, key) pair and
-    head for attention, at the bf16 tensor-core rate."""
+    over ``n_keys`` cached keys a layer (the new ones included), what
+    bounds it, and the weight bytes it reads: every weight read once (the
+    embedding table only at its ``b * sq`` rows; given ``chosen``, each
+    layer's (T, k) expert choices, of the experts only the chosen ones),
+    the cache's live entries read and the new ones written (K and V, or
+    MLA's latent and rope key), the logits written in bf16; operations 2
+    per weight and token for the products (each token through its own
+    top-k experts), 2 (Dq + Dv) per (query, key) pair and head for
+    attention (MLA's absorbed decode against the latent: Dq = kv_lora +
+    rope, Dv = kv_lora), at the bf16 tensor-core rate."""
     weight_bytes = mm_params = 0
     for path, t in _leaves(params).items():
         if path == "/embed/tok":
             weight_bytes += b * sq * t.shape[1] * t.element_size()
+        elif chosen is not None and "/moe/w" in path:
+            weight_bytes += t[0, 0].numel() * t.element_size() * sum(
+                int(torch.unique(c).numel()) for c in chosen)
+            mm_params += t[0, 0].numel() * cfg.moe.top_k * t.shape[0]
         else:
             weight_bytes += t.numel() * t.element_size()
             if t.ndim >= 3 or path == "/lm_head/w":
                 mm_params += t.numel()
-    kv = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.d_head * 2
+    m = cfg.mla
+    if m is None:
+        per_key, dq, dv = 2 * cfg.n_kv_heads * cfg.d_head, cfg.d_head, \
+            cfg.d_head
+    elif sq == 1:
+        per_key, dq, dv = m.kv_lora + m.rope_dim, m.kv_lora + m.rope_dim, \
+            m.kv_lora
+    else:
+        per_key, dq, dv = m.kv_lora + m.rope_dim, m.nope_dim + m.rope_dim, \
+            m.v_dim
+    kv = cfg.n_layers * b * per_key * 2
     t_bytes = (weight_bytes + kv * n_keys + b * sq * cfg.vocab * 2) \
         / HBM_BYTES_PER_S
     pairs = sq * n_keys if sq == 1 else _attn_pairs(sq, sq, cfg.causal, 0)
-    t_ops = (2.0 * b * sq * mm_params + 4.0 * cfg.n_layers * b * cfg.n_heads
-             * cfg.d_head * pairs) / BF16_FLOP_PER_S
+    t_ops = (2.0 * b * sq * mm_params + 2.0 * cfg.n_layers * b * cfg.n_heads
+             * (dq + dv) * pairs) / BF16_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), weight_bytes
 
 
 def _to_card(tree):
@@ -2820,8 +2894,31 @@ def _leaves(tree, prefix=""):
     return out
 
 
+def _k5_recorder(calls, decode_at):
+    """A wrapper for the models' ``flash_attention`` that keeps copies of
+    the first causal (prefill) call and of the ``decode_at``-th
+    non-causal (decode) call in ``calls``: the path's own K5 inputs."""
+    n_decode = [0]
+
+    def wrap(fn):
+        def call(q, k, v, **kw):
+            if kw["causal"] and "prefill" not in calls:
+                calls["prefill"] = (q.contiguous().clone(),
+                                    k.contiguous().clone(),
+                                    v.contiguous().clone(), kw)
+            elif not kw["causal"]:
+                if n_decode[0] == decode_at:
+                    calls["decode"] = (q.contiguous().clone(),
+                                       k.contiguous().clone(),
+                                       v.contiguous().clone(), kw)
+                n_decode[0] += 1
+            return fn(q, k, v, **kw)
+        return call
+    return wrap
+
+
 def _k5_call_reading(ref, flash_attention, call, what):
-    """One recorded attention call of the served path: held against the
+    """One recorded attention call of a served path: held against the
     plain version at bf16's rounding, timed beside it, its bound and
     ``scaled_dot_product_attention(enable_gqa=True)`` on the same
     inputs."""
@@ -2841,15 +2938,13 @@ def _k5_call_reading(ref, flash_attention, call, what):
     lib = None if kw["window"] or kw["softcap"] else \
         _replay_ms(sdpa, [(q, k, v)], 20)[0]
     b, h, sq, d = q.shape
-    sk = k.shape[2]
-    pairs = b * _attn_pairs(sq, sk, kw["causal"], kw["window"])
-    t_ops = 4.0 * h * d * pairs / BF16_FLOP_PER_S
-    t_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) \
-        / HBM_BYTES_PER_S
-    return dict(shape=dict(b=b, h=h, hkv=k.shape[1], sq=sq, sk=sk, d=d),
+    lay = dict(b=b, h=h, hkv=k.shape[1], sq=sq, sk=k.shape[2], d=d,
+               dv=v.shape[3], causal=kw["causal"], window=kw["window"])
+    bound, by = _fwd_bound(lay, q.dtype)
+    return dict(shape={n: lay[n] for n in ("b", "h", "hkv", "sq", "sk", "d",
+                                           "dv")},
                 dtype=str(q.dtype).replace("torch.", ""), ms=ms, wall_ms=wall,
-                plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib, max_abs_err=err, rel_frobenius_err=rel)
 
 
@@ -2881,26 +2976,9 @@ def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
     init_peak = torch.cuda.max_memory_allocated()
     held = sum(t.numel() * t.element_size()
                for t in _leaves(eng.params).values())
-    calls, n_decode = {}, [0]
-    layers_x_steps = cfg.n_layers * args.max_new
-
-    def rec(fn):
-        """Keep copies of the first prefill call and of layer 0's call at
-        the first batch's last decode step: the path's own K5 inputs."""
-        def call(q, k, v, **kw):
-            if kw["causal"] and "prefill" not in calls:
-                calls["prefill"] = (q.contiguous().clone(),
-                                    k.contiguous().clone(),
-                                    v.contiguous().clone(), kw)
-            elif not kw["causal"]:
-                if n_decode[0] == layers_x_steps - cfg.n_layers:
-                    calls["decode"] = (q.contiguous().clone(),
-                                       k.contiguous().clone(),
-                                       v.contiguous().clone(), kw)
-                n_decode[0] += 1
-            return fn(q, k, v, **kw)
-        return call
-
+    calls = {}
+    # Layer 0's call at the first batch's last decode step.
+    rec = _k5_recorder(calls, cfg.n_layers * (args.max_new - 1))
     times = {"prefill": [], "decode": []}
     lgs = []
     _serve_timed(eng, times, lgs)
@@ -2940,9 +3018,10 @@ def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
             split["matmul"] += ms
         else:
             split["rest"] += ms
-    bound, by = _step_bound(cfg, eng.params, args.batch, 1, n_keys)
+    bound, by, _ = _step_bound(cfg, eng.params, args.batch, 1, n_keys)
     width = calls["prefill"][0].shape[2]
-    p_bound, p_by = _step_bound(cfg, eng.params, args.batch, width, width)
+    p_bound, p_by, _ = _step_bound(cfg, eng.params, args.batch, width,
+                                   width)
     # The transposed copy of the live prefix a decode attention makes (K
     # and V of one layer), as the engine's cache holds them now.
     kc, vc = eng.cache["0"]["k"][0], eng.cache["0"]["v"][0]
@@ -3097,17 +3176,41 @@ def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
                 wall_s=wall12)
 
 
+def _fwd_bound(lay, dtype, lse=False):
+    """(least ms, what bounds it) of K5's forward at layout ``lay`` (``sq``
+    and ``sk`` are ``s`` by default, V ``dv`` wide, D by default): 2
+    products per unmasked (q, k) pair and head, S = q k^T and P v, 2 (D +
+    Dv) flops, at the dtype's rate; q, k, v read once, the output (and
+    with ``lse`` its f32 LSE) written once."""
+    b, h, hkv, d = lay["b"], lay["h"], lay["hkv"], lay["d"]
+    sq, sk = lay.get("sq", lay.get("s")), lay.get("sk", lay.get("s"))
+    dv = lay.get("dv", d)
+    pairs = b * h * _attn_pairs(sq, sk, lay["causal"], lay["window"])
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (b * h * sq * (d + dv) + b * hkv * sk * (d + dv)) \
+        + (4 * b * h * sq if lse else 0)
+    t_ops = 2.0 * (d + dv) * pairs / rate
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def _bwd_bound(lay, dtype):
-    """(least ms, what bounds it) of K5's backward at layout ``lay``:
-    5 products of 2 D flops per unmasked (q, k) pair and head at the
-    dtype's rate; q, k, v, o, dO and the LSE read once, dQ, dK, dV
-    written once."""
+    """(least ms, what bounds it) of K5's backward at layout ``lay`` (V
+    ``dv`` wide, D by default): 5 products per unmasked (q, k) pair and
+    head, S = q k^T, dP = dO v^T, dV, dQ and dK, 2 (3 D + 2 Dv) flops (10
+    D at Dv = D), at the dtype's rate; q, k, v, o, dO and the LSE read
+    once, dQ, dK, dV written once."""
     b, h, hkv, s, d = lay["b"], lay["h"], lay["hkv"], lay["s"], lay["d"]
+    dv = lay.get("dv", d)
     pairs = b * h * _attn_pairs(s, s, lay["causal"], lay["window"])
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
     item = torch.finfo(dtype).bits // 8
-    nbytes = item * 4 * (b * h * s * d + b * hkv * s * d) + 4 * b * h * s
-    t_ops, t_bytes = 10.0 * d * pairs / rate, nbytes / HBM_BYTES_PER_S
+    nbytes = item * 2 * (b * h * s * (d + dv) + b * hkv * s * (d + dv)) \
+        + 4 * b * h * s
+    t_ops = 2.0 * (3 * d + 2 * dv) * pairs / rate
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -3125,19 +3228,26 @@ def _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw):
     return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
 
 
-def _lse_plain_sliced(ref, q, k, v, kw):
+def _fwd_plain_sliced(ref, q, k, v, kw):
+    """The plain forward and its LSE one KV head (and its query heads) at
+    a time."""
     group = q.shape[1] // k.shape[1]
-    return torch.cat([ref.attention_ref(
-        q[:, g * group:(g + 1) * group], k[:, g:g + 1], v[:, g:g + 1],
-        return_lse=True, **kw)[1] for g in range(k.shape[1])], dim=1)
+    parts = [ref.attention_ref(q[:, g * group:(g + 1) * group],
+                               k[:, g:g + 1], v[:, g:g + 1],
+                               return_lse=True, **kw)
+             for g in range(k.shape[1])]
+    return (torch.cat([p[0] for p in parts], dim=1),
+            torch.cat([p[1] for p in parts], dim=1))
 
 
 def phase_bwd(ref, fa_mod):
     """13.1 K5's backward at full-width layouts against its plain version
-    (see the constants above), its forward's LSE against the plain
-    version's, each timed beside its bound and, for yi-9b's layout,
+    (see the constants above), its forward and LSE against the plain
+    version's (the output at rtol 1e-2 / atol 1e-3 in bf16 and 1e-4 in
+    f32, the LSE within 1e-4), each backward timed beside its bound and,
+    where there is no softcap and no window,
     ``scaled_dot_product_attention(enable_gqa=True)``'s backward under
-    autograd (gemma2's softcap has no library call)."""
+    autograd."""
     g = torch.Generator(device="cuda").manual_seed(13)
     per, errs = {}, []
     for name, lay in BWD_LAYOUTS.items():
@@ -3153,13 +3263,17 @@ def phase_bwd(ref, fa_mod):
             out, lse = fa_mod._launch(q, k, v, kw["causal"], kw["window"],
                                       kw["softcap"], kw["scale"],
                                       with_lse=True)
-            lse_exp = _lse_plain_sliced(ref, q, k, v, kw)
+            exp, lse_exp = _fwd_plain_sliced(ref, q, k, v, kw)
+            rtol, atol = (1e-2, 1e-3) if dt == torch.bfloat16 \
+                else (1e-4, 1e-4)
+            f_err, _ = _attn_close(out, exp, rtol, atol,
+                                   f"K5 forward {name} {dt}")
             lse_err = float((lse - lse_exp).abs().max())
             if not bool(((lse - lse_exp).abs()
                          <= 1e-4 + 1e-5 * lse_exp.abs()).all()):
                 raise AssertionError(f"K5 LSE {name} {dt}: max abs err "
                                      f"{lse_err}")
-            del lse_exp
+            del exp, lse_exp
             got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             exp = _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw)
             err = {}
@@ -3191,7 +3305,8 @@ def phase_bwd(ref, fa_mod):
             per[key] = dict(shape=dict(b=b, h=h, hkv=hkv, s=s, d=d),
                             ms=ms, wall_ms=wall, plain_ms=plain_ms,
                             bound_ms=bound, bound_by=by, library_ms=lib,
-                            max_abs_err=err, lse_max_abs_err=lse_err)
+                            max_abs_err=err, fwd_max_abs_err=f_err,
+                            lse_max_abs_err=lse_err)
             print(f"# phase 13.1 K5 backward {key}: " + json.dumps(per[key]),
                   flush=True)
             del q, k, v, do, out, lse
@@ -3200,10 +3315,14 @@ def phase_bwd(ref, fa_mod):
 
 
 def _grad_gap(got, exp):
-    """Per leaf max |got - exp| / max |exp|, and the largest."""
+    """Per leaf max |got - exp| / max |exp|, and the largest, of two
+    gradient trees or lists."""
     from repro_torch.train.optimizer import tree_leaves
+
+    def flat(t):
+        return list(t) if isinstance(t, (list, tuple)) else tree_leaves(t)
     gaps = [float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(
-        1e-30)) for a, b in zip(tree_leaves(got), tree_leaves(exp))]
+        1e-30)) for a, b in zip(flat(got), flat(exp))]
     return gaps, max(gaps)
 
 
@@ -3303,6 +3422,85 @@ def _step_split(top):
     return split
 
 
+def _loop_run(cfg, ref, LAUNCHES, reset_launches):
+    """``cfg`` through ``TrainLoop`` at phase 13.3's batch, steps and
+    optimizer on ``lm`` data, counts 0 before and read after: exactly 2
+    K5 forward launches a layer a step (each layer's forward and its
+    recompute under full remat) and 1 backward, no call of either plain
+    version, a finite history (the aux too, with experts).  Returns the
+    loop, its result, the run's seconds, the launches, the peak bytes and
+    the plain versions' calls."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    tc = tts.TrainConfig(opt=topt.AdamWConfig(warmup_steps=1,
+                                              total_steps=TRAIN_STEPS))
+    loop = tloop.TrainLoop(
+        cfg, Runtime(), DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0), tc,
+        tloop.LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+        device="cuda")
+    plain_calls = {"attention_ref": 0, "flash_attention_bwd_ref": 0}
+
+    def counted(name):
+        def wrap(fn):
+            def call(*a, **kw):
+                plain_calls[name] += 1
+                return fn(*a, **kw)
+            return call
+        return wrap
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _patched(ref, "attention_ref", counted("attention_ref")), \
+            _patched(ref, "flash_attention_bwd_ref",
+                     counted("flash_attention_bwd_ref")):
+        res = loop.run(seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    what = f"{cfg.name} train"
+    _need_launches(launches, ("flash_attention",), what,
+                   exactly=cfg.n_layers * 2 * TRAIN_STEPS)
+    _need_launches(launches, ("flash_attention_bwd",), what,
+                   exactly=cfg.n_layers * TRAIN_STEPS)
+    if any(plain_calls.values()):
+        raise AssertionError(f"{what} called a plain version: "
+                             f"{plain_calls}")
+    hist = res["history"]
+    keys = ("loss", "grad_norm") + (("aux",) if cfg.moe else ())
+    if len(hist) != TRAIN_STEPS or not all(
+            math.isfinite(h[k]) for h in hist for k in keys):
+        raise AssertionError(f"{what}: history {hist}")
+    return loop, res, run_s, launches, peak, plain_calls
+
+
+def _profiled_step(loop, state, cfg):
+    """One more step of ``loop`` on its next batch, profiled: the
+    gradient pass (with the wire cast), then the optimizer.  Returns the
+    gradient pass (to trace again), its (device ms, events, top) and the
+    optimizer's."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    rt = loop.rt
+    batch = loop.data.batch(TRAIN_STEPS)
+    grads = {}
+
+    def grad_pass():
+        grads.clear()   # a retaken reading replaces the last one's
+        grads["g"] = topt.tree_map(rt.astype, tts.loss_and_grads(
+            state["params"], cfg, rt, batch)[2])
+    g = _profile(grad_pass, top_n=10 ** 6)
+    o = _profile(lambda: topt.adamw_update(
+        loop.tc.opt, state["params"], grads["g"], state["opt"]),
+        top_n=10 ** 6)
+    return grad_pass, g, o
+
+
 def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
     """13. Training on the card.  (13.1) K5's backward against its plain
     version; (13.2) the card against the CPU port at 1 layer; (13.3)
@@ -3327,7 +3525,6 @@ def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
     from repro_torch.data.pipeline import DataConfig, SyntheticDataset
     from repro_torch.dist.sharding import Runtime
     from repro_torch.models import model as model_mod
-    from repro_torch.train import loop as tloop
     from repro_torch.train import optimizer as topt
     from repro_torch.train import train_step as tts
 
@@ -3341,64 +3538,16 @@ def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
 
     # 13.3 the full-width run.
     t13_3 = time.perf_counter()
-    rt = Runtime()
     cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
                               n_layers=TRAIN_LAYERS)
-    tc = tts.TrainConfig(opt=topt.AdamWConfig(warmup_steps=1,
-                                              total_steps=TRAIN_STEPS))
-    loop = tloop.TrainLoop(
-        cfg, rt, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0), tc,
-        tloop.LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
-        device="cuda")
-    plain_calls = {"attention_ref": 0, "flash_attention_bwd_ref": 0}
-
-    def counted(name):
-        def wrap(fn):
-            def call(*a, **kw):
-                plain_calls[name] += 1
-                return fn(*a, **kw)
-            return call
-        return wrap
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    with _patched(ref, "attention_ref", counted("attention_ref")), \
-            _patched(ref, "flash_attention_bwd_ref",
-                     counted("flash_attention_bwd_ref")):
-        res = loop.run(seed=0)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    want = TRAIN_LAYERS * 2 * TRAIN_STEPS
-    _need_launches(launches, ("flash_attention",), "yi-9b train",
-                   exactly=want)
-    _need_launches(launches, ("flash_attention_bwd",), "yi-9b train",
-                   exactly=TRAIN_LAYERS * TRAIN_STEPS)
-    if any(plain_calls.values()):
-        raise AssertionError(f"yi-9b train called a plain version: "
-                             f"{plain_calls}")
+    loop, res, run_s, launches, peak, plain_calls = _loop_run(
+        cfg, ref, LAUNCHES, reset_launches)
     hist = res["history"]
-    if len(hist) != TRAIN_STEPS or not all(
-            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
-            for h in hist):
-        raise AssertionError(f"yi-9b train: history {hist}")
     walls = [h["wall_s"] for h in hist]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-
-    # One more step, profiled: the gradient pass (with the wire cast),
-    # then the optimizer.
     state = res["state"]
-    batch = loop.data.batch(TRAIN_STEPS)
-    grads = {}
-
-    def grad_pass():
-        grads.clear()   # a retaken reading replaces the last one's
-        grads["g"] = topt.tree_map(rt.astype, tts.loss_and_grads(
-            state["params"], cfg, rt, batch)[2])
-    g_ms, g_events, g_top = _profile(grad_pass, top_n=10 ** 6)
-    o_ms, o_events, o_top = _profile(lambda: topt.adamw_update(
-        tc.opt, state["params"], grads["g"], state["opt"]), top_n=10 ** 6)
+    _, (g_ms, g_events, g_top), (o_ms, o_events, o_top) = _profiled_step(
+        loop, state, cfg)
     split = _step_split(g_top)
     split["optimizer"] = o_ms
     # The step's bound: the matmuls' 8 N T (forward, recompute, backward
@@ -3435,7 +3584,7 @@ def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
         bound_parts_ms=dict(matmuls=t_mm * 1e3, attention=t_attn * 1e3,
                             optimizer_bytes=t_opt * 1e3))
     print("# phase 13.3: " + json.dumps(info), flush=True)
-    del loop, res, state, batch, grads
+    del loop, res, state
     gc.collect()
     torch.cuda.empty_cache()
     wall13 = time.perf_counter() - t_phase
@@ -3454,6 +3603,539 @@ def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
                 per_layout=per,
                 path_launches={f"{TRAIN_ARCH} train": launches[
                     "flash_attention_bwd"]}), launches["flash_attention"]
+
+
+def _sdpa_dv(q, k, v, do, scale):
+    """``scaled_dot_product_attention``'s forward and backward ms on K5's
+    inputs, through the first fused backend that takes a V head dimension
+    below Q's (the math backend is the plain composition, no library
+    kernel): ``(backend, forward ms, backward ms)``, or ``(None, reason,
+    None)``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def fwd(*x):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *x, is_causal=True, scale=scale)
+    reasons = {}
+    for backend in [getattr(SDPBackend, n) for n in (
+            "FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+            if hasattr(SDPBackend, n)]:
+        try:
+            with sdpa_kernel([backend]):
+                fwd(q, k, v)
+                xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                o = fwd(*xs)
+                torch.autograd.grad(o, xs, do, retain_graph=True)
+                f_ms, _ = _replay_ms(fwd, [(q, k, v)], 3)
+                b_ms, _ = _replay_ms(lambda: torch.autograd.grad(
+                    o, xs, do, retain_graph=True), [()], 2)
+            return backend.name, f_ms, b_ms
+        except RuntimeError as err:
+            reasons[backend.name] = str(err).splitlines()[0][:120]
+    return None, reasons, None
+
+
+def phase_mla_k5(ref, fa_mod):
+    """14.1 K5 at deepseek-v2's prefill and training layout (MLA_LAYOUT:
+    q and k 192 wide, v 128) in bf16 and f32: the forward with its LSE and
+    the backward held against the plain versions one KV head at a time
+    (the forward at rtol 1e-2 / atol 1e-3 in bf16 and 1e-4 in f32, the
+    LSE within 1e-4, each gradient within 2e-2 or 1e-4 of its largest),
+    each timed beside its bound (forward 2 (D + Dv) flops a pair,
+    backward 2 (3 D + 2 Dv)) and ``scaled_dot_product_attention``'s."""
+    lay = MLA_LAYOUT
+    b, h, hkv, s, d, dv = (lay[k] for k in ("b", "h", "hkv", "s", "d", "dv"))
+    g = torch.Generator(device="cuda").manual_seed(14)
+    base = [torch.randn(sh, generator=g, device="cuda") for sh in
+            ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, dv), (b, h, s, dv))]
+    kw = dict(causal=lay["causal"], window=0, softcap=0.0, scale=d ** -0.5)
+    fwd, bwd, errs = {}, {}, {"fwd": [], "bwd": []}
+    for dt in (torch.bfloat16, torch.float32):
+        name = f"deepseek-v2-236b MLA {str(dt).replace('torch.', '')}"
+        q, k, v, do = (t.to(dt) for t in base)
+        out, lse = fa_mod._launch(q, k, v, True, 0, 0.0, kw["scale"],
+                                  with_lse=True)
+        if out.shape != (b, h, s, dv):
+            raise AssertionError(f"K5 at Dv {dv}: output {out.shape}")
+        exp, lse_exp = _fwd_plain_sliced(ref, q, k, v, kw)
+        rtol, atol = (1e-2, 1e-3) if dt == torch.bfloat16 else (1e-4, 1e-4)
+        f_err, f_rel = _attn_close(out, exp, rtol, atol, f"K5 {name}")
+        lse_err = float((lse - lse_exp).abs().max())
+        if not bool(((lse - lse_exp).abs()
+                     <= 1e-4 + 1e-5 * lse_exp.abs()).all()):
+            raise AssertionError(f"K5 LSE {name}: max abs err {lse_err}")
+        del exp, lse_exp
+        got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        exp = _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw)
+        b_err = {}
+        for gname, a, e in zip(("dq", "dk", "dv"), got, exp):
+            e_max = float(e.float().abs().max())
+            b_err[gname] = float((a.float() - e.float()).abs().max())
+            if a.shape != e.shape or b_err[gname] > BWD_TOL[dt] * e_max:
+                raise AssertionError(
+                    f"K5 backward {name} {gname}: max abs err "
+                    f"{b_err[gname]} above {BWD_TOL[dt]} x {e_max}")
+        errs["fwd"].append(f_err)
+        errs["bwd"] += list(b_err.values())
+        del got, exp
+        f_ms, f_wall = _replay_ms(lambda *x: fa_mod._launch(
+            *x, True, 0, 0.0, kw["scale"], with_lse=True), [(q, k, v)], 3)
+        f_plain, _ = _replay_ms(lambda *x: _fwd_plain_sliced(ref, *x, kw),
+                                [(q, k, v)], 1)
+        b_ms, b_wall = _replay_ms(lambda *x: fa_mod.flash_attention_bwd(
+            *x, **kw), [(q, k, v, out, lse, do)], 2)
+        b_plain, _ = _replay_ms(lambda *x: _bwd_plain_sliced(ref, *x, kw),
+                                [(q, k, v, out, lse, do)], 1)
+        backend, lib_f, lib_b = _sdpa_dv(q, k, v, do, kw["scale"])
+        f_bound, f_by = _fwd_bound(lay, dt, lse=True)
+        b_bound, b_by = _bwd_bound(lay, dt)
+        shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, dv=dv, causal=True)
+        fwd[name] = dict(
+            shape=shape, ms=f_ms, wall_ms=f_wall, plain_ms=f_plain,
+            bound_ms=f_bound, bound_by=f_by, library_ms=lib_f if backend else None,
+            library=backend or f"none: {lib_f}", with_lse=True,
+            max_abs_err=f_err, rel_frobenius_err=f_rel,
+            lse_max_abs_err=lse_err)
+        bwd[name] = dict(
+            shape=shape, ms=b_ms, wall_ms=b_wall, plain_ms=b_plain,
+            bound_ms=b_bound, bound_by=b_by,
+            library_ms=lib_b if backend else None,
+            library=backend or f"none: {lib_f}", max_abs_err=b_err,
+            kernels="tensor cores" if dt == torch.bfloat16 and d <= 128
+            else "CUDA cores")
+        print(f"# phase 14.1 K5 forward {name}: " + json.dumps(fwd[name]),
+              flush=True)
+        print(f"# phase 14.1 K5 backward {name}: " + json.dumps(bwd[name]),
+              flush=True)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return fwd, bwd, max(errs["fwd"]), max(errs["bwd"])
+
+
+def _route_recorder(moe_mod, chosen):
+    """Wrap ``moe.route``: every call's chosen experts (T, k) appended to
+    ``chosen``."""
+    def wrap(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            chosen.append(out[1].detach())
+            return out
+        return call
+    return _patched(moe_mod, "route", wrap)
+
+
+def _moe_split(fn, moe_mod):
+    """One ``fn()`` under ``torch.profiler`` with the router and the
+    expert products in ``record_function`` ranges: device ms of K5 (its
+    kernels' names), of each range (its kernels and its children's), and
+    of the rest of the device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    names = {"route": "moe router", "_expert_ffn_sorted": "moe experts"}
+
+    def ranged(name):
+        def wrap(f):
+            def call(*a, **kw):
+                with record_function(name):
+                    return f(*a, **kw)
+            return call
+        return wrap
+    with contextlib.ExitStack() as stack:
+        for attr, name in names.items():
+            stack.enter_context(_patched(moe_mod, attr, ranged(name)))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in names.values()]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    split = {"k5": sum(dev_us(e) for e in kernels
+                       if "flash" in e.name) / 1e3}
+    for name in names.values():
+        split[name.replace("moe ", "")] = sum(
+            e.device_time_total for e in events
+            if e.device_type == DeviceType.CPU and e.name == name) / 1e3
+    split["rest"] = total - sum(split.values())
+    return total, split
+
+
+def _moe_serve(arch, ref, flash_attention, LAUNCHES, reset_launches):
+    """14.2 / 14.3: ``arch`` at full width (n_layers MOE_SERVE_LAYERS)
+    through ``launch.serve``'s engine at the launcher's defaults; then K5
+    on the path's own prefill call and (olmoe; deepseek's absorbed decode
+    launches none) layer 0's call at the first batch's last decode step,
+    as phase 12.2 reads yi-9b's."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    args = launch.parse_args(["--arch", arch])   # the CLI's defaults
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=MOE_SERVE_LAYERS[arch])
+    rt = Runtime()
+    sc = ServeConfig(batch=args.batch, max_len=args.max_len)
+    n_batches = -(-args.n_requests // args.batch)
+    per_step = 0 if cfg.mla is not None else cfg.n_layers
+    want = n_batches * (cfg.n_layers + args.max_new * per_step)
+    reckoned = cfg.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = model_mod.init_params(cfg, rt, gen, "cuda")
+    n_params = sum(t.numel() for t in _leaves(params).values())
+    eng = ServingEngine(cfg, rt, params, sc, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    held = sum(t.numel() * t.element_size()
+               for t in _leaves(eng.params).values())
+    times = {"prefill": [], "decode": []}
+    lgs = []
+    _serve_timed(eng, times, lgs)
+    calls = {}
+    rec = _k5_recorder(calls, per_step * (args.max_new - 1))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _patched(attn_mod, "flash_attention", rec), \
+            _patched(mla_mod, "flash_attention", rec):
+        outs = launch.serve_requests(eng, cfg.vocab, args.n_requests,
+                                     args.max_new, args.seed,
+                                     log=lambda line: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated()
+    _need_launches(launches, ("flash_attention",), f"{arch} serve",
+                   exactly=want)
+    if len(outs) != args.n_requests or any(
+            len(o) != args.max_new + 1 or not all(0 <= t < cfg.vocab
+                                                   for t in o)
+            for o in outs):
+        raise AssertionError(f"{arch} serve: unexpected outputs {outs}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in lgs):
+        raise AssertionError(f"{arch} serve: logits not finite")
+    tokens = args.n_requests * (args.max_new + 1)
+    decode_s = times["decode"]
+    last = torch.from_numpy(eng.last.astype(np.int64)).cuda()[:, None]
+    n_keys = int(eng.cache["0"]["pos"][0]) + 1
+    chosen = []
+
+    def step():
+        chosen.clear()   # a retaken reading replaces the last one's
+        eng.decode(eng.params, eng.cache, last)
+    with _route_recorder(moe_mod, chosen):
+        device_ms, n_events, top = _profile(step, top_n=10 ** 6)
+        bound, by, touched = _step_bound(cfg, eng.params, args.batch, 1,
+                                         n_keys, chosen=chosen)
+    experts_used = [int(torch.unique(c).numel()) for c in chosen]
+    split_ms, split = _moe_split(step, moe_mod)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(eng.cache).values() if t.is_cuda)
+    info = dict(
+        arch=arch, n_layers=cfg.n_layers,
+        cut=None if cfg.n_layers == configs.get_config(arch).n_layers
+        else f"n_layers {configs.get_config(arch).n_layers} -> "
+             f"{cfg.n_layers}",
+        batch=args.batch, max_len=args.max_len,
+        n_requests=args.n_requests, max_new=args.max_new, seed=args.seed,
+        params_reckoned=reckoned, params_drawn=n_params,
+        active_params=cfg.active_param_count(), init_s=init_s,
+        init_peak_gb=init_peak / 1e9,
+        init_peak_reckoned_gb=6 * reckoned / 1e9,
+        held_weights_gb=held / 1e9, serve_peak_gb=serve_peak / 1e9,
+        wall_s=wall, tokens_per_s=tokens / wall,
+        prefill_ms=[t * 1e3 for t in times["prefill"]],
+        decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
+        decode_ms_min=1e3 * min(decode_s), decode_ms_max=1e3 * max(decode_s),
+        decode_steps=len(decode_s), launches=launches,
+        k5_launches_per_decode_step=per_step,
+        profiled_decode_step=dict(
+            keys=n_keys, device_ms=device_ms, device_events=n_events,
+            split_ms=split, split_total_ms=split_ms,
+            experts_used_per_layer=experts_used, top=top[:10]),
+        decode_bound_ms=bound, decode_bound_by=by,
+        touched_weight_gb=touched / 1e9,
+        all_weights_bound_ms=held / HBM_BYTES_PER_S * 1e3,
+        cache_gb=cache_bytes / 1e9)
+    if cfg.mla is not None:
+        m = cfg.mla
+        info["dense_kv_cache_gb"] = (cfg.n_layers * args.batch * args.max_len
+                                     * cfg.n_heads
+                                     * (m.nope_dim + m.rope_dim + m.v_dim)
+                                     * 2 / 1e9)
+    sub = f"14.{2 if cfg.mla is None else 3}"
+    print(f"# phase {sub}: " + json.dumps(info), flush=True)
+    del eng, lgs, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = {f"{arch} serve {what}": _k5_call_reading(ref, flash_attention,
+                                                    calls[what], what)
+           for what in (("prefill",) if cfg.mla is not None
+                        else ("prefill", "decode"))}
+    del calls
+    print(f"# phase {sub} K5 on the path's own calls: " + json.dumps(per),
+          flush=True)
+    return launches["flash_attention"], per
+
+
+def _decode_vs_prefill(arch, moe_mod):
+    """14.4 ``arch`` at full width and 1 layer on the card: an 11-token
+    prefill and one decode step give a 12-token forward's last logits, in
+    f32 with an f32 cache and in bf16 with a bf16 cache; the share of
+    (token, k) expert choices of the 12-token forward that agree between
+    the two, printed, not gated."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model as model_mod
+
+    rt = Runtime()
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=1)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = model_mod.init_params(cfg, rt, torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    b, s = 2, 12
+    tk = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, s))).cuda()
+    errs, choices = {}, {}
+    for c, dt, tol in ((c32, torch.float32, 2e-2),
+                       (cfg, torch.bfloat16, SERVE_BF16_TOL)):
+        p = params if dt == torch.float32 else model_mod.cast_params(params,
+                                                                     c)
+        chosen = []
+        with torch.no_grad():
+            with _route_recorder(moe_mod, chosen):
+                full, _ = model_mod.forward(p, c, rt, {"tokens": tk})
+            choices[str(dt)] = chosen[0]
+            cache = model_mod.init_cache(c, rt, b, 32, dt, device="cuda")
+            _, cache, _ = model_mod.forward(p, c, rt, {"tokens": tk[:, :-1]},
+                                            cache=cache)
+            step, _, _ = model_mod.forward(p, c, rt, {"tokens": tk[:, -1:]},
+                                           cache=cache)
+        full, step = full[:, -1].float(), step[:, 0].float()
+        errs[str(dt)] = float((step - full).abs().max())
+        if not bool(((step - full).abs() <= tol * full.abs() + tol).all()):
+            raise AssertionError(f"{arch} {dt}: decode does not match "
+                                 f"prefill (max abs err {errs[str(dt)]})")
+        del p, full, step, cache
+    a, f = choices["torch.bfloat16"], choices["torch.float32"]
+    agree = sum(len(set(x.tolist()) & set(y.tolist()))
+                for x, y in zip(a, f)) / a.numel()
+    del params
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=errs, expert_choices_agree_bf16_f32=agree,
+                tokens=int(a.shape[0]), top_k=int(a.shape[1]))
+
+
+def _block_grads(LAUNCHES, reset_launches):
+    """14.5 The two new blocks at full width in f32, card against the CPU
+    port from host-drawn weights: deepseek-v2's MLA attention block (B 1,
+    S MLA_GRAD_SEQ) and olmoe-1b-7b's MoE block with its aux
+    (MOE_GRAD_TOKENS tokens); the gradients of ``sum(out w)`` (+ 3 aux)
+    with respect to every weight and the input, each leaf within 1e-4 of
+    its largest; the chosen experts equal first.  Then ``remat="full"``
+    against ``"none"`` bitwise on the card, olmoe at 1 layer."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import common, mla, moe
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    rt = Runtime()
+    rng = np.random.default_rng(5)
+    out = {}
+
+    def grads(fn, params, x, w, dev):
+        p = topt.tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        xd = torch.from_numpy(x).to(dev).requires_grad_()
+        y, extra = fn(p, xd)
+        scalar = torch.sum(y * torch.from_numpy(w).to(dev)) + 3.0 * extra
+        return torch.autograd.grad(scalar, topt.tree_leaves(p) + [xd])
+
+    # MLA.
+    cfg = dataclasses.replace(configs.get_config("deepseek-v2-236b"),
+                              dtype="float32")
+    host = mla.mla_init(cfg, torch.Generator().manual_seed(0),
+                        device="cpu")
+    x = rng.standard_normal((1, MLA_GRAD_SEQ, cfg.d_model)).astype(
+        np.float32)
+    w = rng.standard_normal((1, MLA_GRAD_SEQ, cfg.d_model)).astype(
+        np.float32)
+
+    def mla_fn(p, xd):
+        pos = torch.arange(MLA_GRAD_SEQ, device=xd.device)[None]
+        rope = common.rope_tables(pos, cfg.mla.rope_dim, cfg.rope_theta)
+        return mla.mla_apply(p, cfg, rt, xd, rope)[0], 0.0
+    reset_launches()
+    g_card = grads(mla_fn, host, x, w, "cuda")
+    launched = dict(LAUNCHES)
+    g_cpu = grads(mla_fn, host, x, w, "cpu")
+    if launched["flash_attention"] != 1 or \
+            launched["flash_attention_bwd"] != 1:
+        raise AssertionError(f"14.5 MLA block launched K5 {launched}")
+    gaps, worst = _grad_gap(g_card, g_cpu)
+    if worst > 1e-4:
+        raise AssertionError(f"14.5 MLA block: gradient leaf gaps {gaps}")
+    out["mla"] = dict(seq=MLA_GRAD_SEQ, leaves=len(gaps),
+                      worst_gradient_leaf_gap=worst)
+    del host, g_card, g_cpu
+
+    # MoE.
+    cfg = dataclasses.replace(configs.get_config("olmoe-1b-7b"),
+                              dtype="float32")
+    host = moe.moe_init(cfg, torch.Generator().manual_seed(1), device="cpu")
+    x = rng.standard_normal((1, MOE_GRAD_TOKENS, cfg.d_model)).astype(
+        np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    xh = torch.from_numpy(x).reshape(-1, cfg.d_model)
+    ti_card = moe.route(xh.cuda(), host["router"].cuda(), cfg)[1].cpu()
+    ti_cpu = moe.route(xh, host["router"], cfg)[1]
+    if not torch.equal(ti_card, ti_cpu):
+        raise AssertionError("14.5 MoE block: the chosen experts differ "
+                             "between the card and the CPU port")
+
+    def moe_fn(p, xd):
+        return moe.moe_apply(p, cfg, rt, xd)
+    g_card = grads(moe_fn, host, x, w, "cuda")
+    t0 = time.perf_counter()
+    g_cpu = grads(moe_fn, host, x, w, "cpu")
+    cpu_s = time.perf_counter() - t0
+    gaps, worst = _grad_gap(g_card, g_cpu)
+    if worst > 1e-4:
+        raise AssertionError(f"14.5 MoE block: gradient leaf gaps {gaps}")
+    out["moe"] = dict(tokens=MOE_GRAD_TOKENS, leaves=len(gaps),
+                      worst_gradient_leaf_gap=worst,
+                      experts_used=int(torch.unique(ti_cpu).numel()),
+                      cpu_port_s=cpu_s)
+    del host, g_card, g_cpu
+
+    # remat full against none, olmoe at full width and 1 layer.
+    c1 = dataclasses.replace(cfg, n_layers=1, remat="none")
+    params = model_mod.init_params(c1, rt, torch.Generator(
+        device="cuda").manual_seed(2), "cuda")
+    tok = torch.from_numpy(rng.integers(0, c1.vocab, (1, 128))).cuda()
+    runs = {r: tts.loss_and_grads(params, dataclasses.replace(c1, remat=r),
+                                  rt, {"tokens": tok, "labels": tok})
+            for r in ("none", "full")}
+    if not torch.equal(runs["none"][0], runs["full"][0]) or not torch.equal(
+            runs["none"][1]["aux"], runs["full"][1]["aux"]) or not all(
+            torch.equal(a, b) for a, b in zip(
+                topt.tree_leaves(runs["none"][2]),
+                topt.tree_leaves(runs["full"][2]))):
+        raise AssertionError("14.5: remat='full' differs from remat='none' "
+                             "on the card (olmoe, 1 layer)")
+    out["remat_full_equals_none"] = True
+    out["remat_aux"] = float(runs["full"][1]["aux"])
+    del params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_train(ref, LAUNCHES, reset_launches):
+    """14.6 olmoe-1b-7b at full width and MOE_TRAIN_LAYERS layers through
+    ``TrainLoop`` (phase 13.3's batch, steps, compute and remat), counts 0
+    before and read after: K5 forward twice a layer a step (forward and
+    recompute), backward once, no plain-version call, finite losses, aux
+    and grad norms; one more step profiled beside its bound."""
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_mod
+
+    cfg = dataclasses.replace(configs.get_config(MOE_TRAIN_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    loop, res, run_s, launches, peak, plain_calls = _loop_run(
+        cfg, ref, LAUNCHES, reset_launches)
+    hist = res["history"]
+    walls = [h["wall_s"] for h in hist]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    state = res["state"]
+    grad_pass, (g_ms, g_events, g_top), (o_ms, o_events, o_top) = \
+        _profiled_step(loop, state, cfg)
+    _, moe_split = _moe_split(grad_pass, moe_mod)
+    split = _step_split(g_top)
+    split["optimizer"] = o_ms
+    n_all = sum(t.numel() for t in _leaves(state["params"]).values())
+    active = cfg.active_param_count()
+    t_mm = 6.0 * active * tokens / BF16_FLOP_PER_S
+    t_opt = 26.0 * n_all / HBM_BYTES_PER_S
+    steady = float(np.median(walls[1:]))
+    info = dict(
+        arch=MOE_TRAIN_ARCH, n_layers=MOE_TRAIN_LAYERS,
+        cut=f"n_layers 16 -> {MOE_TRAIN_LAYERS}", batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, params=n_all,
+        params_reckoned=cfg.param_count(), active_params=active,
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, remat=cfg.remat,
+        losses=[h["loss"] for h in hist], aux=[h["aux"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
+        steady_step_s=steady, tokens_per_s=tokens / steady, run_s=run_s,
+        peak_gb=peak / 1e9, peak_reckoned_gb=16 * n_all / 1e9,
+        launches={k: launches[k] for k in ("flash_attention",
+                                            "flash_attention_bwd")},
+        plain_calls=plain_calls,
+        profiled_step=dict(device_ms=g_ms + o_ms, events=g_events + o_events,
+                           split_ms=split, moe_split_ms=moe_split,
+                           optimizer_events=o_events,
+                           top=g_top[:12] + o_top[:4]),
+        device_idle_share=1.0 - (g_ms + o_ms) / 1e3 / steady,
+        bound_ms=(t_mm + t_opt) * 1e3,
+        bound_parts_ms=dict(six_n_t=t_mm * 1e3, optimizer_bytes=t_opt * 1e3,
+                            remat_recompute=t_mm / 3 * 1e3))
+    print("# phase 14.6: " + json.dumps(info), flush=True)
+    del loop, res, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+def phase_moe(ref, fa_mod, LAUNCHES, reset_launches):
+    """14. The mixture-of-experts family on the card (see the constants
+    above and the module docstring)."""
+    from repro_torch.models import moe as moe_mod
+
+    t = [time.perf_counter()]
+    fwd, bwd, f_err, b_err = phase_mla_k5(ref, fa_mod)
+    t.append(time.perf_counter())
+    serve, serve_k5 = {}, {}
+    for arch in MOE_ARCHS:
+        serve[arch], per = _moe_serve(arch, ref, fa_mod.flash_attention,
+                                      LAUNCHES, reset_launches)
+        serve_k5.update(per)
+        t.append(time.perf_counter())
+    dvp = {arch: _decode_vs_prefill(arch, moe_mod) for arch in MOE_ARCHS}
+    print(f"# phase 14.4: at full width and 1 layer, an 11-token prefill "
+          f"and one decode step give the 12-token forward's last logits "
+          f"on the card, f32 (f32 cache) within rtol = atol = 2e-2 and "
+          f"bf16 (bf16 cache) within {SERVE_BF16_TOL}: " + json.dumps(dvp),
+          flush=True)
+    t.append(time.perf_counter())
+    grads = _block_grads(LAUNCHES, reset_launches)
+    print("# phase 14.5: the MLA and MoE blocks' gradients at full width "
+          "in f32, card against the CPU port, each leaf within 1e-4 of its "
+          "largest; remat full bitwise none on the card: "
+          + json.dumps(grads), flush=True)
+    t.append(time.perf_counter())
+    train_launches, _ = _moe_train(ref, LAUNCHES, reset_launches)
+    t.append(time.perf_counter())
+    parts = np.diff(t).tolist()
+    print(f"# phase 14: wall {t[-1] - t[0]:.1f} s (14.1 {parts[0]:.1f}, "
+          f"14.2 {parts[1]:.1f}, 14.3 {parts[2]:.1f}, 14.4 {parts[3]:.1f}, "
+          f"14.5 {parts[4]:.1f}, 14.6 {parts[5]:.1f})", flush=True)
+    return dict(fwd=fwd, bwd=bwd, fwd_err=f_err, bwd_err=b_err,
+                serve=serve, serve_k5=serve_k5, train=train_launches)
 
 
 def main() -> int:
@@ -3553,11 +4235,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5b, train_k5 = phase_train(ref, fa_mod, LAUNCHES, reset_launches)
     t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(ref, fa_mod, LAUNCHES, reset_launches)
+    t15 = time.perf_counter()
     print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
           f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
           f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, phase 12 "
-          f"{t13 - t12:.1f}, phase 13 {t14 - t13:.1f}, script up to here "
-          f"{t14 - t_start:.1f}", flush=True)
+          f"{t13 - t12:.1f}, phase 13 {t14 - t13:.1f}, phase 14 "
+          f"{t15 - t14:.1f}, script up to here {t15 - t_start:.1f}",
+          flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
              **paper, **sweep}
     k2["path_launches"].update(
@@ -3572,15 +4259,26 @@ def main() -> int:
     # (d)'s layouts and the prefill call stay in per_layout.
     k5["path_launches"] = {"phase (d)": k5["launches"],
                            f"{SERVE_ARCH} serve": serve["launches"],
-                           f"{TRAIN_ARCH} train": train_k5}
+                           f"{TRAIN_ARCH} train": train_k5,
+                           **{f"{arch} serve": n
+                              for arch, n in moe["serve"].items()},
+                           f"{MOE_TRAIN_ARCH} train":
+                               moe["train"]["flash_attention"]}
     k5["per_layout"].update(serve["per_layout"])
+    k5["per_layout"].update(moe["fwd"])
+    k5["per_layout"].update(moe["serve_k5"])
     top = serve["per_layout"][f"{SERVE_ARCH} serve decode"]
     k5.update(launches=serve["launches"],
-              max_abs_err=max([k5["max_abs_err"]] + [
-                  r["max_abs_err"] for r in serve["per_layout"].values()]),
+              max_abs_err=max([k5["max_abs_err"], moe["fwd_err"]] + [
+                  r["max_abs_err"] for r in (*serve["per_layout"].values(),
+                                             *moe["serve_k5"].values())]),
               **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
               entry_layout=f"{SERVE_ARCH} serve decode bf16")
+    k5b["path_launches"][f"{MOE_TRAIN_ARCH} train"] = \
+        moe["train"]["flash_attention_bwd"]
+    k5b["per_layout"].update(moe["bwd"])
+    k5b["max_abs_err"] = max(k5b["max_abs_err"], moe["bwd_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST

@@ -143,11 +143,12 @@ def _check_repeats(a, r, i):
 
 
 def kv_cache_from_arrays(tree: Mapping[str, Any], device="cuda") -> dict:
-    """The port's KV cache from the JAX package's ``init_cache`` tree as
-    numpy arrays: k/v on ``device`` in their dtype, ``pos`` as int32 on
-    the host (where the port keeps it)."""
+    """The port's cache from the JAX package's ``init_cache`` tree as
+    numpy arrays: each unit position's k/v, or multi-head latent
+    attention's ``latent``, on ``device`` in their dtype, ``pos`` as int32
+    on the host (where the port keeps it)."""
     dev = resolve_device(device)
-    return {i: {"k": _tensor(c["k"], dev), "v": _tensor(c["v"], dev),
+    return {i: {**{k: _tensor(a, dev) for k, a in c.items() if k != "pos"},
                 "pos": torch.from_numpy(np.asarray(c["pos"], np.int32)
                                         .copy())}
             for i, c in tree.items()}

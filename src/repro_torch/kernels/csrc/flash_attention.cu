@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel, flash_attention): softmax(q k^T * scale) v over
-// (B, H, S, D) tensors with
+// (B, H, S, D) q and k and (B, Hkv, S, Dv) v, Dv <= D (multi-head latent
+// attention's 192-wide q and k against 128-wide v), with
 //   - GQA: query head h reads KV head h / (H / Hkv);
 //   - gemma2 soft-capping softcap * tanh(s / softcap), after the scale and
 //     before the mask;
@@ -17,10 +18,15 @@
 // masked row's is finfo(f32).min.  It is what the backward pass
 // (flash_attention_bwd.cu) recomputes P from.  Each kernel is instantiated
 // with and without that output (kLse), so that without it the code is the
-// same as before it existed.
+// same as before it existed, and with Dv = D and Dv < D (kDv): at Dv = D
+// dv is d, which keeps that instantiation's results bitwise those of the
+// kernel before V took its own width.  Its code is not the same: ptxas
+// gives the bf16 kernel at D 128 166 registers (172 with the LSE) where
+// it gave 164 (169), and the Dv < D form there 168 with 4 bytes spilled.
 //
-// What bounds it on the H100: operations (4 D flops per unmasked (q, k)
-// pair and head; the tensor-core rate in bf16 is the bound's yardstick).
+// What bounds it on the H100: operations (2 (D + Dv) flops per unmasked
+// (q, k) pair and head; the tensor-core rate in bf16 is the bound's
+// yardstick).
 //
 // bf16 (flash_tc_kernel): warp-level tensor-core products, FA2's layout.
 // One 128-thread block per (b, h, 64-query tile); each warp owns 16 query
@@ -45,9 +51,10 @@
 // outside its own 16 rows' band; only tiles that cross the band's edge or
 // Sk pay for the per-element mask.  The head dimension is zero-padded to
 // 64, 128 or 256 in shared memory (any D <= 256, no padded copy in device
-// memory).  32-key tiles keep the block at 52 KB of shared memory at
-// D 128 (three blocks an SM) and O (128 f32 a thread at D 256) with S in
-// registers.  The query tiles run in reverse order, so under a causal
+// memory); V's rows are Dv long and load the same way, their columns past
+// Dv as zeros, so P V's padded columns are 0 and are not stored.  32-key
+// tiles keep the block at 52 KB of shared memory at D 128 (three blocks an
+// SM) and O (128 f32 a thread at D 256) with S in registers.  The query tiles run in reverse order, so under a causal
 // mask the longest rows start first.  mma.sync rather than wgmma: the
 // warp-level fragments keep the softmax, the masks and the P re-use in
 // plain registers, one warp per 16 rows; wgmma (64-row warpgroup products
@@ -104,13 +111,14 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-template <int DP, bool kLse>
+template <int DP, bool kLse, bool kDv>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int h, int hkv,
-             int sq, int sk, int d, float scale, int causal, int window,
-             float softcap) {
+             int sq, int sk, int d, int dv, float scale, int causal,
+             int window, float softcap) {
+  if constexpr (!kDv) dv = d;
   extern __shared__ float smem[];
   float* qs = smem;                        // kBQ x (DP + 1)
   float* kvs = qs + kBQ * (DP + 1);        // kBK x (DP + 1): K, then V
@@ -125,13 +133,13 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int kh = hh / (h / hkv);
-  const long long q_off = (static_cast<long long>(bb) * h + hh) * sq * d;
-  const long long k_off = (static_cast<long long>(bb) * hkv + kh) * sk * d;
-  q += q_off;
-  o += q_off;
-  k += k_off;
-  v += k_off;
-  if constexpr (kLse) lse += (static_cast<long long>(bb) * h + hh) * sq;
+  const long long q_row = (static_cast<long long>(bb) * h + hh) * sq;
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
+  q += q_row * d;
+  o += q_row * dv;
+  k += k_row * d;
+  v += k_row * dv;
+  if constexpr (kLse) lse += q_row;
 
   load_tile<DP>(qs, q, q0, kBQ, sq, d);
   if (tid < kBQ) {
@@ -215,7 +223,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    load_tile<DP>(kvs, v, kt0, kBK, sk, d);
+    load_tile<DP>(kvs, v, kt0, kBK, sk, dv);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -251,7 +259,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = tx + kSide * j;
-      if (c < d) o[static_cast<long long>(gq) * d + c] = acc[i][j] / denom;
+      if (c < dv) o[static_cast<long long>(gq) * dv + c] = acc[i][j] / denom;
     }
   }
 }
@@ -259,18 +267,22 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DP>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                float* lse, int b, int h, int hkv, int sq, int sk, int d,
-               float scale, int causal, int window, float softcap,
+               int dv, float scale, int causal, int window, float softcap,
                cudaStream_t s) {
   constexpr size_t smem = smem_bytes<DP>();
-  const auto kernel = lse != nullptr ? flash_kernel<DP, true>
-                                     : flash_kernel<DP, false>;
+  const auto kernel =
+      dv != d ? (lse != nullptr ? flash_kernel<DP, true, true>
+                                : flash_kernel<DP, false, true>)
+              : (lse != nullptr ? flash_kernel<DP, true, false>
+                                : flash_kernel<DP, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, s>>>(
-      q, k, v, o, lse, h, hkv, sq, sk, d, scale, causal, window, softcap);
+      q, k, v, o, lse, h, hkv, sq, sk, d, dv, scale, causal, window,
+      softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -315,12 +327,14 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   mma_bf16::load_rows<DP, LD, kThreads>(dst, src, row0, rows, n_rows, d, vec);
 }
 
-template <int DP, bool kLse>
+template <int DP, bool kLse, bool kDv>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o,
                 float* __restrict__ lse, int h, int hkv, int sq, int sk, int d,
-                float scale, int causal, int window, float softcap, int vec) {
+                int dv, float scale, int causal, int window, float softcap,
+                int vec) {
+  if constexpr (!kDv) dv = d;
   using C = Cfg<DP>;
   constexpr int BK = C::BK, LD = C::LD;
   constexpr int NC = DP / 16;   // 16-wide chunks of D (QK^T's K steps)
@@ -336,13 +350,13 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest rows first
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int kh = hh / (h / hkv);
-  const long long q_off = (static_cast<long long>(bb) * h + hh) * sq * d;
-  const long long k_off = (static_cast<long long>(bb) * hkv + kh) * sk * d;
-  q += q_off;
-  o += q_off;
-  k += k_off;
-  v += k_off;
-  if constexpr (kLse) lse += (static_cast<long long>(bb) * h + hh) * sq;
+  const long long q_row = (static_cast<long long>(bb) * h + hh) * sq;
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
+  q += q_row * d;
+  o += q_row * dv;
+  k += k_row * d;
+  v += k_row * dv;
+  if constexpr (kLse) lse += q_row;
 
   // Key tiles that any row of the block may see.
   const int k_hi = causal ? min(sk, q0 + kBQ) : sk;
@@ -352,7 +366,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows<DP, LD>(qs, q, q0, kBQ, sq, d, vec);
   if (t_lo < t_hi) {
     load_rows<DP, LD>(ks, k, t_lo * BK, BK, sk, d, vec);
-    load_rows<DP, LD>(vs, v, t_lo * BK, BK, sk, d, vec);
+    load_rows<DP, LD>(vs, v, t_lo * BK, BK, sk, dv, vec);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 
@@ -387,7 +401,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_rows<DP, LD>(ks + (stage ^ 1) * BK * LD, k, (t + 1) * BK, BK, sk,
                         d, vec);
       load_rows<DP, LD>(vs + (stage ^ 1) * BK * LD, v, (t + 1) * BK, BK, sk,
-                        d, vec);
+                        dv, vec);
     }
     asm volatile("cp.async.commit_group;\n" ::);
     const int kt0 = t * BK;
@@ -534,33 +548,39 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int r = half ? r_b : r_a;
       const float inv = half ? inv_b : inv_a;
       if (r >= sq) continue;
-      bf16* dst = o + static_cast<long long>(r) * d + c;
-      if (c < d) dst[0] = __float2bfloat16_rn(o_acc[j][2 * half] * inv);
-      if (c + 1 < d) dst[1] = __float2bfloat16_rn(o_acc[j][2 * half + 1] * inv);
+      bf16* dst = o + static_cast<long long>(r) * dv + c;
+      if (c < dv) dst[0] = __float2bfloat16_rn(o_acc[j][2 * half] * inv);
+      if (c + 1 < dv)
+        dst[1] = __float2bfloat16_rn(o_acc[j][2 * half + 1] * inv);
     }
   }
 }
 
 template <int DP>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-           float* lse, int b, int h, int hkv, int sq, int sk, int d,
+           float* lse, int b, int h, int hkv, int sq, int sk, int d, int dv,
            float scale, int causal, int window, float softcap,
            cudaStream_t s) {
   constexpr size_t smem = Cfg<DP>::kSmem;
-  const auto kernel = lse != nullptr ? flash_tc_kernel<DP, true>
-                                     : flash_tc_kernel<DP, false>;
+  const auto kernel =
+      dv != d ? (lse != nullptr ? flash_tc_kernel<DP, true, true>
+                                : flash_tc_kernel<DP, false, true>)
+              : (lse != nullptr ? flash_tc_kernel<DP, true, false>
+                                : flash_tc_kernel<DP, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // cp.async takes 16-byte rows: d a multiple of 8 and aligned bases.
+  // cp.async takes 16-byte rows: d and dv multiples of 8 and aligned
+  // bases.
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const int vec = d % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
+  const int vec = d % 8 == 0 && dv % 8 == 0 && aligned(q) && aligned(k) &&
+                  aligned(v);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, s>>>(
-      q, k, v, o, lse, h, hkv, sq, sk, d, scale, causal, window, softcap,
+      q, k, v, o, lse, h, hkv, sq, sk, d, dv, scale, causal, window, softcap,
       vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -571,19 +591,21 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 extern "C" {
 
-// q, o (b, h, sq, d) and k, v (b, hkv, sk, d), contiguous; dtype 0 is f32
-// (the CUDA-core kernel), 1 bf16 (the tensor-core kernel).  h % hkv == 0,
-// 1 <= d <= 256.  causal != 0 masks kpos > qpos, window > 0 masks
-// qpos - kpos >= window, softcap > 0 caps the logits.  lse, when not null,
-// is f32 (b, h, sq) and receives each row's log-sum-exp.  Returns
-// cudaGetLastError() (or the error of raising the block's shared memory
-// limit).
+// q (b, h, sq, d), k (b, hkv, sk, d), v (b, hkv, sk, dv) and o (b, h, sq,
+// dv), contiguous; dtype 0 is f32 (the CUDA-core kernel), 1 bf16 (the
+// tensor-core kernel).  h % hkv == 0, 1 <= dv <= d <= 256: V and O have
+// their own row length, and the head dimension is padded to d's (V's
+// columns past dv load as zeros and change no sum).  causal != 0 masks
+// kpos > qpos, window > 0 masks qpos - kpos >= window, softcap > 0 caps
+// the logits.  lse, when not null, is f32 (b, h, sq) and receives each
+// row's log-sum-exp.  Returns cudaGetLastError() (or the error of raising
+// the block's shared memory limit).
 int flash_launch(int dtype, const void* q, const void* k, const void* v,
                  void* o, int b, int h, int hkv, int sq, int sk, int d,
-                 float scale, int causal, int window, float softcap,
+                 int dv, float scale, int causal, int window, float softcap,
                  void* lse, void* stream) {
   if (b < 1 || h < 1 || hkv < 1 || h % hkv != 0 || sq < 1 || sk < 1 ||
-      d < 1 || d > 256)
+      d < 1 || d > 256 || dv < 1 || dv > d)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* fl = static_cast<float*>(lse);
@@ -593,13 +615,13 @@ int flash_launch(int dtype, const void* q, const void* k, const void* v,
     const auto* fv = static_cast<const float*>(v);
     auto* fo = static_cast<float*>(o);
     if (d <= 64)
-      return launch_f32<64>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, scale,
-                            causal, window, softcap, s);
+      return launch_f32<64>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
+                            scale, causal, window, softcap, s);
     if (d <= 128)
-      return launch_f32<128>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, scale,
-                             causal, window, softcap, s);
-    return launch_f32<256>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, scale,
-                           causal, window, softcap, s);
+      return launch_f32<128>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
+                             scale, causal, window, softcap, s);
+    return launch_f32<256>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
+                           scale, causal, window, softcap, s);
   }
   if (dtype == 1) {
     using tc::bf16;
@@ -608,13 +630,13 @@ int flash_launch(int dtype, const void* q, const void* k, const void* v,
     const auto* bv = static_cast<const bf16*>(v);
     auto* bo = static_cast<bf16*>(o);
     if (d <= 64)
-      return tc::launch<64>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, scale,
-                            causal, window, softcap, s);
+      return tc::launch<64>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, dv,
+                            scale, causal, window, softcap, s);
     if (d <= 128)
-      return tc::launch<128>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, scale,
-                             causal, window, softcap, s);
-    return tc::launch<256>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, scale,
-                           causal, window, softcap, s);
+      return tc::launch<128>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, dv,
+                             scale, causal, window, softcap, s);
+    return tc::launch<256>(bq, bk, bv, bo, fl, b, h, hkv, sq, sk, d, dv,
+                           scale, causal, window, softcap, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

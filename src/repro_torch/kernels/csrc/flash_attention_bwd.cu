@@ -14,11 +14,16 @@
 // with GQA's grouped query heads summed onto their KV head, causal and
 // window masks and query and key positions counted from 0, as the forward
 // (flash_attention.cu).  A fully masked row has P = 0 and gives 0.  f32 or
-// bf16 in, f32 throughout, each gradient in the input's type; D <= 256.
+// bf16 in, f32 throughout, each gradient in the input's type; D <= 256,
+// and V, O, dO and dV may be Dv <= D wide (multi-head latent attention's
+// 128 against q and k's 192): they load Dv columns and zeros past them
+// into the D-padded tiles, so dO V^T and the padded columns of P^T dO
+// sum zeros, and dV stores its Dv columns.
 //
-// What bounds it on the H100: operations, 5 products of 2 D flops per
-// unmasked (q, k) pair and head (10 D): the bf16 tensor-core rate for
-// bf16 inputs, the CUDA cores' f32 rate for f32.
+// What bounds it on the H100: operations, 5 products per unmasked (q, k)
+// pair and head, S = q k^T, dP = dO v^T, dV, dQ, dK: 2 (3 D + 2 Dv) flops
+// (10 D when Dv = D), at the bf16 tensor-core rate for bf16 inputs, the
+// CUDA cores' f32 rate for f32.
 //
 // Design: three launches, no atomics, so the gradients are the same bits
 // from run to run.  bf16 at D <= 128 runs the tensor-core kernels (tc
@@ -208,7 +213,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int h, int hkv, int sq,
-            int sk, int d, Mask m) {
+            int sk, int d, int dvw, Mask m) {
   using C = Tile<DP>;
   constexpr int BT = C::BT, R = C::R, DC = C::DC, LD = C::LD, LP = C::LP;
   extern __shared__ float smem[];
@@ -224,9 +229,9 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid % kSide, ty = tid / kSide;
   const int k0 = blockIdx.x * BT, kh = blockIdx.y, bb = blockIdx.z;
   const int group = h / hkv;
-  const long long kv_off = (static_cast<long long>(bb) * hkv + kh) * sk * d;
-  load_tile<T, DP>(ks, k + kv_off, k0, BT, sk, d);
-  load_tile<T, DP>(vs, v + kv_off, k0, BT, sk, d);
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
+  load_tile<T, DP>(ks, k + k_row * d, k0, BT, sk, d);
+  load_tile<T, DP>(vs, v + k_row * dvw, k0, BT, sk, dvw);
 
   // dK and dV of keys ty + 16 i, columns tx + 16 j.
   float acc_k[R][DC], acc_v[R][DC];
@@ -245,7 +250,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int q0 = (q_lo / BT) * BT; q0 < q_hi; q0 += BT) {
       __syncthreads();  // the last tile's reads are done
       load_tile<T, DP>(qs, q + row_off * d, q0, BT, sq, d);
-      load_tile<T, DP>(dos, dout + row_off * d, q0, BT, sq, d);
+      load_tile<T, DP>(dos, dout + row_off * dvw, q0, BT, sq, dvw);
       load_stats<kThreads>(lse_s, delta_s, lse + row_off, delta + row_off,
                            q0, BT, sq);
       __syncthreads();
@@ -294,14 +299,12 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int key = k0 + ty + kSide * i;
     if (key >= sk) continue;
-    const long long row = kv_off + static_cast<long long>(key) * d;
+    const long long row = k_row + key;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const int c = tx + kSide * j;
-      if (c < d) {
-        dk[row + c] = from_f32<T>(acc_k[i][j] * m.scale);
-        dv[row + c] = from_f32<T>(acc_v[i][j]);
-      }
+      if (c < d) dk[row * d + c] = from_f32<T>(acc_k[i][j] * m.scale);
+      if (c < dvw) dv[row * dvw + c] = from_f32<T>(acc_v[i][j]);
     }
   }
 }
@@ -311,7 +314,8 @@ __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int h, int hkv, int sq, int sk, int d, Mask m) {
+          T* __restrict__ dq, int h, int hkv, int sq, int sk, int d, int dvw,
+          Mask m) {
   using C = Tile<DP>;
   constexpr int BT = C::BT, R = C::R, DC = C::DC, LD = C::LD, LP = C::LP;
   extern __shared__ float smem[];
@@ -328,9 +332,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int kh = hh / (h / hkv);
   const long long row_off = (static_cast<long long>(bb) * h + hh) * sq;
-  const long long kv_off = (static_cast<long long>(bb) * hkv + kh) * sk * d;
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
   load_tile<T, DP>(qs, q + row_off * d, q0, BT, sq, d);
-  load_tile<T, DP>(dos, dout + row_off * d, q0, BT, sq, d);
+  load_tile<T, DP>(dos, dout + row_off * dvw, q0, BT, sq, dvw);
   load_stats<kThreads>(lse_s, delta_s, lse + row_off, delta + row_off, q0,
                        BT, sq);
 
@@ -347,8 +351,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (k_lo / BT) * BT; k0 < k_hi; k0 += BT) {
     __syncthreads();  // the last tile's reads are done (and Q is in)
-    load_tile<T, DP>(ks, k + kv_off, k0, BT, sk, d);
-    load_tile<T, DP>(vs, v + kv_off, k0, BT, sk, d);
+    load_tile<T, DP>(ks, k + k_row * d, k0, BT, sk, d);
+    load_tile<T, DP>(vs, v + k_row * dvw, k0, BT, sk, dvw);
     __syncthreads();
 
     float s[R][R], dp[R][R];
@@ -454,7 +458,7 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int hkv,
-               int sq, int sk, int d, Mask m, int vec) {
+               int sq, int sk, int d, int dvw, Mask m, int vec) {
   using C = Cfg<DP>;
   constexpr int LD = C::LD, NC = C::NC, NT = C::NT, KT = C::KT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -469,9 +473,9 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;  // fragment row and column pair
   const int k0 = blockIdx.x * kRows, kh = blockIdx.y, bb = blockIdx.z;
   const int group = h / hkv;
-  const long long kv_off = (static_cast<long long>(bb) * hkv + kh) * sk * d;
-  load_rows<DP, LD, kThreads>(ks, k + kv_off, k0, kRows, sk, d, vec);
-  load_rows<DP, LD, kThreads>(vs, v + kv_off, k0, kRows, sk, d, vec);
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
+  load_rows<DP, LD, kThreads>(ks, k + k_row * d, k0, kRows, sk, d, vec);
+  load_rows<DP, LD, kThreads>(vs, v + k_row * dvw, k0, kRows, sk, dvw, vec);
   cp_async_commit();
 
   const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;  // lane's keys
@@ -492,8 +496,8 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int q0 = (q_lo / kBT) * kBT; q0 < q_hi; q0 += kBT) {
       __syncthreads();  // the last tile's reads are done
       load_rows<DP, LD, kThreads>(qs, q + row_off * d, q0, kBT, sq, d, vec);
-      load_rows<DP, LD, kThreads>(dos, dout + row_off * d, q0, kBT, sq, d,
-                                  vec);
+      load_rows<DP, LD, kThreads>(dos, dout + row_off * dvw, q0, kBT, sq,
+                                  dvw, vec);
       cp_async_commit();
       load_stats<kThreads>(lse_s, delta_s, lse + row_off, delta + row_off,
                            q0, kBT, sq);
@@ -566,15 +570,13 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int half = 0; half < 2; ++half) {
       const int key = half ? key_b : key_a;
       if (key >= sk) continue;
-      const long long at = kv_off + static_cast<long long>(key) * d + c;
-      if (c < d) {
-        dk[at] = __float2bfloat16_rn(dk_acc[j][2 * half] * m.scale);
-        dv[at] = __float2bfloat16_rn(dv_acc[j][2 * half]);
-      }
-      if (c + 1 < d) {
-        dk[at + 1] = __float2bfloat16_rn(dk_acc[j][2 * half + 1] * m.scale);
-        dv[at + 1] = __float2bfloat16_rn(dv_acc[j][2 * half + 1]);
-      }
+      bf16* dkr = dk + (k_row + key) * d + c;
+      bf16* dvr = dv + (k_row + key) * dvw + c;
+      if (c < d) dkr[0] = __float2bfloat16_rn(dk_acc[j][2 * half] * m.scale);
+      if (c + 1 < d)
+        dkr[1] = __float2bfloat16_rn(dk_acc[j][2 * half + 1] * m.scale);
+      if (c < dvw) dvr[0] = __float2bfloat16_rn(dv_acc[j][2 * half]);
+      if (c + 1 < dvw) dvr[1] = __float2bfloat16_rn(dv_acc[j][2 * half + 1]);
     }
   }
 }
@@ -585,7 +587,7 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, int h, int hkv, int sq, int sk, int d,
-             Mask m, int vec) {
+             int dvw, Mask m, int vec) {
   using C = Cfg<DP>;
   constexpr int LD = C::LD, NC = C::NC, NT = C::NT, KT = C::KT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -602,9 +604,9 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int kh = hh / (h / hkv);
   const long long row_off = (static_cast<long long>(bb) * h + hh) * sq;
-  const long long kv_off = (static_cast<long long>(bb) * hkv + kh) * sk * d;
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
   load_rows<DP, LD, kThreads>(qs, q + row_off * d, q0, kRows, sq, d, vec);
-  load_rows<DP, LD, kThreads>(dos, dout + row_off * d, q0, kRows, sq, d,
+  load_rows<DP, LD, kThreads>(dos, dout + row_off * dvw, q0, kRows, sq, dvw,
                               vec);
   cp_async_commit();
   load_stats<kThreads>(lse_s, delta_s, lse + row_off, delta + row_off, q0,
@@ -624,8 +626,8 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int k0 = (k_lo / kBT) * kBT; k0 < k_hi; k0 += kBT) {
     __syncthreads();  // the last tile's reads are done
-    load_rows<DP, LD, kThreads>(ks, k + kv_off, k0, kBT, sk, d, vec);
-    load_rows<DP, LD, kThreads>(vs, v + kv_off, k0, kBT, sk, d, vec);
+    load_rows<DP, LD, kThreads>(ks, k + k_row * d, k0, kBT, sk, d, vec);
+    load_rows<DP, LD, kThreads>(vs, v + k_row * dvw, k0, kBT, sk, dvw, vec);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
@@ -700,7 +702,7 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DP>
 int launch(const bf16* q, const bf16* k, const bf16* v, const float* lse,
            const bf16* dout, const float* delta, bf16* dq, bf16* dk,
-           bf16* dv, int b, int h, int hkv, int sq, int sk, int d,
+           bf16* dv, int b, int h, int hkv, int sq, int sk, int d, int dvw,
            const Mask& m, cudaStream_t s) {
   constexpr size_t smem = Cfg<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -711,20 +713,21 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* lse,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // cp.async takes 16-byte rows: d a multiple of 8 and aligned bases.
+  // cp.async takes 16-byte rows: d and dv multiples of 8 and aligned
+  // bases.
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const int vec = d % 8 == 0 && aligned(q) && aligned(k) && aligned(v) &&
-                  aligned(dout);
+  const int vec = d % 8 == 0 && dvw % 8 == 0 && aligned(q) && aligned(k) &&
+                  aligned(v) && aligned(dout);
   dkdv_tc_kernel<DP><<<dim3((sk + kRows - 1) / kRows, hkv, b), kThreads,
                        smem, s>>>(q, k, v, dout, lse, delta, dk, dv, h, hkv,
-                                  sq, sk, d, m, vec);
+                                  sq, sk, d, dvw, m, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_tc_kernel<DP><<<dim3((sq + kRows - 1) / kRows, h, b), kThreads, smem,
                      s>>>(q, k, v, dout, lse, delta, dq, h, hkv, sq, sk, d,
-                          m, vec);
+                          dvw, m, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -745,7 +748,8 @@ cudaError_t launch_delta(const T* o, const T* dout, float* delta, int b,
 template <typename T, int DP>
 int launch(const T* q, const T* k, const T* v, const T* o, const float* lse,
            const T* dout, float* delta, T* dq, T* dk, T* dv, int b, int h,
-           int hkv, int sq, int sk, int d, const Mask& m, cudaStream_t s) {
+           int hkv, int sq, int sk, int d, int dvw, const Mask& m,
+           cudaStream_t s) {
   using C = Tile<DP>;
   constexpr size_t smem = C::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -757,16 +761,16 @@ int launch(const T* q, const T* k, const T* v, const T* o, const float* lse,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = launch_delta(o, dout, delta, b, h, sq, d, s);
+  err = launch_delta(o, dout, delta, b, h, sq, dvw, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid((sk + C::BT - 1) / C::BT, hkv, b);
   dkdv_kernel<T, DP><<<kv_grid, kThreads, smem, s>>>(
-      q, k, v, dout, lse, delta, dk, dv, h, hkv, sq, sk, d, m);
+      q, k, v, dout, lse, delta, dk, dv, h, hkv, sq, sk, d, dvw, m);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid((sq + C::BT - 1) / C::BT, h, b);
   dq_kernel<T, DP><<<q_grid, kThreads, smem, s>>>(
-      q, k, v, dout, lse, delta, dq, h, hkv, sq, sk, d, m);
+      q, k, v, dout, lse, delta, dq, h, hkv, sq, sk, d, dvw, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -774,7 +778,7 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* lse, const void* dout, void* delta, void* dq,
              void* dk, void* dv, int b, int h, int hkv, int sq, int sk, int d,
-             const Mask& m, cudaStream_t s) {
+             int dvw, const Mask& m, cudaStream_t s) {
   const auto* tq = static_cast<const T*>(q);
   const auto* tk = static_cast<const T*>(k);
   const auto* tv = static_cast<const T*>(v);
@@ -787,51 +791,52 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
   auto* tdv = static_cast<T*>(dv);
   if constexpr (std::is_same<T, bf16>::value) {
     if (d <= 128) {
-      const cudaError_t err = launch_delta(to, tdo, fd, b, h, sq, d, s);
+      const cudaError_t err = launch_delta(to, tdo, fd, b, h, sq, dvw, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       if (d <= 64)
         return tc::launch<64>(tq, tk, tv, fl, tdo, fd, tdq, tdk, tdv, b, h,
-                              hkv, sq, sk, d, m, s);
+                              hkv, sq, sk, d, dvw, m, s);
       return tc::launch<128>(tq, tk, tv, fl, tdo, fd, tdq, tdk, tdv, b, h,
-                             hkv, sq, sk, d, m, s);
+                             hkv, sq, sk, d, dvw, m, s);
     }
   }
   if (d <= 64)
     return launch<T, 64>(tq, tk, tv, to, fl, tdo, fd, tdq, tdk, tdv, b, h,
-                         hkv, sq, sk, d, m, s);
+                         hkv, sq, sk, d, dvw, m, s);
   if (d <= 128)
     return launch<T, 128>(tq, tk, tv, to, fl, tdo, fd, tdq, tdk, tdv, b, h,
-                          hkv, sq, sk, d, m, s);
+                          hkv, sq, sk, d, dvw, m, s);
   return launch<T, 256>(tq, tk, tv, to, fl, tdo, fd, tdq, tdk, tdv, b, h, hkv,
-                        sq, sk, d, m, s);
+                        sq, sk, d, dvw, m, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o, dout, dq (b, h, sq, d); k, v, dk, dv (b, hkv, sk, d); lse and the
-// scratch delta f32 (b, h, sq); all contiguous.  dtype 0 is f32, 1 bf16
-// (q, k, v, o, dout and the gradients share it).  h % hkv == 0,
-// 1 <= d <= 256; causal, window, softcap and scale as the forward's
-// flash_launch.  Returns cudaGetLastError() (or the error of raising a
+// q, dq (b, h, sq, d); o, dout (b, h, sq, dv); k, dk (b, hkv, sk, d); v,
+// dv (b, hkv, sk, dv); lse and the scratch delta f32 (b, h, sq); all
+// contiguous.  dtype 0 is f32, 1 bf16 (q, k, v, o, dout and the gradients
+// share it).  h % hkv == 0, 1 <= dv <= d <= 256 (the kernels are chosen by
+// d; V, O and dO load their dv columns and zeros past them); causal,
+// window, softcap and scale as the forward's flash_launch.  Returns cudaGetLastError() (or the error of raising a
 // block's shared memory limit).
 int flash_bwd_launch(int dtype, const void* q, const void* k, const void* v,
                      const void* o, const void* lse, const void* dout,
                      void* delta, void* dq, void* dk, void* dv, int b, int h,
-                     int hkv, int sq, int sk, int d, float scale, int causal,
-                     int window, float softcap, void* stream) {
+                     int hkv, int sq, int sk, int d, int dvw, float scale,
+                     int causal, int window, float softcap, void* stream) {
   if (b < 1 || h < 1 || hkv < 1 || h % hkv != 0 || sq < 1 || sk < 1 ||
-      d < 1 || d > 256)
+      d < 1 || d > 256 || dvw < 1 || dvw > d)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask m{sq, sk, causal, window, scale, softcap};
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, lse, dout, delta, dq, dk, dv, b, h,
-                           hkv, sq, sk, d, m, s);
+                           hkv, sq, sk, d, dvw, m, s);
   if (dtype == 1)
     return dispatch<bf16>(q, k, v, o, lse, dout, delta, dq, dk, dv, b, h, hkv,
-                          sq, sk, d, m, s);
+                          sq, sk, d, dvw, m, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,7 +8,9 @@ Supports what the repo's architectures need:
 * a causal sliding window (gemma2's local layers);
 * gemma2 logit soft-capping ``softcap * tanh(s / softcap)``, after the
   scale and before the mask;
-* any scale (``D ** -0.5`` by default).
+* any scale (``D ** -0.5`` by default);
+* a V head dimension ``Dv <= D`` (deepseek-v2's multi-head latent
+  attention: q and k 192 wide, v and the output 128).
 
 Query and key positions both start at 0, also when ``Sq != Sk``; keys at
 or beyond ``Sk`` are masked, and a row whose keys are all masked gives 0.
@@ -49,7 +51,7 @@ def _lib():
     fn = lib.flash_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, f, i, i, f, p, p]
+        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, f, i, i, f, p, p]
         fn.restype = i
     return lib
 
@@ -59,21 +61,21 @@ def _bwd_lib():
     fn = lib.flash_bwd_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i] + [p] * 10 + [i] * 6 + [f, i, i, f, p]
+        fn.argtypes = [i] + [p] * 10 + [i] * 7 + [f, i, i, f, p]
         fn.restype = i
     return lib
 
 
 def _check(q, k, v):
-    """Validate (B, H, Sq, D) q and (B, Hkv, Sk, D) k, v for the kernels;
-    returns (b, h, hkv, sq, sk, d)."""
+    """Validate (B, H, Sq, D) q, (B, Hkv, Sk, D) k and (B, Hkv, Sk, Dv) v,
+    Dv <= D, for the kernels; returns (b, h, hkv, sq, sk, d, dv)."""
     b, h, sq, d = q.shape
-    if k.shape != v.shape or k.ndim != 4 or k.shape[0] != b or \
-            k.shape[3] != d:
+    if k.ndim != 4 or v.ndim != 4 or k.shape[0] != b or k.shape[3] != d \
+            or v.shape[:3] != k.shape[:3] or not 1 <= v.shape[3] <= d:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}: expected (B, H, Sq, D) and "
-                         "two (B, Hkv, Sk, D)")
-    hkv, sk = k.shape[1], k.shape[2]
+                         f"v {tuple(v.shape)}: expected (B, H, Sq, D), "
+                         "(B, Hkv, Sk, D) and (B, Hkv, Sk, Dv), Dv <= D")
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} KV "
                          "heads")
@@ -84,15 +86,15 @@ def _check(q, k, v):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v lie on different devices")
-    return b, h, hkv, sq, sk, d
+    return b, h, hkv, sq, sk, d, dv
 
 
 def _launch(q, k, v, causal, window, softcap, scale, with_lse=False):
     """The forward kernel on contiguous copies of q, k, v: out, and with
     ``with_lse`` also the f32 (B, H, Sq) log-sum-exp."""
-    b, h, hkv, sq, sk, d = _check(q, k, v)
+    b, h, hkv, sq, sk, d, dv = _check(q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, sq, dv))
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     if out.numel() == 0 or sk == 0:
@@ -104,8 +106,8 @@ def _launch(q, k, v, causal, window, softcap, scale, with_lse=False):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_launch(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk,
-                            d, float(scale), int(bool(causal)), int(window),
-                            float(softcap),
+                            d, dv, float(scale), int(bool(causal)),
+                            int(window), float(softcap),
                             None if lse is None else lse.data_ptr(), stream)
     build.check(lib, code, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -113,12 +115,12 @@ def _launch(q, k, v, causal, window, softcap, scale, with_lse=False):
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap, scale):
-    b, h, hkv, sq, sk, d = _check(q, k, v)
-    if out.shape != q.shape or dout.shape != q.shape or \
+    b, h, hkv, sq, sk, d, d_v = _check(q, k, v)
+    if out.shape != (b, h, sq, d_v) or dout.shape != out.shape or \
             out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"out {tuple(out.shape)} {out.dtype} and dout "
-                         f"{tuple(dout.shape)} {dout.dtype} must be q's "
-                         f"{tuple(q.shape)} {q.dtype}")
+                         f"{tuple(dout.shape)} {dout.dtype} must be "
+                         f"{(b, h, sq, d_v)} in q's {q.dtype}")
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: expected f32 "
                          f"{(b, h, sq)}")
@@ -136,7 +138,8 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap, scale):
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, sk, d,
-        float(scale), int(bool(causal)), int(window), float(softcap), stream)
+        d_v, float(scale), int(bool(causal)), int(window), float(softcap),
+        stream)
     build.check(lib, code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -150,7 +153,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` from its output ``out`` and
     its f32 (B, H, Sq) log-sum-exp ``lse``, given the output's gradient
-    ``dout`` (q's shape and dtype).  A CUDA tensor launches the kernel of
+    ``dout`` (the output's shape, q's dtype).  A CUDA tensor launches the kernel of
     ``csrc/flash_attention_bwd.cu`` (or raises); a CPU tensor takes
     :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.  Each
     gradient comes in its input's dtype."""
@@ -197,8 +200,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention over (B, H, S, D) tensors with GQA via head grouping.
 
     Args:
-      q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) with H % Hkv == 0; f32 or
-        bf16 on the card, D <= 256.
+      q: (B, H, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv), Dv <= D,
+        with H % Hkv == 0; f32 or bf16 on the card, D <= 256.  The
+        kernels pad the head dimension to D's in shared memory, V's
+        columns past Dv with zeros; no padded copy is made in memory.
       window: if > 0, sliding window of this many positions.
       softcap: if > 0, gemma2-style logit soft-capping.
       bq, bk: the TPU kernel's query and key tile sizes, kept so that its
@@ -206,7 +211,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fix their tiles (64 query rows a block; 64 keys a tile, 32 for
         bf16 at D > 128), and the plain version has no tiles.  They must
         be positive.
-    Returns (B, H, Sq, D) in q's dtype (accumulated in f32).  Under grad
+    Returns (B, H, Sq, Dv) in q's dtype (accumulated in f32).  Under grad
     mode, with an input that requires grad, the result is differentiable
     through :func:`flash_attention_bwd`.
     """

@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-236b --smoke --device cpu
 
 The JAX package's ``launch/serve.py`` with the same flags, plus
 ``--device`` (``cuda`` unless ``cpu`` is asked for; ``cuda`` without a

@@ -4,13 +4,17 @@
       --steps 100 --global-batch 8 --seq 128 --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \\
       --device cpu --steps 4 --global-batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+      --smoke --device cpu --steps 4 --global-batch 4 --seq 64
 
 The JAX package's ``launch/train.py`` with the same flags, plus
 ``--device`` (``cuda`` unless ``cpu`` is asked for; ``cuda`` without a
 card raises).  ``--smoke`` selects the reduced config.  Fault-tolerance
 drills: ``--inject-failure-at N`` crashes mid-run; re-running the same
 command resumes from the last committed checkpoint and reproduces the
-trajectory.  Prints one JSON line per history entry.  ``--mesh`` (data
+trajectory.  Prints one JSON line per history entry (with the experts'
+load-balance loss ``aux`` beside the loss for a mixture-of-experts
+model).  ``--mesh`` (data
 and model axes over several devices) raises until ROADMAP A13.5.
 """
 

@@ -1,8 +1,11 @@
-"""Model assembly for the dense attention family on one device.
+"""Model assembly for the attention families on one device.
 
 The port of the JAX package's ``models/model.py`` for the ``g`` (global
-attention) and ``l`` (sliding-window attention) blocks: yi-9b, glm4-9b,
-qwen2.5-32b and gemma2-27b.  The parameter tree is the JAX package's:
+attention) and ``l`` (sliding-window attention) blocks: the dense GQA
+family (yi-9b, glm4-9b, qwen2.5-32b, gemma2-27b) and the mixture-of-
+experts family (olmoe-1b-7b; deepseek-v2-236b, whose blocks take
+multi-head latent attention, ``models/mla.py``, and experts,
+``models/moe.py``).  The parameter tree is the JAX package's:
 ``params["blocks"][str(i)]`` holds unit position ``i``'s parameters
 stacked per repeat with a leading ``pattern_repeats`` dimension, and
 caches are stacked the same way.
@@ -15,12 +18,14 @@ mode, ``"full"`` runs each unit of the layer pattern (one repeat)
 through ``torch.utils.checkpoint`` without saving anything inside it,
 the JAX package's ``nothing_saveable`` on its unit; ``"none"`` saves
 every activation; ``"dots"`` (matmul outputs saveable) raises, ROADMAP
-A13.13.  Without grad the forward is the same either way.
+A13.13.  Without grad the forward is the same either way.  The experts'
+load-balance loss of each block is summed over a unit (also out of the
+checkpointed unit, so that its gradient survives the recompute) and over
+the repeats; the forward returns that sum, 0 without experts.
 
 Not ported yet, and raising ``NotImplementedError``: the shared
 attention block ``a`` and the Mamba2 blocks ``m`` (zamba2, ROADMAP
-A13.9), RWKV blocks ``r`` (A13.10), mixture-of-experts MLPs (A13.7),
-multi-head latent attention (A13.8), the audio and vision frontends and
+A13.9), RWKV blocks ``r`` (A13.10), the audio and vision frontends and
 M-RoPE (A13.11).  ``param_specs`` / ``cache_specs`` belong to the mesh
 (A13.5).
 
@@ -40,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..dist.sharding import Runtime
 from . import attention as attn_mod
-from . import common
+from . import common, mla, moe
 from .config import ModelConfig
 
 __all__ = ["check_supported", "init_params", "init_cache", "cast_params",
@@ -58,10 +63,6 @@ def check_supported(cfg: ModelConfig) -> None:
     naming the ROADMAP item that ports it."""
     missing = [_BLOCKS[ch] for ch in sorted(set(cfg.layer_pattern))
                if ch in _BLOCKS]
-    if cfg.moe is not None:
-        missing.append("mixture-of-experts MLPs, ROADMAP A13.7")
-    if cfg.mla is not None:
-        missing.append("multi-head latent attention, ROADMAP A13.8")
     if cfg.frontend is not None or cfg.mrope_sections is not None:
         missing.append("the audio and vision frontends and M-RoPE, "
                        "ROADMAP A13.11")
@@ -81,10 +82,16 @@ def _tree_map(fn, tree):
 # -----------------------------------------------------------------------------
 def _block_init(cfg: ModelConfig, generator, dtype, device):
     p = {"ln1": common.rmsnorm_init(cfg.d_model, dtype, device=device),
-         "ln2": common.rmsnorm_init(cfg.d_model, dtype, device=device),
-         "attn": attn_mod.attn_init(cfg, generator, dtype, device=device),
-         "mlp": common.mlp_init(cfg.d_model, cfg.d_ff, generator, dtype,
-                                device=device)}
+         "ln2": common.rmsnorm_init(cfg.d_model, dtype, device=device)}
+    if cfg.mla is not None:
+        p["attn"] = mla.mla_init(cfg, generator, dtype, device=device)
+    else:
+        p["attn"] = attn_mod.attn_init(cfg, generator, dtype, device=device)
+    if cfg.moe is not None:
+        p["moe"] = moe.moe_init(cfg, generator, dtype, device=device)
+    else:
+        p["mlp"] = common.mlp_init(cfg.d_model, cfg.d_ff, generator, dtype,
+                                   device=device)
     if cfg.post_norms:
         p["ln1_post"] = common.rmsnorm_init(cfg.d_model, dtype,
                                             device=device)
@@ -159,16 +166,22 @@ def cast_params(params, cfg: ModelConfig, device=None):
 # -----------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, length: int,
                dtype=torch.bfloat16, *, device):
-    """One KV cache per unit position, stacked per repeat: k/v (R, B, L,
-    KV, dh) on ``device`` (``cuda`` without a card raises), L capped at
-    ``cfg.window`` for ``l`` blocks; pos (R,) on the host."""
+    """One cache per unit position, stacked per repeat, on ``device``
+    (``cuda`` without a card raises): k/v (R, B, L, KV, dh), L capped at
+    ``cfg.window`` for ``l`` blocks, or under multi-head latent attention
+    the latent (R, B, L, kv_lora + rope_dim) of a ``g`` block; pos (R,)
+    on the host."""
     r = cfg.pattern_repeats
     device = resolve_device(device)
     out = {}
     for i, ch in enumerate(cfg.layer_pattern):
-        window = cfg.window if ch == "l" else 0
-        one = attn_mod.init_kv_cache(rt, cfg, batch, length, window, dtype,
+        if ch == "g" and cfg.mla is not None:
+            one = mla.init_mla_cache(rt, cfg, batch, length, dtype,
                                      device=device)
+        else:
+            window = cfg.window if ch == "l" else 0
+            one = attn_mod.init_kv_cache(rt, cfg, batch, length, window,
+                                         dtype, device=device)
         out[str(i)] = _tree_map(
             lambda x: x[None].repeat((r,) + (1,) * x.ndim), one)
     return out
@@ -179,26 +192,35 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, length: int,
 # -----------------------------------------------------------------------------
 def _apply_block(bp, cfg: ModelConfig, rt: Runtime, char: str, x, rope,
                  cache):
-    """One ``g`` or ``l`` block; returns (x, cache)."""
+    """One ``g`` or ``l`` block; returns (x, cache, aux): aux is the
+    experts' f32 load-balance loss, None without experts."""
     h = common.rmsnorm(bp["ln1"], x, cfg.norm_eps)
     window = cfg.window if char == "l" and cfg.window > 0 else 0
-    h, cache = attn_mod.attn_apply(bp["attn"], cfg, rt, h, rope,
-                                   window=window, cache=cache)
+    if cfg.mla is not None:
+        h, cache = mla.mla_apply(bp["attn"], cfg, rt, h, rope, cache=cache)
+    else:
+        h, cache = attn_mod.attn_apply(bp["attn"], cfg, rt, h, rope,
+                                       window=window, cache=cache)
     if cfg.post_norms:
         h = common.rmsnorm(bp["ln1_post"], h, cfg.norm_eps)
     x = x + h
     h = common.rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    h = common.mlp_apply(bp["mlp"], h)
+    aux = None
+    if cfg.moe is not None:
+        h, aux = moe.moe_apply(bp["moe"], cfg, rt, h)
+    else:
+        h = common.mlp_apply(bp["mlp"], h)
     if cfg.post_norms:
         h = common.rmsnorm(bp["ln2_post"], h, cfg.norm_eps)
-    return x + h, cache
+    return x + h, cache, aux
 
 
 def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
             cache: Optional[dict] = None):
-    """Logits (B, S, V) in ``cfg.dtype`` and the f32 auxiliary loss (0:
-    no experts); with a cache, ``(logits, cache, aux)``, the cache
-    updated in place.  ``batch["tokens"]`` (B, S) lies on the params'
+    """Logits (B, S, V) in ``cfg.dtype`` and the f32 auxiliary loss (the
+    experts' load-balance loss summed over the blocks, 0 without
+    experts); with a cache, ``(logits, cache, aux)``, the cache updated
+    in place.  ``batch["tokens"]`` (B, S) lies on the params'
     device; ``batch["positions"]`` (B, S) is optional."""
     check_supported(cfg)
     dt = common.dtype_of(cfg.dtype)
@@ -213,14 +235,17 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
     else:
         b, s = tokens.shape
         if cache is not None and s == 1:
-            # The first cache leaf that has a pos: every block's is the same.
+            # Unit position 0's pos (a KV or a latent cache's): every
+            # block's is the same.
             pos0 = int(cache["0"]["pos"][0])
             positions = torch.full((b, 1), pos0, dtype=torch.int32,
                                    device=x.device)
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
-    rope = common.rope_tables(positions, cfg.d_head, cfg.rope_theta,
+    # Multi-head latent attention rotates its rope_dim part only.
+    rope = common.rope_tables(positions, cfg.mla.rope_dim if cfg.mla
+                              else cfg.d_head, cfg.rope_theta,
                               cfg.mrope_sections)
 
     unit = cfg.layer_pattern
@@ -236,19 +261,23 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
             f"{cfg.name}: remat={cfg.remat!r} (matmul outputs saveable) is "
             "not ported; ROADMAP A13.13.  Use 'full' or 'none'")
 
-    def unit_body(x, j):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def unit_body(x, aux, j):
         for i, ch in enumerate(unit):
             bp = _tree_map(lambda views: views[j], blocks[i])
             c = (_tree_map(lambda t: t[j], cache[str(i)])
                  if cache is not None else None)
-            x, _ = _apply_block(bp, cfg, rt, ch, x, rope, c)
-        return x
+            x, _, block_aux = _apply_block(bp, cfg, rt, ch, x, rope, c)
+            if block_aux is not None:
+                aux = aux + block_aux
+        return x, aux
 
     for j in range(r):
         if remat:
-            x = checkpoint(unit_body, x, j, use_reentrant=False)
+            x, aux = checkpoint(unit_body, x, aux, j, use_reentrant=False)
         else:
-            x = unit_body(x, j)
+            x, aux = unit_body(x, aux, j)
 
     x = common.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -259,7 +288,6 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
                               params["lm_head"]["w"].to(x.dtype))
     if logits.dtype == torch.bfloat16:
         logits = common.cast_cotangent_bf16(logits)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         return logits, cache, aux
     return logits, aux

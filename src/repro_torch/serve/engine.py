@@ -1,7 +1,8 @@
 """Batched serving: prefill and decode steps and a request-batching engine.
 
-The port of the JAX package's ``serve/engine.py`` for the dense attention
-family on one device.  The prefill and decode steps are plain functions
+The port of the JAX package's ``serve/engine.py`` for the attention
+families (dense GQA, and the mixture-of-experts family with deepseek-v2's
+latent cache) on one device.  The prefill and decode steps are plain functions
 (the JAX package jits them).  The engine holds its weights on its device
 cast once to the compute dtype (:func:`repro_torch.models.model.
 cast_params`), where the JAX package casts them at every use: the same

@@ -15,7 +15,8 @@ The port of the JAX package's ``train/loop.py`` on one device:
   step slower than ``straggler_factor`` times the median of the last 32
   is flagged.
 * History: ``{"step", "loss", "grad_norm", "wall_s"}`` every
-  ``log_every`` steps and at the last.
+  ``log_every`` steps and at the last, and ``"aux"`` (the experts'
+  load-balance loss) for a model with experts.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU.
 """
@@ -106,10 +107,12 @@ class TrainLoop:
             if len(times) > 4 and dt > self.lc.straggler_factor * med:
                 self.straggler_steps.append(step)
             if step % self.lc.log_every == 0 or step == self.lc.total_steps - 1:
-                self.history.append(
-                    {"step": step, "loss": loss,
-                     "grad_norm": float(metrics["grad_norm"]),
-                     "wall_s": dt})
+                entry = {"step": step, "loss": loss,
+                         "grad_norm": float(metrics["grad_norm"]),
+                         "wall_s": dt}
+                if self.cfg.moe is not None:
+                    entry["aux"] = float(metrics["aux"])
+                self.history.append(entry)
             if self.mgr is not None and (step + 1) % self.lc.ckpt_every == 0:
                 self.mgr.save(step + 1, state, {"next_step": step + 1})
         if self.mgr is not None:

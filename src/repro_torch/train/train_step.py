@@ -11,7 +11,8 @@ dtype; then, as there:
 * ``grad_accum > 1``: the batch is split into that many microbatches,
   each one's gradients (quantised to int8 and back under
   ``compress="int8_ef"``) are summed in f32, averaged, and cast to the
-  wire dtype once;
+  wire dtype once; the metrics' ``aux`` is the microbatches' mean (the
+  JAX package reports 0 there, a load-balance loss it never computed);
 * :func:`repro_torch.train.optimizer.adamw_update` updates the
   parameters and the optimizer state in place.
 
@@ -104,8 +105,9 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
                 p.shape, dtype=torch.float32, device=p.device), params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=tree_leaves(params)[0].device)
+            aux_sum = loss_sum.clone()
             for i in range(tc.grad_accum):
-                loss, _, g = loss_and_grads(
+                loss, micro_metrics, g = loss_and_grads(
                     params, cfg, rt, {k: v[i] for k, v in micro.items()})
                 if tc.opt.compress == "int8_ef":
                     def q(gi):
@@ -115,12 +117,11 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
                 acc = tree_map(lambda a, gi: a + gi.to(torch.float32), acc, g)
                 del g
                 loss_sum = loss_sum + loss
+                aux_sum = aux_sum + micro_metrics["aux"]
             grads = tree_map(lambda g: rt.astype(g / tc.grad_accum), acc)
             del acc
             loss = loss_sum / tc.grad_accum
-            metrics = {"ce": loss,
-                       "aux": torch.zeros((), dtype=torch.float32,
-                                          device=loss.device)}
+            metrics = {"ce": loss, "aux": aux_sum / tc.grad_accum}
         params, opt_state, opt_metrics = adamw_update(tc.opt, params, grads,
                                                       opt_state)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}

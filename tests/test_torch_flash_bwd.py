@@ -170,8 +170,8 @@ def test_backward_validates_its_inputs():
 
 def test_v_head_dim_other_than_qk_on_the_cpu():
     """MLA's layout, dv != d: the plain forward and backward (the CPU
-    path of the Function) against ``flash_chunked``'s VJP.  The CUDA
-    kernels take dv == d only (ROADMAP A13.8)."""
+    path of the Function) against ``flash_chunked``'s VJP (the CUDA
+    kernels' own dv != d cases are in ``tests/test_torch_gpu.py``)."""
     rng = np.random.default_rng(0)
     b, h, s, d, dv = 1, 2, 96, 24, 16
     q, k = (rng.standard_normal((b, h, s, d)).astype(np.float32)

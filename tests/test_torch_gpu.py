@@ -953,48 +953,64 @@ def test_cuda_engine_equals_cpu_port(arch, lengths):
                                    atol=1e-4 * float(np.abs(c).max()))
 
 
-# (b, h, hkv, sq, sk, d, causal, window, softcap): K5's backward.
-BWD_CASES = [(1, 4, 2, 200, 200, 64, True, 0, 0.0),
-             (2, 4, 1, 130, 130, 128, False, 0, 0.0),
-             (1, 2, 2, 300, 300, 96, True, 50, 0.0),
-             (1, 4, 2, 190, 190, 128, True, 64, 50.0),
-             (1, 2, 1, 100, 77, 200, False, 0, 0.0),
-             (1, 2, 1, 150, 60, 32, True, 16, 0.0),     # rows 75.. dead
-             (1, 8, 1, 130, 130, 256, True, 0, 30.0),
-             (2, 8, 1, 257, 257, 16, True, 0, 0.0),     # GQA group 8
-             (1, 4, 4, 1, 33, 128, False, 0, 0.0)]      # Sq 1
+# (b, h, hkv, sq, sk, d, dv, causal, window, softcap): K5's backward; the
+# rows with dv < d hold V narrower than Q and K.
+BWD_CASES = [(1, 4, 2, 200, 200, 64, 64, True, 0, 0.0),
+             (2, 4, 1, 130, 130, 128, 128, False, 0, 0.0),
+             (1, 2, 2, 300, 300, 96, 96, True, 50, 0.0),
+             (1, 4, 2, 190, 190, 128, 128, True, 64, 50.0),
+             (1, 2, 1, 100, 77, 200, 200, False, 0, 0.0),
+             (1, 2, 1, 150, 60, 32, 32, True, 16, 0.0),     # rows 75.. dead
+             (1, 8, 1, 130, 130, 256, 256, True, 0, 30.0),
+             (2, 8, 1, 257, 257, 16, 16, True, 0, 0.0),     # GQA group 8
+             (1, 4, 4, 1, 33, 128, 128, False, 0, 0.0),     # Sq 1
+             (1, 8, 8, 256, 256, 192, 128, True, 0, 0.0),   # deepseek-v2 MLA
+             (1, 4, 4, 96, 96, 24, 16, True, 0, 0.0),       # its smoke config
+             (2, 4, 2, 130, 100, 64, 48, False, 0, 0.0),
+             (1, 4, 2, 190, 190, 100, 36, True, 0, 0.0),    # no cp.async rows
+             (1, 4, 4, 1, 33, 192, 128, False, 0, 0.0)]     # a decode row
 
 
-def _bwd_inputs(b, h, hkv, sq, sk, d, dtype, seed):
+def _bwd_inputs(b, h, hkv, sq, sk, d, dtype, seed, dv=None):
+    """q, k, v and dO; v and dO ``dv`` wide (D by default)."""
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             .to("cuda", dtype) for s in ((b, h, sq, d), (b, hkv, sk, d),
-                                          (b, hkv, sk, d), (b, h, sq, d))]
+                                          (b, hkv, sk, dv), (b, h, sq, dv))]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window,softcap", BWD_CASES)
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,dv,causal,window,softcap",
+                         BWD_CASES)
 def test_cuda_flash_attention_bwd_matches_plain(dtype, tol, b, h, hkv, sq,
-                                                sk, d, causal, window,
+                                                sk, d, dv, causal, window,
                                                 softcap):
     """K5's backward against its plain version on the same inputs (the
     kernel's forward output and log-sum-exp): |err| <= tol max|exp| per
     gradient, tol 1e-4 in f32 and 2e-2 in bf16 (both sum f32 products in
-    other orders; bf16 rounds each gradient once); the forward's LSE
-    within 1e-4 of the plain version's, ``finfo(f32).min`` on dead rows,
-    and its output bitwise the output of a launch without the LSE."""
+    other orders; bf16 rounds each gradient once); the forward's output
+    (``dv`` wide) within 1e-4 (f32) or bf16's rounding (1e-2 |exp| +
+    1e-3) of the plain version's and bitwise the output of a launch
+    without the LSE; its LSE within 1e-4 of the plain version's,
+    ``finfo(f32).min`` on dead rows."""
     from repro_torch.kernels.flash_attention import (_launch,
                                                      flash_attention_bwd)
     _need_card()
-    q, k, v, do = _bwd_inputs(b, h, hkv, sq, sk, d, dtype, sq + d + h)
+    q, k, v, do = _bwd_inputs(b, h, hkv, sq, sk, d, dtype, sq + d + h, dv)
     kw = dict(causal=causal, window=window, softcap=softcap,
               scale=d ** -0.5)
     out, lse = _launch(q, k, v, causal, window, softcap, d ** -0.5,
                        with_lse=True)
+    assert out.shape == (b, h, sq, dv)
     assert torch.equal(out, flash_attention(q, k, v, **kw))
-    _, lse_exp = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    exp, lse_exp = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-3)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               exp.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_exp.cpu().numpy(),
                                rtol=1e-5, atol=1e-4)
     before = LAUNCHES["flash_attention_bwd"]
@@ -1033,7 +1049,49 @@ def test_cuda_flash_attention_autograd_launches_the_kernels():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_cuda_moe_engine_equals_cpu_port(arch):
+    """The mixture-of-experts family's smoke configs served on the card and
+    on the CPU port with the same weights (f32 compute): equal tokens,
+    every decode step's logits within rtol 1e-4, K5 launched once a layer
+    in the prefill and, for olmoe, once a layer a decode step (deepseek's
+    absorbed decode launches none)."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    _need_card()
+    cfg, rt = configs.get_smoke(arch), Runtime()
+    params = model.init_params(cfg, rt, torch.Generator().manual_seed(0),
+                               "cpu")
+    prompts = [np.random.default_rng(2).integers(1, cfg.vocab, size=n)
+               for n in (5, 3, 7)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, rt, params, ServeConfig(4, 32), device=dev)
+        logits = []
+        decode = eng.decode
+
+        def rec(p, cache, toks, decode=decode, logits=logits):
+            out = decode(p, cache, toks)
+            logits.append(out[1].cpu().numpy())
+            return out
+        eng.decode = rec
+        before = LAUNCHES["flash_attention"]
+        outs = eng.run(prompts, max_new=6)
+        runs[dev] = (outs, logits, LAUNCHES["flash_attention"] - before)
+    per_step = 0 if cfg.mla is not None else cfg.n_layers
+    assert runs["cuda"][2] == cfg.n_layers + 6 * per_step
+    assert runs["cpu"][2] == 0
+    assert runs["cuda"][0] == runs["cpu"][0]
+    for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
+        np.testing.assert_allclose(g, c, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(c).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b", "olmoe-1b-7b",
+                                  "deepseek-v2-236b"])
 def test_cuda_train_step_equals_cpu_port(arch):
     """A smoke config's loss and gradients, and one train step, on the
     card against the CPU port from the same parameters (f32 compute):

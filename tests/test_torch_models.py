@@ -2,7 +2,9 @@
 ``models``) against the JAX package's, on the CPU.
 
 The smoke configs of the dense attention family (yi-9b, glm4-9b,
-qwen2.5-32b, gemma2-27b; f32 compute) run on the JAX package's own
+qwen2.5-32b, gemma2-27b) and of the mixture-of-experts family
+(olmoe-1b-7b, deepseek-v2-236b with its latent attention; f32 compute)
+run on the JAX package's own
 parameters, carried across by ``repro_torch.interop``; inputs come from a
 numpy seed.  The JAX side runs jitted on the CPU, as its own tests run
 it; its model code reaches no Pallas kernel.
@@ -37,8 +39,8 @@ from repro_torch.models import model as tmodel
 
 JRT, TRT = JRuntime(mesh=None), TRuntime()
 DENSE = ["yi-9b", "glm4-9b", "qwen2.5-32b", "gemma2-27b"]
-NOT_PORTED = ["zamba2-1.2b", "hubert-xlarge", "qwen2-vl-7b", "rwkv6-7b",
-              "deepseek-v2-236b", "olmoe-1b-7b"]
+MOE = ["olmoe-1b-7b", "deepseek-v2-236b"]
+NOT_PORTED = ["zamba2-1.2b", "hubert-xlarge", "qwen2-vl-7b", "rwkv6-7b"]
 RTOL = 1e-5
 # Truncated at +-2 sigma with no variance correction: the sample std is
 # sqrt(1 - 4 phi(2) / (Phi(2) - Phi(-2))) sigma.
@@ -249,20 +251,23 @@ def _jforward(cfg):
 
 
 @pytest.mark.parametrize("mode", ["nocache", "cache"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_matches_reference(arch, mode):
-    """The logits of a 20-token forward without a cache; or of a 19-token
-    prefill into an f32 cache of 32, then of one decode step, the cache
-    held after each."""
+    """The logits (and the experts' aux loss, 0 without experts) of a
+    20-token forward without a cache; or of a 19-token prefill into an
+    f32 cache of 32, then of one decode step, the cache (k and v, or the
+    latent) held after each."""
     cfg, jp, tp = both_params(arch)
     b, s = 2, 20
     toks = tokens(cfg, b, s)
     tcfg = tconfigs.get_smoke(arch)
     if mode == "nocache":
-        exp, _ = jax.jit(lambda p, bt: jmodel.forward(p, cfg, JRT, bt))(
+        exp, jaux = jax.jit(lambda p, bt: jmodel.forward(p, cfg, JRT, bt))(
             jp, {"tokens": jnp.asarray(toks)})
         got, aux = tmodel.forward(tp, tcfg, TRT, {"tokens": as_t(toks)})
-        assert float(aux) == 0.0
+        if cfg.moe is None:
+            assert float(aux) == 0.0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=RTOL)
         close(got, exp, "logits")
         return
     jc = jmodel.init_cache(cfg, JRT, b, 32, jnp.float32)
@@ -275,12 +280,13 @@ def test_forward_matches_reference(arch, mode):
         close(got, exp, f"{step} logits")
         assert sorted(tc) == sorted(jc)
         for i in jc:
-            for name in ("k", "v"):
+            assert sorted(tc[i]) == sorted(jc[i])
+            for name in sorted(set(jc[i]) - {"pos"}):
                 close(tc[i][name], jc[i][name], f"{step} cache {i} {name}")
             assert tc[i]["pos"].tolist() == np.asarray(jc[i]["pos"]).tolist()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_decode_matches_prefill(arch):
     """The port's own check, as the JAX package's
     ``test_decode_matches_prefill``: an 11-token prefill and one decode
@@ -343,14 +349,14 @@ def _scale(path, cfg):
     """The std each drawn leaf is initialised with; None for zeros."""
     if path.endswith("/scale") or path.split("/")[-1] in ("bq", "bk", "bv"):
         return None
-    if path.endswith("attn/wo"):
+    if path.endswith("attn/wo") or path.endswith("moe/w2"):
         return 0.02 / math.sqrt(2 * cfg.n_layers)
-    if path.endswith("mlp/wo"):
+    if path.endswith("mlp/wo") or path.endswith("shared/wo"):
         return 0.02 / math.sqrt(2)
     return 0.02
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_init_params_tree_matches_reference(arch):
     cfg = tconfigs.get_smoke(arch)
     jp = leaves(both_params(arch)[1])
@@ -363,10 +369,11 @@ def test_init_params_tree_matches_reference(arch):
         assert t.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["deepseek-v2-236b"])
 def test_init_draws_are_truncated_normals(arch):
     """Every drawn value within +-2 sigma; per scale (0.02, 0.02/sqrt(2)
-    for the MLP's ``wo``, 0.02/sqrt(2 n_layers) for attention's ``wo``)
+    for the MLP's and the shared experts' ``wo``, 0.02/sqrt(2 n_layers)
+    for attention's ``wo`` and the experts' ``w2``)
     the pooled sample std within 4 standard errors (1/sqrt(2n) relative)
     of 0.8796 sigma; norm scales and biases zero."""
     cfg = tconfigs.get_smoke(arch)

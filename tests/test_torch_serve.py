@@ -1,8 +1,9 @@
 """The port's serving path (``repro_torch.serve.engine``,
 ``repro_torch.launch.serve``) against the JAX package's, on the CPU.
 
-Both engines run the smoke configs of the dense attention family on the
-JAX package's parameters (carried across by ``repro_torch.interop``) over
+Both engines run the smoke configs of the dense attention family and of
+the mixture-of-experts family (olmoe-1b-7b; deepseek-v2-236b, whose
+decode is the absorbed latent attention) on the JAX package's parameters (carried across by ``repro_torch.interop``) over
 the same prompts, under both cache dtypes.  Their tokens must be equal,
 and the logits of every step (the prefill's last-token logits and each
 decode step's f32 logits after the final softcap) within tolerance:
@@ -41,6 +42,7 @@ from repro_torch.serve.engine import ServingEngine as TEngine
 
 JRT, TRT = JRuntime(mesh=None), TRuntime()
 DENSE = ["yi-9b", "glm4-9b", "qwen2.5-32b", "gemma2-27b"]
+MOE = ["olmoe-1b-7b", "deepseek-v2-236b"]
 RTOL = 1e-5
 
 
@@ -78,7 +80,7 @@ def both_params(arch):
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_engine_matches_reference(arch, cache_dtype):
     cfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
     jp, tp = both_params(arch)
@@ -154,6 +156,6 @@ def test_cuda_without_a_card_raises():
 
 
 def test_engine_rejects_what_is_not_ported():
-    cfg = tconfigs.get_smoke("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13.7"):
+    cfg = tconfigs.get_smoke("zamba2-1.2b")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13.9"):
         TEngine(cfg, TRT, {}, TServeConfig(batch=1, max_len=8), device="cpu")

@@ -12,6 +12,8 @@ after it the parameters drift apart where a bf16 wire gradient rounds
 the other way or an Adam update sits at its ``eps``
 (``tests/test_torch_train_steps.py``), by 3e-5 of the grad norm after
 five steps of gemma2-27b smoke.
+The mixture-of-experts family's histories also carry the experts' aux
+loss, which the JAX package's loop does not log.
 The port's own crash-and-restart is held exactly: on the CPU every step
 is deterministic.
 """
@@ -19,6 +21,7 @@ is deterministic.
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -83,6 +86,58 @@ def test_loop_history_matches_reference(monkeypatch):
     port, ref = tl.run()["history"], jl.run()["history"]
     assert len(port) == 5
     close_history(port, ref)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-236b"])
+def test_moe_loop_history_matches_reference(monkeypatch, arch):
+    """The mixture-of-experts family: four logged steps' loss and grad
+    norm held to the JAX package's loop; each entry carries the experts'
+    aux loss, the first one's within rtol 1e-5 of the JAX package's
+    ``loss_fn`` on the same parameters and batch."""
+    jcfg = jconfigs.get_smoke(arch)
+    jp = jax.jit(lambda key: jmodel.init_params(jcfg, JRT, key))(
+        jax.random.PRNGKey(0))
+    tp = interop.model_params_from_arrays(
+        tconfigs.get_smoke(arch), jax.tree.map(np.asarray, jp), "cpu")
+    # Both loops start from these parameters (the JAX package's own init
+    # draws the same ones, eagerly and slower).
+    monkeypatch.setattr(jloop.TrainLoop, "init_state", lambda self, seed: {
+        "params": jax.tree.map(jnp.copy, jp), "opt": jopt.adamw_init(jp)})
+    monkeypatch.setattr(tloop.TrainLoop, "init_state", lambda self, seed: {
+        "params": topt.tree_map(torch.clone, tp),
+        "opt": topt.adamw_init(tp)})
+    opt = dict(lr=1e-3, warmup_steps=2, total_steps=4)
+    jl = jloop.TrainLoop(
+        jcfg, JRT, JDataConfig(2, 16, seed=1),
+        jts.TrainConfig(opt=jopt.AdamWConfig(**opt)),
+        jloop.LoopConfig(total_steps=4, log_every=1))
+    tl = tloop.TrainLoop(
+        tconfigs.get_smoke(arch), TRT, DataConfig(2, 16, seed=1),
+        tts.TrainConfig(opt=topt.AdamWConfig(**opt)),
+        tloop.LoopConfig(total_steps=4, log_every=1), device="cpu")
+    port, ref = tl.run()["history"], jl.run()["history"]
+    assert len(port) == 4
+    close_history(port, ref)
+    # The JAX package's first step again (its jitted step, compiled by the
+    # run), for the aux its loop does not log.
+    _, _, jm = jl.step_fn(jax.tree.map(jnp.copy, jp), jopt.adamw_init(jp),
+                          jl.data.batch(0), jax.random.PRNGKey(0))
+    np.testing.assert_allclose(port[0]["aux"], float(jm["aux"]), rtol=1e-5)
+    assert all(np.isfinite(h["aux"]) and h["aux"] > 0 for h in port)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_launcher_prints_the_aux_beside_the_loss(capsys, grad_accum):
+    """Every line carries the experts' aux, also when the step
+    accumulates microbatches (then their mean)."""
+    tlaunch.main(["--arch", "olmoe-1b-7b", "--smoke", "--steps", "2",
+                  "--global-batch", "2", "--seq", "16", "--log-every", "1",
+                  "--grad-accum", str(grad_accum), "--device", "cpu"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert len(lines) == 2
+    assert all(sorted(x) == ["aux", "grad_norm", "loss", "step", "wall_s"]
+               for x in lines)
+    assert all(np.isfinite(x["aux"]) and x["aux"] > 0 for x in lines)
 
 
 def test_launcher_prints_the_references_history(monkeypatch, capsys):

@@ -1,12 +1,14 @@
 """The port's train step (``repro_torch.train.train_step.
 make_train_step``) against the JAX package's, on the CPU: two steps on
 the smoke configs of yi-9b, gemma2-27b (softcaps, window, post-norms,
-``embed_scale``) and glm4-9b (``qkv_bias``), with ``grad_accum`` 1 and 2
-and ``compress="int8_ef"``, f32 compute, bf16 wire gradients.
+``embed_scale``), glm4-9b (``qkv_bias``), olmoe-1b-7b (experts, their
+aux loss in the total) and deepseek-v2-236b (latent attention, a shared
+expert), with ``grad_accum`` 1 and 2 and ``compress="int8_ef"``, f32
+compute, bf16 wire gradients.
 
 Both sides start from the JAX package's parameters (carried across by
 ``repro_torch.interop``) and take the same numpy tokens.  Tolerances:
-loss rtol 1e-5, grad norm rtol 2e-5, the learning rate bitwise;
+loss and aux rtol 1e-5, grad norm rtol 2e-5, the learning rate bitwise;
 parameters after the two steps: all but 1e-3 of the elements within
 1e-6 + 2^-6 x the summed learning rates, every element within 1e-6 +
 2.5 x.  Adam's update ``m / (sqrt(v) + eps)`` is about ``lr sign(g)``
@@ -42,7 +44,8 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=20)
 # tests/test_torch_train.py).
 STEP_CASES = [("yi-9b", 1, "none"), ("yi-9b", 2, "none"),
               ("yi-9b", 2, "int8_ef"), ("gemma2-27b", 1, "none"),
-              ("gemma2-27b", 2, "int8_ef"), ("glm4-9b", 2, "int8_ef")]
+              ("gemma2-27b", 2, "int8_ef"), ("glm4-9b", 2, "int8_ef"),
+              ("olmoe-1b-7b", 1, "none"), ("deepseek-v2-236b", 1, "none")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,6 +87,8 @@ def test_train_steps_match_reference(arch, ga, compress):
         assert int(tst["step"]) == i + 1
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=1e-5)
+        np.testing.assert_allclose(float(tm["aux"]), float(jm["aux"]),
+                                   rtol=1e-5)
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=2e-5)
         assert float(tm["lr"]) == float(jm["lr"])
@@ -96,3 +101,21 @@ def test_train_steps_match_reference(arch, ga, compress):
     assert n_off <= 1e-3 * n_all, (n_off, n_all)
     if compress == "int8_ef":   # carried as the JAX package carries it
         assert all(not t.any() for t in topt.tree_leaves(tst["ef"]))
+
+
+def test_grad_accum_reports_the_microbatches_mean_aux():
+    """Under ``grad_accum`` 2 the step's aux is the mean of its two
+    microbatches' load-balance losses (the JAX package reports 0 there),
+    olmoe-1b-7b smoke, rtol 1e-6."""
+    cfg = tconfigs.get_smoke("olmoe-1b-7b")
+    tp, tst = tts.make_train_state(cfg, TRT, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    _, tb = tokens(cfg.vocab, 4, 32, seed=10)
+    want = np.mean([float(tts.loss_and_grads(
+        tp, cfg, TRT, {k: v[i:i + 2] for k, v in tb.items()})[1]["aux"])
+        for i in (0, 2)])
+    tstep = tts.make_train_step(cfg, TRT, tts.TrainConfig(
+        opt=topt.AdamWConfig(**OPT), grad_accum=2))
+    _, _, tm = tstep(tp, tst, tb, 0)
+    assert want > 0
+    np.testing.assert_allclose(float(tm["aux"]), want, rtol=1e-6)
