@@ -233,7 +233,35 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    batch and steps: exactly 48 K5 forward and 24 backward launches, no
    plain-version call, finite losses, aux and grad norms, one more step
    profiled beside its bound;
-15. one ``{"kernels": [...]}`` line: launches on the main path (for the
+15. the recurrent families, after phase 14 with the card's cache emptied
+   (see ``phase_recurrent`` and the constants above): (15.1) K5 at
+   zamba2's shared attention block's training layout (B 2, H = Hkv =
+   32, S 4096, D 64, window 4096, causal), forward with its LSE and
+   backward in bf16 and f32, held against the plain versions one KV
+   head at a time and timed beside their bounds and
+   ``scaled_dot_product_attention(is_causal=True)``'s forward and
+   backward (at S <= window the same function); (15.2) zamba2-1.2b and
+   (15.3) rwkv6-7b served uncut, drawn on the card in f32 from the seed
+   and served in bf16 through ``launch.serve``'s engine at the
+   launcher's defaults, counts 0 before and read after (K5 exactly 68
+   and 0 times), tokens in the vocabulary, finite logits, prefill and
+   decode ms, tokens/s, peak memory, one decode step profiled and split
+   into K5, cuBLAS, the SSM's conv and scan or the WKV recurrence and
+   the rest beside its bound; zamba2's own K5 prefill and decode calls
+   held and timed as in 12.2; (15.4) zamba2 at 19 layers and rwkv6 at 2
+   in f32: the CPU port's prefill and 16 decode steps teacher-forced on
+   the card (rtol 1e-4, atol 1e-4 max|exp|), and decode against prefill
+   on the card in f32 and bf16 (zamba2 after a 600-token prefill:
+   ``ssd_chunked`` and an ``ssd_scan`` for the state); (15.5) the m (S
+   600, a padded last chunk), shared a (twice) and r blocks' gradients
+   at full width in f32, card against the CPU port, and zamba2's
+   ``remat="full"`` bitwise ``"none"`` at 19 layers; (15.6) zamba2-1.2b
+   uncut and (15.7) rwkv6-7b at 2 of 32 layers through ``TrainLoop``,
+   batch 2 x 4096, 4 and 3 steps: exactly 16 K5 forward and 8 backward
+   launches (zamba2) and none (rwkv6), no plain-version call, finite
+   losses and grad norms, peak memory, one more step profiled (rwkv6 at
+   S 1024) beside its bound;
+16. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
    attention the serving path's, for its backward the training path's;
    each path's own counts in ``path_launches``),
@@ -242,7 +270,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-16. the last line: ``{"ok": true, "device": {...}}``.
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -274,6 +302,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
+# Markers of cuBLAS's (and cuBLASLt's) product kernels in profiler names.
+_CUBLAS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk", "cublas")
 # Host calls that put one event on the device: kernel launches (runtime
 # and driver API), memsets and copies.
 DEVICE_WORK_CALLS = ("Launch", "Memset", "Memcpy")
@@ -915,9 +945,11 @@ def phase_waterfill(ref, waterfill, main_calls):
 
 def _need_launches(launches, names, what, exactly=None):
     """Raise unless each kernel of ``names`` was launched (``exactly``
-    that many times, when given)."""
+    that many times, when given; 0 for a path that must not launch
+    it)."""
     for name in names:
-        if launches[name] <= 0 or exactly not in (None, launches[name]):
+        if (launches[name] <= 0 if exactly is None
+                else launches[name] != exactly):
             raise AssertionError(f"{what} launched the {name} kernel "
                                  f"{launches[name]} times")
 
@@ -2934,8 +2966,10 @@ def _k5_call_reading(ref, flash_attention, call, what):
     def sdpa(*x):
         return torch.nn.functional.scaled_dot_product_attention(
             *x, is_causal=kw["causal"], scale=kw["scale"], enable_gqa=True)
-    # SDPA has no window and no softcap: no library time for such a call.
-    lib = None if kw["window"] or kw["softcap"] else \
+    # SDPA has no window and no softcap: no library time for such a call
+    # (a window that covers every key of the call changes nothing).
+    windowed = kw["window"] and kw["window"] < k.shape[2]
+    lib = None if windowed or kw["softcap"] else \
         _replay_ms(sdpa, [(q, k, v)], 20)[0]
     b, h, sq, d = q.shape
     lay = dict(b=b, h=h, hkv=k.shape[1], sq=sq, sk=k.shape[2], d=d,
@@ -3013,8 +3047,7 @@ def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
         low = kname.lower()
         if "flash" in low:
             split["flash_attention"] += ms
-        elif any(m in low for m in ("gemm", "gemv", "xmma", "cutlass",
-                                    "nvjet", "splitk", "cublas")):
+        elif any(m in low for m in _CUBLAS):
             split["matmul"] += ms
         else:
             split["rest"] += ms
@@ -3414,22 +3447,23 @@ def _step_split(top):
         elif any(m in low for m in ("dkdv_", "dq_kernel", "dq_tc_kernel",
                                     "delta_kernel")):
             split["k5_backward"] += ms
-        elif any(m in low for m in ("gemm", "gemv", "xmma", "cutlass",
-                                    "nvjet", "splitk", "cublas")):
+        elif any(m in low for m in _CUBLAS):
             split["cublas"] += ms
         else:
             split["rest"] += ms
     return split
 
 
-def _loop_run(cfg, ref, LAUNCHES, reset_launches):
-    """``cfg`` through ``TrainLoop`` at phase 13.3's batch, steps and
-    optimizer on ``lm`` data, counts 0 before and read after: exactly 2
-    K5 forward launches a layer a step (each layer's forward and its
-    recompute under full remat) and 1 backward, no call of either plain
-    version, a finite history (the aux too, with experts).  Returns the
-    loop, its result, the run's seconds, the launches, the peak bytes and
-    the plain versions' calls."""
+def _loop_run(cfg, ref, LAUNCHES, reset_launches, steps=TRAIN_STEPS,
+              k5=None):
+    """``cfg`` through ``TrainLoop`` at phase 13.3's batch and optimizer
+    for ``steps`` steps on ``lm`` data, counts 0 before and read after:
+    exactly ``k5`` = (forward, backward) K5 launches a step, by default 2
+    forward a layer (each layer's forward and its recompute under full
+    remat) and 1 backward, no call of either plain version, a finite
+    history (the aux too, with experts).  Returns the loop, its result,
+    the run's seconds, the launches, the peak bytes and the plain
+    versions' calls."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.dist.sharding import Runtime
     from repro_torch.train import loop as tloop
@@ -3437,10 +3471,10 @@ def _loop_run(cfg, ref, LAUNCHES, reset_launches):
     from repro_torch.train import train_step as tts
 
     tc = tts.TrainConfig(opt=topt.AdamWConfig(warmup_steps=1,
-                                              total_steps=TRAIN_STEPS))
+                                              total_steps=steps))
     loop = tloop.TrainLoop(
         cfg, Runtime(), DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0), tc,
-        tloop.LoopConfig(total_steps=TRAIN_STEPS, log_every=1),
+        tloop.LoopConfig(total_steps=steps, log_every=1),
         device="cuda")
     plain_calls = {"attention_ref": 0, "flash_attention_bwd_ref": 0}
 
@@ -3463,31 +3497,32 @@ def _loop_run(cfg, ref, LAUNCHES, reset_launches):
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     what = f"{cfg.name} train"
+    fwd, bwd = k5 or (2 * cfg.n_layers, cfg.n_layers)
     _need_launches(launches, ("flash_attention",), what,
-                   exactly=cfg.n_layers * 2 * TRAIN_STEPS)
+                   exactly=fwd * steps)
     _need_launches(launches, ("flash_attention_bwd",), what,
-                   exactly=cfg.n_layers * TRAIN_STEPS)
+                   exactly=bwd * steps)
     if any(plain_calls.values()):
         raise AssertionError(f"{what} called a plain version: "
                              f"{plain_calls}")
     hist = res["history"]
     keys = ("loss", "grad_norm") + (("aux",) if cfg.moe else ())
-    if len(hist) != TRAIN_STEPS or not all(
+    if len(hist) != steps or not all(
             math.isfinite(h[k]) for h in hist for k in keys):
         raise AssertionError(f"{what}: history {hist}")
     return loop, res, run_s, launches, peak, plain_calls
 
 
-def _profiled_step(loop, state, cfg):
-    """One more step of ``loop`` on its next batch, profiled: the
-    gradient pass (with the wire cast), then the optimizer.  Returns the
-    gradient pass (to trace again), its (device ms, events, top) and the
-    optimizer's."""
+def _profiled_step(loop, state, cfg, steps=TRAIN_STEPS, seq=None):
+    """One more step of ``loop`` on its next batch (its first ``seq``
+    tokens a row, when given), profiled: the gradient pass (with the wire
+    cast), then the optimizer.  Returns the gradient pass (to trace
+    again), its (device ms, events, top) and the optimizer's."""
     from repro_torch.train import optimizer as topt
     from repro_torch.train import train_step as tts
 
     rt = loop.rt
-    batch = loop.data.batch(TRAIN_STEPS)
+    batch = {k: v[:, :seq] for k, v in loop.data.batch(steps).items()}
     grads = {}
 
     def grad_pass():
@@ -3724,15 +3759,14 @@ def _route_recorder(moe_mod, chosen):
     return _patched(moe_mod, "route", wrap)
 
 
-def _moe_split(fn, moe_mod):
-    """One ``fn()`` under ``torch.profiler`` with the router and the
-    expert products in ``record_function`` ranges: device ms of K5 (its
-    kernels' names), of each range (its kernels and its children's), and
-    of the rest of the device events."""
+def _range_split(fn, ranges):
+    """One ``fn()`` under ``torch.profiler`` with each ``(module, attr,
+    name)`` of ``ranges`` in a ``record_function`` range: device ms of
+    K5 (its kernels' names), of each range (its kernels and its
+    children's, products included), of cuBLAS outside the ranges (the
+    products' kernels' names) and of the rest of the device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    names = {"route": "moe router", "_expert_ffn_sorted": "moe experts"}
 
     def ranged(name):
         def wrap(f):
@@ -3741,9 +3775,10 @@ def _moe_split(fn, moe_mod):
                     return f(*a, **kw)
             return call
         return wrap
+    names = {name for _, _, name in ranges}
     with contextlib.ExitStack() as stack:
-        for attr, name in names.items():
-            stack.enter_context(_patched(moe_mod, attr, ranged(name)))
+        for module, attr, name in ranges:
+            stack.enter_context(_patched(module, attr, ranged(name)))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3754,43 +3789,59 @@ def _moe_split(fn, moe_mod):
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
+
+    def is_mm(name):
+        return any(m in name.lower() for m in _CUBLAS)
+
+    def mm_inside(e):
+        return sum(k.duration for k in e.kernels if is_mm(k.name)) + sum(
+            mm_inside(c) for c in e.cpu_children)
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.name not in names.values()]
+               and e.name not in names]
     total = sum(dev_us(e) for e in kernels) / 1e3
     split = {"k5": sum(dev_us(e) for e in kernels
                        if "flash" in e.name) / 1e3}
-    for name in names.values():
-        split[name.replace("moe ", "")] = sum(
-            e.device_time_total for e in events
-            if e.device_type == DeviceType.CPU and e.name == name) / 1e3
+    inside = 0.0
+    for name in names:
+        tops = [e for e in events if e.device_type == DeviceType.CPU
+                and e.name == name]
+        split[name] = sum(e.device_time_total for e in tops) / 1e3
+        inside += sum(mm_inside(e) for e in tops) / 1e3
+    split["cublas"] = sum(dev_us(e) for e in kernels
+                          if is_mm(e.name)) / 1e3 - inside
     split["rest"] = total - sum(split.values())
-    return total, split
+    return total, split, inside
 
 
-def _moe_serve(arch, ref, flash_attention, LAUNCHES, reset_launches):
-    """14.2 / 14.3: ``arch`` at full width (n_layers MOE_SERVE_LAYERS)
-    through ``launch.serve``'s engine at the launcher's defaults; then K5
-    on the path's own prefill call and (olmoe; deepseek's absorbed decode
-    launches none) layer 0's call at the first batch's last decode step,
-    as phase 12.2 reads yi-9b's."""
-    from repro_torch import configs
+def _moe_split(fn, moe_mod):
+    """:func:`_range_split` of ``fn()`` with the router and the expert
+    products in ranges."""
+    return _range_split(fn, [(moe_mod, "route", "router"),
+                             (moe_mod, "_expert_ffn_sorted", "experts")])
+
+
+def _served(arch, cfg, n_prefill, per_step, LAUNCHES, reset_launches):
+    """``cfg`` (``arch``'s widths) drawn on the card in f32 from the
+    launcher's seed and served in bf16 through ``launch.serve``'s engine
+    at the launcher's defaults, counts 0 before and read after: exactly
+    ``n_prefill`` K5 launches a prefill and ``per_step`` a decode step;
+    the requests' tokens in the vocabulary, the logits finite.  K5's
+    first prefill call and layer 0's call at the first batch's last
+    decode step are recorded (every K5 caller of the models patched).
+    Returns the engine, the launcher's arguments, those calls and the
+    run's readings."""
     from repro_torch.dist.sharding import Runtime
     from repro_torch.launch import serve as launch
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import mla as mla_mod
     from repro_torch.models import model as model_mod
-    from repro_torch.models import moe as moe_mod
     from repro_torch.serve.engine import ServeConfig, ServingEngine
 
     args = launch.parse_args(["--arch", arch])   # the CLI's defaults
-    cfg = dataclasses.replace(configs.get_config(arch),
-                              n_layers=MOE_SERVE_LAYERS[arch])
     rt = Runtime()
     sc = ServeConfig(batch=args.batch, max_len=args.max_len)
     n_batches = -(-args.n_requests // args.batch)
-    per_step = 0 if cfg.mla is not None else cfg.n_layers
-    want = n_batches * (cfg.n_layers + args.max_new * per_step)
-    reckoned = cfg.param_count()
+    want = n_batches * (n_prefill + args.max_new * per_step)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -3829,8 +3880,54 @@ def _moe_serve(arch, ref, flash_attention, LAUNCHES, reset_launches):
         raise AssertionError(f"{arch} serve: unexpected outputs {outs}")
     if not all(bool(torch.isfinite(lg).all()) for lg in lgs):
         raise AssertionError(f"{arch} serve: logits not finite")
-    tokens = args.n_requests * (args.max_new + 1)
+    recorded = {"prefill"} if n_prefill else set()
+    if set(calls) != recorded | ({"decode"} if per_step else set()):
+        raise AssertionError(f"{arch} serve: K5 calls recorded "
+                             f"{sorted(calls)}")
     decode_s = times["decode"]
+    tokens = args.n_requests * (args.max_new + 1)
+    info = dict(
+        batch=args.batch, max_len=args.max_len,
+        n_requests=args.n_requests, max_new=args.max_new, seed=args.seed,
+        params_reckoned=cfg.param_count(), params_drawn=n_params,
+        init_s=init_s, init_peak_gb=init_peak / 1e9,
+        held_weights_gb=held / 1e9, serve_peak_gb=serve_peak / 1e9,
+        wall_s=wall, tokens_per_s=tokens / wall,
+        prefill_ms=[t * 1e3 for t in times["prefill"]],
+        decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
+        decode_ms_min=1e3 * min(decode_s), decode_ms_max=1e3 * max(decode_s),
+        decode_steps=len(decode_s), launches=launches,
+        k5_launches_per_decode_step=per_step,
+        all_weights_bound_ms=held / HBM_BYTES_PER_S * 1e3)
+    return eng, args, calls, info
+
+
+def _served_calls(ref, flash_attention, arch, calls, sub):
+    """K5 on the served path's own recorded calls, as phase 12.2 reads
+    yi-9b's."""
+    per = {f"{arch} serve {what}": _k5_call_reading(ref, flash_attention,
+                                                    calls[what], what)
+           for what in sorted(calls)}
+    if per:
+        print(f"# phase {sub} K5 on the path's own calls: "
+              + json.dumps(per), flush=True)
+    return per
+
+
+def _moe_serve(arch, ref, flash_attention, LAUNCHES, reset_launches):
+    """14.2 / 14.3: ``arch`` at full width (n_layers MOE_SERVE_LAYERS)
+    through :func:`_served` (K5 once a layer a prefill, and a decode step
+    for olmoe; deepseek's absorbed decode launches none), one decode step
+    profiled and split beside its bound; then K5 on the path's own
+    calls."""
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_mod
+
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=MOE_SERVE_LAYERS[arch])
+    per_step = 0 if cfg.mla is not None else cfg.n_layers
+    eng, args, calls, base = _served(arch, cfg, cfg.n_layers, per_step,
+                                     LAUNCHES, reset_launches)
     last = torch.from_numpy(eng.last.astype(np.int64)).cuda()[:, None]
     n_keys = int(eng.cache["0"]["pos"][0]) + 1
     chosen = []
@@ -3843,35 +3940,22 @@ def _moe_serve(arch, ref, flash_attention, LAUNCHES, reset_launches):
         bound, by, touched = _step_bound(cfg, eng.params, args.batch, 1,
                                          n_keys, chosen=chosen)
     experts_used = [int(torch.unique(c).numel()) for c in chosen]
-    split_ms, split = _moe_split(step, moe_mod)
+    split_ms, split, _ = _moe_split(step, moe_mod)
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in _leaves(eng.cache).values() if t.is_cuda)
+    full = configs.get_config(arch).n_layers
     info = dict(
         arch=arch, n_layers=cfg.n_layers,
-        cut=None if cfg.n_layers == configs.get_config(arch).n_layers
-        else f"n_layers {configs.get_config(arch).n_layers} -> "
-             f"{cfg.n_layers}",
-        batch=args.batch, max_len=args.max_len,
-        n_requests=args.n_requests, max_new=args.max_new, seed=args.seed,
-        params_reckoned=reckoned, params_drawn=n_params,
-        active_params=cfg.active_param_count(), init_s=init_s,
-        init_peak_gb=init_peak / 1e9,
-        init_peak_reckoned_gb=6 * reckoned / 1e9,
-        held_weights_gb=held / 1e9, serve_peak_gb=serve_peak / 1e9,
-        wall_s=wall, tokens_per_s=tokens / wall,
-        prefill_ms=[t * 1e3 for t in times["prefill"]],
-        decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
-        decode_ms_min=1e3 * min(decode_s), decode_ms_max=1e3 * max(decode_s),
-        decode_steps=len(decode_s), launches=launches,
-        k5_launches_per_decode_step=per_step,
+        cut=None if cfg.n_layers == full
+        else f"n_layers {full} -> {cfg.n_layers}", **base,
+        active_params=cfg.active_param_count(),
+        init_peak_reckoned_gb=6 * cfg.param_count() / 1e9,
         profiled_decode_step=dict(
             keys=n_keys, device_ms=device_ms, device_events=n_events,
             split_ms=split, split_total_ms=split_ms,
             experts_used_per_layer=experts_used, top=top[:10]),
         decode_bound_ms=bound, decode_bound_by=by,
-        touched_weight_gb=touched / 1e9,
-        all_weights_bound_ms=held / HBM_BYTES_PER_S * 1e3,
-        cache_gb=cache_bytes / 1e9)
+        touched_weight_gb=touched / 1e9, cache_gb=cache_bytes / 1e9)
     if cfg.mla is not None:
         m = cfg.mla
         info["dense_kv_cache_gb"] = (cfg.n_layers * args.batch * args.max_len
@@ -3880,17 +3964,11 @@ def _moe_serve(arch, ref, flash_attention, LAUNCHES, reset_launches):
                                      * 2 / 1e9)
     sub = f"14.{2 if cfg.mla is None else 3}"
     print(f"# phase {sub}: " + json.dumps(info), flush=True)
-    del eng, lgs, last
+    del eng, last
     gc.collect()
     torch.cuda.empty_cache()
-    per = {f"{arch} serve {what}": _k5_call_reading(ref, flash_attention,
-                                                    calls[what], what)
-           for what in (("prefill",) if cfg.mla is not None
-                        else ("prefill", "decode"))}
-    del calls
-    print(f"# phase {sub} K5 on the path's own calls: " + json.dumps(per),
-          flush=True)
-    return launches["flash_attention"], per
+    per = _served_calls(ref, flash_attention, arch, calls, sub)
+    return base["launches"]["flash_attention"], per
 
 
 def _decode_vs_prefill(arch, moe_mod):
@@ -4065,7 +4143,7 @@ def _moe_train(ref, LAUNCHES, reset_launches):
     state = res["state"]
     grad_pass, (g_ms, g_events, g_top), (o_ms, o_events, o_top) = \
         _profiled_step(loop, state, cfg)
-    _, moe_split = _moe_split(grad_pass, moe_mod)
+    _, moe_split, _ = _moe_split(grad_pass, moe_mod)
     split = _step_split(g_top)
     split["optimizer"] = o_ms
     n_all = sum(t.numel() for t in _leaves(state["params"]).values())
@@ -4136,6 +4214,565 @@ def phase_moe(ref, fa_mod, LAUNCHES, reset_launches):
           f"14.5 {parts[4]:.1f}, 14.6 {parts[5]:.1f})", flush=True)
     return dict(fwd=fwd, bwd=bwd, fwd_err=f_err, bwd_err=b_err,
                 serve=serve, serve_k5=serve_k5, train=train_launches)
+
+
+# Phase 15, the recurrent families (src/repro/configs/zamba2_1p2b.py and
+# rwkv6_7b.py, arXiv:2411.15242 and 2404.05892).  K5 at zamba2's shared
+# attention block's training layout: 32 heads of 64 (MHA), causal, window
+# 4096 at S 4096 (the window covers every causal pair there, so SDPA's
+# ``is_causal`` computes the same function).  zamba2-1.2b served uncut
+# (38 layers: 2 repeats of 18 Mamba2 blocks and the shared block; 1.118e9
+# parameters) and rwkv6-7b uncut (32 layers, 7.53e9), drawn on the card
+# in f32 and served in bf16 at the launcher's defaults.  At full width and
+# short depth (zamba2 one repeat, 19 layers, the least its pattern
+# allows; rwkv6 2 layers) in f32 with an f32 cache: the card against the
+# CPU port at rtol 1e-4, atol 1e-4 max|exp| (the f32 K5 holds 1e-4 to
+# the plain version; cuBLAS and the CPU sum in other orders), and decode
+# against prefill on the card (f32 2e-2, bf16 0.1; zamba2 primes its
+# state from a 600-token prefill, above 2 x 256: ``ssd_chunked`` and an
+# ``ssd_scan`` for the state).  The m, shared a and r blocks' gradients
+# at full width in f32, card against the CPU port, each leaf within 1e-4
+# of its largest (m at S 600: ``ssd_chunked`` with a padded last chunk).
+# zamba2 trained uncut (1.118e9 x 16 B = 18 GB of f32 weights, gradients
+# and AdamW moments), rwkv6-7b with n_layers cut from 32 to 2, the one
+# cut (7.53e9 x 16 B = 121 GB at full depth; 2 layers 0.97e9): phase
+# 13.3's batch (2 x 4096) and compute, 4 and 3 steps; rwkv6's step,
+# about 10^5 eager launches of the sequential WKV scan at S 4096, is
+# profiled at S 1024.
+REC_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
+ZAMBA_K5_LAYOUT = dict(b=2, h=32, hkv=32, s=4096, d=64, causal=True,
+                       window=4096, softcap=0.0)
+REC_SHORT_LAYERS = {"zamba2-1.2b": 19, "rwkv6-7b": 2}
+REC_PREFILL = {"zamba2-1.2b": 600, "rwkv6-7b": 64}
+SSM_GRAD_SEQ, SHARED_GRAD_SEQ, RWKV_GRAD_SEQ = 600, 64, 64
+REC_TRAIN = {"zamba2-1.2b": (38, 4), "rwkv6-7b": (2, 3)}  # layers, steps
+RWKV_PROFILE_SEQ = 1024
+# Leaves read as matrices in a product (the rest are vectors, token-shift
+# mixes, the conv's taps, RWKV6's bonus: elementwise).
+MM_LEAVES = frozenset({"in_proj", "out_proj", "wq", "wk", "wv", "wo", "wi",
+                       "wr", "wg", "wa", "wb", "w"})
+
+
+def _attn_blocks(cfg):
+    """K5's launches a forward: the g, l and a positions times the
+    repeats."""
+    return sum(ch in "gla" for ch in cfg.layer_pattern) * cfg.pattern_repeats
+
+
+def phase_zamba_k5(ref, fa_mod):
+    """15.1 K5 at ZAMBA_K5_LAYOUT in bf16 (the tensor-core kernels) and
+    f32: the forward with its LSE and the backward held against the plain
+    versions one KV head at a time (13.1's tolerances), each timed beside
+    its bound (4 D flops a pair forward, 10 D backward) and
+    ``scaled_dot_product_attention(is_causal=True)``'s forward and
+    backward."""
+    lay = ZAMBA_K5_LAYOUT
+    b, h, hkv, s, d = (lay[k] for k in ("b", "h", "hkv", "s", "d"))
+    g = torch.Generator(device="cuda").manual_seed(15)
+    base = [torch.randn(sh, generator=g, device="cuda") for sh in
+            ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, h, s, d))]
+    kw = dict(causal=True, window=lay["window"], softcap=0.0,
+              scale=d ** -0.5)
+    fwd, bwd, errs = {}, {}, {"fwd": [], "bwd": []}
+
+    def sdpa(*x):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *x, is_causal=True, scale=kw["scale"])
+    for dt in (torch.bfloat16, torch.float32):
+        name = f"zamba2-1.2b shared block {str(dt).replace('torch.', '')}"
+        q, k, v, do = (t.to(dt) for t in base)
+        out, lse = fa_mod._launch(q, k, v, True, lay["window"], 0.0,
+                                  kw["scale"], with_lse=True)
+        exp, lse_exp = _fwd_plain_sliced(ref, q, k, v, kw)
+        rtol, atol = (1e-2, 1e-3) if dt == torch.bfloat16 else (1e-4, 1e-4)
+        f_err, f_rel = _attn_close(out, exp, rtol, atol, f"K5 {name}")
+        lse_err = float((lse - lse_exp).abs().max())
+        if not bool(((lse - lse_exp).abs()
+                     <= 1e-4 + 1e-5 * lse_exp.abs()).all()):
+            raise AssertionError(f"K5 LSE {name}: max abs err {lse_err}")
+        del exp, lse_exp
+        got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        exp = _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw)
+        b_err = {}
+        for gname, a, e in zip(("dq", "dk", "dv"), got, exp):
+            e_max = float(e.float().abs().max())
+            b_err[gname] = float((a.float() - e.float()).abs().max())
+            if b_err[gname] > BWD_TOL[dt] * e_max:
+                raise AssertionError(
+                    f"K5 backward {name} {gname}: max abs err "
+                    f"{b_err[gname]} above {BWD_TOL[dt]} x {e_max}")
+        errs["fwd"].append(f_err)
+        errs["bwd"] += list(b_err.values())
+        del got, exp
+        f_ms, f_wall = _replay_ms(lambda *x: fa_mod._launch(
+            *x, True, lay["window"], 0.0, kw["scale"], with_lse=True),
+            [(q, k, v)], 3)
+        f_plain, _ = _replay_ms(lambda *x: _fwd_plain_sliced(ref, *x, kw),
+                                [(q, k, v)], 1)
+        b_ms, b_wall = _replay_ms(lambda *x: fa_mod.flash_attention_bwd(
+            *x, **kw), [(q, k, v, out, lse, do)], 2)
+        b_plain, _ = _replay_ms(lambda *x: _bwd_plain_sliced(ref, *x, kw),
+                                [(q, k, v, out, lse, do)], 1)
+        lib_f, _ = _replay_ms(sdpa, [(q, k, v)], 3)
+        xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = sdpa(*xs)
+        lib_b, _ = _replay_ms(lambda: torch.autograd.grad(
+            o, xs, do, retain_graph=True), [()], 2)
+        del xs, o
+        f_bound, f_by = _fwd_bound(lay, dt, lse=True)
+        b_bound, b_by = _bwd_bound(lay, dt)
+        shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, causal=True,
+                     window=lay["window"])
+        fwd[name] = dict(
+            shape=shape, ms=f_ms, wall_ms=f_wall, plain_ms=f_plain,
+            bound_ms=f_bound, bound_by=f_by, library_ms=lib_f,
+            with_lse=True, max_abs_err=f_err, rel_frobenius_err=f_rel,
+            lse_max_abs_err=lse_err)
+        bwd[name] = dict(
+            shape=shape, ms=b_ms, wall_ms=b_wall, plain_ms=b_plain,
+            bound_ms=b_bound, bound_by=b_by, library_ms=lib_b,
+            max_abs_err=b_err,
+            kernels="tensor cores" if dt == torch.bfloat16 else "CUDA cores")
+        print(f"# phase 15.1 K5 forward {name}: " + json.dumps(fwd[name]),
+              flush=True)
+        print(f"# phase 15.1 K5 backward {name}: " + json.dumps(bwd[name]),
+              flush=True)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return fwd, bwd, max(errs["fwd"]), max(errs["bwd"])
+
+
+def _rec_step_bound(cfg, params, cache, b, n_keys):
+    """Least ms of one decode step of ``b`` rows, what bounds it, and its
+    bytes: every weight read once (the embedding at its ``b`` rows; the
+    shared block once an application), the caches' f32 states, conv
+    windows and boundary tokens read and written once, the shared
+    block's live K and V (``n_keys`` a row) read at each application,
+    the logits written in bf16; 2 operations a product weight and row at
+    the bf16 rate."""
+    apps = cfg.layer_pattern.count("a") * cfg.pattern_repeats
+    nbytes = mm = 0
+    for path, t in _leaves(params).items():
+        reads = apps if path.startswith("/shared_attn") else 1
+        if path == "/embed/tok":
+            nbytes += b * t.shape[1] * t.element_size()
+            continue
+        nbytes += reads * t.numel() * t.element_size()
+        if path.rsplit("/", 1)[-1] in MM_LEAVES:
+            mm += reads * t.numel()
+    for path, t in _leaves(cache).items():
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf in ("k", "v"):
+            nbytes += t.shape[0] * b * n_keys * t.shape[-2] * t.shape[-1] \
+                * t.element_size()
+        elif t.is_cuda:
+            nbytes += 2 * t.numel() * t.element_size()
+    nbytes += b * cfg.vocab * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * b * mm / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def _rec_ranges(arch):
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm as ssm_mod
+    if arch == "rwkv6-7b":
+        return [(rwkv_mod, "wkv_recurrence", "wkv recurrence")]
+    return [(ssm_mod, "_causal_conv", "ssm conv"),
+            (ssm_mod, "ssd_scan", "ssm scan"),
+            (ssm_mod, "ssd_chunked", "ssm chunked")]
+
+
+def _rec_serve(arch, ref, flash_attention, LAUNCHES, reset_launches):
+    """15.2 / 15.3: ``arch`` uncut through :func:`_served` (K5 once an
+    attention block a forward: zamba2 68 times, rwkv6 never), one decode
+    step profiled and split (K5, cuBLAS, the recurrent blocks' scan and
+    conv or the WKV recurrence, the rest) beside its bound; then K5 on
+    the path's own calls."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    per_step = _attn_blocks(cfg)
+    eng, args, calls, base = _served(arch, cfg, per_step, per_step,
+                                     LAUNCHES, reset_launches)
+    last = torch.from_numpy(eng.last.astype(np.int64)).cuda()[:, None]
+    pos = [c["pos"] for c in eng.cache.values() if "pos" in c]
+    n_keys = int(pos[0][0]) + 1 if pos else 0
+
+    def step():
+        eng.decode(eng.params, eng.cache, last)
+    device_ms, n_events, top = _profile(step, top_n=10 ** 6)
+    split_ms, split, mm_in_ranges = _range_split(step, _rec_ranges(arch))
+    bound, by, nbytes = _rec_step_bound(cfg, eng.params, eng.cache,
+                                        args.batch, n_keys)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for p, t in _leaves(eng.cache).items()
+                      if t.is_cuda
+                      and p.rsplit("/", 1)[-1] not in ("k", "v"))
+    info = dict(
+        arch=arch, n_layers=cfg.n_layers, cut=None, **base,
+        profiled_decode_step=dict(
+            keys=n_keys, device_ms=device_ms, device_events=n_events,
+            split_ms=split, split_total_ms=split_ms,
+            cublas_inside_ranges_ms=mm_in_ranges, top=top[:10]),
+        decode_bound_ms=bound, decode_bound_by=by,
+        decode_bound_gb=nbytes / 1e9, recurrent_state_gb=state_bytes / 1e9)
+    sub = "15.2" if arch == "zamba2-1.2b" else "15.3"
+    print(f"# phase {sub}: " + json.dumps(info), flush=True)
+    del eng, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = _served_calls(ref, flash_attention, arch, calls, sub)
+    return base["launches"]["flash_attention"], per
+
+
+def _rec_short(arch):
+    """15.4 ``arch`` at full width and REC_SHORT_LAYERS layers from
+    weights drawn on the card: in f32 with an f32 cache, the CPU port's
+    prefill and 16 decode steps teacher-forced on the card, every step's
+    logits within rtol 1e-4, atol 1e-4 max|exp| of the CPU port's; then
+    on the card a REC_PREFILL-token prefill and one decode step against
+    the forward's last logits, f32 (f32 cache) within 2e-2 and bf16 (bf16
+    cache) within 0.1."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.train import optimizer as topt
+
+    args = launch.parse_args(["--arch", arch])
+    rt = Runtime()
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              n_layers=REC_SHORT_LAYERS[arch])
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    card = model_mod.init_params(c32, rt, torch.Generator(
+        device="cuda").manual_seed(args.seed), "cuda")
+    host = topt.tree_map(lambda t: t.cpu(), card)
+    sc = ServeConfig(batch=args.batch, max_len=args.max_len,
+                     cache_dtype="float32")
+    eng_c = ServingEngine(c32, rt, host, sc, device="cpu")
+    eng_g = ServingEngine(c32, rt, card, sc, device="cuda")
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(2, 9))
+               for _ in range(args.batch)]
+    cpu_logits, cpu_fed = [], []
+    pre_c, dec_c = eng_c.prefill, eng_c.decode
+
+    def rec_prefill(params, batch):
+        lg, cache = pre_c(params, batch)
+        cpu_logits.append(lg.float())
+        return lg, cache
+
+    def rec_decode(params, cache, toks):
+        cpu_fed.append(toks)
+        nxt, lg, cache = dec_c(params, cache, toks)
+        cpu_logits.append(lg)
+        return nxt, lg, cache
+    eng_c.prefill, eng_c.decode = rec_prefill, rec_decode
+    t0 = time.perf_counter()
+    eng_c.run(prompts, max_new=args.max_new)
+    cpu_s = time.perf_counter() - t0
+    toks = np.zeros((args.batch, max(len(p) for p in prompts)), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    lg, cache = eng_g.prefill(eng_g.params,
+                              {"tokens": torch.from_numpy(toks).cuda()})
+    card_logits = [lg.float().cpu()]
+    for fed in cpu_fed:
+        _, lg, cache = eng_g.decode(eng_g.params, cache, fed.cuda())
+        card_logits.append(lg.cpu())
+    gaps = []
+    for i, (g, c) in enumerate(zip(card_logits, cpu_logits)):
+        gaps.append(float((g - c).abs().max() / c.abs().max()))
+        if not bool(((g - c).abs() <= 1e-4 * c.abs()
+                     + 1e-4 * c.abs().max()).all()):
+            raise AssertionError(f"15.4 {arch} at {cfg.n_layers} layers, "
+                                 f"step {i}: card vs CPU port gap {gaps}")
+    del eng_c, eng_g, host, cache
+    # Decode against prefill on the card.
+    b, s = 2, REC_PREFILL[arch]
+    tk = torch.from_numpy(np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (b, s + 1))).cuda()
+    errs = {}
+    with torch.no_grad():
+        for c, dt, tol in ((c32, torch.float32, 2e-2),
+                           (cfg, torch.bfloat16, SERVE_BF16_TOL)):
+            p = card if dt == torch.float32 else model_mod.cast_params(card,
+                                                                       c)
+            full, _ = model_mod.forward(p, c, rt, {"tokens": tk})
+            cache = model_mod.init_cache(c, rt, b, s + 8, dt, device="cuda")
+            _, cache, _ = model_mod.forward(p, c, rt, {"tokens": tk[:, :-1]},
+                                            cache=cache)
+            step, _, _ = model_mod.forward(p, c, rt, {"tokens": tk[:, -1:]},
+                                           cache=cache)
+            full, step = full[:, -1].float(), step[:, 0].float()
+            errs[str(dt)] = float((step - full).abs().max())
+            if not bool(((step - full).abs()
+                         <= tol * full.abs() + tol).all()):
+                raise AssertionError(f"15.4 {arch} {dt}: decode does not "
+                                     f"match a {s}-token prefill (max abs "
+                                     f"err {errs[str(dt)]})")
+            del p, full, step, cache
+    del card
+    torch.cuda.empty_cache()
+    return dict(n_layers=cfg.n_layers, steps=len(card_logits),
+                worst_step_gap=max(gaps), logits_max=float(max(
+                    c.abs().max() for c in cpu_logits)),
+                cpu_port_s=cpu_s, prefill=s, decode_vs_prefill=errs)
+
+
+def _grads_of(fn, params, x, w, dev):
+    """Gradients of ``sum(fn(params, x) w)`` with respect to every leaf
+    of ``params`` (sorted) and ``x``, on ``dev``."""
+    from repro_torch.train import optimizer as topt
+
+    p = topt.tree_map(lambda t: t.to(dev).requires_grad_(), params)
+    xd = torch.from_numpy(x).to(dev).requires_grad_()
+    y = fn(p, xd)
+    return torch.autograd.grad(torch.sum(y * torch.from_numpy(w).to(dev)),
+                               topt.tree_leaves(p) + [xd])
+
+
+def _rec_block_grads(LAUNCHES, reset_launches):
+    """15.5 The m (S SSM_GRAD_SEQ, ``ssd_chunked``), shared a (applied
+    twice, S SHARED_GRAD_SEQ) and r (S RWKV_GRAD_SEQ) blocks at full width
+    in f32, card against the CPU port from weights drawn on the card:
+    each gradient leaf (and the input's) within 1e-4 of its largest; then
+    zamba2 at 19 layers on the card, ``remat="full"`` bitwise
+    ``"none"``: K5 forward once an application under none, twice under
+    full (the shared block's own checkpoint recomputes it; the unit's
+    recompute stops at that block's input), backward once."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import common, rwkv, ssm
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    rt = Runtime()
+    rng = np.random.default_rng(15)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+
+    def held(what, fn, params, s, d, want_k5=0):
+        x = rng.standard_normal((1, s, d)).astype(np.float32)
+        w = rng.standard_normal((1, s, d)).astype(np.float32)
+        reset_launches()
+        g_card = _grads_of(fn, params, x, w, "cuda")
+        launched = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        g_cpu = _grads_of(fn, topt.tree_map(lambda t: t.cpu(), params), x,
+                          w, "cpu")
+        cpu_s = time.perf_counter() - t0
+        if launched["flash_attention"] != want_k5 or \
+                launched["flash_attention_bwd"] != want_k5:
+            raise AssertionError(f"15.5 {what} launched K5 {launched}")
+        gaps, worst = _grad_gap(g_card, g_cpu)
+        if worst > 1e-4:
+            raise AssertionError(f"15.5 {what}: gradient leaf gaps {gaps}")
+        out[what] = dict(seq=s, leaves=len(gaps),
+                         worst_gradient_leaf_gap=worst, leaf_gaps=gaps,
+                         cpu_port_s=cpu_s)
+
+    zcfg = dataclasses.replace(configs.get_config("zamba2-1.2b"),
+                               dtype="float32", remat="none")
+    d = zcfg.d_model
+    bp = {"ln1": common.rmsnorm_init(d, device="cuda"),
+          "ssm": ssm.ssm_init(zcfg, gen, device="cuda")}
+    held("m", lambda p, xd: model_mod._apply_block(p, zcfg, rt, "m", xd,
+                                                   None, None)[0],
+         bp, SSM_GRAD_SEQ, d)
+    shared = model_mod._shared_block_init(zcfg, gen, torch.float32, "cuda")
+
+    def twice(p, xd):
+        pos = torch.arange(xd.shape[1], device=xd.device)[None]
+        rope = common.rope_tables(pos, zcfg.d_head, zcfg.rope_theta)
+        for _ in range(2):
+            xd = model_mod._apply_block({}, zcfg, rt, "a", xd, rope, None,
+                                        p)[0]
+        return xd
+    held("a twice", twice, shared, SHARED_GRAD_SEQ, d, want_k5=2)
+    del bp, shared
+    rcfg = dataclasses.replace(configs.get_config("rwkv6-7b"),
+                               dtype="float32")
+    bp = {"ln1": common.rmsnorm_init(rcfg.d_model, device="cuda"),
+          "ln2": common.rmsnorm_init(rcfg.d_model, device="cuda"),
+          "rwkv": rwkv.rwkv_init(rcfg, gen, device="cuda")}
+    held("r", lambda p, xd: model_mod._apply_block(p, rcfg, rt, "r", xd,
+                                                   None, None)[0],
+         bp, RWKV_GRAD_SEQ, rcfg.d_model)
+    del bp
+
+    c19 = dataclasses.replace(zcfg, n_layers=REC_SHORT_LAYERS["zamba2-1.2b"])
+    params = model_mod.init_params(c19, rt, gen, "cuda")
+    tok = torch.from_numpy(rng.integers(0, c19.vocab,
+                                        (1, SSM_GRAD_SEQ))).cuda()
+    runs, k5 = {}, {}
+    for r in ("none", "full"):
+        reset_launches()
+        runs[r] = tts.loss_and_grads(params, dataclasses.replace(c19, remat=r),
+                                     rt, {"tokens": tok, "labels": tok})
+        k5[r] = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"])
+    if k5 != {"none": (1, 1), "full": (2, 1)}:
+        raise AssertionError(f"15.5 zamba2 remat: K5 launches {k5}")
+    if not torch.equal(runs["none"][0], runs["full"][0]) or not all(
+            torch.equal(a, b) for a, b in zip(
+                topt.tree_leaves(runs["none"][2]),
+                topt.tree_leaves(runs["full"][2]))):
+        raise AssertionError("15.5: remat='full' differs from remat='none' "
+                             "on the card (zamba2, 19 layers)")
+    out["remat_full_equals_none"] = dict(n_layers=c19.n_layers,
+                                         tokens=SSM_GRAD_SEQ, k5=k5)
+    del params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_split(top):
+    """A gradient pass's device ms by kernel names: K5 forward and
+    backward, cuBLAS's bf16 products and its f32 ones (the SSD's einsums,
+    the only f32 products of these models), the rest."""
+    split = _step_split(top)
+    f32 = sum(ms for kname, ms, _ in top
+              if any(m in kname.lower() for m in _CUBLAS)
+              and any(m in kname.lower() for m in ("sgemm", "f32f32",
+                                                   "fp32", "_sss")))
+    split["cublas"] -= f32
+    split["cublas_f32"] = f32
+    return split
+
+
+def _rec_train(arch, ref, LAUNCHES, reset_launches):
+    """15.6 / 15.7 ``arch`` at REC_TRAIN's depth through ``TrainLoop``
+    (phase 13.3's batch, compute and remat), counts 0 before and read
+    after: K5 forward twice a shared-block application a step (its
+    forward and its own checkpoint's recompute) and backward once (none
+    for rwkv6), no plain-version call, finite losses and grad norms; one
+    more step profiled (rwkv6 at RWKV_PROFILE_SEQ tokens a row) beside
+    its bound: the products at the bf16 rate (6 N T, plus a forward's 2 N
+    T for each recompute: zamba2's Mamba2 blocks run three forwards
+    under the nested checkpoints, its shared block two, rwkv6's blocks
+    two, the embedding and LM head one), the SSD's f32 products at the
+    f32 rate (cb, the intra-chunk product, the chunk states and the
+    inter-chunk output; three forwards and a backward of twice a
+    forward), K5's pairs (4 D forward twice, 10 D backward), the
+    optimizer's 26 bytes a parameter."""
+    from repro_torch import configs
+
+    n_layers, steps = REC_TRAIN[arch]
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers)
+    apps = cfg.layer_pattern.count("a") * cfg.pattern_repeats
+    loop, res, run_s, launches, peak, plain_calls = _loop_run(
+        cfg, ref, LAUNCHES, reset_launches, steps=steps,
+        k5=(2 * apps, apps))
+    hist = res["history"]
+    walls = [h["wall_s"] for h in hist]
+    state = res["state"]
+    seq = RWKV_PROFILE_SEQ if arch == "rwkv6-7b" else TRAIN_SEQ
+    _, (g_ms, g_events, g_top), (o_ms, o_events, o_top) = _profiled_step(
+        loop, state, cfg, steps=steps, seq=seq)
+    split = _train_split(g_top)
+    split["optimizer"] = o_ms
+    t = TRAIN_BATCH * seq
+    n_all = n_head = n_m = n_a = n_r = 0
+    for path, x in _leaves(state["params"]).items():
+        n_all += x.numel()
+        if path.rsplit("/", 1)[-1] not in MM_LEAVES:
+            continue
+        if path == "/lm_head/w":
+            n_head += x.numel()
+        elif path.startswith("/shared_attn"):
+            n_a += x.numel() * apps
+        elif "/ssm/" in path:
+            n_m += x.numel()
+        else:
+            n_r += x.numel()
+    t_mm = (10.0 * n_m + 8.0 * n_a + 8.0 * n_r + 6.0 * n_head) * t \
+        / BF16_FLOP_PER_S
+    t_ssd = 0.0
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        q, nc = s.chunk, -(-seq // s.chunk)
+        h, p, n = cfg.n_ssm_heads, s.head_dim, s.d_state
+        per = 2.0 * TRAIN_BATCH * nc * (q * q * n + h * q * q * p
+                                        + 2 * q * h * p * n)
+        n_blocks = cfg.layer_pattern.count("m") * cfg.pattern_repeats
+        t_ssd = 5.0 * per * n_blocks / F32_FLOP_PER_S
+    pairs = TRAIN_BATCH * _attn_pairs(seq, seq, True, cfg.window)
+    t_attn = 18.0 * cfg.d_head * cfg.n_heads * apps * pairs \
+        / BF16_FLOP_PER_S
+    t_opt = 26.0 * n_all / HBM_BYTES_PER_S
+    steady = float(np.median(walls[1:]))
+    info = dict(
+        arch=arch, n_layers=n_layers,
+        cut=None if n_layers == configs.get_config(arch).n_layers
+        else f"n_layers {configs.get_config(arch).n_layers} -> {n_layers}",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps, params=n_all,
+        params_reckoned=cfg.param_count(), dtype=cfg.dtype,
+        param_dtype=cfg.param_dtype, remat=cfg.remat,
+        losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
+        steady_step_s=steady, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady,
+        run_s=run_s, peak_gb=peak / 1e9, peak_reckoned_gb=16 * n_all / 1e9,
+        launches={k: launches[k] for k in ("flash_attention",
+                                            "flash_attention_bwd")},
+        plain_calls=plain_calls,
+        profiled_step=dict(seq=seq, device_ms=g_ms + o_ms,
+                           events=g_events + o_events, split_ms=split,
+                           optimizer_events=o_events,
+                           top=g_top[:12] + o_top[:4]),
+        bound_ms=(t_mm + t_ssd + t_attn + t_opt) * 1e3,
+        bound_parts_ms=dict(products=t_mm * 1e3, ssd_f32=t_ssd * 1e3,
+                            attention=t_attn * 1e3,
+                            optimizer_bytes=t_opt * 1e3))
+    if seq == TRAIN_SEQ:
+        info["device_idle_share"] = 1.0 - (g_ms + o_ms) / 1e3 / steady
+    sub = "15.6" if arch == "zamba2-1.2b" else "15.7"
+    print(f"# phase {sub}: " + json.dumps(info), flush=True)
+    del loop, res, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_recurrent(ref, fa_mod, LAUNCHES, reset_launches):
+    """15. The recurrent families on the card (see the constants above
+    and the module docstring)."""
+    t = [time.perf_counter()]
+    fwd, bwd, f_err, b_err = phase_zamba_k5(ref, fa_mod)
+    t.append(time.perf_counter())
+    serve, serve_k5 = {}, {}
+    for arch in REC_ARCHS:
+        serve[arch], per = _rec_serve(arch, ref, fa_mod.flash_attention,
+                                      LAUNCHES, reset_launches)
+        serve_k5.update(per)
+        t.append(time.perf_counter())
+    short = {arch: _rec_short(arch) for arch in REC_ARCHS}
+    print("# phase 15.4: at full width and short depth in f32 (f32 cache) "
+          "the CPU port's prefill and decode steps teacher-forced on the "
+          "card within rtol 1e-4, atol 1e-4 max|exp|; decode against "
+          "prefill on the card, f32 within 2e-2 and bf16 within "
+          f"{SERVE_BF16_TOL}: " + json.dumps(short), flush=True)
+    t.append(time.perf_counter())
+    grads = _rec_block_grads(LAUNCHES, reset_launches)
+    print("# phase 15.5: the m, shared a and r blocks' gradients at full "
+          "width in f32, card against the CPU port, each leaf within 1e-4 "
+          "of its largest; remat full bitwise none on the card: "
+          + json.dumps(grads), flush=True)
+    t.append(time.perf_counter())
+    train = {}
+    for arch in REC_ARCHS:
+        train[arch] = _rec_train(arch, ref, LAUNCHES, reset_launches)
+        t.append(time.perf_counter())
+    parts = np.diff(t).tolist()
+    print(f"# phase 15: wall {t[-1] - t[0]:.1f} s (15.1 {parts[0]:.1f}, "
+          f"15.2 {parts[1]:.1f}, 15.3 {parts[2]:.1f}, 15.4 {parts[3]:.1f}, "
+          f"15.5 {parts[4]:.1f}, 15.6 {parts[5]:.1f}, 15.7 {parts[6]:.1f})",
+          flush=True)
+    return dict(fwd=fwd, bwd=bwd, fwd_err=f_err, bwd_err=b_err,
+                serve=serve, serve_k5=serve_k5, train=train)
 
 
 def main() -> int:
@@ -4239,12 +4876,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_moe(ref, fa_mod, LAUNCHES, reset_launches)
     t15 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = phase_recurrent(ref, fa_mod, LAUNCHES, reset_launches)
+    t16 = time.perf_counter()
     print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
           f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
           f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, phase 12 "
           f"{t13 - t12:.1f}, phase 13 {t14 - t13:.1f}, phase 14 "
-          f"{t15 - t14:.1f}, script up to here {t15 - t_start:.1f}",
-          flush=True)
+          f"{t15 - t14:.1f}, phase 15 {t16 - t15:.1f}, script up to here "
+          f"{t16 - t_start:.1f}", flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
              **paper, **sweep}
     k2["path_launches"].update(
@@ -4263,22 +4904,35 @@ def main() -> int:
                            **{f"{arch} serve": n
                               for arch, n in moe["serve"].items()},
                            f"{MOE_TRAIN_ARCH} train":
-                               moe["train"]["flash_attention"]}
+                               moe["train"]["flash_attention"],
+                           **{f"{arch} serve": n
+                              for arch, n in rec["serve"].items()},
+                           **{f"{arch} train": n["flash_attention"]
+                              for arch, n in rec["train"].items()}}
     k5["per_layout"].update(serve["per_layout"])
     k5["per_layout"].update(moe["fwd"])
     k5["per_layout"].update(moe["serve_k5"])
+    k5["per_layout"].update(rec["fwd"])
+    k5["per_layout"].update(rec["serve_k5"])
     top = serve["per_layout"][f"{SERVE_ARCH} serve decode"]
     k5.update(launches=serve["launches"],
-              max_abs_err=max([k5["max_abs_err"], moe["fwd_err"]] + [
+              max_abs_err=max([k5["max_abs_err"], moe["fwd_err"],
+                               rec["fwd_err"]] + [
                   r["max_abs_err"] for r in (*serve["per_layout"].values(),
-                                             *moe["serve_k5"].values())]),
+                                             *moe["serve_k5"].values(),
+                                             *rec["serve_k5"].values())]),
               **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
               entry_layout=f"{SERVE_ARCH} serve decode bf16")
     k5b["path_launches"][f"{MOE_TRAIN_ARCH} train"] = \
         moe["train"]["flash_attention_bwd"]
+    k5b["path_launches"].update(
+        {f"{arch} train": n["flash_attention_bwd"]
+         for arch, n in rec["train"].items()})
     k5b["per_layout"].update(moe["bwd"])
-    k5b["max_abs_err"] = max(k5b["max_abs_err"], moe["bwd_err"])
+    k5b["per_layout"].update(rec["bwd"])
+    k5b["max_abs_err"] = max(k5b["max_abs_err"], moe["bwd_err"],
+                             rec["bwd_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST

@@ -121,7 +121,8 @@ def model_params_from_arrays(cfg, tree: Mapping[str, Any],
     :class:`~repro_torch.models.config.ModelConfig`) from the same nested
     dict of numpy arrays, placed on ``device`` in ``cfg.param_dtype``:
     the JAX package's ``init_params`` tree, once converted leaf by leaf,
-    is already in the port's layout."""
+    is already in the port's layout (zamba2's ``shared_attn`` and its
+    ``a`` position's empty entry in ``blocks`` included)."""
     from .models.common import dtype_of
 
     dev = resolve_device(device)
@@ -144,14 +145,20 @@ def _check_repeats(a, r, i):
 
 def kv_cache_from_arrays(tree: Mapping[str, Any], device="cuda") -> dict:
     """The port's cache from the JAX package's ``init_cache`` tree as
-    numpy arrays: each unit position's k/v, or multi-head latent
-    attention's ``latent``, on ``device`` in their dtype, ``pos`` as int32
-    on the host (where the port keeps it)."""
+    numpy arrays: each unit position's k/v, multi-head latent
+    attention's ``latent``, an SSM block's ``state`` and ``conv`` or an
+    RWKV6 block's ``state``, ``tm_last`` and ``cm_last``, on ``device``
+    in their dtype; an attention cache's ``pos`` as int32 on the host
+    (where the port keeps it).  The recurrent caches have no ``pos``."""
     dev = resolve_device(device)
-    return {i: {**{k: _tensor(a, dev) for k, a in c.items() if k != "pos"},
-                "pos": torch.from_numpy(np.asarray(c["pos"], np.int32)
-                                        .copy())}
-            for i, c in tree.items()}
+
+    def one(c):
+        out = {k: _tensor(a, dev) for k, a in c.items() if k != "pos"}
+        if "pos" in c:
+            out["pos"] = torch.from_numpy(np.asarray(c["pos"], np.int32)
+                                          .copy())
+        return out
+    return {i: one(c) for i, c in tree.items()}
 
 
 def opt_state_from_arrays(tree: Mapping[str, Any], device="cuda") -> dict:

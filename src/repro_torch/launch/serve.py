@@ -5,6 +5,10 @@
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-236b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --smoke --device cpu
 
 The JAX package's ``launch/serve.py`` with the same flags, plus
 ``--device`` (``cuda`` unless ``cpu`` is asked for; ``cuda`` without a

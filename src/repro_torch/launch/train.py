@@ -6,6 +6,10 @@
       --device cpu --steps 4 --global-batch 4 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
       --smoke --device cpu --steps 4 --global-batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --smoke --device cpu --steps 4 --global-batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --smoke --device cpu --steps 4 --global-batch 4 --seq 64
 
 The JAX package's ``launch/train.py`` with the same flags, plus
 ``--device`` (``cuda`` unless ``cpu`` is asked for; ``cuda`` without a

@@ -1,14 +1,19 @@
-"""Model assembly for the attention families on one device.
+"""Model assembly on one device.
 
-The port of the JAX package's ``models/model.py`` for the ``g`` (global
-attention) and ``l`` (sliding-window attention) blocks: the dense GQA
-family (yi-9b, glm4-9b, qwen2.5-32b, gemma2-27b) and the mixture-of-
-experts family (olmoe-1b-7b; deepseek-v2-236b, whose blocks take
-multi-head latent attention, ``models/mla.py``, and experts,
-``models/moe.py``).  The parameter tree is the JAX package's:
-``params["blocks"][str(i)]`` holds unit position ``i``'s parameters
-stacked per repeat with a leading ``pattern_repeats`` dimension, and
-caches are stacked the same way.
+The port of the JAX package's ``models/model.py`` for every block kind:
+``g`` (global attention) and ``l`` (sliding-window attention) blocks, the
+dense GQA family (yi-9b, glm4-9b, qwen2.5-32b, gemma2-27b) and the
+mixture-of-experts family (olmoe-1b-7b; deepseek-v2-236b, whose blocks
+take multi-head latent attention, ``models/mla.py``, and experts,
+``models/moe.py``); the Mamba2 blocks ``m`` (``models/ssm.py``) and the
+shared attention block ``a`` of zamba2; the RWKV6 blocks ``r``
+(``models/rwkv.py``) of rwkv6-7b.  The parameter tree is the JAX
+package's: ``params["blocks"][str(i)]`` holds unit position ``i``'s
+parameters stacked per repeat with a leading ``pattern_repeats``
+dimension (empty for an ``a`` position), ``params["shared_attn"]`` the
+one weight set that every ``a`` block of every repeat applies (its
+gradient sums over them), and caches are stacked per repeat the same
+way (an ``a`` block's KV cache is its repeat's own).
 
 The repeats run as a Python loop over that leading dimension (the JAX
 package's ``scan_layers`` is an XLA compile knob; eager PyTorch has no
@@ -16,18 +21,19 @@ counterpart).  Each stacked leaf is unbound once a forward, so that its
 gradient comes back as one stacked tensor.  ``cfg.remat``: under grad
 mode, ``"full"`` runs each unit of the layer pattern (one repeat)
 through ``torch.utils.checkpoint`` without saving anything inside it,
-the JAX package's ``nothing_saveable`` on its unit; ``"none"`` saves
-every activation; ``"dots"`` (matmul outputs saveable) raises, ROADMAP
+the JAX package's ``nothing_saveable`` on its unit, and, where the
+pattern is longer than 2 blocks (zamba2's 19), each block through a
+checkpoint of its own inside the unit's, as there: the unit's recompute
+then keeps one block's internals at a time; ``"none"`` saves every
+activation; ``"dots"`` (matmul outputs saveable) raises, ROADMAP
 A13.13.  Without grad the forward is the same either way.  The experts'
 load-balance loss of each block is summed over a unit (also out of the
 checkpointed unit, so that its gradient survives the recompute) and over
 the repeats; the forward returns that sum, 0 without experts.
 
-Not ported yet, and raising ``NotImplementedError``: the shared
-attention block ``a`` and the Mamba2 blocks ``m`` (zamba2, ROADMAP
-A13.9), RWKV blocks ``r`` (A13.10), the audio and vision frontends and
-M-RoPE (A13.11).  ``param_specs`` / ``cache_specs`` belong to the mesh
-(A13.5).
+Not ported yet, and raising ``NotImplementedError``: the audio and
+vision frontends and M-RoPE (ROADMAP A13.11).  ``param_specs`` /
+``cache_specs`` belong to the mesh (A13.5).
 
 Public API:
   init_params / init_cache / cast_params
@@ -45,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..dist.sharding import Runtime
 from . import attention as attn_mod
-from . import common, mla, moe
+from . import common, mla, moe, rwkv, ssm
 from .config import ModelConfig
 
 __all__ = ["check_supported", "init_params", "init_cache", "cast_params",
@@ -53,22 +59,19 @@ __all__ = ["check_supported", "init_params", "init_cache", "cast_params",
 
 AUX_COEF = 0.01
 
-_BLOCKS = {"a": "the shared attention block (zamba2), ROADMAP A13.9",
-           "m": "Mamba2 blocks (zamba2), ROADMAP A13.9",
-           "r": "RWKV6 blocks, ROADMAP A13.10"}
+# Leaves that the forward reads in f32 whatever the compute dtype: the
+# norms' scales, the SSM's decay, step bias and skip, RWKV6's decay base
+# and bonus.  ``cast_params`` keeps their dtype.
+_F32_LEAVES = frozenset({"scale", "A_log", "dt_bias", "D", "w0", "u"})
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet,
     naming the ROADMAP item that ports it."""
-    missing = [_BLOCKS[ch] for ch in sorted(set(cfg.layer_pattern))
-               if ch in _BLOCKS]
     if cfg.frontend is not None or cfg.mrope_sections is not None:
-        missing.append("the audio and vision frontends and M-RoPE, "
-                       "ROADMAP A13.11")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: the port does not run "
-                                  + "; ".join(missing) + " yet")
+        raise NotImplementedError(
+            f"{cfg.name}: the port does not run the audio and vision "
+            "frontends and M-RoPE, ROADMAP A13.11 yet")
 
 
 def _tree_map(fn, tree):
@@ -80,9 +83,19 @@ def _tree_map(fn, tree):
 # -----------------------------------------------------------------------------
 # Init.
 # -----------------------------------------------------------------------------
-def _block_init(cfg: ModelConfig, generator, dtype, device):
-    p = {"ln1": common.rmsnorm_init(cfg.d_model, dtype, device=device),
-         "ln2": common.rmsnorm_init(cfg.d_model, dtype, device=device)}
+def _block_init(cfg: ModelConfig, char: str, generator, dtype, device):
+    def norm():
+        return common.rmsnorm_init(cfg.d_model, dtype, device=device)
+    if char == "a":
+        return {}  # the shared weights live outside the stacked blocks
+    if char == "m":
+        return {"ln1": norm(),
+                "ssm": ssm.ssm_init(cfg, generator, dtype, device=device)}
+    if char == "r":
+        return {"ln1": norm(), "ln2": norm(),
+                "rwkv": rwkv.rwkv_init(cfg, generator, dtype,
+                                       device=device)}
+    p = {"ln1": norm(), "ln2": norm()}
     if cfg.mla is not None:
         p["attn"] = mla.mla_init(cfg, generator, dtype, device=device)
     else:
@@ -93,11 +106,18 @@ def _block_init(cfg: ModelConfig, generator, dtype, device):
         p["mlp"] = common.mlp_init(cfg.d_model, cfg.d_ff, generator, dtype,
                                    device=device)
     if cfg.post_norms:
-        p["ln1_post"] = common.rmsnorm_init(cfg.d_model, dtype,
-                                            device=device)
-        p["ln2_post"] = common.rmsnorm_init(cfg.d_model, dtype,
-                                            device=device)
+        p["ln1_post"] = norm()
+        p["ln2_post"] = norm()
     return p
+
+
+def _shared_block_init(cfg: ModelConfig, generator, dtype, device):
+    """zamba2's shared attention block: norms, GQA attention, SwiGLU."""
+    return {"ln1": common.rmsnorm_init(cfg.d_model, dtype, device=device),
+            "attn": attn_mod.attn_init(cfg, generator, dtype, device=device),
+            "ln2": common.rmsnorm_init(cfg.d_model, dtype, device=device),
+            "mlp": common.mlp_init(cfg.d_model, cfg.d_ff, generator, dtype,
+                                   device=device)}
 
 
 def _stacked(fn, r: int):
@@ -126,8 +146,9 @@ def init_params(cfg: ModelConfig, rt: Runtime, generator: torch.Generator,
     """Random parameters in ``cfg.param_dtype`` on ``device`` (``cuda``
     without a card raises), drawn from ``generator`` (which lives on
     ``device``) in a fixed order: the embedding, each unit position's
-    repeats, the LM head.  The tree, its shapes and dtypes are the JAX
-    package's; its values are not."""
+    repeats, the shared attention block (zamba2), the LM head.  The
+    tree, its shapes and dtypes are the JAX package's; its values are
+    not."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = common.dtype_of(cfg.param_dtype)
@@ -135,9 +156,13 @@ def init_params(cfg: ModelConfig, rt: Runtime, generator: torch.Generator,
         "embed": common.embed_init(cfg.vocab, cfg.d_model, generator, dtype,
                                    device=device)}
     params["blocks"] = {
-        str(i): _stacked(lambda: _block_init(cfg, generator, dtype, device),
+        str(i): _stacked(lambda ch=ch: _block_init(cfg, ch, generator, dtype,
+                                                   device),
                          cfg.pattern_repeats)
-        for i in range(len(cfg.layer_pattern))}
+        for i, ch in enumerate(cfg.layer_pattern)}
+    if "a" in cfg.layer_pattern:
+        params["shared_attn"] = _shared_block_init(cfg, generator, dtype,
+                                                   device)
     params["final_norm"] = common.rmsnorm_init(cfg.d_model, dtype,
                                                device=device)
     if not cfg.tie_embeddings:
@@ -149,14 +174,16 @@ def init_params(cfg: ModelConfig, rt: Runtime, generator: torch.Generator,
 def cast_params(params, cfg: ModelConfig, device=None):
     """The tree with every weight that the forward casts to ``cfg.dtype``
     at its use cast once, on ``device`` (the params' own by default); the
-    norms' scales, which the forward reads in f32, keep their dtype.  The
-    forward on the result gives the same bits as on ``params``."""
+    leaves that the forward reads in f32 (the norms' scales, the SSM's
+    ``A_log``, ``dt_bias`` and ``D``, RWKV6's ``w0`` and ``u``) keep
+    their dtype.  The forward on the result gives the same bits as on
+    ``params``."""
     dt = common.dtype_of(cfg.dtype)
 
     def cast(tree):
         return {k: (cast(v) if isinstance(v, dict)
                     else v.to(device or v.device,
-                              v.dtype if k == "scale" else dt))
+                              v.dtype if k in _F32_LEAVES else dt))
                 for k, v in tree.items()}
     return cast(params)
 
@@ -168,9 +195,11 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, length: int,
                dtype=torch.bfloat16, *, device):
     """One cache per unit position, stacked per repeat, on ``device``
     (``cuda`` without a card raises): k/v (R, B, L, KV, dh), L capped at
-    ``cfg.window`` for ``l`` blocks, or under multi-head latent attention
-    the latent (R, B, L, kv_lora + rope_dim) of a ``g`` block; pos (R,)
-    on the host."""
+    ``cfg.window`` for ``l`` and ``a`` blocks, or under multi-head latent
+    attention the latent (R, B, L, kv_lora + rope_dim) of a ``g`` block,
+    with pos (R,) on the host; an ``m`` block's f32 SSM state and conv
+    window, an ``r`` block's f32 state and boundary tokens (no pos; the
+    JAX package makes both in f32 whatever ``dtype``)."""
     r = cfg.pattern_repeats
     device = resolve_device(device)
     out = {}
@@ -178,8 +207,12 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, length: int,
         if ch == "g" and cfg.mla is not None:
             one = mla.init_mla_cache(rt, cfg, batch, length, dtype,
                                      device=device)
+        elif ch == "m":
+            one = ssm.init_ssm_cache(rt, cfg, batch, device=device)
+        elif ch == "r":
+            one = rwkv.init_rwkv_cache(rt, cfg, batch, device=device)
         else:
-            window = cfg.window if ch == "l" else 0
+            window = cfg.window if ch in ("l", "a") else 0
             one = attn_mod.init_kv_cache(rt, cfg, batch, length, window,
                                          dtype, device=device)
         out[str(i)] = _tree_map(
@@ -191,12 +224,35 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, length: int,
 # Forward.
 # -----------------------------------------------------------------------------
 def _apply_block(bp, cfg: ModelConfig, rt: Runtime, char: str, x, rope,
-                 cache):
-    """One ``g`` or ``l`` block; returns (x, cache, aux): aux is the
-    experts' f32 load-balance loss, None without experts."""
+                 cache, shared=None):
+    """One block; returns (x, cache, aux): aux is the experts' f32
+    load-balance loss, None without experts.  An ``a`` block applies
+    ``shared`` (attention windowed at ``cfg.window``, then the MLP);
+    ``m`` and ``r`` blocks write a given cache in place."""
+    if char == "m":
+        h, cache = ssm.ssm_apply(bp["ssm"], cfg, rt,
+                                 common.rmsnorm(bp["ln1"], x, cfg.norm_eps),
+                                 cache=cache)
+        return x + h, cache, None
+    if char == "r":
+        # The time and channel mixes' own residuals on normed streams.
+        p = bp["rwkv"]
+        h, state, tm_last = rwkv.time_mix(
+            p["tm"], cfg, rt, common.rmsnorm(bp["ln1"], x, cfg.norm_eps),
+            cache["state"] if cache is not None else None,
+            cache["tm_last"] if cache is not None else None)
+        x = x + h
+        h, cm_last = rwkv.channel_mix(
+            p["cm"], cfg, common.rmsnorm(bp["ln2"], x, cfg.norm_eps),
+            cache["cm_last"] if cache is not None else None)
+        if cache is not None:
+            cache = rwkv.write_cache(cache, state, tm_last, cm_last)
+        return x + h, cache, None
+    if char == "a":
+        bp = shared
     h = common.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    window = cfg.window if char == "l" and cfg.window > 0 else 0
-    if cfg.mla is not None:
+    window = cfg.window if char in ("l", "a") and cfg.window > 0 else 0
+    if cfg.mla is not None and char != "a":
         h, cache = mla.mla_apply(bp["attn"], cfg, rt, h, rope, cache=cache)
     else:
         h, cache = attn_mod.attn_apply(bp["attn"], cfg, rt, h, rope,
@@ -206,7 +262,7 @@ def _apply_block(bp, cfg: ModelConfig, rt: Runtime, char: str, x, rope,
     x = x + h
     h = common.rmsnorm(bp["ln2"], x, cfg.norm_eps)
     aux = None
-    if cfg.moe is not None:
+    if cfg.moe is not None and char != "a":
         h, aux = moe.moe_apply(bp["moe"], cfg, rt, h)
     else:
         h = common.mlp_apply(bp["mlp"], h)
@@ -235,9 +291,12 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
     else:
         b, s = tokens.shape
         if cache is not None and s == 1:
-            # Unit position 0's pos (a KV or a latent cache's): every
-            # block's is the same.
-            pos0 = int(cache["0"]["pos"][0])
+            # The first unit position with a pos (a KV or a latent
+            # cache's; every such block's is the same); 0 where none has
+            # one (recurrent blocks read no position).
+            pos0 = next((int(c["pos"][0]) for c in (
+                cache[str(i)] for i in range(len(cfg.layer_pattern)))
+                if "pos" in c), 0)
             positions = torch.full((b, 1), pos0, dtype=torch.int32,
                                    device=x.device)
         else:
@@ -261,6 +320,11 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
             f"{cfg.name}: remat={cfg.remat!r} (matmul outputs saveable) is "
             "not ported; ROADMAP A13.13.  Use 'full' or 'none'")
 
+    # Per-block checkpoints inside the unit's, as the JAX package's (its
+    # unit recompute at zamba2's 19 blocks would otherwise keep every
+    # block's SSD internals at once).
+    inner = remat and len(unit) > 2
+    shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def unit_body(x, aux, j):
@@ -268,7 +332,10 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
             bp = _tree_map(lambda views: views[j], blocks[i])
             c = (_tree_map(lambda t: t[j], cache[str(i)])
                  if cache is not None else None)
-            x, _, block_aux = _apply_block(bp, cfg, rt, ch, x, rope, c)
+            args = (bp, cfg, rt, ch, x, rope, c, shared)
+            x, _, block_aux = (checkpoint(_apply_block, *args,
+                                          use_reentrant=False)
+                               if inner else _apply_block(*args))
             if block_aux is not None:
                 aux = aux + block_aux
         return x, aux

@@ -1,9 +1,11 @@
 """Batched serving: prefill and decode steps and a request-batching engine.
 
-The port of the JAX package's ``serve/engine.py`` for the attention
-families (dense GQA, and the mixture-of-experts family with deepseek-v2's
-latent cache) on one device.  The prefill and decode steps are plain functions
-(the JAX package jits them).  The engine holds its weights on its device
+The port of the JAX package's ``serve/engine.py`` on one device, for
+every decoder the port runs: the dense GQA family, the mixture-of-experts
+family (deepseek-v2's latent cache) and the recurrent families (zamba2's
+SSM state, conv window and shared block's windowed KV cache; rwkv6's
+state and boundary tokens).  The prefill and decode steps are plain
+functions (the JAX package jits them).  The engine holds its weights on its device
 cast once to the compute dtype (:func:`repro_torch.models.model.
 cast_params`), where the JAX package casts them at every use: the same
 bits, and a decode step reads the compute-dtype weights only.

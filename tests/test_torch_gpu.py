@@ -416,7 +416,9 @@ TC_CASES = [(1, 2, 2, 64, 64, 16, True, 0, 0.0),        # D 16: one chunk
             (1, 2, 1, 150, 60, 32, True, 16, 0.0),      # rows 75.. dead
             (1, 4, 2, 190, 190, 200, True, 64, 50.0),   # D 200, softcap
             (2, 2, 1, 77, 93, 20, True, 0, 0.0),        # D 20: no cp.async
-            (1, 2, 1, 300, 300, 256, True, 100, 30.0)]  # D 256
+            (1, 2, 1, 300, 300, 256, True, 100, 30.0),  # D 256
+            (2, 4, 4, 300, 300, 64, True, 100, 0.0),    # zamba2: MHA, D 64
+            (1, 4, 4, 256, 256, 64, True, 4096, 0.0)]   # window >= S
 
 
 @pytest.mark.gpu
@@ -911,14 +913,23 @@ def test_cuda_flash_attention_at_decode_shapes(sk, group, dtype, tol):
                                atol=tol[1])
 
 
+def _attention_blocks(cfg):
+    """The blocks of ``cfg`` that launch K5: its g, l and a positions
+    times the pattern's repeats."""
+    return sum(ch in "gla" for ch in cfg.layer_pattern) * cfg.pattern_repeats
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,lengths", [("yi-9b", (1, 1, 1)),
-                                          ("gemma2-27b", (20, 8, 5))])
+                                          ("gemma2-27b", (20, 8, 5)),
+                                          ("zamba2-1.2b", (5, 3, 7)),
+                                          ("rwkv6-7b", (5, 3, 7))])
 def test_cuda_engine_equals_cpu_port(arch, lengths):
     """A smoke config served on the card and on the CPU port with the same
     weights: equal tokens, every step's logits within rtol 1e-4 (f32
     compute; the f32 kernel is held to 1e-4 of the plain version), and
-    flash attention launched for every layer of every step.  One-token
+    flash attention launched for every attention block of every step
+    (zamba2's shared block twice a step, rwkv6 never).  One-token
     prompts make the prefill a decode over one key; gemma2's 20-token
     prompt fills its 16-slot window ring from a longer sequence."""
     from repro_torch import configs
@@ -947,7 +958,8 @@ def test_cuda_engine_equals_cpu_port(arch, lengths):
         outs = eng.run(prompts, max_new=6)
         runs[dev] = (outs, logits, LAUNCHES["flash_attention"] - before)
     assert runs["cuda"][0] == runs["cpu"][0]
-    assert runs["cuda"][2] == cfg.n_layers * (1 + 6) and runs["cpu"][2] == 0
+    assert runs["cuda"][2] == _attention_blocks(cfg) * (1 + 6)
+    assert runs["cpu"][2] == 0
     for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
         np.testing.assert_allclose(g, c, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(c).max()))
@@ -968,7 +980,9 @@ BWD_CASES = [(1, 4, 2, 200, 200, 64, 64, True, 0, 0.0),
              (1, 4, 4, 96, 96, 24, 16, True, 0, 0.0),       # its smoke config
              (2, 4, 2, 130, 100, 64, 48, False, 0, 0.0),
              (1, 4, 2, 190, 190, 100, 36, True, 0, 0.0),    # no cp.async rows
-             (1, 4, 4, 1, 33, 192, 128, False, 0, 0.0)]     # a decode row
+             (1, 4, 4, 1, 33, 192, 128, False, 0, 0.0),     # a decode row
+             (2, 4, 4, 300, 300, 64, 64, True, 100, 0.0),   # zamba2: D 64
+             (1, 4, 4, 256, 256, 64, 64, True, 4096, 0.0)]  # window >= S
 
 
 def _bwd_inputs(b, h, hkv, sq, sk, d, dtype, seed, dv=None):
@@ -1091,13 +1105,15 @@ def test_cuda_moe_engine_equals_cpu_port(arch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["yi-9b", "gemma2-27b", "olmoe-1b-7b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "zamba2-1.2b",
+                                  "rwkv6-7b"])
 def test_cuda_train_step_equals_cpu_port(arch):
     """A smoke config's loss and gradients, and one train step, on the
-    card against the CPU port from the same parameters (f32 compute):
-    loss within rtol 1e-5, every gradient leaf within 1e-4 of its largest
-    (K5 and its backward hold 1e-4 to the plain version), K5 forward and
-    backward launched once a layer."""
+    card against the CPU port from the same parameters (f32 compute;
+    zamba2's SSD at 40 tokens through ``ssd_chunked``): loss within rtol
+    1e-5, every gradient leaf within 1e-4 of its largest (K5 and its
+    backward hold 1e-4 to the plain version), K5 forward and backward
+    launched once an attention block (none in rwkv6)."""
     from repro_torch import configs
     from repro_torch.dist.sharding import Runtime
     from repro_torch.models import model
@@ -1112,8 +1128,8 @@ def test_cuda_train_step_equals_cpu_port(arch):
     f0, b0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_bwd"]
     lg, _, gg = train_step.loss_and_grads(
         card, cfg, rt, {"tokens": tok.cuda(), "labels": tok.cuda()})
-    assert LAUNCHES["flash_attention"] - f0 == cfg.n_layers
-    assert LAUNCHES["flash_attention_bwd"] - b0 == cfg.n_layers
+    assert LAUNCHES["flash_attention"] - f0 == _attention_blocks(cfg)
+    assert LAUNCHES["flash_attention_bwd"] - b0 == _attention_blocks(cfg)
     lc, _, gc = train_step.loss_and_grads(
         host, cfg, rt, {"tokens": tok, "labels": tok})
     np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)

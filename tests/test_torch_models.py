@@ -2,9 +2,10 @@
 ``models``) against the JAX package's, on the CPU.
 
 The smoke configs of the dense attention family (yi-9b, glm4-9b,
-qwen2.5-32b, gemma2-27b) and of the mixture-of-experts family
-(olmoe-1b-7b, deepseek-v2-236b with its latent attention; f32 compute)
-run on the JAX package's own
+qwen2.5-32b, gemma2-27b), of the mixture-of-experts family
+(olmoe-1b-7b, deepseek-v2-236b with its latent attention) and of the
+recurrent families (zamba2-1.2b: Mamba2 blocks and the shared attention
+block; rwkv6-7b; f32 compute) run on the JAX package's own
 parameters, carried across by ``repro_torch.interop``; inputs come from a
 numpy seed.  The JAX side runs jitted on the CPU, as its own tests run
 it; its model code reaches no Pallas kernel.
@@ -40,7 +41,8 @@ from repro_torch.models import model as tmodel
 JRT, TRT = JRuntime(mesh=None), TRuntime()
 DENSE = ["yi-9b", "glm4-9b", "qwen2.5-32b", "gemma2-27b"]
 MOE = ["olmoe-1b-7b", "deepseek-v2-236b"]
-NOT_PORTED = ["zamba2-1.2b", "hubert-xlarge", "qwen2-vl-7b", "rwkv6-7b"]
+RECURRENT = ["zamba2-1.2b", "rwkv6-7b"]
+NOT_PORTED = ["hubert-xlarge", "qwen2-vl-7b"]
 RTOL = 1e-5
 # Truncated at +-2 sigma with no variance correction: the sample std is
 # sqrt(1 - 4 phi(2) / (Phi(2) - Phi(-2))) sigma.
@@ -251,12 +253,13 @@ def _jforward(cfg):
 
 
 @pytest.mark.parametrize("mode", ["nocache", "cache"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_forward_matches_reference(arch, mode):
     """The logits (and the experts' aux loss, 0 without experts) of a
     20-token forward without a cache; or of a 19-token prefill into an
-    f32 cache of 32, then of one decode step, the cache (k and v, or the
-    latent) held after each."""
+    f32 cache of 32, then of one decode step, the cache (k and v, the
+    latent, or the recurrent state, conv window and boundary tokens,
+    which have no pos) held after each."""
     cfg, jp, tp = both_params(arch)
     b, s = 2, 20
     toks = tokens(cfg, b, s)
@@ -283,10 +286,26 @@ def test_forward_matches_reference(arch, mode):
             assert sorted(tc[i]) == sorted(jc[i])
             for name in sorted(set(jc[i]) - {"pos"}):
                 close(tc[i][name], jc[i][name], f"{step} cache {i} {name}")
-            assert tc[i]["pos"].tolist() == np.asarray(jc[i]["pos"]).tolist()
+            if "pos" in jc[i]:
+                assert tc[i]["pos"].tolist() == \
+                    np.asarray(jc[i]["pos"]).tolist()
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_forward_above_two_chunks_matches_reference(arch):
+    """A 40-token forward, above 2 chunks of the smoke configs' 16: the
+    SSD runs ``ssd_chunked`` with a padded last chunk (rwkv6's recurrence
+    is one path at every length)."""
+    cfg, jp, tp = both_params(arch)
+    toks = tokens(cfg, 2, 40, seed=11)
+    exp, _ = jax.jit(lambda p, bt: jmodel.forward(p, cfg, JRT, bt))(
+        jp, {"tokens": jnp.asarray(toks)})
+    got, _ = tmodel.forward(tp, tconfigs.get_smoke(arch), TRT,
+                            {"tokens": as_t(toks)})
+    close(got, exp, "logits")
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_decode_matches_prefill(arch):
     """The port's own check, as the JAX package's
     ``test_decode_matches_prefill``: an 11-token prefill and one decode
@@ -305,6 +324,33 @@ def test_decode_matches_prefill(arch):
                                 cache=cache)
     np.testing.assert_allclose(step[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_decode_after_a_long_prefill_matches_the_forward(arch):
+    """A 48-token prefill, above 2 chunks (zamba2 primes its SSM state
+    through ``ssd_chunked`` and an ``ssd_scan`` for the state; 48 is a
+    multiple of the shared block's 16-token window, so its ring holds
+    exactly the window, see the gemma2 test below), then two decode
+    steps: each within rtol = atol = 2e-2 of the 50-token forward's
+    logits at its position, and the decode position read from the first
+    cache that has one (zamba2's ``a`` block at unit position 3; rwkv6's
+    caches have none)."""
+    cfg = tconfigs.get_smoke(arch)
+    params = tmodel.init_params(cfg, TRT, torch.Generator().manual_seed(1),
+                                "cpu")
+    toks = as_t(tokens(cfg, 2, 50, seed=12))
+    full, _ = tmodel.forward(params, cfg, TRT, {"tokens": toks})
+    cache = tmodel.init_cache(cfg, TRT, 2, 64, torch.float32, device="cpu")
+    _, cache, _ = tmodel.forward(params, cfg, TRT, {"tokens": toks[:, :48]},
+                                 cache=cache)
+    has_pos = [i for i in sorted(cache, key=int) if "pos" in cache[i]]
+    assert has_pos == (["3"] if arch == "zamba2-1.2b" else [])
+    for t in (48, 49):
+        step, _, _ = tmodel.forward(params, cfg, TRT,
+                                    {"tokens": toks[:, t:t + 1]}, cache=cache)
+        np.testing.assert_allclose(step[:, 0].numpy(), full[:, t].numpy(),
+                                   rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("s", [16, 20])
@@ -356,7 +402,7 @@ def _scale(path, cfg):
     return 0.02
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_init_params_tree_matches_reference(arch):
     cfg = tconfigs.get_smoke(arch)
     jp = leaves(both_params(arch)[1])

@@ -1,9 +1,12 @@
 """The port's serving path (``repro_torch.serve.engine``,
 ``repro_torch.launch.serve``) against the JAX package's, on the CPU.
 
-Both engines run the smoke configs of the dense attention family and of
+Both engines run the smoke configs of the dense attention family, of
 the mixture-of-experts family (olmoe-1b-7b; deepseek-v2-236b, whose
-decode is the absorbed latent attention) on the JAX package's parameters (carried across by ``repro_torch.interop``) over
+decode is the absorbed latent attention) and of the recurrent families
+(zamba2-1.2b, rwkv6-7b, whose SSM and RWKV caches stay f32 under either
+cache dtype) on the JAX package's parameters (carried across by
+``repro_torch.interop``) over
 the same prompts, under both cache dtypes.  Their tokens must be equal,
 and the logits of every step (the prefill's last-token logits and each
 decode step's f32 logits after the final softcap) within tolerance:
@@ -43,6 +46,7 @@ from repro_torch.serve.engine import ServingEngine as TEngine
 JRT, TRT = JRuntime(mesh=None), TRuntime()
 DENSE = ["yi-9b", "glm4-9b", "qwen2.5-32b", "gemma2-27b"]
 MOE = ["olmoe-1b-7b", "deepseek-v2-236b"]
+RECURRENT = ["zamba2-1.2b", "rwkv6-7b"]
 RTOL = 1e-5
 
 
@@ -80,7 +84,7 @@ def both_params(arch):
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_engine_matches_reference(arch, cache_dtype):
     cfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
     jp, tp = both_params(arch)
@@ -128,6 +132,47 @@ def test_engine_casts_the_weights_once_to_the_compute_dtype():
     assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cast_params_is_bitwise_for_the_recurrent_families(arch):
+    """bf16 compute: the leaves the recurrent blocks read in f32 (the
+    SSM's ``A_log``, ``dt_bias`` and ``D``, RWKV6's ``w0`` and ``u``, the
+    norms' scales) keep f32, every other weight is held in bf16, and a
+    prefill and two decode steps on the cast tree give the bits of the
+    same on the f32 masters, logits and every cache leaf."""
+    cfg = dataclasses.replace(tconfigs.get_smoke(arch), dtype="bfloat16")
+    params = tmodel.init_params(cfg, TRT, torch.Generator().manual_seed(4),
+                                "cpu")
+    cast = tmodel.cast_params(params, cfg)
+    if arch == "zamba2-1.2b":
+        kept = [cast["blocks"]["0"]["ssm"][k] for k in ("A_log", "dt_bias",
+                                                        "D")]
+        assert cast["blocks"]["0"]["ssm"]["conv_w"].dtype == torch.bfloat16
+        assert cast["shared_attn"]["attn"]["wq"].dtype == torch.bfloat16
+        assert cast["blocks"]["3"] == {}
+    else:
+        kept = [cast["blocks"]["0"]["rwkv"]["tm"][k] for k in ("w0", "u")]
+        assert cast["blocks"]["0"]["rwkv"]["tm"]["mu"].dtype == \
+            torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in kept)
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab, (2, 11)))
+    outs = []
+    for p in (params, cast):
+        cache = tmodel.init_cache(cfg, TRT, 2, 16, device="cpu")
+        got = [tmodel.forward(p, cfg, TRT, {"tokens": toks[:, :9]},
+                              cache=cache)[0]]
+        for t in (9, 10):
+            got.append(tmodel.forward(p, cfg, TRT,
+                                      {"tokens": toks[:, t:t + 1]},
+                                      cache=cache)[0])
+        outs.append((got, cache))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    for i in outs[0][1]:
+        for k, t in outs[0][1][i].items():
+            assert torch.equal(t, outs[1][1][i][k]), (i, k)
+
+
 def test_launcher_serves_on_the_cpu(capsys):
     args = ["--arch", "yi-9b", "--smoke", "--device", "cpu",
             "--n-requests", "6", "--max-new", "5", "--seed", "3"]
@@ -156,6 +201,6 @@ def test_cuda_without_a_card_raises():
 
 
 def test_engine_rejects_what_is_not_ported():
-    cfg = tconfigs.get_smoke("zamba2-1.2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13.9"):
+    cfg = tconfigs.get_smoke("qwen2-vl-7b")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13.11"):
         TEngine(cfg, TRT, {}, TServeConfig(batch=1, max_len=8), device="cpu")

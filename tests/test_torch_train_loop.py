@@ -126,6 +126,36 @@ def test_moe_loop_history_matches_reference(monkeypatch, arch):
     assert all(np.isfinite(h["aux"]) and h["aux"] > 0 for h in port)
 
 
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_recurrent_loop_history_matches_reference(monkeypatch, arch):
+    """The recurrent families: four logged steps' loss and grad norm held
+    to the JAX package's loop from its parameters, 40 tokens a row (above
+    2 chunks of 16: zamba2's SSD trains through ``ssd_chunked``); no aux
+    is logged without experts."""
+    jcfg = jconfigs.get_smoke(arch)
+    jp = jax.jit(lambda key: jmodel.init_params(jcfg, JRT, key))(
+        jax.random.PRNGKey(0))
+    tp = interop.model_params_from_arrays(
+        tconfigs.get_smoke(arch), jax.tree.map(np.asarray, jp), "cpu")
+    monkeypatch.setattr(jloop.TrainLoop, "init_state", lambda self, seed: {
+        "params": jax.tree.map(jnp.copy, jp), "opt": jopt.adamw_init(jp)})
+    monkeypatch.setattr(tloop.TrainLoop, "init_state", lambda self, seed: {
+        "params": topt.tree_map(torch.clone, tp),
+        "opt": topt.adamw_init(tp)})
+    opt = dict(lr=1e-3, warmup_steps=2, total_steps=4)
+    jl = jloop.TrainLoop(
+        jcfg, JRT, JDataConfig(2, 40, seed=2),
+        jts.TrainConfig(opt=jopt.AdamWConfig(**opt)),
+        jloop.LoopConfig(total_steps=4, log_every=1))
+    tl = tloop.TrainLoop(
+        tconfigs.get_smoke(arch), TRT, DataConfig(2, 40, seed=2),
+        tts.TrainConfig(opt=topt.AdamWConfig(**opt)),
+        tloop.LoopConfig(total_steps=4, log_every=1), device="cpu")
+    port, ref = tl.run()["history"], jl.run()["history"]
+    assert len(port) == 4 and all("aux" not in h for h in port)
+    close_history(port, ref)
+
+
 @pytest.mark.parametrize("grad_accum", [1, 2])
 def test_launcher_prints_the_aux_beside_the_loss(capsys, grad_accum):
     """Every line carries the experts' aux, also when the step

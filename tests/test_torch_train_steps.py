@@ -2,8 +2,9 @@
 make_train_step``) against the JAX package's, on the CPU: two steps on
 the smoke configs of yi-9b, gemma2-27b (softcaps, window, post-norms,
 ``embed_scale``), glm4-9b (``qkv_bias``), olmoe-1b-7b (experts, their
-aux loss in the total) and deepseek-v2-236b (latent attention, a shared
-expert), with ``grad_accum`` 1 and 2 and ``compress="int8_ef"``, f32
+aux loss in the total), deepseek-v2-236b (latent attention, a shared
+expert), zamba2-1.2b (Mamba2 blocks and the shared attention block,
+whose one weight set takes both repeats' gradients) and rwkv6-7b, with ``grad_accum`` 1 and 2 and ``compress="int8_ef"``, f32
 compute, bf16 wire gradients.
 
 Both sides start from the JAX package's parameters (carried across by
@@ -45,7 +46,9 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=20)
 STEP_CASES = [("yi-9b", 1, "none"), ("yi-9b", 2, "none"),
               ("yi-9b", 2, "int8_ef"), ("gemma2-27b", 1, "none"),
               ("gemma2-27b", 2, "int8_ef"), ("glm4-9b", 2, "int8_ef"),
-              ("olmoe-1b-7b", 1, "none"), ("deepseek-v2-236b", 1, "none")]
+              ("olmoe-1b-7b", 1, "none"), ("deepseek-v2-236b", 1, "none"),
+              ("zamba2-1.2b", 1, "none"), ("zamba2-1.2b", 2, "int8_ef"),
+              ("rwkv6-7b", 1, "none")]
 
 
 @functools.lru_cache(maxsize=None)
