@@ -70,6 +70,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``torch.profiler`` device time, the link plan's entries and longest
    segment), and the same cells with 256 MiB flows, where all 2000 steps
    run;
+   (The CPU port's runs of the cells phases 6-9 hold card vs CPU port
+   are queued once the kernels are built on one worker process, which
+   runs them beside phases 1-9 on the card; each phase takes its
+   results when it reaches them.)
 6. the pi_min layer scheme: sf(q=19) x
    fatpaths(n_layers=9,rho=0.6,scheme=pi_min) x permutation x
    transport(steps=2000,transport=ndp) in a new session on the card
@@ -99,8 +103,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    against its plain version on each repair build's products and timed;
    a mid-run death at step 40 x permutation(256 MiB) x
    recovery(steps=400,transport=dctcp) for fatpaths and for ecmp, the
-   fatpaths scan profiled and K1 held against its plain version on its
-   own calls (dead links, ``util``) and timed with and without ``util``;
+   fatpaths scan profiled over its first 80 steps and K1 held against
+   its plain version on its own calls (dead links, ``util``) and timed
+   with and without ``util``;
    ``churn(rate=0.1)`` x permutation(256 MiB) x availability(steps=400);
    and the ``degradation`` ladder over permutation (7 scenarios);
 9. the blocked path engine (phases 1-8 build with ``REPRO_PATH_ENGINE=
@@ -190,13 +195,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    a bf16 cache (0.1);
 13. training, last (see ``phase_train``): (13.1) K5's backward at
    yi-9b's training layout (B 2, H 32, Hkv 4, S 4096, D 128, causal) in
-   bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels) and at
-   gemma2-27b's (B 1, S 8192, window 4096, softcap 50) and olmoe-1b-7b's
-   (B 2, H = Hkv = 16, S 4096, D 128, causal) in bf16, held against the
-   plain version one KV head at a time (|err| <= 2e-2 max|exp| bf16,
-   1e-4 f32), the forward's output (rtol 1e-2 / atol 1e-3 bf16, 1e-4
-   f32) and LSE against the plain version's, timed beside the bound (10
-   D flops a pair) and, without softcap or window,
+   bf16 (route ``wgmma-tma``: the wgmma kernels fed by TMA) and f32 (the
+   CUDA-core kernels) and at gemma2-27b's (B 1, S 8192, window 4096,
+   softcap 50) and olmoe-1b-7b's (B 2, H = Hkv = 16, S 4096, D 128,
+   causal) in bf16, each launched twice on its asserted route and the
+   two launches held bitwise equal, held against the plain version one
+   KV head at a time (|err| <= 2e-2 max|exp| bf16, 1e-4 f32), the
+   forward's output (rtol 1e-2 / atol 1e-3 bf16, 1e-4 f32) and LSE
+   against the plain version's, timed beside the bound (10 D flops a
+   pair) and, without softcap or window,
    ``scaled_dot_product_attention(enable_gqa=True)``'s backward;
    (13.2) yi-9b at full width and 1 layer in f32, two train steps on the
    card and on the CPU port from the same host-drawn weights (loss,
@@ -212,7 +219,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    emptied (see ``phase_moe`` and the constants above): (14.1) K5 with a
    V head dimension below Q's at deepseek-v2's layout (H 128, S 2048, D
    192, Dv 128, causal), forward with its LSE and backward in bf16 and
-   f32, held against the plain versions one KV head at a time and timed
+   f32 (the backward twice on its asserted route, ``wgmma-tma`` in bf16,
+   bitwise equal), held against the plain versions one KV head at a time
+   and timed
    beside their bounds and ``scaled_dot_product_attention``'s where a
    fused backend takes Dv != D; (14.2) olmoe-1b-7b served uncut and
    (14.3) deepseek-v2-236b served at 2 of its 60 layers, both drawn on
@@ -237,8 +246,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (see ``phase_recurrent`` and the constants above): (15.1) K5 at
    zamba2's shared attention block's training layout (B 2, H = Hkv =
    32, S 4096, D 64, window 4096, causal), forward with its LSE and
-   backward in bf16 and f32, held against the plain versions one KV
-   head at a time and timed beside their bounds and
+   backward in bf16 and f32 (the backward twice on its asserted route,
+   ``wgmma-tma`` in bf16, bitwise equal), held against the plain
+   versions one KV head at a time and timed beside their bounds and
    ``scaled_dot_product_attention(is_causal=True)``'s forward and
    backward (at S <= window the same function); (15.2) zamba2-1.2b and
    (15.3) rwkv6-7b served uncut, drawn on the card in f32 from the seed
@@ -257,10 +267,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    at full width in f32, card against the CPU port, and zamba2's
    ``remat="full"`` bitwise ``"none"`` at 19 layers; (15.6) zamba2-1.2b
    uncut and (15.7) rwkv6-7b at 2 of 32 layers through ``TrainLoop``,
-   batch 2 x 4096, 4 and 3 steps: exactly 16 K5 forward and 8 backward
-   launches (zamba2) and none (rwkv6), no plain-version call, finite
-   losses and grad norms, peak memory, one more step profiled (rwkv6 at
-   S 1024) beside its bound;
+   batch 2 x 4096 and 2 x 512, 4 and 3 steps: exactly 16 K5 forward and
+   8 backward launches (zamba2) and none (rwkv6), no plain-version call,
+   finite losses and grad norms, peak memory, one more step profiled
+   beside its bound;
 16. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
    attention the serving path's, for its backward the training path's;
@@ -304,6 +314,11 @@ INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
 # Markers of cuBLAS's (and cuBLASLt's) product kernels in profiler names.
 _CUBLAS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk", "cublas")
+# Markers of K5's backward kernels in profiler names: the CUDA-core
+# kernels and every kernel of the wgmma routes' namespace ``wg`` (the
+# statistics pass, dK/dV, dQ).  ``_bwd_split`` fails on a backward kernel
+# that none of them matches, so the training splits count every one.
+_K5_BWD = ("::delta_kernel", "::dkdv_kernel", "::dq_kernel", "::wg::")
 # Host calls that put one event on the device: kernel launches (runtime
 # and driver API), memsets and copies.
 DEVICE_WORK_CALLS = ("Launch", "Memset", "Memcpy")
@@ -349,9 +364,23 @@ RECOVERY_ROUTINGS = tuple(f"failures(of={r},rate={FAULT_RATE},down_step=40)"
                           for r in (DYN_ROUTING, "ecmp"))
 RECOVERY_PATTERN = LONG_PATTERN
 RECOVERY_EVAL = "recovery(steps=400,transport=dctcp)"
+# The fatpaths recovery scan is profiled over its first 80 steps, the
+# death at step 40 and 40 steps of recovery (285 device events a step,
+# 114 000 over the whole run).
+RECOVERY_PROFILE_STEPS = 80
 CHURN_ROUTING = f"churn(of={DYN_ROUTING},rate=0.1)"
 AVAIL_EVAL = "availability(steps=400)"
 DEGRADE_EVAL = "degradation"
+# The CPU port's side of the cells phases 6-9 hold card vs CPU port runs
+# in one worker process beside the card's phases (``_start_cpu_port``),
+# on CPU_PORT_THREADS of the host's cores; serially those runs took 235
+# of the script's 893 s on an H100 machine's 8 cores.  CPU_PORT maps each
+# cell to its path engine and pending result.
+CPU_PORT_THREADS = 6
+CPU_PORT: dict = {}
+# Seconds phases 6-9 waited on each result, and each run's own wall.
+CPU_PORT_WAIT: list = []
+CPU_PORT_WALL: list = []
 # Phase 9, the blocked engine: the paper's scale, sf(q=29) (1 682 routers,
 # radix 43, 37 004 endpoints, its table 5), and its cost-equal two-layer
 # fat tree (903 routers, spine radix 861, 37 023 endpoints): the paper's
@@ -1691,21 +1720,85 @@ _SIM_LANES = ("depart_step", "delivered", "retrans_bytes", "goodput_steps",
               "stalled_steps")
 
 
+def _cpu_port_cells():
+    """The cells that phases 6-9 hold card vs CPU port, in the order the
+    phases reach them: (topo, routing, pattern, evaluator, path engine,
+    whether the CPU port's stack tables and failure report come back)."""
+    return [(MAIN_TOPO, PIMIN_ROUTING, MAIN_PATTERN, MAIN_EVAL, "dense",
+             True),
+            *[(MAIN_TOPO, DYN_ROUTING, p, e, "dense", False)
+              for p, e, _ in DYN_CELLS],
+            *[(MAIN_TOPO, _static_routing(p, m), MAIN_PATTERN, MAIN_EVAL,
+               "dense", True) for p, m in STATIC_DAMAGE],
+            *[(MAIN_TOPO, r, RECOVERY_PATTERN, RECOVERY_EVAL, "dense", False)
+              for r in RECOVERY_ROUTINGS],
+            (MAIN_TOPO, CHURN_ROUTING, RECOVERY_PATTERN, AVAIL_EVAL, "dense",
+             False),
+            (MAIN_TOPO, DYN_ROUTING, MAIN_PATTERN, DEGRADE_EVAL, "dense",
+             False),
+            *[(PAPER_TOPO, r, MAIN_PATTERN, MAIN_EVAL, "auto", False)
+              for r in (DYN_ROUTING, "ecmp")]]
+
+
+def _cpu_port_init():
+    """The worker process: no card, CPU_PORT_THREADS threads, and a
+    lower priority than the card's process, whose host-bound phases it
+    shares the cores with."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(CPU_PORT_THREADS)
+    os.nice(10)
+
+
+def _cpu_port_run(topo, routing, pattern, evaluator, engine, stack):
+    """In the worker: one cell in a new ``Session(device="cpu")`` under
+    path engine ``engine``.  Returns its RunResult, the SimResults of
+    each simulation call, the stack's ``_TABLES`` and failure report
+    (when ``stack``, else None) and the run's wall seconds."""
+    from repro_torch.experiments import Session, catalog
+    os.environ["REPRO_PATH_ENGINE"] = engine
+    sims = []
+    t0 = time.perf_counter()
+    ses = Session(device="cpu")
+    with _patched(catalog, "simulate_seeds", _sims_recorder(sims)):
+        rc = ses.run(topo, routing, pattern, evaluator)
+    cpu_s = time.perf_counter() - t0
+    tables = None
+    if stack:
+        b = ses.routing(topo, routing)
+        tables = dict(failure_meta=b.failure_meta,
+                      **{n: getattr(b.routing, n) for n in _TABLES})
+    return rc, sims, tables, cpu_s
+
+
+def _start_cpu_port():
+    """Start one worker process (spawned: the card stays this process's)
+    and queue on it the CPU port's runs of ``_cpu_port_cells``, so that
+    they run beside phases 1-9 on the card; ``_card_and_cpu`` takes each
+    result as its phase reaches it.  The caller terminates the pool."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(
+        1, initializer=_cpu_port_init)
+    for cell in _cpu_port_cells():
+        CPU_PORT[cell[:4]] = (cell[4], pool.apply_async(_cpu_port_run, cell))
+    return pool
+
+
 def _card_and_cpu(Session, catalog, routing, pattern, evaluator, LAUNCHES,
                   reset_launches, card_ctx=contextlib.nullcontext,
                   topo=MAIN_TOPO, need=("semiring", "waterfill")):
     """One ``topo`` cell (sf(q=19) by default) in a new session on the
-    card, with the launch
-    counts set to 0 just before and read just after, then on the CPU
-    port: its metrics and meta equal (``compare_results`` at rtol 0, NaN
+    card, with the launch counts set to 0 just before and read just
+    after, then held against the CPU port's run of the same cell under
+    the same path engine (from the worker, see :func:`_start_cpu_port`):
+    its metrics and meta equal (``compare_results`` at rtol 0, NaN
     equal to NaN), and every simulation's ``depart_step``, ``delivered``
     and, where the cell has them, ``retrans_bytes`` and the per-step
     ``goodput_steps`` and ``stalled_steps``, bitwise.  ``card_ctx()`` is
     entered around the card's run only; each kernel of ``need`` must have
-    been launched.  Returns (card session, CPU-port session, card
-    RunResult, card SimResults of the first simulation call, launches,
-    CPU-port wall s)."""
-    card, cpu = [], []
+    been launched.  Returns (card session, the CPU port's stack tables
+    and failure report or None, card RunResult, card SimResults of the
+    first simulation call, launches, CPU-port wall s)."""
+    card = []
     ses = Session(device="cuda")
     torch.cuda.synchronize()
     reset_launches()
@@ -1715,13 +1808,17 @@ def _card_and_cpu(Session, catalog, routing, pattern, evaluator, LAUNCHES,
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     _need_launches(launches, need, rr.cell_id)
+    engine, pending = CPU_PORT.pop((topo, routing, pattern, evaluator))
+    if engine != os.environ["REPRO_PATH_ENGINE"]:
+        raise AssertionError(f"{rr.cell_id}: the CPU port ran under "
+                             f"{engine}, the card under "
+                             f"{os.environ['REPRO_PATH_ENGINE']}")
     t0 = time.perf_counter()
-    ses_cpu = Session(device="cpu")
-    with _patched(catalog, "simulate_seeds", _sims_recorder(cpu)):
-        rc = ses_cpu.run(topo, routing, pattern, evaluator)
-    cpu_s = time.perf_counter() - t0
+    rc, cpu, tables, cpu_s = pending.get()
+    CPU_PORT_WAIT.append(time.perf_counter() - t0)
+    CPU_PORT_WALL.append(cpu_s)
     _same_runs([rr], [rc], card, cpu, f"{rr.cell_id} card vs CPU")
-    return ses, ses_cpu, rr, card[0], launches, cpu_s
+    return ses, tables, rr, card[0], launches, cpu_s
 
 
 def _same_runs(results_a, results_b, sims_a, sims_b, what):
@@ -1771,7 +1868,7 @@ def phase_pimin(Session, catalog, paths, transport, prng, ref,
     loop-free on every entry; K2 bool held against its plain version on
     the build's own calls and timed there beside the main sweep's."""
     calls = []
-    ses, ses_cpu, rr, _, launches, cpu_s = _card_and_cpu(
+    ses, cpu_stack, rr, _, launches, cpu_s = _card_and_cpu(
         Session, catalog, PIMIN_ROUTING, MAIN_PATTERN, MAIN_EVAL, LAUNCHES,
         reset_launches, lambda: _recording([paths], calls, "pi_min"))
     if launches["semiring"] != len(calls) or \
@@ -1780,9 +1877,8 @@ def phase_pimin(Session, catalog, paths, transport, prng, ref,
                              f"{launches['semiring']} times for "
                              f"{len(calls)} recorded calls")
     lr_g = ses.routing(MAIN_TOPO, PIMIN_ROUTING).routing
-    lr_c = ses_cpu.routing(MAIN_TOPO, PIMIN_ROUTING).routing
-    for name in ("layer_adj", "nh", "reach", "pathlen"):
-        if not torch.equal(getattr(lr_g, name).cpu(), getattr(lr_c, name)):
+    for name in _TABLES:
+        if not torch.equal(getattr(lr_g, name).cpu(), cpu_stack[name]):
             raise AssertionError(f"pi_min {name} differs card vs CPU")
     report = lr_g.validate_loop_free(n_samples=10 ** 9)
     k2["per_semiring"]["bool"]["pi_min_build"] = _bool_calls_entry(
@@ -1924,11 +2020,12 @@ def phase_faults(Session, catalog, failures, paths, transport, prng, ref,
                  semiring_matmul, waterfill_step, LAUNCHES, reset_launches,
                  k1, k2):
     """8. Faults at sf(q=19), each cell on the card (launch counts 0
-    before, read after) and on the CPU port in the same process, held
-    equal by :func:`_card_and_cpu`: the static-damage cells (degraded
+    before, read after) and on the CPU port, held equal by
+    :func:`_card_and_cpu`: the static-damage cells (degraded
     tables bitwise, the same report, the card's stack loop-free, K2 bool
     on the repair build's products), the mid-run death cells under dctcp
-    recovery (the fatpaths one profiled, K1 timed on its calls with and
+    recovery (the fatpaths one profiled over RECOVERY_PROFILE_STEPS, K1
+    timed on its calls with and
     without ``util``), the churn cell under the availability evaluator,
     and the degradation ladder."""
     path_launches = {}
@@ -1950,7 +2047,7 @@ def phase_faults(Session, catalog, failures, paths, transport, prng, ref,
                     _patched(failures, "apply_failures", mark):
                 yield
 
-        ses, ses_cpu, rr, _, launches, cpu_s = _card_and_cpu(
+        ses, cpu_stack, rr, _, launches, cpu_s = _card_and_cpu(
             Session, catalog, routing, MAIN_PATTERN, MAIN_EVAL, LAUNCHES,
             reset_launches, card_ctx)
         path_launches[rr.cell_id] = launches
@@ -1960,16 +2057,15 @@ def phase_faults(Session, catalog, failures, paths, transport, prng, ref,
                                  f"semiring launches for {len(calls)} "
                                  "recorded calls")
         b_g = ses.routing(MAIN_TOPO, routing)
-        b_c = ses_cpu.routing(MAIN_TOPO, routing)
-        for name in ("layer_adj", "nh", "reach", "pathlen"):
+        for name in _TABLES:
             if not torch.equal(getattr(b_g.routing, name).cpu(),
-                               getattr(b_c.routing, name)):
+                               cpu_stack[name]):
                 raise AssertionError(f"{rr.cell_id}: {name} differs card vs "
                                      "CPU")
-        if b_g.failure_meta != b_c.failure_meta or \
+        if b_g.failure_meta != cpu_stack["failure_meta"] or \
                 not b_g.failure_meta["failed_links"] > 0:
             raise AssertionError(f"{rr.cell_id}: reports {b_g.failure_meta} "
-                                 f"vs {b_c.failure_meta}")
+                                 f"vs {cpu_stack['failure_meta']}")
         report = b_g.routing.validate_loop_free(n_samples=10 ** 9)
         info = dict(cell=rr.cell_id, metrics=rr.metrics,
                     failure=b_g.failure_meta, build_s=rr.meta["build_s"],
@@ -2001,7 +2097,8 @@ def phase_faults(Session, catalog, failures, paths, transport, prng, ref,
                     cpu_port_wall_s=cpu_s, launches=launches)
         if routing == RECOVERY_ROUTINGS[0]:
             info.update(_scan_reading(
-                ses, transport, prng, routing, RECOVERY_PATTERN, 400, None,
+                ses, transport, prng, routing, RECOVERY_PATTERN, 400,
+                RECOVERY_PROFILE_STEPS,
                 dict(transport="dctcp", recovery="on", record=1,
                      adaptive_horizon=False)))
             k1.setdefault("per_path", {})["recovery cell"] = _recovery_k1(
@@ -2265,8 +2362,8 @@ def phase_paper_stats(Session, paths, ref, semiring_matmul, LAUNCHES,
 def phase_paper_cells(Session, catalog, transport, prng, LAUNCHES,
                       reset_launches, k1):
     """9.4 The sf(q=29) main cells under ``auto`` on the card and on the
-    CPU port (blocked too) in the same process, held equal as phase 5
-    holds its cells, with their scan readings and peak memory."""
+    CPU port (blocked too), held equal as phase 5 holds its cells, with
+    their scan readings and peak memory."""
     path_launches = {}
     with _engine("auto"):
         for r in (DYN_ROUTING, "ecmp"):
@@ -3273,6 +3370,40 @@ def _fwd_plain_sliced(ref, q, k, v, kw):
             torch.cat([p[1] for p in parts], dim=1))
 
 
+def _bwd_twice(fa_mod, args, kw, dt, what):
+    """K5's backward on ``args``, launched twice: the route both launches
+    took (``ROUTE_LAUNCHES`` read around them) must be ``wgmma-tma`` in
+    bf16 and ``cuda-cores`` in f32, and the two launches' gradients must
+    be the same bits (no atomics, sums in a fixed order).  Returns the
+    gradients and the route."""
+    want = "wgmma-tma" if dt == torch.bfloat16 else "cuda-cores"
+    before = dict(fa_mod.ROUTE_LAUNCHES)
+    got = fa_mod.flash_attention_bwd(*args, **kw)
+    again = fa_mod.flash_attention_bwd(*args, **kw)
+    ran = {r: n - before.get(r, 0) for r, n in fa_mod.ROUTE_LAUNCHES.items()
+           if n != before.get(r, 0)}
+    if ran != {want: 2}:
+        raise AssertionError(f"K5 backward {what}: routes {ran}, expected "
+                             f"{want}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K5 backward {what}: two launches differ")
+    return got, want
+
+
+def _bwd_split(fa_mod, args, kw):
+    """One backward call profiled: its device ms and the ms of each of its
+    kernels (the statistics pass, dK/dV, dQ), for what to redesign
+    next."""
+    ms, _, top = _profile(lambda: fa_mod.flash_attention_bwd(*args, **kw))
+    unnamed = [name for name, _, _ in top
+               if not any(m in name for m in _K5_BWD)]
+    if unnamed:
+        raise AssertionError(f"K5 backward kernels {unnamed} match none of "
+                             f"{_K5_BWD}: the training splits would miss "
+                             "them")
+    return dict(device_ms=ms, kernels={name: t for name, t, _ in top})
+
+
 def phase_bwd(ref, fa_mod):
     """13.1 K5's backward at full-width layouts against its plain version
     (see the constants above), its forward and LSE against the plain
@@ -3280,7 +3411,9 @@ def phase_bwd(ref, fa_mod):
     f32, the LSE within 1e-4), each backward timed beside its bound and,
     where there is no softcap and no window,
     ``scaled_dot_product_attention(enable_gqa=True)``'s backward under
-    autograd."""
+    autograd; every backward launched twice (bitwise equal) on its route
+    (``wgmma-tma`` in bf16, the CUDA cores in f32)."""
+    t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(13)
     per, errs = {}, []
     for name, lay in BWD_LAYOUTS.items():
@@ -3307,7 +3440,8 @@ def phase_bwd(ref, fa_mod):
                 raise AssertionError(f"K5 LSE {name} {dt}: max abs err "
                                      f"{lse_err}")
             del exp, lse_exp
-            got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            got, route = _bwd_twice(fa_mod, (q, k, v, out, lse, do), kw, dt,
+                                    f"{name} {dt}")
             exp = _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw)
             err = {}
             for gname, a, e in zip(("dq", "dk", "dv"), got, exp):
@@ -3336,7 +3470,10 @@ def phase_bwd(ref, fa_mod):
             bound, by = _bwd_bound(lay, dt)
             key = f"{name} {str(dt).replace('torch.', '')}"
             per[key] = dict(shape=dict(b=b, h=h, hkv=hkv, s=s, d=d),
-                            ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                            route=route, ms=ms, wall_ms=wall,
+                            split=_bwd_split(fa_mod, (q, k, v, out, lse, do),
+                                             kw),
+                            plain_ms=plain_ms,
                             bound_ms=bound, bound_by=by, library_ms=lib,
                             max_abs_err=err, fwd_max_abs_err=f_err,
                             lse_max_abs_err=lse_err)
@@ -3344,6 +3481,8 @@ def phase_bwd(ref, fa_mod):
                   flush=True)
             del q, k, v, do, out, lse
             torch.cuda.empty_cache()
+    print(f"# phase 13.1: wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return per, max(errs)
 
 
@@ -3444,8 +3583,7 @@ def _step_split(top):
         low = kname.lower()
         if "flash_tc_kernel" in low or "flash_kernel" in low:
             split["k5_forward"] += ms
-        elif any(m in low for m in ("dkdv_", "dq_kernel", "dq_tc_kernel",
-                                    "delta_kernel")):
+        elif any(m in kname for m in _K5_BWD):
             split["k5_backward"] += ms
         elif any(m in low for m in _CUBLAS):
             split["cublas"] += ms
@@ -3455,9 +3593,10 @@ def _step_split(top):
 
 
 def _loop_run(cfg, ref, LAUNCHES, reset_launches, steps=TRAIN_STEPS,
-              k5=None):
+              k5=None, seq=TRAIN_SEQ):
     """``cfg`` through ``TrainLoop`` at phase 13.3's batch and optimizer
-    for ``steps`` steps on ``lm`` data, counts 0 before and read after:
+    for ``steps`` steps on ``lm`` data of ``seq`` tokens a row, counts 0
+    before and read after:
     exactly ``k5`` = (forward, backward) K5 launches a step, by default 2
     forward a layer (each layer's forward and its recompute under full
     remat) and 1 backward, no call of either plain version, a finite
@@ -3473,7 +3612,7 @@ def _loop_run(cfg, ref, LAUNCHES, reset_launches, steps=TRAIN_STEPS,
     tc = tts.TrainConfig(opt=topt.AdamWConfig(warmup_steps=1,
                                               total_steps=steps))
     loop = tloop.TrainLoop(
-        cfg, Runtime(), DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=0), tc,
+        cfg, Runtime(), DataConfig(TRAIN_BATCH, seq, seed=0), tc,
         tloop.LoopConfig(total_steps=steps, log_every=1),
         device="cuda")
     plain_calls = {"attention_ref": 0, "flash_attention_bwd_ref": 0}
@@ -3629,7 +3768,7 @@ def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
     top = per[f"{TRAIN_ARCH} bfloat16"]
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                replaces="src/repro/models/attention.py:257",
+                replaces="src/repro/models/attention.py:251",
                 launches=launches["flash_attention_bwd"],
                 max_abs_err=bwd_err,
                 **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -3677,7 +3816,10 @@ def phase_mla_k5(ref, fa_mod):
     (the forward at rtol 1e-2 / atol 1e-3 in bf16 and 1e-4 in f32, the
     LSE within 1e-4, each gradient within 2e-2 or 1e-4 of its largest),
     each timed beside its bound (forward 2 (D + Dv) flops a pair,
-    backward 2 (3 D + 2 Dv)) and ``scaled_dot_product_attention``'s."""
+    backward 2 (3 D + 2 Dv)) and ``scaled_dot_product_attention``'s; the
+    backward launched twice (bitwise equal) on its route (``wgmma-tma``
+    in bf16)."""
+    t_phase = time.perf_counter()
     lay = MLA_LAYOUT
     b, h, hkv, s, d, dv = (lay[k] for k in ("b", "h", "hkv", "s", "d", "dv"))
     g = torch.Generator(device="cuda").manual_seed(14)
@@ -3700,7 +3842,8 @@ def phase_mla_k5(ref, fa_mod):
                      <= 1e-4 + 1e-5 * lse_exp.abs()).all()):
             raise AssertionError(f"K5 LSE {name}: max abs err {lse_err}")
         del exp, lse_exp
-        got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        got, route = _bwd_twice(fa_mod, (q, k, v, out, lse, do), kw, dt,
+                                name)
         exp = _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw)
         b_err = {}
         for gname, a, e in zip(("dq", "dk", "dv"), got, exp):
@@ -3736,14 +3879,16 @@ def phase_mla_k5(ref, fa_mod):
             bound_ms=b_bound, bound_by=b_by,
             library_ms=lib_b if backend else None,
             library=backend or f"none: {lib_f}", max_abs_err=b_err,
-            kernels="tensor cores" if dt == torch.bfloat16 and d <= 128
-            else "CUDA cores")
+            route=route,
+            split=_bwd_split(fa_mod, (q, k, v, out, lse, do), kw))
         print(f"# phase 14.1 K5 forward {name}: " + json.dumps(fwd[name]),
               flush=True)
         print(f"# phase 14.1 K5 backward {name}: " + json.dumps(bwd[name]),
               flush=True)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
+    print(f"# phase 14.1: wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return fwd, bwd, max(errs["fwd"]), max(errs["bwd"])
 
 
@@ -4236,17 +4381,19 @@ def phase_moe(ref, fa_mod, LAUNCHES, reset_launches):
 # zamba2 trained uncut (1.118e9 x 16 B = 18 GB of f32 weights, gradients
 # and AdamW moments), rwkv6-7b with n_layers cut from 32 to 2, the one
 # cut (7.53e9 x 16 B = 121 GB at full depth; 2 layers 0.97e9): phase
-# 13.3's batch (2 x 4096) and compute, 4 and 3 steps; rwkv6's step,
-# about 10^5 eager launches of the sequential WKV scan at S 4096, is
-# profiled at S 1024.
+# 13.3's batch and compute, 4 and 3 steps; zamba2 at 2 x 4096 tokens,
+# rwkv6 at 2 x 512 (its step is about 10^5 eager launches of the
+# sequential WKV scan at S 4096, 7.4 s a step; at S 1024, 32 000
+# device events, 15.7 took 58.6 s on the card's host, 5.4 of them its
+# three steps), its steps and its profiled step alike.
 REC_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
 ZAMBA_K5_LAYOUT = dict(b=2, h=32, hkv=32, s=4096, d=64, causal=True,
                        window=4096, softcap=0.0)
 REC_SHORT_LAYERS = {"zamba2-1.2b": 19, "rwkv6-7b": 2}
 REC_PREFILL = {"zamba2-1.2b": 600, "rwkv6-7b": 64}
 SSM_GRAD_SEQ, SHARED_GRAD_SEQ, RWKV_GRAD_SEQ = 600, 64, 64
-REC_TRAIN = {"zamba2-1.2b": (38, 4), "rwkv6-7b": (2, 3)}  # layers, steps
-RWKV_PROFILE_SEQ = 1024
+# layers, steps, tokens a row
+REC_TRAIN = {"zamba2-1.2b": (38, 4, 4096), "rwkv6-7b": (2, 3, 512)}
 # Leaves read as matrices in a product (the rest are vectors, token-shift
 # mixes, the conv's taps, RWKV6's bonus: elementwise).
 MM_LEAVES = frozenset({"in_proj", "out_proj", "wq", "wk", "wv", "wo", "wi",
@@ -4265,7 +4412,9 @@ def phase_zamba_k5(ref, fa_mod):
     versions one KV head at a time (13.1's tolerances), each timed beside
     its bound (4 D flops a pair forward, 10 D backward) and
     ``scaled_dot_product_attention(is_causal=True)``'s forward and
-    backward."""
+    backward; the backward launched twice (bitwise equal) on its route
+    (``wgmma-tma`` in bf16, the CUDA cores in f32)."""
+    t_phase = time.perf_counter()
     lay = ZAMBA_K5_LAYOUT
     b, h, hkv, s, d = (lay[k] for k in ("b", "h", "hkv", "s", "d"))
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -4291,7 +4440,8 @@ def phase_zamba_k5(ref, fa_mod):
                      <= 1e-4 + 1e-5 * lse_exp.abs()).all()):
             raise AssertionError(f"K5 LSE {name}: max abs err {lse_err}")
         del exp, lse_exp
-        got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        got, route = _bwd_twice(fa_mod, (q, k, v, out, lse, do), kw, dt,
+                                name)
         exp = _bwd_plain_sliced(ref, q, k, v, out, lse, do, kw)
         b_err = {}
         for gname, a, e in zip(("dq", "dk", "dv"), got, exp):
@@ -4331,14 +4481,16 @@ def phase_zamba_k5(ref, fa_mod):
         bwd[name] = dict(
             shape=shape, ms=b_ms, wall_ms=b_wall, plain_ms=b_plain,
             bound_ms=b_bound, bound_by=b_by, library_ms=lib_b,
-            max_abs_err=b_err,
-            kernels="tensor cores" if dt == torch.bfloat16 else "CUDA cores")
+            max_abs_err=b_err, route=route,
+            split=_bwd_split(fa_mod, (q, k, v, out, lse, do), kw))
         print(f"# phase 15.1 K5 forward {name}: " + json.dumps(fwd[name]),
               flush=True)
         print(f"# phase 15.1 K5 backward {name}: " + json.dumps(bwd[name]),
               flush=True)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
+    print(f"# phase 15.1: wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return fwd, bwd, max(errs["fwd"]), max(errs["bwd"])
 
 
@@ -4650,7 +4802,7 @@ def _rec_train(arch, ref, LAUNCHES, reset_launches):
     after: K5 forward twice a shared-block application a step (its
     forward and its own checkpoint's recompute) and backward once (none
     for rwkv6), no plain-version call, finite losses and grad norms; one
-    more step profiled (rwkv6 at RWKV_PROFILE_SEQ tokens a row) beside
+    more step profiled at the same tokens a row beside
     its bound: the products at the bf16 rate (6 N T, plus a forward's 2 N
     T for each recompute: zamba2's Mamba2 blocks run three forwards
     under the nested checkpoints, its shared block two, rwkv6's blocks
@@ -4661,16 +4813,15 @@ def _rec_train(arch, ref, LAUNCHES, reset_launches):
     optimizer's 26 bytes a parameter."""
     from repro_torch import configs
 
-    n_layers, steps = REC_TRAIN[arch]
+    n_layers, steps, seq = REC_TRAIN[arch]
     cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers)
     apps = cfg.layer_pattern.count("a") * cfg.pattern_repeats
     loop, res, run_s, launches, peak, plain_calls = _loop_run(
         cfg, ref, LAUNCHES, reset_launches, steps=steps,
-        k5=(2 * apps, apps))
+        k5=(2 * apps, apps), seq=seq)
     hist = res["history"]
     walls = [h["wall_s"] for h in hist]
     state = res["state"]
-    seq = RWKV_PROFILE_SEQ if arch == "rwkv6-7b" else TRAIN_SEQ
     _, (g_ms, g_events, g_top), (o_ms, o_events, o_top) = _profiled_step(
         loop, state, cfg, steps=steps, seq=seq)
     split = _train_split(g_top)
@@ -4705,16 +4856,17 @@ def _rec_train(arch, ref, LAUNCHES, reset_launches):
         / BF16_FLOP_PER_S
     t_opt = 26.0 * n_all / HBM_BYTES_PER_S
     steady = float(np.median(walls[1:]))
+    full = configs.get_config(arch).n_layers
+    cut = ([f"n_layers {full} -> {n_layers}"] if n_layers != full else []) \
+        + ([f"seq {TRAIN_SEQ} -> {seq}"] if seq != TRAIN_SEQ else [])
     info = dict(
-        arch=arch, n_layers=n_layers,
-        cut=None if n_layers == configs.get_config(arch).n_layers
-        else f"n_layers {configs.get_config(arch).n_layers} -> {n_layers}",
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps, params=n_all,
+        arch=arch, n_layers=n_layers, cut=", ".join(cut) or None,
+        batch=TRAIN_BATCH, seq=seq, steps=steps, params=n_all,
         params_reckoned=cfg.param_count(), dtype=cfg.dtype,
         param_dtype=cfg.param_dtype, remat=cfg.remat,
         losses=[h["loss"] for h in hist],
         grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
-        steady_step_s=steady, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady,
+        steady_step_s=steady, tokens_per_s=TRAIN_BATCH * seq / steady,
         run_s=run_s, peak_gb=peak / 1e9, peak_reckoned_gb=16 * n_all / 1e9,
         launches={k: launches[k] for k in ("flash_attention",
                                             "flash_attention_bwd")},
@@ -4726,9 +4878,8 @@ def _rec_train(arch, ref, LAUNCHES, reset_launches):
         bound_ms=(t_mm + t_ssd + t_attn + t_opt) * 1e3,
         bound_parts_ms=dict(products=t_mm * 1e3, ssd_f32=t_ssd * 1e3,
                             attention=t_attn * 1e3,
-                            optimizer_bytes=t_opt * 1e3))
-    if seq == TRAIN_SEQ:
-        info["device_idle_share"] = 1.0 - (g_ms + o_ms) / 1e3 / steady
+                            optimizer_bytes=t_opt * 1e3),
+        device_idle_share=1.0 - (g_ms + o_ms) / 1e3 / steady)
     sub = "15.6" if arch == "zamba2-1.2b" else "15.7"
     print(f"# phase {sub}: " + json.dumps(info), flush=True)
     del loop, res, state
@@ -4780,6 +4931,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    with contextlib.ExitStack() as stop:
+        return _main(stop)
+
+
+def _main(stop) -> int:
+    """The phases; ``stop`` ends the CPU port's worker on any exit."""
     from repro_torch import prng
     from repro_torch.core import (diversity, failures, layers, paths,
                                   throughput, topology, transport)
@@ -4804,7 +4961,11 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"# kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
-    for lib, kernels in _ptxas_report(build.PTXAS_LOG).items():
+    pool = _start_cpu_port()
+    stop.callback(pool.join)
+    stop.callback(pool.terminate)
+    ptxas = _ptxas_report(build.PTXAS_LOG)
+    for lib, kernels in ptxas.items():
         print(f"# ptxas {lib}: " + json.dumps(kernels), flush=True)
     main_mm, main_wf = capture_main_inputs(Session, paths, transport)
     k2 = phase_semiring(ref, semiring_matmul, main_mm)
@@ -4822,7 +4983,9 @@ def main() -> int:
                     reset_launches)
     k5 = phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches)
     torch.cuda.empty_cache()
+    t4 = time.perf_counter()
     phase_small_cell(Session, transport)
+    t5 = time.perf_counter()
     launches, main_ses, main_results, main_sims = phase_main(
         Session, transport, catalog, prng, LAUNCHES, reset_launches)
     k2["launches"] = launches["semiring"]
@@ -4880,12 +5043,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec = phase_recurrent(ref, fa_mod, LAUNCHES, reset_launches)
     t16 = time.perf_counter()
-    print(f"# wall s: phase 6 {t7 - t6:.1f}, phase 7 {t8 - t7:.1f}, phase 8 "
+    print(f"# wall s: phases 1-3 and (a)-(d) {t4 - t_start:.1f}, phase 4 "
+          f"{t5 - t4:.1f}, phase 5 {t6 - t5:.1f}, phase 6 {t7 - t6:.1f}, "
+          f"phase 7 {t8 - t7:.1f}, phase 8 "
           f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
           f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, phase 12 "
           f"{t13 - t12:.1f}, phase 13 {t14 - t13:.1f}, phase 14 "
           f"{t15 - t14:.1f}, phase 15 {t16 - t15:.1f}, script up to here "
-          f"{t16 - t_start:.1f}", flush=True)
+          f"{t16 - t_start:.1f}; phases 6-9 waited {sum(CPU_PORT_WAIT):.1f} "
+          f"s for the CPU port's {len(CPU_PORT_WAIT)} runs (their own "
+          f"walls {sum(CPU_PORT_WALL):.1f} s)", flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
              **paper, **sweep}
     k2["path_launches"].update(
@@ -4933,6 +5100,19 @@ def main() -> int:
     k5b["per_layout"].update(rec["bwd"])
     k5b["max_abs_err"] = max(k5b["max_abs_err"], moe["bwd_err"],
                              rec["bwd_err"])
+    # The loaded library's wgmma kernels: registers, spill bytes (stores,
+    # loads) and static shared memory from its build's ptxas report, and
+    # whether this run built it or found it built.
+    wg = {name: regs for name, regs in ptxas.get(
+        "flash_attention_bwd", {}).items() if "wg::" in name}
+    if not wg:
+        raise AssertionError("no ptxas report of flash_attention_bwd's "
+                             "wgmma kernels")
+    k5b["ptxas"] = dict(library=build.PTXAS_FROM["flash_attention_bwd"],
+                        kernels=wg)
+    if CPU_PORT:
+        raise AssertionError("CPU-port runs that no phase held against the "
+                             f"card: {list(CPU_PORT)}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST

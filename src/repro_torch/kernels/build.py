@@ -6,8 +6,11 @@ at the checkout's root, at first use, once per process.  The hash covers
 the source, every shared header ``csrc/*.cuh`` and the flags, so an
 edited kernel or header is rebuilt and a stale library is never loaded.
 No PyTorch header is compiled: a build takes seconds.  ``ptxas`` reports
-each kernel's registers, shared memory and spills (``-Xptxas -v``);
-:data:`PTXAS_LOG` keeps that report per library built in this process.
+each kernel's registers, shared memory and spills (``-Xptxas -v``); the
+report is kept beside the library (``<name>-<hash>.ptxas.txt``, and a
+library without one is built again), :data:`PTXAS_LOG` holds it per
+library loaded in this process and :data:`PTXAS_FROM` says whether that
+library was built in this process or found built.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
@@ -26,7 +29,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["KERNELS", "load", "build_all", "check", "BUILD_DIR",
-           "PTXAS_LOG"]
+           "PTXAS_LOG", "PTXAS_FROM"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -36,8 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's output (the ptxas report) of each library built in this process.
+# nvcc's output (the ptxas report) of each library loaded in this process.
 PTXAS_LOG: Dict[str, str] = {}
+# "built" or "cached": where each loaded library (and its report) came from.
+PTXAS_FROM: Dict[str, str] = {}
 _LOCK = threading.Lock()
 
 
@@ -65,7 +70,10 @@ def _target(name: str) -> Path:
 def _start(name: str):
     """Start one nvcc build; returns (target, process or None if built)."""
     target = _target(name)
-    if target.exists():
+    report = target.with_suffix(".ptxas.txt")
+    if target.exists() and report.exists():
+        PTXAS_LOG[name] = report.read_text()
+        PTXAS_FROM[name] = "cached"
         return target, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
@@ -83,6 +91,8 @@ def _finish(name: str, target: Path, tmp, proc) -> None:
         raise RuntimeError(f"nvcc failed building {name}.cu "
                            f"(rc {proc.returncode}):\n{out}")
     PTXAS_LOG[name] = out
+    PTXAS_FROM[name] = "built"
+    target.with_suffix(".ptxas.txt").write_text(out)
     os.replace(tmp, target)
 
 

@@ -28,11 +28,17 @@ JAX package's ``flash_chunked`` custom VJP does, and whose backward is
 :func:`flash_attention_bwd`: on a CUDA tensor the hand-written kernel in
 ``csrc/flash_attention_bwd.cu``, on a CPU tensor its plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.  Without grad
-the path is the forward alone, as before.
+the path is the forward alone, as before.  The backward's kernels are
+chosen by :func:`_bwd_route`, a rule on (dtype, D, Dv, alignment):
+``wgmma-tma`` (bf16 at D <= 192: Hopper's warpgroup products fed by TMA
+loads), ``wgmma-ldst`` (the same kernels fed by plain loads, for rows TMA
+cannot describe) or ``cuda-cores`` (f32, and bf16 at D > 192).
+:data:`ROUTE_LAUNCHES` counts the backward's launches by route.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -44,6 +50,11 @@ __all__ = ["flash_attention", "flash_attention_bwd"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+# The backward's routes, in the order of their codes in flash_bwd_launch.
+BWD_ROUTES = ("cuda-cores", "wgmma-tma", "wgmma-ldst")
+WGMMA_MAX_HEAD_DIM = 192
+# The backward's launches by route.
+ROUTE_LAUNCHES = collections.Counter()
 
 
 def _lib():
@@ -61,7 +72,7 @@ def _bwd_lib():
     fn = lib.flash_bwd_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i] + [p] * 10 + [i] * 7 + [f, i, i, f, p]
+        fn.argtypes = [i] + [p] * 10 + [i] * 7 + [f, i, i, f, i, p]
         fn.restype = i
     return lib
 
@@ -114,6 +125,25 @@ def _launch(q, k, v, causal, window, softcap, scale, with_lse=False):
     return (out, lse) if with_lse else out
 
 
+def _bwd_route(dtype: torch.dtype, d: int, dv: int, aligned: bool) -> str:
+    """The backward's kernels for ``dtype`` at head dimension ``d`` and V
+    width ``dv``; ``aligned`` says whether q, k, v and dO start on 16
+    bytes.  bf16 at D <= 192 runs the wgmma kernels, fed by TMA where its
+    rows are a multiple of 16 bytes (D and Dv multiples of 8) and the
+    bases aligned, else by plain loads; f32, and bf16 at D > 192, the CUDA
+    cores.  Raises on a dtype or widths the kernels do not take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"no backward kernel for {dtype}")
+    if not 1 <= dv <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"D {d} and Dv {dv}: expected 1 <= Dv <= D <= "
+                         f"{MAX_HEAD_DIM}")
+    if dtype == torch.float32 or d > WGMMA_MAX_HEAD_DIM:
+        return "cuda-cores"
+    if aligned and d % 8 == 0 and dv % 8 == 0:
+        return "wgmma-tma"
+    return "wgmma-ldst"
+
+
 def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap, scale):
     b, h, hkv, sq, sk, d, d_v = _check(q, k, v)
     if out.shape != (b, h, sq, d_v) or dout.shape != out.shape or \
@@ -131,17 +161,23 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap, scale):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    route = _bwd_route(q.dtype, d, d_v, all(t.data_ptr() % 16 == 0
+                                            for t in (q, k, v, dout)))
+    # The kernels' scratch: delta (b, h, sq) on the CUDA cores; lse log2 e
+    # and delta in rows padded to 128 on the wgmma routes.
+    rows = b * h * (sq if route == "cuda-cores" else 2 * -(-sq // 128) * 128)
+    scratch = torch.empty(rows, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_bwd_launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, sk, d,
         d_v, float(scale), int(bool(causal)), int(window), float(softcap),
-        stream)
+        BWD_ROUTES.index(route), stream)
     build.check(lib, code, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return dq, dk, dv
 
 

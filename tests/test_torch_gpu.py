@@ -982,7 +982,11 @@ BWD_CASES = [(1, 4, 2, 200, 200, 64, 64, True, 0, 0.0),
              (1, 4, 2, 190, 190, 100, 36, True, 0, 0.0),    # no cp.async rows
              (1, 4, 4, 1, 33, 192, 128, False, 0, 0.0),     # a decode row
              (2, 4, 4, 300, 300, 64, 64, True, 100, 0.0),   # zamba2: D 64
-             (1, 4, 4, 256, 256, 64, 64, True, 4096, 0.0)]  # window >= S
+             (1, 4, 4, 256, 256, 64, 64, True, 4096, 0.0),  # window >= S
+             (1, 4, 2, 333, 333, 192, 128, True, 0, 0.0),   # MLA, ragged S
+             (2, 4, 2, 150, 300, 64, 64, True, 32, 0.0),    # Sq != Sk
+             (1, 4, 2, 120, 120, 80, 80, True, 0, 0.0),     # D 80 in 128
+             (1, 2, 2, 100, 100, 160, 160, True, 0, 0.0)]   # Dv 160 in 192
 
 
 def _bwd_inputs(b, h, hkv, sq, sk, d, dtype, seed, dv=None):
@@ -1039,6 +1043,68 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, tol, b, h, hkv, sq,
         dead = sk + window - 1
         assert bool((lse[:, :, dead:] == ref.NEG_INF).all())
         assert bool((got[0][:, :, dead:] == 0).all())
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose storage starts 2 bytes off 16-byte
+    alignment: TMA cannot describe it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+# (route, dtype, (b, h, hkv, sq, sk, d, dv, causal, window, softcap),
+# misaligned): one case of each backward route.
+ROUTE_CASES = [
+    ("wgmma-tma", torch.bfloat16, (2, 4, 2, 190, 190, 128, 128, True, 0, 0.0),
+     False),
+    ("wgmma-tma", torch.bfloat16, (1, 4, 2, 333, 333, 192, 128, True, 0, 0.0),
+     False),
+    ("wgmma-tma", torch.bfloat16, (2, 4, 4, 300, 300, 64, 64, True, 100, 0.0),
+     False),
+    ("wgmma-ldst", torch.bfloat16, (1, 4, 2, 190, 190, 100, 36, True, 0, 0.0),
+     False),
+    ("wgmma-ldst", torch.bfloat16, (1, 4, 2, 130, 130, 128, 128, True, 0,
+                                    50.0), True),
+    ("cuda-cores", torch.bfloat16, (1, 2, 1, 100, 77, 200, 200, False, 0, 0.0),
+     False),
+    ("cuda-cores", torch.float32, (1, 4, 2, 190, 190, 128, 128, True, 64, 0.0),
+     False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,dtype,case,misaligned", ROUTE_CASES)
+def test_cuda_flash_attention_bwd_route_and_repeats(route, dtype, case,
+                                                    misaligned):
+    """Each backward route launches where the rule says, and two launches
+    on the same inputs give the same bits (no atomics, sums in a fixed
+    order); the gradients hold the plain version's tolerance (2e-2 max|exp|
+    in bf16, 1e-4 in f32)."""
+    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES, _launch,
+                                                     flash_attention_bwd)
+    _need_card()
+    b, h, hkv, sq, sk, d, dv, causal, window, softcap = case
+    q, k, v, do = _bwd_inputs(b, h, hkv, sq, sk, d, dtype, sq + d, dv)
+    if misaligned:
+        q, k, v, do = (_misaligned(t) for t in (q, k, v, do))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale=d ** -0.5)
+    out, lse = _launch(q, k, v, causal, window, softcap, d ** -0.5,
+                       with_lse=True)
+    before = dict(ROUTE_LAUNCHES)
+    first = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    second = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert {r: n - before.get(r, 0) for r, n in ROUTE_LAUNCHES.items()
+            if n != before.get(r, 0)} == {route: 2}
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for name, g, e in zip("qkv", first, exp):
+        err = float((g.float() - e.float()).abs().max())
+        assert err <= tol * float(e.float().abs().max()) + 1e-30, (name, err)
 
 
 @pytest.mark.gpu
