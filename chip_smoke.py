@@ -53,11 +53,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    yi-9b (H 32, Hkv 4, D 128, causal, S 4096) layouts in bf16 (the
    tensor-core kernel), held against the plain version two query heads
    at a time at bf16's rounding (|err| <= 1e-2 |exp| + 1e-3), the same
-   layouts in f32 (the CUDA-core kernel) at rtol = atol = 1e-4, and
-   ragged cases (D 32 to 256, dead rows) in both; both kernels timed
-   beside the plain version and, for yi-9b,
+   layouts in f32 (split TF32 on the tensor cores) at rtol = atol =
+   1e-4, and ragged cases (D 32 to 256, dead rows) in both; both kernels
+   timed beside the plain version and, for yi-9b,
    ``scaled_dot_product_attention`` on the bf16 inputs (the entry's
-   ``library_ms``) and on f32 copies (``library_f32_ms``);
+   ``library_ms``) and on f32 copies through the memory-efficient backend
+   alone on K and V expanded to H heads (``library_f32_ms``; the
+   ``enable_gqa`` call apart, ``library_f32_gqa_ms``);
 4. a small cell (sf(q=5)) on the card and on the CPU through the same
    port, for ecmp, fatpaths and fatpaths with the ksp scheme: tables,
    path-edge tensors, ``depart_step`` and the metrics equal;
@@ -195,8 +197,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    a bf16 cache (0.1);
 13. training, last (see ``phase_train``): (13.1) K5's backward at
    yi-9b's training layout (B 2, H 32, Hkv 4, S 4096, D 128, causal) in
-   bf16 (route ``wgmma-tma``: the wgmma kernels fed by TMA) and f32 (the
-   CUDA-core kernels) and at gemma2-27b's (B 1, S 8192, window 4096,
+   bf16 (route ``wgmma-tma``: the wgmma kernels fed by TMA) and f32
+   (route ``tf32x3``: split TF32 on the tensor cores; its forward timed
+   too) and at gemma2-27b's (B 1, S 8192, window 4096,
    softcap 50) and olmoe-1b-7b's (B 2, H = Hkv = 16, S 4096, D 128,
    causal) in bf16, each launched twice on its asserted route and the
    two launches held bitwise equal, held against the plain version one
@@ -204,7 +207,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    forward's output (rtol 1e-2 / atol 1e-3 bf16, 1e-4 f32) and LSE
    against the plain version's, timed beside the bound (10 D flops a
    pair) and, without softcap or window,
-   ``scaled_dot_product_attention(enable_gqa=True)``'s backward;
+   ``scaled_dot_product_attention(enable_gqa=True)``'s backward (in f32
+   the memory-efficient backend alone on expanded K and V);
    (13.2) yi-9b at full width and 1 layer in f32, two train steps on the
    card and on the CPU port from the same host-drawn weights (loss,
    grad norm and every gradient leaf held), ``remat="full"`` bitwise
@@ -220,10 +224,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    V head dimension below Q's at deepseek-v2's layout (H 128, S 2048, D
    192, Dv 128, causal), forward with its LSE and backward in bf16 and
    f32 (the backward twice on its asserted route, ``wgmma-tma`` in bf16,
-   bitwise equal), held against the plain versions one KV head at a time
-   and timed
-   beside their bounds and ``scaled_dot_product_attention``'s where a
-   fused backend takes Dv != D; (14.2) olmoe-1b-7b served uncut and
+   ``tf32x3`` in f32, bitwise equal), held against the plain versions one
+   KV head at a time and timed beside their bounds and
+   ``scaled_dot_product_attention``'s where a fused backend takes Dv != D
+   (in f32 the memory-efficient backend alone); (14.2) olmoe-1b-7b served uncut and
    (14.3) deepseek-v2-236b served at 2 of its 60 layers, both drawn on
    the card in f32 from the seed and served in bf16 through
    ``launch.serve``'s engine at the launcher's defaults, counts 0 before
@@ -247,10 +251,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    zamba2's shared attention block's training layout (B 2, H = Hkv =
    32, S 4096, D 64, window 4096, causal), forward with its LSE and
    backward in bf16 and f32 (the backward twice on its asserted route,
-   ``wgmma-tma`` in bf16, bitwise equal), held against the plain
-   versions one KV head at a time and timed beside their bounds and
-   ``scaled_dot_product_attention(is_causal=True)``'s forward and
-   backward (at S <= window the same function); (15.2) zamba2-1.2b and
+   ``wgmma-tma`` in bf16, ``tf32x3`` in f32, bitwise equal), held against
+   the plain versions one KV head at a time and timed beside their bounds
+   and ``scaled_dot_product_attention(is_causal=True)``'s forward and
+   backward (at S <= window the same function; in f32 the
+   memory-efficient backend alone); (15.2) zamba2-1.2b and
    (15.3) rwkv6-7b served uncut, drawn on the card in f32 from the seed
    and served in bf16 through ``launch.serve``'s engine at the
    launcher's defaults, counts 0 before and read after (K5 exactly 68
@@ -285,7 +290,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
 and 67 TFLOP/s of float32 outside the tensor cores (the count semiring's
-rate: its exact fp64 tensor-core sums peak at the same 67 TFLOP/s).  The
+rate: its exact fp64 tensor-core sums peak at the same 67 TFLOP/s).  K5's
+f32 bounds take the split-TF32 floor, three TF32 products at 495 TFLOP/s
+for each f32 product (165 TFLOP/s), with the 67 TFLOP/s figure beside
+(``cuda_core_bound_ms``).  The
 GF(p) product is bound at the int8 rate over its 8-bit limb products
 (four for p > 256, one below): limbs^2 x 2 E^3 operations.
 """
@@ -310,15 +318,29 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# f32-accurate products on the tensor cores: three TF32 products for each
+# f32 product (K5's split-TF32 kernels), 165 TFLOP/s of f32 work, the
+# floor K5's f32 bounds take; F32_FLOP_PER_S, the CUDA cores' rate, is
+# printed beside them.
+SPLIT_TF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
 # Markers of cuBLAS's (and cuBLASLt's) product kernels in profiler names.
 _CUBLAS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk", "cublas")
-# Markers of K5's backward kernels in profiler names: the CUDA-core
-# kernels and every kernel of the wgmma routes' namespace ``wg`` (the
-# statistics pass, dK/dV, dQ).  ``_bwd_split`` fails on a backward kernel
-# that none of them matches, so the training splits count every one.
-_K5_BWD = ("::delta_kernel", "::dkdv_kernel", "::dq_kernel", "::wg::")
+# Markers of K5's backward kernels in profiler names: the statistics pass
+# and CUDA-core kernels, every kernel of the wgmma routes' namespace ``wg``
+# (the statistics pass, dK/dV, dQ) and the split-TF32 kernels of route
+# ``tf32x3``.  ``_bwd_split`` fails on a backward kernel that none of them
+# matches, so the training splits count every one.
+_K5_BWD = ("::delta_kernel", "::dkdv_kernel", "::dq_kernel", "::wg::",
+           "::dkdv_tf32_kernel", "::dq_tf32_kernel")
+# Markers of K5's forward kernels: bf16 (``mma.sync`` bf16) and f32 (split
+# TF32).
+_K5_FWD = ("flash_tc_kernel", "flash_tf32_kernel")
+# SDPA's backend that K5's f32 kernels are timed beside: the
+# memory-efficient one (CUTLASS's split-TF32 ``OpMultiplyAddFastF32``).
+SDPA_F32_BACKEND = "EFFICIENT_ATTENTION"
 # Host calls that put one event on the device: kernel launches (runtime
 # and driver API), memsets and copies.
 DEVICE_WORK_CALLS = ("Launch", "Memset", "Memcpy")
@@ -1319,12 +1341,37 @@ def _attn_close(out, exp, rtol, atol, what):
     return err, rel
 
 
+def _sdpa_f32(q, k, v, do=None, *, causal, scale):
+    """``scaled_dot_product_attention`` on K5's f32 inputs through
+    SDPA_F32_BACKEND alone, K and V expanded to q's heads outside the timed
+    region where GQA groups them: ``dict(backend, fwd_ms, bwd_ms)`` (device
+    ms a call; ``bwd_ms`` None without ``do``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
+
+    def fwd(*x):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *x, is_causal=causal, scale=scale)
+    with sdpa_kernel([getattr(SDPBackend, SDPA_F32_BACKEND)]):
+        f_ms, _ = _replay_ms(fwd, [(q, k, v)], 2)
+        b_ms = None
+        if do is not None:
+            xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o = fwd(*xs)
+            b_ms, _ = _replay_ms(lambda: torch.autograd.grad(
+                o, xs, do, retain_graph=True), [()], 2)
+            del xs, o
+    return dict(backend=SDPA_F32_BACKEND, fwd_ms=f_ms, bwd_ms=b_ms)
+
+
 def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
     """(d) Attention at two full-width layouts in bf16 (the tensor-core
     kernel), held against the plain version two query heads at a time at
     bf16's rounding (rtol 1e-2, atol 1e-3: both round an f32 result, so
     they differ by about one bf16 ulp, 2^-7 of the value); the same
-    layouts in f32 (the CUDA-core kernel) and ragged cases in both types,
+    layouts in f32 (split TF32) and ragged cases in both types,
     f32 at rtol = atol = 1e-4 and bf16 at bf16's rounding (the JAX
     package's own kernel tolerances, 5e-2 bf16 and 2e-3 f32, are looser
     than both).  Both kernels timed at both layouts."""
@@ -1414,26 +1461,34 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
                                [tuple(x32)], 2)
         del x32
         plain_ms, _ = _replay_ms(plain_sliced, [(q, k, v, kw)], 1)
-        lib = lib32 = None
+        lib = lib32 = lib32_gqa = None
         if lay["softcap"] == 0 and lay["window"] == 0:
             def sdpa(*x):
                 return torch.nn.functional.scaled_dot_product_attention(
                     *x, is_causal=lay["causal"], enable_gqa=True)
             lib, _ = _replay_ms(sdpa, [(q, k, v)], 2)
             x32 = [t.float() for t in (q, k, v)]
-            lib32, _ = _replay_ms(sdpa, [tuple(x32)], 2)
+            lib32_gqa, _ = _replay_ms(sdpa, [tuple(x32)], 2)
+            lib32 = _sdpa_f32(*x32, causal=lay["causal"],
+                              scale=lay["d"] ** -0.5)["fwd_ms"]
             del x32
         pairs = _attn_pairs(lay["s"], lay["s"], lay["causal"], lay["window"])
         t_ops = 4.0 * lay["h"] * lay["d"] * pairs / BF16_FLOP_PER_S
         t_bytes = sum(x.numel() * 2 for x in (q, k, v, q)) / HBM_BYTES_PER_S
-        t_ops32 = 4.0 * lay["h"] * lay["d"] * pairs / F32_FLOP_PER_S
+        t_ops32 = 4.0 * lay["h"] * lay["d"] * pairs / SPLIT_TF32_FLOP_PER_S
+        t_cc32 = 4.0 * lay["h"] * lay["d"] * pairs / F32_FLOP_PER_S
         per[name] = dict(ms=ms, wall_ms=wall, f32_ms=f32_ms,
                          f32_bound_ms=max(t_ops32, 2 * t_bytes) * 1e3,
+                         f32_cuda_core_bound_ms=max(t_cc32, 2 * t_bytes)
+                         * 1e3,
                          plain_ms=plain_ms,
                          bound_ms=max(t_ops, t_bytes) * 1e3,
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes", library_ms=lib,
                          library_f32_ms=lib32,
+                         library_f32_backend=SDPA_F32_BACKEND
+                         if lib32 is not None else None,
+                         library_f32_gqa_ms=lib32_gqa,
                          unmasked_pairs_per_head=pairs)
         print(f"# attention {name}: " + json.dumps(per[name]), flush=True)
     # The entry's times are yi-9b's in bf16, the layout that one PyTorch
@@ -3306,17 +3361,19 @@ def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
                 wall_s=wall12)
 
 
-def _fwd_bound(lay, dtype, lse=False):
+def _fwd_bound(lay, dtype, lse=False, rate=None):
     """(least ms, what bounds it) of K5's forward at layout ``lay`` (``sq``
     and ``sk`` are ``s`` by default, V ``dv`` wide, D by default): 2
     products per unmasked (q, k) pair and head, S = q k^T and P v, 2 (D +
-    Dv) flops, at the dtype's rate; q, k, v read once, the output (and
-    with ``lse`` its f32 LSE) written once."""
+    Dv) flops, at ``rate`` or the dtype's (bf16's tensor-core rate, f32's
+    split-TF32 floor); q, k, v read once, the output (and with ``lse`` its
+    f32 LSE) written once."""
     b, h, hkv, d = lay["b"], lay["h"], lay["hkv"], lay["d"]
     sq, sk = lay.get("sq", lay.get("s")), lay.get("sk", lay.get("s"))
     dv = lay.get("dv", d)
     pairs = b * h * _attn_pairs(sq, sk, lay["causal"], lay["window"])
-    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    rate = rate or (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                    else SPLIT_TF32_FLOP_PER_S)
     item = torch.finfo(dtype).bits // 8
     nbytes = item * (b * h * sq * (d + dv) + b * hkv * sk * (d + dv)) \
         + (4 * b * h * sq if lse else 0)
@@ -3326,16 +3383,19 @@ def _fwd_bound(lay, dtype, lse=False):
                                        else "bytes")
 
 
-def _bwd_bound(lay, dtype):
+def _bwd_bound(lay, dtype, rate=None):
     """(least ms, what bounds it) of K5's backward at layout ``lay`` (V
     ``dv`` wide, D by default): 5 products per unmasked (q, k) pair and
     head, S = q k^T, dP = dO v^T, dV, dQ and dK, 2 (3 D + 2 Dv) flops (10
-    D at Dv = D), at the dtype's rate; q, k, v, o, dO and the LSE read
-    once, dQ, dK, dV written once."""
+    D at Dv = D), at ``rate`` or the dtype's (bf16's tensor-core rate,
+    f32's split-TF32 floor); q, k, v, o, dO and the LSE read once, dQ, dK,
+    dV written once.  The kernels run seven products, so 7/5 of it is
+    their design's floor."""
     b, h, hkv, s, d = lay["b"], lay["h"], lay["hkv"], lay["s"], lay["d"]
     dv = lay.get("dv", d)
     pairs = b * h * _attn_pairs(s, s, lay["causal"], lay["window"])
-    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    rate = rate or (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                    else SPLIT_TF32_FLOP_PER_S)
     item = torch.finfo(dtype).bits // 8
     nbytes = item * 2 * (b * h * s * (d + dv) + b * hkv * s * (d + dv)) \
         + 4 * b * h * s
@@ -3373,10 +3433,10 @@ def _fwd_plain_sliced(ref, q, k, v, kw):
 def _bwd_twice(fa_mod, args, kw, dt, what):
     """K5's backward on ``args``, launched twice: the route both launches
     took (``ROUTE_LAUNCHES`` read around them) must be ``wgmma-tma`` in
-    bf16 and ``cuda-cores`` in f32, and the two launches' gradients must
+    bf16 and ``tf32x3`` in f32, and the two launches' gradients must
     be the same bits (no atomics, sums in a fixed order).  Returns the
     gradients and the route."""
-    want = "wgmma-tma" if dt == torch.bfloat16 else "cuda-cores"
+    want = "wgmma-tma" if dt == torch.bfloat16 else "tf32x3"
     before = dict(fa_mod.ROUTE_LAUNCHES)
     got = fa_mod.flash_attention_bwd(*args, **kw)
     again = fa_mod.flash_attention_bwd(*args, **kw)
@@ -3411,8 +3471,10 @@ def phase_bwd(ref, fa_mod):
     f32, the LSE within 1e-4), each backward timed beside its bound and,
     where there is no softcap and no window,
     ``scaled_dot_product_attention(enable_gqa=True)``'s backward under
-    autograd; every backward launched twice (bitwise equal) on its route
-    (``wgmma-tma`` in bf16, the CUDA cores in f32)."""
+    autograd (in f32 through SDPA's memory-efficient backend alone on K and
+    V expanded to H heads, the ``enable_gqa`` time apart, and the f32
+    forward timed too); every backward launched twice (bitwise equal) on
+    its route (``wgmma-tma`` in bf16, ``tf32x3`` in f32)."""
     t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(13)
     per, errs = {}, []
@@ -3477,6 +3539,27 @@ def phase_bwd(ref, fa_mod):
                             bound_ms=bound, bound_by=by, library_ms=lib,
                             max_abs_err=err, fwd_max_abs_err=f_err,
                             lse_max_abs_err=lse_err)
+            if dt == torch.float32:
+                # f32: SDPA's memory-efficient backend alone on K and V
+                # expanded to H heads is the yardstick; the enable_gqa
+                # call (any backend) stays apart.  The forward with its
+                # LSE is timed too, beside its bounds.
+                sd = _sdpa_f32(q, k, v, do, causal=lay["causal"],
+                               scale=kw["scale"]) if lib is not None \
+                    else dict(backend=None, fwd_ms=None, bwd_ms=None)
+                f_ms, f_wall = _replay_ms(lambda *x: fa_mod._launch(
+                    *x, kw["causal"], kw["window"], kw["softcap"],
+                    kw["scale"], with_lse=True), [(q, k, v)], 2)
+                per[key].update(
+                    library_ms=sd["bwd_ms"], library=sd["backend"],
+                    library_gqa_ms=lib,
+                    cuda_core_bound_ms=_bwd_bound(lay, dt,
+                                                  F32_FLOP_PER_S)[0],
+                    fwd_ms=f_ms, fwd_wall_ms=f_wall,
+                    fwd_bound_ms=_fwd_bound(lay, dt, lse=True)[0],
+                    fwd_cuda_core_bound_ms=_fwd_bound(
+                        lay, dt, lse=True, rate=F32_FLOP_PER_S)[0],
+                    fwd_library_ms=sd["fwd_ms"])
             print(f"# phase 13.1 K5 backward {key}: " + json.dumps(per[key]),
                   flush=True)
             del q, k, v, do, out, lse
@@ -3581,7 +3664,7 @@ def _step_split(top):
              "rest": 0.0}
     for kname, ms, _ in top:
         low = kname.lower()
-        if "flash_tc_kernel" in low or "flash_kernel" in low:
+        if any(m in low for m in _K5_FWD):
             split["k5_forward"] += ms
         elif any(m in kname for m in _K5_BWD):
             split["k5_backward"] += ms
@@ -3864,7 +3947,11 @@ def phase_mla_k5(ref, fa_mod):
             *x, **kw), [(q, k, v, out, lse, do)], 2)
         b_plain, _ = _replay_ms(lambda *x: _bwd_plain_sliced(ref, *x, kw),
                                 [(q, k, v, out, lse, do)], 1)
-        backend, lib_f, lib_b = _sdpa_dv(q, k, v, do, kw["scale"])
+        if dt == torch.bfloat16:
+            backend, lib_f, lib_b = _sdpa_dv(q, k, v, do, kw["scale"])
+        else:  # SDPA's memory-efficient backend alone (split TF32)
+            sd = _sdpa_f32(q, k, v, do, causal=True, scale=kw["scale"])
+            backend, lib_f, lib_b = sd["backend"], sd["fwd_ms"], sd["bwd_ms"]
         f_bound, f_by = _fwd_bound(lay, dt, lse=True)
         b_bound, b_by = _bwd_bound(lay, dt)
         shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, dv=dv, causal=True)
@@ -3881,6 +3968,11 @@ def phase_mla_k5(ref, fa_mod):
             library=backend or f"none: {lib_f}", max_abs_err=b_err,
             route=route,
             split=_bwd_split(fa_mod, (q, k, v, out, lse, do), kw))
+        if dt == torch.float32:
+            fwd[name]["cuda_core_bound_ms"] = _fwd_bound(
+                lay, dt, lse=True, rate=F32_FLOP_PER_S)[0]
+            bwd[name]["cuda_core_bound_ms"] = _bwd_bound(
+                lay, dt, F32_FLOP_PER_S)[0]
         print(f"# phase 14.1 K5 forward {name}: " + json.dumps(fwd[name]),
               flush=True)
         print(f"# phase 14.1 K5 backward {name}: " + json.dumps(bwd[name]),
@@ -4412,8 +4504,9 @@ def phase_zamba_k5(ref, fa_mod):
     versions one KV head at a time (13.1's tolerances), each timed beside
     its bound (4 D flops a pair forward, 10 D backward) and
     ``scaled_dot_product_attention(is_causal=True)``'s forward and
-    backward; the backward launched twice (bitwise equal) on its route
-    (``wgmma-tma`` in bf16, the CUDA cores in f32)."""
+    backward (in f32 through its memory-efficient backend alone); the
+    backward launched twice (bitwise equal) on its route (``wgmma-tma`` in
+    bf16, ``tf32x3`` in f32)."""
     t_phase = time.perf_counter()
     lay = ZAMBA_K5_LAYOUT
     b, h, hkv, s, d = (lay[k] for k in ("b", "h", "hkv", "s", "d"))
@@ -4463,12 +4556,17 @@ def phase_zamba_k5(ref, fa_mod):
             *x, **kw), [(q, k, v, out, lse, do)], 2)
         b_plain, _ = _replay_ms(lambda *x: _bwd_plain_sliced(ref, *x, kw),
                                 [(q, k, v, out, lse, do)], 1)
-        lib_f, _ = _replay_ms(sdpa, [(q, k, v)], 3)
-        xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        o = sdpa(*xs)
-        lib_b, _ = _replay_ms(lambda: torch.autograd.grad(
-            o, xs, do, retain_graph=True), [()], 2)
-        del xs, o
+        if dt == torch.bfloat16:
+            lib_f, _ = _replay_ms(sdpa, [(q, k, v)], 3)
+            xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            o = sdpa(*xs)
+            lib_b, _ = _replay_ms(lambda: torch.autograd.grad(
+                o, xs, do, retain_graph=True), [()], 2)
+            del xs, o
+            backend = None
+        else:  # SDPA's memory-efficient backend alone (split TF32)
+            sd = _sdpa_f32(q, k, v, do, causal=True, scale=kw["scale"])
+            lib_f, lib_b, backend = sd["fwd_ms"], sd["bwd_ms"], sd["backend"]
         f_bound, f_by = _fwd_bound(lay, dt, lse=True)
         b_bound, b_by = _bwd_bound(lay, dt)
         shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, causal=True,
@@ -4483,6 +4581,12 @@ def phase_zamba_k5(ref, fa_mod):
             bound_ms=b_bound, bound_by=b_by, library_ms=lib_b,
             max_abs_err=b_err, route=route,
             split=_bwd_split(fa_mod, (q, k, v, out, lse, do), kw))
+        if backend:
+            fwd[name]["library"] = bwd[name]["library"] = backend
+            fwd[name]["cuda_core_bound_ms"] = _fwd_bound(
+                lay, dt, lse=True, rate=F32_FLOP_PER_S)[0]
+            bwd[name]["cuda_core_bound_ms"] = _bwd_bound(
+                lay, dt, F32_FLOP_PER_S)[0]
         print(f"# phase 15.1 K5 forward {name}: " + json.dumps(fwd[name]),
               flush=True)
         print(f"# phase 15.1 K5 backward {name}: " + json.dumps(bwd[name]),
@@ -5100,16 +5204,19 @@ def _main(stop) -> int:
     k5b["per_layout"].update(rec["bwd"])
     k5b["max_abs_err"] = max(k5b["max_abs_err"], moe["bwd_err"],
                              rec["bwd_err"])
-    # The loaded library's wgmma kernels: registers, spill bytes (stores,
-    # loads) and static shared memory from its build's ptxas report, and
-    # whether this run built it or found it built.
-    wg = {name: regs for name, regs in ptxas.get(
-        "flash_attention_bwd", {}).items() if "wg::" in name}
-    if not wg:
-        raise AssertionError("no ptxas report of flash_attention_bwd's "
-                             "wgmma kernels")
-    k5b["ptxas"] = dict(library=build.PTXAS_FROM["flash_attention_bwd"],
-                        kernels=wg)
+    # The loaded libraries' tensor-core kernels (the backward's wgmma and
+    # split-TF32 kernels, the forward's split-TF32 kernel): registers,
+    # spill bytes (stores, loads) and static shared memory from their
+    # build's ptxas report, and whether this run built them or found them
+    # built.
+    for entry, lib, marks in ((k5b, "flash_attention_bwd", ("wg::", "tf::")),
+                              (k5, "flash_attention", ("tf::",))):
+        found = {name: regs for name, regs in ptxas.get(lib, {}).items()
+                 if any(m in name for m in marks)}
+        if not all(any(m in name for name in found) for m in marks):
+            raise AssertionError(f"no ptxas report of {lib}'s {marks} "
+                                 "kernels")
+        entry["ptxas"] = dict(library=build.PTXAS_FROM[lib], kernels=found)
     if CPU_PORT:
         raise AssertionError("CPU-port runs that no phase held against the "
                              f"card: {list(CPU_PORT)}")

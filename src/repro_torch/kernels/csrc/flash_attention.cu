@@ -1,5 +1,5 @@
-// Flash attention (online softmax) for Hopper (sm_90a): bf16 on the tensor
-// cores, f32 on the CUDA cores.
+// Flash attention (online softmax) for Hopper (sm_90a): bf16 and f32 on the
+// tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel, flash_attention): softmax(q k^T * scale) v over
@@ -25,8 +25,9 @@
 // it gave 164 (169), and the Dv < D form there 168 with 4 bytes spilled.
 //
 // What bounds it on the H100: operations (2 (D + Dv) flops per unmasked
-// (q, k) pair and head; the tensor-core rate in bf16 is the bound's
-// yardstick).
+// (q, k) pair and head; the yardstick is the tensor-core rate, 989 TFLOP/s
+// in bf16, and in f32 three TF32 products at 495 TFLOP/s, 165 TFLOP/s of
+// f32 work, the floor of an f32-accurate product on the tensor cores).
 //
 // bf16 (flash_tc_kernel): warp-level tensor-core products, FA2's layout.
 // One 128-thread block per (b, h, 64-query tile); each warp owns 16 query
@@ -60,17 +61,27 @@
 // plain registers, one warp per 16 rows; wgmma (64-row warpgroup products
 // fed by TMA) is the next step for this kernel.
 //
-// f32 (flash_kernel): the CUDA cores in f32, held to rtol = atol = 1e-4,
-// which TF32 tensor cores cannot meet.  One 256-thread block per (b, h,
-// 64-query tile) keeps the query tile, one 64-key tile (K, then V in the
-// same buffer), the probabilities and the running max, denominator and
-// rescale factor of each row in shared memory, and loops over the key
-// tiles inside the block (the TPU kernel's sequential KV grid axis and
-// its VMEM scratch).  Each thread owns 4 rows x 4 keys of the logits and
-// 4 rows x D/16 columns of the output accumulator in registers.  Key
-// tiles that the causal or window mask empties for the whole query tile
-// are not visited.  The head dimension is padded to 64, 128 or 256 inside
-// shared memory, with zeros.
+// f32 (flash_tf32_kernel, namespace tf): the same layout on the tensor
+// cores in split TF32 (mma_tf32.cuh: each f32 operand a TF32 high part and
+// remainder, three m16n8k8 TF32 products for each f32 product, small terms
+// first), held to rtol = atol = 1e-4 as the CUDA-core kernel it replaced
+// (one TF32 product, 2^-11 of each term, cannot meet that; the split leaves
+// about 2^-21).  One 128-thread block per (b, h, 64-query tile), each warp
+// 16 query rows, S and O in registers as accumulator fragments; Q and two
+// stages each of K and V in shared memory by cp.async (plain loads for rows
+// that are no multiple of 16 bytes or bases off 16-byte alignment), rows
+// padded to 4 mod 32 floats so that every fragment load hits distinct
+// banks.  The S fragment becomes PV's A fragment in registers (its
+// contraction taken in the order of mma_tf32.cuh), and V's B values come as
+// 16-byte loads, four 8-column tiles at once.  Each tile's P V is summed
+// apart and added to O with one f32 rounding (O = alpha O + P V in one
+// fmaf), so that no tensor-core accumulation runs over more than one tile's
+// keys.  Widths are padded to 64, 128, 192 (V to 128: multi-head latent
+// attention's layout pays no padding) or 256; 32-key tiles up to D 128 and
+// 16 from D 192 keep two blocks an SM (52, 101 and 92 KB of shared memory)
+// except at D 256 (133 KB).  Masks, window,
+// softcap, GQA, the LSE and the query tiles' reverse order are the bf16
+// kernel's.  mma.sync rather than wgmma: see mma_tf32.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,213 +89,12 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-// ---- f32 on the CUDA cores -------------------------------------------------
-
-constexpr int kBQ = 64;                 // query rows per block
-constexpr int kBK = 64;                 // keys per tile
-constexpr int kSide = 16;
-constexpr int kThreads = kSide * kSide;
-constexpr int kRows = kBQ / kSide;      // rows per thread
-constexpr int kKeys = kBK / kSide;      // logit columns per thread
 constexpr float kNegInf = -3.4028234663852886e38f;   // finfo(f32).min
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (DP + 1) + kBK * (DP + 1) + kBQ * (kBK + 1) + 3 * kBQ);
-}
-
-// `rows` rows of a row-major (n_rows, d) source, from row0 on, into dst
-// with row stride DP + 1; entries beyond n_rows or beyond d load 0.
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int rows, int n_rows,
-                                          int d) {
-  for (int e = threadIdx.x; e < rows * DP; e += kThreads) {
-    const int r = e / DP, cc = e % DP, g = row0 + r;
-    dst[r * (DP + 1) + cc] =
-        g < n_rows && cc < d ? src[static_cast<long long>(g) * d + cc] : 0.0f;
-  }
-}
-
-template <int DP, bool kLse, bool kDv>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o,
-             float* __restrict__ lse, int h, int hkv,
-             int sq, int sk, int d, int dv, float scale, int causal,
-             int window, float softcap) {
-  if constexpr (!kDv) dv = d;
-  extern __shared__ float smem[];
-  float* qs = smem;                        // kBQ x (DP + 1)
-  float* kvs = qs + kBQ * (DP + 1);        // kBK x (DP + 1): K, then V
-  float* ps = kvs + kBK * (DP + 1);        // kBQ x (kBK + 1): logits, then p
-  float* row_m = ps + kBQ * (kBK + 1);     // running max
-  float* row_l = row_m + kBQ;              // running denominator
-  float* row_a = row_l + kBQ;              // this tile's rescale factor
-  constexpr int kCols = DP / kSide;        // output columns per thread
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kSide, ty = tid / kSide;
-  const int q0 = blockIdx.x * kBQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int kh = hh / (h / hkv);
-  const long long q_row = (static_cast<long long>(bb) * h + hh) * sq;
-  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
-  q += q_row * d;
-  o += q_row * dv;
-  k += k_row * d;
-  v += k_row * dv;
-  if constexpr (kLse) lse += q_row;
-
-  load_tile<DP>(qs, q, q0, kBQ, sq, d);
-  if (tid < kBQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.0f;
-  }
-  float acc[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.0f;
-
-  // Keys that any row of this tile may see.
-  const int k_hi = causal ? min(sk, q0 + kBQ) : sk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  __syncthreads();
-
-  for (int kt0 = (k_lo / kBK) * kBK; kt0 < k_hi; kt0 += kBK) {
-    load_tile<DP>(kvs, k, kt0, kBK, sk, d);
-    __syncthreads();
-
-    // Logits of this thread's 4 rows x 4 keys.
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int dd = 0; dd < d; ++dd) {
-      float qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + kSide * i) * (DP + 1) + dd];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) kv[j] = kvs[(tx + kSide * j) * (DP + 1) + dd];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int r = ty + kSide * i, c = tx + kSide * j;
-        const int qp = q0 + r, kp = kt0 + c;
-        float x = s[i][j] * scale;
-        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-        const bool live = kp < sk && (!causal || qp >= kp) &&
-                          (window <= 0 || qp - kp < window);
-        ps[r * (kBK + 1) + c] = live ? x : -INFINITY;
-      }
-    __syncthreads();
-
-    // Online softmax: four neighbouring lanes share a row.
-    {
-      const int r = tid >> 2, part = tid & 3;
-      float* row = ps + r * (kBK + 1);
-      float mx = -INFINITY;
-      for (int c = part; c < kBK; c += 4) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = row_m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const bool dead = m_new == -INFINITY;   // no live key yet
-      const float base = dead ? 0.0f : m_new;
-      float sum = 0.0f;
-      for (int c = part; c < kBK; c += 4) {
-        const float p = expf(row[c] - base);  // masked: exp(-inf) = 0
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = dead ? 0.0f : expf(m_prev - m_new);
-      __syncwarp();
-      if (part == 0) {
-        row_m[r] = m_new;
-        row_l[r] = alpha * row_l[r] + sum;
-        row_a[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    load_tile<DP>(kvs, v, kt0, kBK, sk, dv);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float alpha = row_a[ty + kSide * i];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[kRows], vv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + kSide * i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) vv[j] = kvs[kk * (DP + 1) + tx + kSide * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + kSide * i, gq = q0 + r;
-    if (gq >= sq) continue;
-    const float l = row_l[r];
-    const float denom = l == 0.0f ? 1.0f : l;
-    if constexpr (kLse) {
-      if (tx == 0)
-        lse[gq] = (row_m[r] == -INFINITY ? kNegInf : row_m[r]) + logf(denom);
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = tx + kSide * j;
-      if (c < dv) o[static_cast<long long>(gq) * dv + c] = acc[i][j] / denom;
-    }
-  }
-}
-
-template <int DP>
-int launch_f32(const float* q, const float* k, const float* v, float* o,
-               float* lse, int b, int h, int hkv, int sq, int sk, int d,
-               int dv, float scale, int causal, int window, float softcap,
-               cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<DP>();
-  const auto kernel =
-      dv != d ? (lse != nullptr ? flash_kernel<DP, true, true>
-                                : flash_kernel<DP, false, true>)
-              : (lse != nullptr ? flash_kernel<DP, true, false>
-                                : flash_kernel<DP, false, false>);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  kernel<<<grid, kThreads, smem, s>>>(
-      q, k, v, o, lse, h, hkv, sq, sk, d, dv, scale, causal, window,
-      softcap);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- bf16 on the tensor cores ----------------------------------------------
 
@@ -587,13 +397,236 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 }  // namespace tc
 
+// ---- f32 on the tensor cores: split TF32 -----------------------------------
+
+namespace tf {
+
+using namespace mma_tf32;
+constexpr int kWarps = 4;
+constexpr int kBQ = 16 * kWarps;        // query rows per block
+constexpr int kThreads = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// DP: Q and K's width padded to 64, 128, 192 (with V's DVP 128) or 256
+// (D 129-192 with Dv above 128, which no model has, pads to 256 as well);
+// BK keys per tile; LD and LDV the shared row strides in floats (4 mod 32:
+// see mma_tf32.cuh).  Q and two stages each of K and V: 52 KB at DP 64,
+// 101 KB at DP 128, 92 KB at DP 192 / DVP 128 (two blocks an SM; BK 16
+// from DP 192 on), 133 KB at DP 256.  One instance a width, the LSE
+// written where its pointer is not null.  kBlocks, the blocks an SM that
+// ptxas must leave room for: two from DP 128 on, where shared memory
+// holds two anyway (up to 255 registers a thread: ptxas's own choice,
+// about 176, ran slower at D 128 and 192); three at DP 64 (at most 170,
+// three blocks as with its own choice).
+template <int DP, int DVP>
+struct Cfg {
+  static constexpr int BK = DP <= 128 ? 32 : 16, kBlocks = DP <= 64 ? 3 : 2;
+  static constexpr int LD = DP + 4, LDV = DVP + 4;
+  static constexpr size_t kSmem =
+      sizeof(float) * (kBQ * LD + 2 * BK * (LD + LDV));
+};
+
+template <int DP, int DVP>
+__global__ void __launch_bounds__(kThreads, Cfg<DP, DVP>::kBlocks)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int h, int hkv, int sq, int sk,
+                  int d, int dv, float scale, int causal, int window,
+                  float softcap, int vec) {
+  using C = Cfg<DP, DVP>;
+  constexpr int BK = C::BK, LD = C::LD, LDV = C::LDV;
+  constexpr int KT = BK / 8;    // 8-key tiles of S
+  constexpr int NG = DVP / 32;  // 32-column groups of O
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;
+  float* ks = qs + kBQ * LD;     // two stages of BK x LD
+  float* vs = ks + 2 * BK * LD;  // two stages of BK x LDV
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // longest rows first
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int kh = hh / (h / hkv);
+  const long long q_row = (static_cast<long long>(bb) * h + hh) * sq;
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
+  q += q_row * d;
+  o += q_row * dv;
+  k += k_row * d;
+  v += k_row * dv;
+
+  // Key tiles that any row of the block may see.
+  const int k_hi = causal ? min(sk, q0 + kBQ) : sk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = k_lo / BK, t_hi = (k_hi + BK - 1) / BK;
+
+  load_rows<DP, LD, kThreads>(qs, q, q0, kBQ, sq, d, vec);
+  if (t_lo < t_hi) {
+    load_rows<DP, LD, kThreads>(ks, k, t_lo * BK, BK, sk, d, vec);
+    load_rows<DVP, LDV, kThreads>(vs, v, t_lo * BK, BK, sk, dv, vec);
+  }
+  mma_bf16::cp_async_commit();
+
+  const int r_a = q0 + warp * 16 + g, r_b = r_a + 8;  // this lane's rows
+  const int w_lo = q0 + warp * 16, w_hi = w_lo + 15;  // the warp's rows
+  const bool warp_live = w_lo < sq;
+  const float scale_log2 = scale * kLog2e;
+  float o_acc[NG][4][4];
+#pragma unroll
+  for (int n = 0; n < NG; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[n][j][e] = 0.0f;
+  float m_a = -INFINITY, m_b = -INFINITY;   // running max (log2 units)
+  float l_a = 0.0f, l_b = 0.0f;             // this lane's part of the sum
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int stage = (t - t_lo) & 1;
+    mma_bf16::cp_async_wait_all();
+    __syncthreads();  // tile t is in; stage ^ 1 is free
+    if (t + 1 < t_hi) {
+      load_rows<DP, LD, kThreads>(ks + (stage ^ 1) * BK * LD, k, (t + 1) * BK,
+                                  BK, sk, d, vec);
+      load_rows<DVP, LDV, kThreads>(vs + (stage ^ 1) * BK * LDV, v,
+                                    (t + 1) * BK, BK, sk, dv, vec);
+    }
+    mma_bf16::cp_async_commit();
+    const int kt0 = t * BK;
+    // This warp's rows against this tile: all masked, all live, or mixed.
+    if (!warp_live || (causal && kt0 > w_hi) ||
+        (window > 0 && w_lo - (kt0 + BK - 1) >= window))
+      continue;
+    const bool edge = kt0 + BK > sk || (causal && kt0 + BK - 1 > w_lo) ||
+                      (window > 0 && w_hi - kt0 >= window);
+    const float* kst = ks + stage * BK * LD;
+    const float* vst = vs + stage * BK * LDV;
+
+    // S = Q K^T for 16 rows x BK keys.
+    float s[KT][4];
+    product_t<KT, DP, LD>(s, qs, warp * 16, kst, lane);
+
+    // Scale (and cap), mask, and the online softmax in log2 units.
+    if (softcap > 0.0f) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = softcap * tanhf(s[j][e] * scale / softcap) * kLog2e;
+    } else {
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    }
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kt0 + 8 * j + 2 * t4 + (e & 1);
+          const int qp = e < 2 ? r_a : r_b;
+          const bool live = kp < sk && (!causal || qp >= kp) &&
+                            (window <= 0 || qp - kp < window);
+          if (!live) s[j][e] = -INFINITY;
+        }
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // A row with no live key yet keeps m = -inf; its p and alpha are 0.
+    const float base_a = mn_a == -INFINITY ? 0.0f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.0f : mn_b;
+    const float alpha_a = mn_a == -INFINITY ? 0.0f : exp2f(m_a - mn_a);
+    const float alpha_b = mn_b == -INFINITY ? 0.0f : exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - (e < 2 ? base_a : base_b));
+        s[j][e] = p;
+        if (e < 2) sum_a += p; else sum_b += p;
+      }
+    l_a = alpha_a * l_a + sum_a;
+    l_b = alpha_b * l_b + sum_b;
+
+    // O = alpha O + P V, P straight from the S fragments.
+    add_product<KT, NG, LDV>(o_acc, s, vst, lane, alpha_a, alpha_b);
+  }
+  mma_bf16::cp_async_wait_all();
+
+  // O / l, the sum over the quad's four lanes; l = 0 (no live key) gives 0.
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = l_a == 0.0f ? 0.0f : 1.0f / l_a;
+  const float inv_b = l_b == 0.0f ? 0.0f : 1.0f / l_b;
+  if (lse != nullptr && t4 == 0) {
+    // m is in log2 units: lse = ln 2 (m + log2 l).
+    if (r_a < sq)
+      lse[q_row + r_a] =
+          m_a == -INFINITY ? kNegInf : kLn2 * (m_a + log2f(l_a));
+    if (r_b < sq)
+      lse[q_row + r_b] =
+          m_b == -INFINITY ? kNegInf : kLn2 * (m_b + log2f(l_b));
+  }
+#pragma unroll
+  for (int n = 0; n < NG; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? r_a : r_b, c = 32 * n + acc_col(t4, j, e);
+        if (r < sq && c < dv)
+          o[static_cast<long long>(r) * dv + c] =
+              o_acc[n][j][e] * (e < 2 ? inv_a : inv_b);
+      }
+}
+
+template <int DP, int DVP>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int b, int h, int hkv, int sq, int sk, int d, int dv,
+           float scale, int causal, int window, float softcap,
+           cudaStream_t s) {
+  constexpr size_t smem = Cfg<DP, DVP>::kSmem;
+  const auto kernel = flash_tf32_kernel<DP, DVP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // cp.async takes 16-byte rows: d and dv multiples of 4 and aligned
+  // bases.
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = d % 4 == 0 && dv % 4 == 0 && aligned(q) && aligned(k) &&
+                  aligned(v);
+  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
+  kernel<<<grid, kThreads, smem, s>>>(q, k, v, o, lse, h, hkv, sq, sk, d, dv,
+                                      scale, causal, window, softcap, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf
+
 }  // namespace
 
 extern "C" {
 
 // q (b, h, sq, d), k (b, hkv, sk, d), v (b, hkv, sk, dv) and o (b, h, sq,
-// dv), contiguous; dtype 0 is f32 (the CUDA-core kernel), 1 bf16 (the
-// tensor-core kernel).  h % hkv == 0, 1 <= dv <= d <= 256: V and O have
+// dv), contiguous; dtype 0 is f32 (split TF32 on the tensor cores), 1
+// bf16 (bf16 tensor-core products).  h % hkv == 0, 1 <= dv <= d <= 256: V and O have
 // their own row length, and the head dimension is padded to d's (V's
 // columns past dv load as zeros and change no sum).  causal != 0 masks
 // kpos > qpos, window > 0 masks qpos - kpos >= window, softcap > 0 caps
@@ -615,13 +648,16 @@ int flash_launch(int dtype, const void* q, const void* k, const void* v,
     const auto* fv = static_cast<const float*>(v);
     auto* fo = static_cast<float*>(o);
     if (d <= 64)
-      return launch_f32<64>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
-                            scale, causal, window, softcap, s);
+      return tf::launch<64, 64>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
+                                scale, causal, window, softcap, s);
     if (d <= 128)
-      return launch_f32<128>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
-                             scale, causal, window, softcap, s);
-    return launch_f32<256>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
-                           scale, causal, window, softcap, s);
+      return tf::launch<128, 128>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d,
+                                  dv, scale, causal, window, softcap, s);
+    if (d <= 192 && dv <= 128)
+      return tf::launch<192, 128>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d,
+                                  dv, scale, causal, window, softcap, s);
+    return tf::launch<256, 256>(fq, fk, fv, fo, fl, b, h, hkv, sq, sk, d, dv,
+                                scale, causal, window, softcap, s);
   }
   if (dtype == 1) {
     using tc::bf16;

@@ -22,9 +22,12 @@
 //
 // What bounds it on the H100: operations, 5 products per unmasked (q, k)
 // pair and head, S = q k^T, dP = dO v^T, dV, dQ, dK: 2 (3 D + 2 Dv) flops
-// (10 D when Dv = D), at the bf16 tensor-core rate for bf16 inputs, the
-// CUDA cores' f32 rate for f32.  Seven products are run (S and dP are
-// recomputed by the dQ pass), so 7/5 of that bound is this design's floor.
+// (10 D when Dv = D), at the bf16 tensor-core rate for bf16 inputs and for
+// f32 at three TF32 products' (165 TFLOP/s of f32 work, the floor of an
+// f32-accurate product on the tensor cores; the CUDA cores' 67 TFLOP/s is
+// the rate the f32 kernels had before).  Seven products are run (S and dP
+// are recomputed by the dQ pass), so 7/5 of that bound is this design's
+// floor.
 //
 // Three launches, no atomics, every sum in a fixed order: the gradients
 // are the same bits from run to run.  1. The row statistics: delta =
@@ -33,7 +36,7 @@
 // one block per (batch, KV head, key tile), the group's query heads summed
 // inside the block.  3. dQ, one block per (batch, head, query tile).  The
 // wrapper names the route of 2 and 3 by a rule on (dtype, D, Dv,
-// alignment):
+// alignment): f32 always takes tf32x3, bf16 the rest:
 //
 // wgmma (bf16, D <= 192; namespace wg).  Hopper's full tensor-core rate
 // needs warpgroup products (wgmma) and loads that overlap them.  A block is
@@ -76,11 +79,40 @@
 // at most two warpgroups a multiprocessor; and the dK/dV blocks read each
 // query tile once per 64 keys.
 //
-// CUDA cores (f32 at every D, bf16 at 192 < D <= 256): 256-thread blocks
-// over 64 keys or queries (32 at DP 256), f32 shared tiles padded by one
-// float a row; each thread recomputes 4 x 4 pairs of S and dO V^T with
-// scalar fmaf, writes P and dS to shared memory, and adds P^T dO and
-// dS^T Q (or dS K) into registers.
+// tf32x3 (f32 at every D <= 256; namespace tf): mma.sync products in split
+// TF32 (mma_tf32.cuh: three m16n8k8 TF32 products a product, small terms
+// first), held to the CUDA-core kernels' 1e-4 of each gradient's largest.
+// 256-thread blocks of eight warps, two warps on each 16 rows of the
+// products' M (keys in dK/dV, queries in dQ), f32 tiles in shared memory
+// through a two-stage cp.async ring (plain loads for rows that are no
+// multiple of 16 bytes or bases off 16-byte alignment), rows padded to 4
+// mod 32 floats for conflict-free fragment loads; widths padded to 64,
+// 128, 192 (V, dO and dV to 128) or 256.
+//   dK/dV: 64 keys a block, their K and V kept in shared memory; the ring
+//   carries the group's query tiles (32 queries, 16 at D 256) with lse
+//   log2 e and delta.  The two warps of a key slice split the work as the
+//   wgmma kernels' consumers do: one computes S^T = K Q^T, P^T and dV +=
+//   P^T dO, and hands P^T dcap to the other through shared memory and a
+//   named barrier of the pair; the other computes dP^T = V dO^T, dS^T and
+//   dK += dS^T Q.  Each holds one gradient in f32 registers (the largest,
+//   dK at D 256, 64 a thread) and runs two of the four products (balanced
+//   at Dv = D and at 192 / 128).  P^T's and dS^T's accumulator fragments
+//   are the gradient products' A fragments (mma_tf32.cuh's contraction
+//   order).
+//   dQ: 64 queries a block, their Q, dO and statistics in shared memory;
+//   the ring carries key tiles (64 keys up to D 128, 32 at D 192, 16 at
+//   D 256) of K and V, half of each to either warp of a row slice: S =
+//   Q K^T, dP = dO V^T, dS, dQ += dS K; the two partial dQ are summed in
+//   a fixed order at the end.  The query tiles run in reverse order.
+// Each tile's gradient product is summed apart and added to the gradient
+// with one f32 rounding, so that no tensor-core accumulation runs over more
+// than one tile.  mma.sync rather than wgmma: TF32 wgmma reads B only
+// K-major from shared memory, and dO, Q and K are MN-major B operands here.
+//
+// CUDA cores (bf16 at 192 < D <= 256): 256-thread blocks over 32 keys or
+// queries, f32 shared tiles padded by one float a row; each thread
+// recomputes 4 x 4 pairs of S and dO V^T with scalar fmaf, writes P and dS
+// to shared memory, and adds P^T dO and dS^T Q (or dS K) into registers.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,6 +123,7 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -118,10 +151,6 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
@@ -433,7 +462,7 @@ constexpr int kBarBytes = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The routes' codes, as the wrapper passes them.
-enum Route { kCudaCores = 0, kWgmmaTma = 1, kWgmmaLdst = 2 };
+enum Route { kCudaCores = 0, kWgmmaTma = 1, kWgmmaLdst = 2, kTf32x3 = 3 };
 
 constexpr int round1k(int x) { return (x + 1023) / 1024 * 1024; }
 // Ring stages (at most 4) that fit beside `fixed` bytes when `blocks`
@@ -1121,6 +1150,394 @@ cudaError_t launch_delta(const T* o, const T* dout, float* delta, int b,
   return cudaGetLastError();
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// ---- f32 on the tensor cores: split TF32 (route tf32x3) ---------------------
+
+namespace tf {
+
+using namespace mma_tf32;
+using wg::live;
+using wg::prob;
+constexpr int kThreads = 256;  // eight warps, two of each 16-row slice
+constexpr int kKeys = 64;      // keys a dK/dV block
+constexpr int kRows = 64;      // queries a dQ block
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Named barrier `id` (1-4; 0 is __syncthreads') of one warp pair.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// dK/dV: the block's K (kKeys x DP) and V (kKeys x DVP), two stages, each
+// a query tile's Q (BQ x DP), dO (BQ x DVP), lse log2 e and delta, and
+// the four warp pairs' P^T dcap (16 x BQ each).  Rows padded to LD = DP +
+// 4 and LDV = DVP + 4 floats (mma_tf32.cuh).  78, 144, 177, 209 and 204 KB
+// of shared memory at DP / DVP 64, 128, 192 / 128 and 256 (BQ 16); two
+// blocks an SM at DP 64, where 128 registers a thread are enough.
+template <int DP, int DVP>
+struct CfgKV {
+  static constexpr int BQ = DP <= 192 ? 32 : 16, kBlocks = DP <= 64 ? 2 : 1;
+  static constexpr int LD = DP + 4, LDV = DVP + 4;
+  static constexpr int kStage = BQ * (LD + LDV) + 2 * BQ;  // floats
+  static constexpr int kP = 4 * 16 * BQ;
+  static constexpr size_t kSmem =
+      sizeof(float) * (kKeys * (LD + LDV) + 2 * kStage + kP);
+};
+
+// dQ: the block's Q (kRows x DP), dO (kRows x DVP), lse log2 e and delta,
+// then two stages of a key tile's K (BK x DP) and V (BK x DVP), half of
+// its keys to each warp of a pair: 105, 203, 168 and 200 KB (BK 64 up to
+// DP 128, 32 at 192, 16 at 256); two blocks an SM at DP 64.
+template <int DP, int DVP>
+struct CfgQ {
+  static constexpr int BK = DP <= 128 ? 64 : DP <= 192 ? 32 : 16;
+  static constexpr int kBlocks = DP <= 64 ? 2 : 1;
+  static constexpr int LD = DP + 4, LDV = DVP + 4;
+  static constexpr int kFixed = kRows * (LD + LDV) + 2 * kRows;  // floats
+  static constexpr int kStage = BK * (LD + LDV);
+  static constexpr size_t kSmem = sizeof(float) * (kFixed + 2 * kStage);
+  static_assert(2 * kStage >= 64 * DP, "the ring holds the dQ partials");
+};
+
+// lse log2 e and delta of `rows` query rows from row0 on (0 past n_rows)
+// into ls and ls + rows.
+__device__ __forceinline__ void load_stats(float* ls, const float* lse,
+                                           const float* delta, int row0,
+                                           int rows, int n_rows) {
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const int g = row0 + r;
+    ls[r] = g < n_rows ? lse[g] * kLog2e : 0.0f;
+    ls[rows + r] = g < n_rows ? delta[g] : 0.0f;
+  }
+}
+
+// Warps w and w + 4 share the block's keys 16 (w % 4)..: warp w (role 0)
+// computes S^T = K Q^T, P^T and dV += P^T dO, and hands P^T dcap to warp
+// w + 4 (role 1) through shared memory and a named barrier of the pair;
+// warp w + 4 computes dP^T = V dO^T, dS^T = P^T dcap (dP^T - delta) and
+// dK += dS^T Q.  Each holds one gradient in f32 registers and runs two of
+// the four products.
+template <int DP, int DVP>
+__global__ void __launch_bounds__(kThreads, CfgKV<DP, DVP>::kBlocks)
+dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int h, int hkv, int sq, int sk,
+                 int d, int dvw, Mask m, int vec) {
+  using C = CfgKV<DP, DVP>;
+  constexpr int BQ = C::BQ, LD = C::LD, LDV = C::LDV;
+  constexpr int QT = BQ / 8;  // 8-query tiles of S^T
+  extern __shared__ __align__(16) float smem_f[];
+  float* ks = smem_f;                  // kKeys x LD
+  float* vs = ks + kKeys * LD;         // kKeys x LDV
+  float* ring = vs + kKeys * LDV;      // two stages of C::kStage floats
+  float* pbuf = ring + 2 * C::kStage;  // four pairs' 16 x BQ
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t4 = lane & 3, wr = warp & 3;
+  const int k0 = blockIdx.x * kKeys, kh = blockIdx.y, bb = blockIdx.z;
+  const int group = h / hkv;
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
+  const int kw = k0 + wr * 16;                     // the pair's first key
+  const int key_a = kw + (lane >> 2), key_b = key_a + 8;  // this lane's
+  // The query tiles that any key of the block may be seen by, for each
+  // head of the group.
+  const int q_lo = m.causal ? k0 : 0;
+  const int q_hi = m.window > 0 ? min(sq, k0 + kKeys - 1 + m.window) : sq;
+  const int t0 = q_lo / BQ;
+  const int n_qt = q_hi > t0 * BQ ? (q_hi - t0 * BQ + BQ - 1) / BQ : 0;
+  const int n_tiles = group * n_qt;
+
+  load_rows<DP, LD, kThreads>(ks, k + k_row * d, k0, kKeys, sk, d, vec);
+  load_rows<DVP, LDV, kThreads>(vs, v + k_row * dvw, k0, kKeys, sk, dvw,
+                                vec);
+  // Tile it of the ring: head it / n_qt of the group, query tile it % n_qt.
+  auto load_tile = [&](int it) {
+    float* st = ring + (it & 1) * C::kStage;
+    const long long row_off =
+        (static_cast<long long>(bb) * h + kh * group + it / n_qt) * sq;
+    const int q0 = (t0 + it % n_qt) * BQ;
+    load_rows<DP, LD, kThreads>(st, q + row_off * d, q0, BQ, sq, d, vec);
+    load_rows<DVP, LDV, kThreads>(st + BQ * LD, dout + row_off * dvw, q0, BQ,
+                                  sq, dvw, vec);
+    load_stats(st + BQ * (LD + LDV), lse + row_off, delta + row_off, q0, BQ,
+               sq);
+  };
+  if (n_tiles > 0) load_tile(0);
+  mma_bf16::cp_async_commit();
+
+  // R, the role, is a constant in each instance of the body.
+  auto consume = [&](auto role_c) {
+    constexpr int R = decltype(role_c)::value;
+    constexpr int NG = (R == 0 ? DVP : DP) / 32;  // the gradient's groups
+    float acc[NG][4][4];
+#pragma unroll
+    for (int n = 0; n < NG; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][j][e] = 0.0f;
+    float* pb = pbuf + wr * 16 * BQ + lane;  // in fragment order
+    for (int it = 0; it < n_tiles; ++it) {
+      mma_bf16::cp_async_wait_all();
+      __syncthreads();  // tile it (and K, V) in; the other stage is free
+      if (it + 1 < n_tiles) load_tile(it + 1);
+      mma_bf16::cp_async_commit();
+      const int q0 = (t0 + it % n_qt) * BQ;
+      if (kw >= sk || (m.causal && q0 + BQ - 1 < kw) ||
+          (m.window > 0 && q0 - (kw + 15) >= m.window))
+        continue;  // the pair's keys see none of the tile's queries
+      const float* qst = ring + (it & 1) * C::kStage;
+      const float* ost = qst + BQ * LD;
+      const float* ls = ost + BQ * LDV;
+      float x[QT][4];
+      if constexpr (R == 0) {
+        // S^T = K Q^T: 16 keys x BQ queries; P^T (masked only where the
+        // tile crosses an edge) in x, P^T dcap to the pair's other warp.
+        const bool inside = kw + 15 < sk && q0 + BQ - 1 < sq &&
+                            (!m.causal || q0 >= kw + 15) &&
+                            (m.window <= 0 || q0 + BQ - 1 - kw < m.window);
+        product_t<QT, DP, LD>(x, ks, wr * 16, qst, lane);
+#pragma unroll
+        for (int j = 0; j < QT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t4 + (e & 1);  // the query
+            float dcap;
+            float p = prob(x[j][e], ls[c], m, dcap);
+            if (!inside && !live(q0 + c, e < 2 ? key_a : key_b, m)) p = 0.0f;
+            x[j][e] = p;
+            pb[(4 * j + e) * 32] = p * dcap;
+          }
+        pair_arrive(1 + wr);
+        add_product<QT, NG, LDV>(acc, x, ost, lane);  // dV += P^T dO
+      } else {
+        // dP^T = V dO^T, then dS^T = P^T dcap (dP^T - delta).
+        const float* dl = ls + BQ;
+        product_t<QT, DVP, LDV>(x, vs, wr * 16, ost, lane);
+        pair_sync(1 + wr);
+#pragma unroll
+        for (int j = 0; j < QT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[j][e] = pb[(4 * j + e) * 32] *
+                      (x[j][e] - dl[8 * j + 2 * t4 + (e & 1)]);
+        add_product<QT, NG, LD>(acc, x, qst, lane);  // dK += dS^T Q
+      }
+    }
+    mma_bf16::cp_async_wait_all();
+
+    // Role 0 writes dV, role 1 dK (times the scale).
+    float* out = R == 0 ? dv : dk;
+    const int width = R == 0 ? dvw : d;
+    const float mul = R == 0 ? 1.0f : m.scale;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = e < 2 ? key_a : key_b;
+      if (key >= sk) continue;
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 32 * n + acc_col(t4, j, e);
+          if (c < width) out[(k_row + key) * width + c] = acc[n][j][e] * mul;
+        }
+    }
+  };
+  if (warp < 4)
+    consume(std::integral_constant<int, 0>());
+  else
+    consume(std::integral_constant<int, 1>());
+}
+
+// Warps w and w + 4 share the block's query rows 16 (w % 4)..; each takes
+// half of every key tile, and the two partial dQ are summed in a fixed
+// order at the end.
+template <int DP, int DVP>
+__global__ void __launch_bounds__(kThreads, CfgQ<DP, DVP>::kBlocks)
+dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, int h, int hkv, int sq, int sk, int d,
+               int dvw, Mask m, int vec) {
+  using C = CfgQ<DP, DVP>;
+  constexpr int BK = C::BK, LD = C::LD, LDV = C::LDV;
+  constexpr int KW = BK / 2;  // keys a warp of a tile
+  constexpr int KT = KW / 8;  // its 8-key tiles of S
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                // kRows x LD
+  float* os = qs + kRows * LD;       // kRows x LDV
+  float* ls = os + kRows * LDV;      // kRows: lse log2 e
+  float* dl = ls + kRows;            // kRows: delta
+  float* ring = smem_f + C::kFixed;  // two stages of K (BK x LD), V
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t4 = lane & 3, wr = warp & 3, half = warp >> 2;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest rows first
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int kh = hh / (h / hkv);
+  const long long row_off = (static_cast<long long>(bb) * h + hh) * sq;
+  const long long k_row = (static_cast<long long>(bb) * hkv + kh) * sk;
+  // The key tiles that any row of the block may see.
+  const int k_hi = m.causal ? min(sk, q0 + kRows) : sk;
+  const int k_lo = m.window > 0 ? max(0, q0 - m.window + 1) : 0;
+  const int t0 = k_lo / BK;
+  const int n_tiles = k_hi > t0 * BK ? (k_hi - t0 * BK + BK - 1) / BK : 0;
+
+  load_rows<DP, LD, kThreads>(qs, q + row_off * d, q0, kRows, sq, d, vec);
+  load_rows<DVP, LDV, kThreads>(os, dout + row_off * dvw, q0, kRows, sq, dvw,
+                                vec);
+  load_stats(ls, lse + row_off, delta + row_off, q0, kRows, sq);
+  auto load_tile = [&](int it) {
+    float* st = ring + (it & 1) * C::kStage;
+    const int k0 = (t0 + it) * BK;
+    load_rows<DP, LD, kThreads>(st, k + k_row * d, k0, BK, sk, d, vec);
+    load_rows<DVP, LDV, kThreads>(st + BK * LD, v + k_row * dvw, k0, BK, sk,
+                                  dvw, vec);
+  };
+  if (n_tiles > 0) load_tile(0);
+  mma_bf16::cp_async_commit();
+
+  const int l_a = wr * 16 + (lane >> 2), l_b = l_a + 8;  // block rows
+  const int r_a = q0 + l_a, r_b = q0 + l_b;
+  const int w_lo = q0 + wr * 16, w_hi = w_lo + 15;  // the warp's rows
+  float acc[DP / 32][4][4];
+#pragma unroll
+  for (int n = 0; n < DP / 32; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][j][e] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    mma_bf16::cp_async_wait_all();
+    __syncthreads();  // tile it (and Q, dO) in; the other stage is free
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    mma_bf16::cp_async_commit();
+    const int k0 = (t0 + it) * BK + half * KW;  // the warp's keys
+    if (w_lo >= sq || (m.causal && k0 > w_hi) ||
+        (m.window > 0 && w_lo - (k0 + KW - 1) >= m.window))
+      continue;  // the warp's rows see none of its keys
+    const bool inside = w_hi < sq && k0 + KW - 1 < sk &&
+                        (!m.causal || w_lo >= k0 + KW - 1) &&
+                        (m.window <= 0 || w_hi - k0 < m.window);
+    const float* kst = ring + (it & 1) * C::kStage + half * KW * LD;
+    const float* vst = ring + (it & 1) * C::kStage + BK * LD + half * KW * LDV;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x KW keys.
+    float s[KT][4], dp[KT][4];
+    product_t<KT, DP, LD>(s, qs, wr * 16, kst, lane);
+    product_t<KT, DVP, LDV>(dp, os, wr * 16, vst, lane);
+    const float lse_a = ls[l_a], lse_b = ls[l_b];
+    const float dl_a = dl[l_a], dl_b = dl[l_b];
+    // dS = P (dP - delta) dcap, masked only where the tile crosses an edge.
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+        float dcap;
+        float p = prob(s[j][e], e < 2 ? lse_a : lse_b, m, dcap);
+        if (!inside && !live(e < 2 ? r_a : r_b, kp, m)) p = 0.0f;
+        s[j][e] = p * (dp[j][e] - (e < 2 ? dl_a : dl_b)) * dcap;
+      }
+    // dQ += dS K.
+    add_product<KT, DP / 32, LD>(acc, s, kst, lane);
+  }
+  mma_bf16::cp_async_wait_all();
+
+  // The pair's two partial dQ, summed in a fixed order: the second
+  // warp's through the ring, which every warp is done with.
+  __syncthreads();
+  float* part = ring + wr * 32 + lane;  // in fragment order
+  if (half == 1) {
+#pragma unroll
+    for (int n = 0; n < DP / 32; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[((n * 4 + j) * 4 + e) * 128] = acc[n][j][e];
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = e < 2 ? r_a : r_b;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 32; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * n + acc_col(t4, j, e);
+        if (c < d)
+          dq[(row_off + r) * d + c] =
+              (acc[n][j][e] + part[((n * 4 + j) * 4 + e) * 128]) * m.scale;
+      }
+  }
+}
+
+// delta into `delta` (b h sq floats), then the dK/dV and dQ kernels.
+template <int DP, int DVP>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* lse, const float* dout, float* delta, float* dq,
+           float* dk, float* dv, int b, int h, int hkv, int sq, int sk, int d,
+           int dvw, const Mask& m, cudaStream_t s) {
+  using A = CfgKV<DP, DVP>;
+  using B = CfgQ<DP, DVP>;
+  cudaError_t err = launch_delta(o, dout, delta, b, h, sq, dvw, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dkdv_tf32_kernel<DP, DVP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(A::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dq_tf32_kernel<DP, DVP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(B::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // cp.async takes 16-byte rows: d and dv multiples of 4 and aligned bases.
+  const int vec = d % 4 == 0 && dvw % 4 == 0 && aligned16(q) &&
+                  aligned16(k) && aligned16(v) && aligned16(dout);
+  dkdv_tf32_kernel<DP, DVP><<<dim3((sk + kKeys - 1) / kKeys, hkv, b),
+                              kThreads, A::kSmem, s>>>(
+      q, k, v, dout, lse, delta, dk, dv, h, hkv, sq, sk, d, dvw, m, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_tf32_kernel<DP, DVP><<<dim3((sq + kRows - 1) / kRows, h, b), kThreads,
+                            B::kSmem, s>>>(q, k, v, dout, lse, delta, dq, h,
+                                           hkv, sq, sk, d, dvw, m, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf
+
+// f32 on the split-TF32 kernels: heads padded to 64, 128, 192 (V to 128)
+// or 256 (D 129-192 with Dv above 128, which no model has).
+int launch_tf32(const float* q, const float* k, const float* v,
+                const float* o, const float* lse, const float* dout,
+                float* delta, float* dq, float* dk, float* dv, int b, int h,
+                int hkv, int sq, int sk, int d, int dvw, const Mask& m,
+                cudaStream_t s) {
+  if (d <= 64)
+    return tf::launch<64, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, b, h,
+                              hkv, sq, sk, d, dvw, m, s);
+  if (d <= 128)
+    return tf::launch<128, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, b,
+                                h, hkv, sq, sk, d, dvw, m, s);
+  if (d <= 192 && dvw <= 128)
+    return tf::launch<192, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, b,
+                                h, hkv, sq, sk, d, dvw, m, s);
+  return tf::launch<256, 256>(q, k, v, o, lse, dout, delta, dq, dk, dv, b, h,
+                              hkv, sq, sk, d, dvw, m, s);
+}
+
 // The CUDA-core kernels at head width DP.
 template <typename T, int DP>
 int launch(const T* q, const T* k, const T* v, const T* o, const float* lse,
@@ -1170,36 +1587,19 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                               h, hkv, sq, sk, d, dvw, m, route, s);
 }
 
-template <typename T>
+// bf16 above 192 on the CUDA-core kernels, the head padded to 256.
 int launch_cuda_cores(const void* q, const void* k, const void* v,
                       const void* o, const void* lse, const void* dout,
                       void* delta, void* dq, void* dk, void* dv, int b, int h,
                       int hkv, int sq, int sk, int d, int dvw, const Mask& m,
                       cudaStream_t s) {
-  const auto* tq = static_cast<const T*>(q);
-  const auto* tk = static_cast<const T*>(k);
-  const auto* tv = static_cast<const T*>(v);
-  const auto* to = static_cast<const T*>(o);
-  const auto* tdo = static_cast<const T*>(dout);
-  const auto* fl = static_cast<const float*>(lse);
-  auto* fd = static_cast<float*>(delta);
-  auto* tdq = static_cast<T*>(dq);
-  auto* tdk = static_cast<T*>(dk);
-  auto* tdv = static_cast<T*>(dv);
-  if constexpr (std::is_same<T, float>::value) {
-    if (d <= 64)
-      return launch<T, 64>(tq, tk, tv, to, fl, tdo, fd, tdq, tdk, tdv, b, h,
-                           hkv, sq, sk, d, dvw, m, s);
-    if (d <= 128)
-      return launch<T, 128>(tq, tk, tv, to, fl, tdo, fd, tdq, tdk, tdv, b, h,
-                            hkv, sq, sk, d, dvw, m, s);
-  }
-  return launch<T, 256>(tq, tk, tv, to, fl, tdo, fd, tdq, tdk, tdv, b, h, hkv,
-                        sq, sk, d, dvw, m, s);
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  return launch<bf16, 256>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const float*>(lse), static_cast<const bf16*>(dout),
+      static_cast<float*>(delta), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), b, h, hkv, sq, sk, d,
+      dvw, m, s);
 }
 
 }  // namespace
@@ -1208,13 +1608,14 @@ extern "C" {
 
 // q, dq (b, h, sq, d); o, dout (b, h, sq, dv); k, dk (b, hkv, sk, d); v,
 // dv (b, hkv, sk, dv); lse f32 (b, h, sq); all contiguous.  delta is f32
-// scratch, 16-byte aligned: b h sq floats on route 0, 2 b h ceil(sq / 128)
-// 128 on routes 1 and 2.  dtype 0 is f32, 1 bf16 (q, k, v, o, dout and the
-// gradients share it).  h % hkv == 0, 1 <= dv <= d <= 256; causal,
-// window, softcap and scale as the forward's flash_launch.  route picks
-// the kernels: 0 the CUDA cores (any input), 1 wgmma fed by TMA (bf16, d
-// <= 192, d and dv multiples of 8, q, k, v and dout 16-byte aligned), 2
-// wgmma fed by plain loads (bf16, d <= 192, any alignment).  Which route
+// scratch, 16-byte aligned: b h sq floats on routes 0 and 3, 2 b h
+// ceil(sq / 128) 128 on routes 1 and 2.  dtype 0 is f32, 1 bf16 (q, k, v,
+// o, dout and the gradients share it).  h % hkv == 0, 1 <= dv <= d <= 256;
+// causal, window, softcap and scale as the forward's flash_launch.  route
+// picks the kernels: 0 the CUDA cores (bf16, any input), 1 wgmma fed by
+// TMA (bf16, d <= 192, d and dv multiples of 8, q, k, v and dout 16-byte
+// aligned), 2 wgmma fed by plain loads (bf16, d <= 192, any alignment), 3
+// split TF32 on the tensor cores (f32, any input).  Which route
 // a call takes is the rule of flash_attention._bwd_route, its one source;
 // here a route is only refused for inputs its kernels cannot take.
 // Returns cudaGetLastError() (or the error of
@@ -1235,10 +1636,20 @@ int flash_bwd_launch(int dtype, const void* q, const void* k, const void* v,
                         aligned16(q) && aligned16(k) && aligned16(v) &&
                         aligned16(dout);
   if ((route == wg::kWgmmaTma && !tma_fits) ||
-      (route == wg::kWgmmaLdst && !wgmma_fits) || route < 0 || route > 2)
+      (route == wg::kWgmmaLdst && !wgmma_fits) ||
+      (route == wg::kCudaCores && !bf) || (route == wg::kTf32x3 && bf) ||
+      route < 0 || route > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask m{sq, sk, causal, window, scale, softcap};
+  if (route == wg::kTf32x3)
+    return launch_tf32(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(lse), static_cast<const float*>(dout),
+        static_cast<float*>(delta), static_cast<float*>(dq),
+        static_cast<float*>(dk), static_cast<float*>(dv), b, h, hkv, sq, sk,
+        d, dvw, m, s);
   if (route != wg::kCudaCores)
     return launch_wgmma(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -1247,11 +1658,8 @@ int flash_bwd_launch(int dtype, const void* q, const void* k, const void* v,
         static_cast<float*>(delta), static_cast<bf16*>(dq),
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), b, h, hkv, sq, sk, d,
         dvw, m, route, s);
-  if (bf)
-    return launch_cuda_cores<bf16>(q, k, v, o, lse, dout, delta, dq, dk, dv,
-                                   b, h, hkv, sq, sk, d, dvw, m, s);
-  return launch_cuda_cores<float>(q, k, v, o, lse, dout, delta, dq, dk, dv, b,
-                                  h, hkv, sq, sk, d, dvw, m, s);
+  return launch_cuda_cores(q, k, v, o, lse, dout, delta, dq, dk, dv, b, h,
+                           hkv, sq, sk, d, dvw, m, s);
 }
 
 const char* kernel_error_string(int code) {

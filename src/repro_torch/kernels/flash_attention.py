@@ -15,10 +15,12 @@ Supports what the repo's architectures need:
 Query and key positions both start at 0, also when ``Sq != Sk``; keys at
 or beyond ``Sk`` are masked, and a row whose keys are all masked gives 0.
 A CUDA tensor runs a hand-written kernel in ``csrc/flash_attention.cu``:
-bf16 the tensor-core kernel (``mma.sync`` bf16 products with f32
-accumulators, P kept in registers as a bf16 high part and remainder),
-f32 the CUDA-core kernel (f32 throughout, exact enough for rtol 1e-4);
-a CPU tensor runs the plain version
+bf16 ``mma.sync`` bf16 products with f32 accumulators (P kept in
+registers as a bf16 high part and remainder); f32 ``mma.sync`` products
+in split TF32 (``csrc/mma_tf32.cuh``: each f32 operand a TF32 high part
+and remainder, three TF32 products for each f32 product, small terms
+first, accurate to rtol 1e-4 at the tensor cores' rate, where one TF32
+product is not); a CPU tensor runs the plain version
 :func:`repro_torch.kernels.ref.attention_ref`.
 
 Gradients: when grad mode is on and an input requires grad,
@@ -32,7 +34,8 @@ the path is the forward alone, as before.  The backward's kernels are
 chosen by :func:`_bwd_route`, a rule on (dtype, D, Dv, alignment):
 ``wgmma-tma`` (bf16 at D <= 192: Hopper's warpgroup products fed by TMA
 loads), ``wgmma-ldst`` (the same kernels fed by plain loads, for rows TMA
-cannot describe) or ``cuda-cores`` (f32, and bf16 at D > 192).
+cannot describe), ``cuda-cores`` (bf16 at D > 192) or ``tf32x3`` (f32 at
+every D: ``mma.sync`` products in split TF32, as the forward's).
 :data:`ROUTE_LAUNCHES` counts the backward's launches by route.
 """
 
@@ -51,7 +54,7 @@ __all__ = ["flash_attention", "flash_attention_bwd"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # The backward's routes, in the order of their codes in flash_bwd_launch.
-BWD_ROUTES = ("cuda-cores", "wgmma-tma", "wgmma-ldst")
+BWD_ROUTES = ("cuda-cores", "wgmma-tma", "wgmma-ldst", "tf32x3")
 WGMMA_MAX_HEAD_DIM = 192
 # The backward's launches by route.
 ROUTE_LAUNCHES = collections.Counter()
@@ -130,14 +133,17 @@ def _bwd_route(dtype: torch.dtype, d: int, dv: int, aligned: bool) -> str:
     width ``dv``; ``aligned`` says whether q, k, v and dO start on 16
     bytes.  bf16 at D <= 192 runs the wgmma kernels, fed by TMA where its
     rows are a multiple of 16 bytes (D and Dv multiples of 8) and the
-    bases aligned, else by plain loads; f32, and bf16 at D > 192, the CUDA
-    cores.  Raises on a dtype or widths the kernels do not take."""
+    bases aligned, else by plain loads; bf16 at D > 192 the CUDA cores;
+    f32 at any D and alignment the split-TF32 kernels.  Raises on a dtype
+    or widths the kernels do not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"no backward kernel for {dtype}")
     if not 1 <= dv <= d <= MAX_HEAD_DIM:
         raise ValueError(f"D {d} and Dv {dv}: expected 1 <= Dv <= D <= "
                          f"{MAX_HEAD_DIM}")
-    if dtype == torch.float32 or d > WGMMA_MAX_HEAD_DIM:
+    if dtype == torch.float32:
+        return "tf32x3"
+    if d > WGMMA_MAX_HEAD_DIM:
         return "cuda-cores"
     if aligned and d % 8 == 0 and dv % 8 == 0:
         return "wgmma-tma"
@@ -163,9 +169,10 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, window, softcap, scale):
         return dq.zero_(), dk.zero_(), dv.zero_()
     route = _bwd_route(q.dtype, d, d_v, all(t.data_ptr() % 16 == 0
                                             for t in (q, k, v, dout)))
-    # The kernels' scratch: delta (b, h, sq) on the CUDA cores; lse log2 e
-    # and delta in rows padded to 128 on the wgmma routes.
-    rows = b * h * (sq if route == "cuda-cores" else 2 * -(-sq // 128) * 128)
+    # The kernels' scratch: delta (b, h, sq) on the CUDA cores and tf32x3;
+    # lse log2 e and delta in rows padded to 128 on the wgmma routes.
+    rows = b * h * (2 * -(-sq // 128) * 128 if route.startswith("wgmma")
+                    else sq)
     scratch = torch.empty(rows, dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -244,8 +251,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       softcap: if > 0, gemma2-style logit soft-capping.
       bq, bk: the TPU kernel's query and key tile sizes, kept so that its
         callers run unchanged.  They set nothing here: the CUDA kernels
-        fix their tiles (64 query rows a block; 64 keys a tile, 32 for
-        bf16 at D > 128), and the plain version has no tiles.  They must
+        fix their tiles (64 query rows a block; 32 keys a tile, 16 for
+        f32 at D > 128), and the plain version has no tiles.  They must
         be positive.
     Returns (B, H, Sq, Dv) in q's dtype (accumulated in f32).  Under grad
     mode, with an input that requires grad, the result is differentiable

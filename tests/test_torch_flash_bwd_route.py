@@ -1,8 +1,8 @@
 """The rule that picks K5's backward kernels (``_bwd_route``), on the CPU:
 every branch and every refusal.  bf16 at D <= 192 runs the wgmma kernels,
 fed by TMA where D and Dv are multiples of 8 and q, k, v and dO start on
-16 bytes, else by plain loads; f32 at any D, and bf16 above 192, the
-CUDA-core kernels.  The kernels themselves run only on the card
+16 bytes, else by plain loads; bf16 above 192 the CUDA-core kernels; f32
+at any D and alignment the split-TF32 tensor-core kernels (``tf32x3``).  The kernels themselves run only on the card
 (``tests/test_torch_gpu.py``); a CPU backward launches none of them."""
 
 import importlib
@@ -40,10 +40,13 @@ def test_bf16_beyond_192_takes_the_cuda_cores(d, dv, aligned):
 
 
 @pytest.mark.parametrize("d,dv", [(16, 16), (64, 64), (100, 36), (128, 128),
-                                  (192, 128), (256, 256)])
+                                  (192, 128), (256, 256), (192, 192),
+                                  (256, 128)])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_f32_takes_the_cuda_cores_at_every_width(d, dv, aligned):
-    assert fa._bwd_route(torch.float32, d, dv, aligned) == "cuda-cores"
+    """f32 no longer runs on the CUDA cores: every width and alignment takes
+    the split-TF32 tensor-core kernels (the test keeps its name)."""
+    assert fa._bwd_route(torch.float32, d, dv, aligned) == "tf32x3"
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
@@ -63,8 +66,9 @@ def test_widths_out_of_bounds_raise(d, dv, dtype):
 def test_routes_are_the_c_entry_points_codes():
     """The wrapper passes a route as its index in BWD_ROUTES:
     flash_bwd_launch reads 0 as the CUDA cores, 1 as wgmma-tma, 2 as
-    wgmma-ldst."""
-    assert fa.BWD_ROUTES == ("cuda-cores", "wgmma-tma", "wgmma-ldst")
+    wgmma-ldst, 3 as tf32x3 (appended, so that 0-2 keep their codes)."""
+    assert fa.BWD_ROUTES == ("cuda-cores", "wgmma-tma", "wgmma-ldst",
+                             "tf32x3")
     assert fa.WGMMA_MAX_HEAD_DIM == 192 <= fa.MAX_HEAD_DIM
 
 

@@ -1070,8 +1070,10 @@ ROUTE_CASES = [
                                     50.0), True),
     ("cuda-cores", torch.bfloat16, (1, 2, 1, 100, 77, 200, 200, False, 0, 0.0),
      False),
-    ("cuda-cores", torch.float32, (1, 4, 2, 190, 190, 128, 128, True, 64, 0.0),
-     False)]
+    ("tf32x3", torch.float32, (1, 4, 2, 190, 190, 128, 128, True, 64, 0.0),
+     False),
+    ("tf32x3", torch.float32, (1, 4, 2, 190, 190, 192, 128, True, 0, 0.0),
+     True)]
 
 
 @pytest.mark.gpu
@@ -1105,6 +1107,69 @@ def test_cuda_flash_attention_bwd_route_and_repeats(route, dtype, case,
     for name, g, e in zip("qkv", first, exp):
         err = float((g.float() - e.float()).abs().max())
         assert err <= tol * float(e.float().abs().max()) + 1e-30, (name, err)
+
+
+# (b, h, hkv, sq, sk, d, dv, causal, window, softcap): f32 K5 forward and
+# backward on the split-TF32 kernels, at each padded width (64, 128, 192 with
+# V at 128, 192, 256) under causal, window, softcap, GQA and fully masked
+# rows (sq > sk + window - 1).
+F32_CASES = [(2, 4, 4, 300, 300, 64, 64, True, 100, 0.0),   # zamba2's D 64
+             (1, 8, 2, 257, 257, 64, 64, True, 0, 0.0),     # GQA 4
+             (1, 2, 1, 150, 60, 64, 48, True, 16, 0.0),     # rows 75.. dead
+             (1, 8, 1, 190, 190, 128, 128, True, 64, 50.0),  # GQA 8, softcap
+             (2, 4, 2, 130, 130, 128, 128, False, 0, 0.0),
+             (1, 2, 1, 150, 60, 128, 128, True, 16, 0.0),   # rows 75.. dead
+             (1, 4, 4, 333, 333, 192, 128, True, 0, 0.0),   # MLA, ragged S
+             (1, 4, 2, 150, 60, 192, 128, True, 16, 30.0),  # dead, softcap
+             (1, 4, 4, 1, 33, 192, 128, False, 0, 0.0),     # a decode row
+             (1, 4, 2, 100, 77, 160, 160, False, 0, 0.0),   # D 192, Dv 192
+             (1, 2, 1, 130, 130, 256, 256, True, 0, 30.0),  # D 256, GQA 2
+             (1, 4, 2, 150, 60, 256, 256, True, 16, 0.0),   # rows 75.. dead
+             (1, 4, 2, 120, 120, 100, 36, True, 0, 0.0)]    # no cp.async rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,dv,causal,window,softcap",
+                         F32_CASES)
+def test_cuda_flash_attention_f32_split_tf32(b, h, hkv, sq, sk, d, dv,
+                                             causal, window, softcap):
+    """f32 K5 on the tensor cores in split TF32: the forward within rtol =
+    atol = 1e-4 of the plain version, its LSE within 1e-4 + 1e-5 |lse|
+    (``finfo(f32).min`` and a zero output on fully masked rows), and the
+    backward launched twice on route ``tf32x3``, the two launches bitwise
+    equal, each gradient within 1e-4 of its largest."""
+    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES, _launch,
+                                                     flash_attention_bwd)
+    _need_card()
+    q, k, v, do = _bwd_inputs(b, h, hkv, sq, sk, d, torch.float32,
+                              sq * 3 + d + dv, dv)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale=d ** -0.5)
+    before = LAUNCHES["flash_attention"]
+    out, lse = _launch(q, k, v, causal, window, softcap, d ** -0.5,
+                       with_lse=True)
+    assert LAUNCHES["flash_attention"] == before + 1
+    exp, lse_exp = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), exp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert bool(((lse - lse_exp).abs() <= 1e-4 + 1e-5 * lse_exp.abs()).all())
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    routes = dict(ROUTE_LAUNCHES)
+    first = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    second = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert {r: n - routes.get(r, 0) for r, n in ROUTE_LAUNCHES.items()
+            if n != routes.get(r, 0)} == {"tf32x3": 2}
+    exp = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for name, a, c, e in zip("qkv", first, second, exp):
+        assert torch.equal(a, c), name
+        assert a.dtype == torch.float32 and a.shape == e.shape, name
+        err = float((a - e).abs().max())
+        assert err <= 1e-4 * float(e.abs().max()) + 1e-30, (name, err)
+    if causal and window and sq > sk + window - 1:
+        dead = sk + window - 1
+        assert bool((lse[:, :, dead:] == ref.NEG_INF).all())
+        assert bool((out[:, :, dead:] == 0).all())
+        assert bool((first[0][:, :, dead:] == 0).all())
 
 
 @pytest.mark.gpu
