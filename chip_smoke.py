@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    semiring is timed again on its own path's calls once phase (a) has
    recorded them (bool: the main sweep; count: ``min_path_stats`` and
    ``path_counts_power``; minplus: the ksp cell), count and bool beside
-   ``torch.matmul`` f32, into the entry's ``per_semiring``;
+   ``torch.matmul`` f32, into the entry's ``per_semiring``; each bool
+   path's entry (main sweep, pi_min build, repair builds) with the device
+   kernels of one call (``torch.profiler``);
 3. the water-filling kernel vs its plain version on CPU copies of the
    same inputs (the plain version on the card sums with float atomics in
    no fixed order; the kernel sums each link in the CPU's flat (flow,
@@ -641,19 +643,30 @@ def _replay_ms(fn, calls, iters: int):
     return device_ms / iters / len(calls), wall
 
 
-def _replay_split_ms(fn, calls, iters: int, marker: str):
-    """``fn(*call)`` replayed as in :func:`_replay_ms`: ``(device ms,
-    device ms of the kernels whose name holds marker)`` per call, both
-    from one profiled replay."""
+def _replay_split_ms(fn, calls, iters: int):
+    """``fn(*call)`` replayed as in :func:`_replay_ms`, after one warm
+    call: ``(device ms, device events, {kernel name: [device ms,
+    launches]})`` per call, all from one profiled replay; memsets and
+    copies count as events and are named as the profiler names them."""
     def replay():
         for _ in range(iters):
             for c in calls:
                 fn(*c)
     fn(*calls[0])
-    device_ms, _, top = _profile(replay, top_n=10 ** 6)
-    part = sum(ms for name, ms, _ in top if marker in name)
+    device_ms, n_dev, top = _profile(replay, top_n=10 ** 6)
     per = iters * len(calls)
-    return device_ms / per, part / per
+    kernels = {}
+    for name, ms, count in top:  # names cut to 60 characters may repeat
+        got = kernels.setdefault(name, [0.0, 0.0])
+        got[0] += ms / per
+        got[1] += count / per
+    return device_ms / per, n_dev / per, kernels
+
+
+def _marked_ms(kernels, marker: str) -> float:
+    """Device ms of the kernels of a :func:`_replay_split_ms` split whose
+    name holds marker."""
+    return sum(ms for name, (ms, _) in kernels.items() if marker in name)
 
 
 def _mm_bound(a, b, semiring):
@@ -753,9 +766,13 @@ def phase_semiring(ref, semiring_matmul, main_calls):
           f"{plain_wall:.5f}", flush=True)
     if {s for _, _, _, s in main_calls} != {"bool"}:
         raise AssertionError("the main sweep made other than bool products")
+    _, events, kernels = _replay_split_ms(semiring_matmul, calls, 20)
+    print(f"# semiring bool, main path's calls: {events} device events a "
+          "call; " + json.dumps(kernels), flush=True)
     per = {"bool": dict(path="main sweep", calls=len(calls), ms=ms,
                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                        library_ms=library_ms)}
+                        library_ms=library_ms, events_a_call=events,
+                        kernels_a_call=kernels)}
     return dict(name="semiring", route="cuda",
                 source="src/repro_torch/kernels/csrc/semiring.cu",
                 replaces="src/repro/kernels/semiring.py:92",
@@ -784,8 +801,8 @@ def phase_semiring_paths(ref, semiring_matmul, recorded, path_launches, k2):
             lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
                                                for a, b, _ in mine], 20)
             # The split-K sum pass apart from the product, one reading.
-            _, extra["reduce_ms"] = _replay_split_ms(semiring_matmul, mine,
-                                                     20, "count_reduce")
+            extra["reduce_ms"] = _marked_ms(_replay_split_ms(
+                semiring_matmul, mine, 20)[2], "count_reduce")
             # The same products on copies whose rows are padded with zeros
             # to a multiple of 4 floats, so that the kernel stages 16-byte
             # copies (722-float rows allow 8); equal results, checked.
@@ -1206,9 +1223,10 @@ def phase_sparse(ref, sparse_semiring_matmul, occupancy, semiring_matmul,
         if not mine:
             continue
         # One reading: the whole call, and of it the occupancy pass (the
-        # rest is the product, with the packing passes for bool).
-        ms, occ_ms = _replay_split_ms(sparse_semiring_matmul, mine, 5,
-                                      "occupancy")
+        # rest is the product, with the packing passes for bool); beside
+        # it K2's dense product on the same calls.
+        ms, _, split = _replay_split_ms(sparse_semiring_matmul, mine, 5)
+        occ_ms = _marked_ms(split, "occupancy")
         k2_ms, _ = _replay_ms(semiring_matmul, mine, 5)
         plain_ms, _ = _replay_ms(ref.sparse_semiring_matmul_ref, mine, 2)
         parts = [_sparse_bound(a, b, s, occupancy) for a, b, s in mine]
@@ -1909,9 +1927,11 @@ def _bool_calls_entry(ref, semiring_matmul, calls, launches, what):
     lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
                                        for a, b, _ in calls], 20)
     bound, by = _sum_bound([_mm_bound(*c) for c in calls])
+    _, events, kernels = _replay_split_ms(semiring_matmul, calls, 5)
     return dict(calls=len(calls), launches=launches, ms=ms, wall_ms=wall,
                 plain_ms=plain_ms, bound_ms=bound / len(calls), bound_by=by,
-                library_ms=lib, max_abs_err=max_err,
+                library_ms=lib, max_abs_err=max_err, events_a_call=events,
+                kernels_a_call=kernels,
                 shapes=sorted({(tuple(a.shape), tuple(b.shape))
                                for a, b, _ in calls}))
 
@@ -5205,12 +5225,15 @@ def _main(stop) -> int:
     k5b["max_abs_err"] = max(k5b["max_abs_err"], moe["bwd_err"],
                              rec["bwd_err"])
     # The loaded libraries' tensor-core kernels (the backward's wgmma and
-    # split-TF32 kernels, the forward's split-TF32 kernel): registers,
+    # split-TF32 kernels, the forward's split-TF32 kernel) and K2's bool
+    # kernels (in the entry that holds the bool paths' entries): registers,
     # spill bytes (stores, loads) and static shared memory from their
     # build's ptxas report, and whether this run built them or found them
     # built.
     for entry, lib, marks in ((k5b, "flash_attention_bwd", ("wg::", "tf::")),
-                              (k5, "flash_attention", ("tf::",))):
+                              (k5, "flash_attention", ("tf::",)),
+                              (k2["per_semiring"]["bool"], "semiring",
+                               ("pack_bool", "bool_product"))):
         found = {name: regs for name, regs in ptxas.get(lib, {}).items()
                  if any(m in name for m in marks)}
         if not all(any(m in name for name in found) for m in marks):

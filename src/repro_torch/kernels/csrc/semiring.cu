@@ -6,18 +6,23 @@
 //   count   : C = min(A @ B, sat) in f32;
 //   bool    : OR_k (a_ik AND b_kj);
 //   minplus : C = min_k (a_ik + b_kj), +inf being the additive identity.
-// The tile products live in semiring_common.cuh, shared with the
-// block-sparse kernel (sparse.cu).
+// The count and minplus tile products and the bool packing live in
+// semiring_common.cuh, shared with the block-sparse kernel (sparse.cu).
 //
-// bool.  What bounds it on the H100: bytes.  The main path multiplies
-// (L, 722, 722) x (L, 722, 722) byte stacks; at the card's int8 tensor
-// rate the 2 L N^3 operations take less time than moving the 3 L N^2
-// bytes once.  What the design does about it: the operands are read once
-// each and packed to bits along K (A by rows with one warp ballot per
-// 32-wide word, B by columns), so a 722-wide K is 23 words; the product
-// then ANDs and ORs 32-bit words, 4x4 outputs per thread from a 64x64
-// tile whose packed rows and columns are staged through shared memory.
-// The packed operands (1/8 of the bytes) stay in L2 across tiles.
+// bool.  What bounds it on the H100: bytes, if its products ran at the
+// int8 tensor rate.  The main path multiplies (L, 722, 722) x (L, 722,
+// 722) byte stacks.  Two launches a call.  One packs both operands to bits
+// along K (A by rows with one warp ballot a 32-wide word, B by columns),
+// so a 722-wide K is 23 words and the packed operands (1/8 of the bytes)
+// stay in L2 across tiles.  The other runs the product on the tensor
+// cores' single-bit form, mma.sync m16n8k256 .and.popc: each output sums
+// popc(a AND b) over K and is true where the sum is not zero.  Its 64x64
+// tiles copy their words with cp.async, every copy in flight at once, and
+// step only through the words K has.  Its time at the path's shapes is
+// not the products' (an AND/OR product on the CUDA cores took about as
+// long at K 722); what binds it is not measured.  (A one-launch product of
+// the bytes on the int8 tensor cores was built and timed slower at every
+// path shape: staging the unaligned byte rows bound it.)
 //
 // count.  What bounds it: operations, 2 M K N at 67 TFLOP/s (the fp64
 // tensor cores' peak, equal to f32's on the CUDA cores).  The path's
@@ -138,25 +143,121 @@ int launch_minplus(const float* a, const float* b, float* c, int batch,
                         copy_vec(a, b, k, n, k));
 }
 
-// ---- bool: bit-packed along K (semiring_common.cuh) ----------------------
+// ---- bool: bit-packed along K (packed by semiring_common.cuh) ------------
 
-// C[r, c] = any_w (ap[r, w] & bp[w, c]) for one (batch) of the product.
-__global__ void __launch_bounds__(kBoolSide * kBoolSide)
+// The dense product's stage of one 64x64 output tile, in packed words:
+// A's rows with their words contiguous, B's words with their columns
+// contiguous.  The pads put the eight rows (A) or the four words (B) a
+// fragment load spans in different banks.
+struct BoolDenseStage {
+  uint32_t as[kBoolTile][kWords + 4];
+  uint32_t bs[kWords][kBoolTile + 8];
+};
+
+// d += popc(a AND b) over 256 K entries: one m16n8k256 product of packed
+// bits on the tensor cores.  a holds rows (g, g + 8) x K bits [32 t, 32 t
+// + 32) and [128 + 32 t, ...), b the same K bits of column g, with g =
+// lane / 4 and t = lane % 4; d holds rows (g, g + 8) x columns (2 t, 2 t
+// + 1).
+__device__ __forceinline__ void mma_and_popc(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One packed word, global to shared, or zero where `live` is false.
+__device__ __forceinline__ void stage_word(uint32_t* dst, const uint32_t* src,
+                                           bool live) {
+  if (live)
+    cp_async<1>(reinterpret_cast<float*>(dst),
+                reinterpret_cast<const float*>(src));
+  else
+    *dst = 0u;
+}
+
+constexpr int kBoolThreads = 256;  // eight warps: 4 along M, 2 along N
+constexpr int kBoolMinBlocks = 4;  // blocks resident an SM (registers)
+constexpr int kBoolWarpN = 32;     // output columns of a warp (4 n8 tiles)
+
+// C[r, c] = (sum_w popc(ap[r, w] & bp[w, c])) != 0 for one (batch) of the
+// product.  Warp v owns rows 16 (v % 4) and columns 32 (v / 4) of the
+// 64x64 tile: four m16n8k256 products a 256-entry K step.  A pass copies
+// up to 32 words of each operand with cp.async (zeros past the pass's
+// count), all in flight at once, then steps through the words the pass
+// holds, rounded up to eight.  A count is at most K, so no sum wraps.
+__global__ void __launch_bounds__(kBoolThreads, kBoolMinBlocks)
 bool_product(const uint32_t* __restrict__ ap, const uint32_t* __restrict__ bp,
              uint8_t* __restrict__ c, int m, int n, int kw,
              long long stride_ap, long long stride_bp) {
-  __shared__ BoolStage st;
+  __shared__ __align__(16) BoolDenseStage st;
   const long long batch = blockIdx.z;
   ap += batch * stride_ap;
   bp += batch * stride_bp;
   c += batch * static_cast<long long>(m) * n;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = 16 * (warp % 4), wc = kBoolWarpN * (warp / 4);
   const int row0 = blockIdx.y * kBoolTile;
   const int col0 = blockIdx.x * kBoolTile;
-  uint32_t acc[kBoolPer][kBoolPer] = {};
-  for (int w0 = 0; w0 < kw; w0 += kWords)
-    bool_pass(ap, bp, m, n, kw, row0, col0, min(kWords, kw - w0),
-              [w0](int i) { return w0 + i; }, st, acc);
-  bool_store(c, m, n, row0, col0, acc);
+  int acc[kBoolWarpN / 8][4] = {};
+  for (int w0 = 0; w0 < kw; w0 += kWords) {
+    const int count = min(kWords, kw - w0);
+#pragma unroll
+    for (int j = 0; j < kBoolTile * kWords / kBoolThreads; ++j) {
+      const int e = tid + kBoolThreads * j;
+      const int r = e / kWords, i = e % kWords;
+      stage_word(&st.as[r][i], ap + static_cast<long long>(row0 + r) * kw +
+                                   w0 + i,
+                 row0 + r < m && i < count);
+    }
+#pragma unroll
+    for (int j = 0; j < kWords * kBoolTile / kBoolThreads; ++j) {
+      const int e = tid + kBoolThreads * j;
+      const int i = e / kBoolTile, cb = e % kBoolTile;
+      stage_word(&st.bs[i][cb], bp + static_cast<long long>(w0 + i) * n +
+                                    col0 + cb,
+                 i < count && col0 + cb < n);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int ks = 0; ks < count; ks += 8) {
+      const uint32_t a[4] = {st.as[wr + g][ks + t], st.as[wr + g + 8][ks + t],
+                             st.as[wr + g][ks + 4 + t],
+                             st.as[wr + g + 8][ks + 4 + t]};
+#pragma unroll
+      for (int nt = 0; nt < kBoolWarpN / 8; ++nt) {
+        const int col = wc + 8 * nt + g;
+        mma_and_popc(acc[nt], a, st.bs[ks + t][col], st.bs[ks + 4 + t][col]);
+      }
+    }
+    __syncthreads();
+  }
+  // Each thread's two adjacent outputs of a row in one store where the
+  // pair is whole and aligned.
+#pragma unroll
+  for (int nt = 0; nt < kBoolWarpN / 8; ++nt) {
+    const int gc = col0 + wc + 8 * nt + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = row0 + wr + g + 8 * h;
+      if (gr >= m || gc >= n) continue;
+      uint8_t* out = c + static_cast<long long>(gr) * n + gc;
+      const uint8_t lo = acc[nt][2 * h] != 0, hi = acc[nt][2 * h + 1] != 0;
+      if (gc + 1 < n && (reinterpret_cast<uintptr_t>(out) & 1) == 0) {
+        *reinterpret_cast<uint16_t*>(out) =
+            static_cast<uint16_t>(lo | (hi << 8));
+      } else {
+        out[0] = lo;
+        if (gc + 1 < n) out[1] = hi;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -229,10 +330,11 @@ int semiring_bool_launch(const void* a, const void* b, void* c, void* ap,
   uint32_t* pa = static_cast<uint32_t*>(ap);
   uint32_t* pb = static_cast<uint32_t*>(bp);
   pack_operands(a, b, pa, pb, batch_a, batch_b, m, k, n, s);
-  const dim3 block(kBoolSide, kBoolSide);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
   const dim3 grid((n + kBoolTile - 1) / kBoolTile,
                   (m + kBoolTile - 1) / kBoolTile, batch);
-  bool_product<<<grid, block, 0, s>>>(
+  bool_product<<<grid, kBoolThreads, 0, s>>>(
       pa, pb, static_cast<uint8_t*>(c), m, n, kw,
       batch_a == 1 ? 0 : static_cast<long long>(m) * kw,
       batch_b == 1 ? 0 : static_cast<long long>(kw) * n);

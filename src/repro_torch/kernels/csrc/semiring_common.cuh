@@ -8,12 +8,12 @@
 // exactly OR_k (a_ik AND b_kj).  A's rows and B's columns are packed along
 // K into 32-bit words (bit j of word w is entry 32 w + j), so a product
 // reads an eighth of the operand bytes and does one AND and one OR per 32
-// terms.  The product stages 32 words at a time for a 64x64 output tile;
-// each of the 256 threads keeps 4x4 outputs.  Which words a pass stages is
-// the caller's: every word for the dense product, only the words that meet
-// an occupied tile pair for the block-sparse one.  A word that meets no
-// occupied pair ANDs to zero, so staging or skipping it gives the same
-// bits.
+// terms.  One launch packs both operands (pack_operands); the dense
+// product (semiring.cu) has its own tile product.  The block-sparse one
+// stages 32 words at a time for a 64x64 output tile, each of the 256
+// threads keeping 4x4 outputs, and stages only the words that meet an
+// occupied tile pair.  A word that meets no occupied pair ANDs to zero, so
+// staging or skipping it gives the same bits.
 //
 // count.  Exact sums on the fp64 tensor cores (mma.sync m16n8k8 f64, 67
 // TFLOP/s on the H100, the same peak as f32 on the CUDA cores).  A and B
@@ -37,6 +37,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -53,56 +54,79 @@ unsigned blocks_for(long long threads, int per_block) {
   return static_cast<unsigned>((threads + per_block - 1) / per_block);
 }
 
-// (rows, k) bytes -> (rows, kw) words: bit j of word w is src[r, 32 w + j].
-// One warp per word: each lane reads one byte, the ballot packs them.
-__global__ void pack_rows(const uint8_t* __restrict__ src,
-                          uint32_t* __restrict__ dst, long long rows, int k,
-                          int kw) {
-  const long long word =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (word >= rows * kw) return;  // uniform across the warp
-  const long long r = word / kw;
-  const int col = static_cast<int>(word % kw) * 32 + lane;
-  const bool bit = col < k && src[r * k + col] != 0;
-  const uint32_t packed = __ballot_sync(0xffffffffu, bit);
-  if (lane == 0) dst[word] = packed;
-}
+constexpr int kPackThreads = 256;  // threads of a packing block
 
-// (batches, k, n) bytes -> (batches, kw, n) words: bit j of word [w, c]
-// is src[32 w + j, c].  Neighbouring threads take neighbouring columns, so
-// reads and writes are coalesced.
-__global__ void pack_cols(const uint8_t* __restrict__ src,
-                          uint32_t* __restrict__ dst, int batches, int k,
-                          int n, int kw) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(batches) * kw * n) return;
-  const int c = static_cast<int>(idx % n);
-  const long long bw = idx / n;  // batch * kw + w
-  const int w = static_cast<int>(bw % kw);
-  const long long b = bw / kw;
-  const int k0 = w * 32;
-  const int len = min(32, k - k0);
-  const uint8_t* s = src + (b * k + k0) * n + c;
+// Both operands packed in one launch.  Blocks [0, row_blocks) pack A
+// (rows, k) bytes into (rows, kw) words, bit j of word w being src[r, 32 w
+// + j]: one warp a row, lane l reads byte 32 w + l of word w, the ballot
+// is the word, and lane w % 32 keeps it until up to 32 words of the row
+// go out in one coalesced store (the 32 words' loads in flight together).
+// The other blocks pack B (batches, k, n) bytes into (batches, kw, n)
+// words, bit j of word [w, c] being src[32 w + j, c]: one thread a (word,
+// column), its 32 byte loads independent, neighbouring threads on
+// neighbouring columns.  Block indices are split with 32-bit arithmetic,
+// once a block.
+__global__ void __launch_bounds__(kPackThreads)
+pack_bool(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+          uint32_t* __restrict__ ap, uint32_t* __restrict__ bp, int rows_a,
+          int k, int n, int kw, int row_blocks, int col_blocks) {
+  if (static_cast<int>(blockIdx.x) < row_blocks) {
+    const int row = blockIdx.x * (kPackThreads / 32) + (threadIdx.x >> 5);
+    if (row >= rows_a) return;  // uniform across the warp
+    const int lane = threadIdx.x & 31;
+    const uint8_t* src = a + static_cast<long long>(row) * k;
+    uint32_t* dst = ap + static_cast<long long>(row) * kw;
+    for (int w0 = 0; w0 < kw; w0 += 32) {
+      uint32_t mine = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {  // every load in flight together
+        const int col = (w0 + i) * 32 + lane;
+        const uint32_t word =
+            __ballot_sync(0xffffffffu, col < k && src[col] != 0);
+        if (lane == i) mine = word;
+      }
+      if (w0 + lane < kw) dst[w0 + lane] = mine;
+    }
+    return;
+  }
+  const int job = blockIdx.x - row_blocks;  // (batch kw + w) col_blocks + cb
+  const int c = (job % col_blocks) * kPackThreads + threadIdx.x;
+  if (c >= n) return;
+  const int bw = job / col_blocks;
+  const int k0 = (bw % kw) * 32;
+  const long long batch = bw / kw;
+  const uint8_t* src = b + (batch * k + k0) * n + c;
   uint32_t packed = 0;
-  for (int j = 0; j < len; ++j)
-    packed |= static_cast<uint32_t>(s[static_cast<long long>(j) * n] != 0)
-              << j;
-  dst[idx] = packed;
+  if (k0 + 32 <= k) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      packed |= static_cast<uint32_t>(src[static_cast<long long>(j) * n] != 0)
+                << j;
+  } else {
+    for (int j = 0; j < k - k0; ++j)
+      packed |= static_cast<uint32_t>(src[static_cast<long long>(j) * n] != 0)
+                << j;
+  }
+  bp[static_cast<long long>(bw) * n + c] = packed;
 }
 
-// Launch both packing passes on s: A (batch_a, m, k) bytes into ap
+// Pack both operands on s, in one launch: A (batch_a, m, k) bytes into ap
 // (batch_a, m, kw) words, B (batch_b, k, n) bytes into bp (batch_b, kw, n).
 void pack_operands(const void* a, const void* b, uint32_t* ap, uint32_t* bp,
                    int batch_a, int batch_b, int m, int k, int n,
                    cudaStream_t s) {
   const int kw = (k + 31) / 32;
-  const long long rows_a = static_cast<long long>(batch_a) * m;
-  pack_rows<<<blocks_for(rows_a * kw * 32, 256), 256, 0, s>>>(
-      static_cast<const uint8_t*>(a), ap, rows_a, k, kw);
-  pack_cols<<<blocks_for(static_cast<long long>(batch_b) * kw * n, 256), 256,
-              0, s>>>(static_cast<const uint8_t*>(b), bp, batch_b, k, n, kw);
+  const int rows_a = batch_a * m;
+  const int row_blocks = static_cast<int>(blocks_for(rows_a, kPackThreads / 32));
+  const int col_blocks = static_cast<int>(blocks_for(n, kPackThreads));
+  const long long total =
+      row_blocks + static_cast<long long>(batch_b) * kw * col_blocks;
+  // A grid past the kernel's int block index launches empty, which the
+  // launch reports as an invalid configuration.
+  const unsigned blocks = total > INT_MAX ? 0u : static_cast<unsigned>(total);
+  pack_bool<<<blocks, kPackThreads, 0, s>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b), ap, bp,
+      rows_a, k, n, kw, row_blocks, col_blocks);
 }
 
 // The packed operands' shared-memory stage of one 64x64 output tile.

@@ -17,8 +17,11 @@ The kernel replaces the JAX package's TPU kernel
 ``repro.kernels.semiring._pallas_matmul``; per semiring, what bounds it
 on the H100 and what its design does about it:
 
-* ``bool`` is bound by bytes: the operands are packed to bits along K and
-  ANDed/ORed 32 terms a word.
+* ``bool`` would be bound by bytes at the int8 tensor rate: one launch
+  packs both operands to bits along K, a second sums ``popc(a AND b)``
+  over the words K has on the tensor cores' single-bit form (``mma.sync``
+  m16n8k256 ``.and.popc``), an output being true where its sum is not
+  zero.  Two launches a call, the packed operands in scratch.
 * ``count`` is bound by operations, and at the path's shapes (single
   722^2 products) by latency: its sums are exact (f32 operands widened to
   fp64 for the fp64 tensor cores, exact for integer-valued operands below

@@ -113,6 +113,114 @@ def test_cuda_count_saturates_once():
     assert count_split(1, 700, 700, 700)[0] > 1
 
 
+# The bool product (both operands packed to bits along K in one launch,
+# then a 64x64-tile product on the tensor cores' single-bit form, m16n8k256
+# .and.popc) across the edges of its output tiles
+# (m, n 1, 63-65, 722), of its 32-entry words and 32-word passes (k 1,
+# 31-33, 722, 1100), with A broadcast, B broadcast and both 3-D.
+BOOL_K = [1, 31, 32, 33, 722, 1100]
+BOOL_MN = [1, 63, 64, 65, 722]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", BOOL_K)
+def test_cuda_bool_across_tile_and_step_edges(k):
+    """Bitwise the plain version with A broadcast, B broadcast, both 3-D
+    and both 2-D."""
+    _need_card()
+    rng = np.random.default_rng(k)
+    density = min(0.5, k ** -0.5)
+    for m in BOOL_MN:
+        for n in BOOL_MN:
+            a = torch.from_numpy(rng.random((3, m, k)) < density).cuda()
+            b = torch.from_numpy(rng.random((3, k, n)) < density).cuda()
+            for x, y in ((a, b), (a[1], b), (a, b[2]), (a[0], b[0])):
+                exp = ref.semiring_matmul_ref(x, y, "bool")
+                out = semiring_matmul(x, y, "bool")
+                assert torch.equal(out, exp), (m, k, n, x.ndim, y.ndim)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,m,k,n", [(300, 65, 33, 65),
+                                         (270, 129, 722, 1),
+                                         (9, 722, 1100, 722),
+                                         (2, 1682, 31, 1682)])
+def test_cuda_bool_large_batches_across_edges(batch, m, k, n):
+    """Batches of hundreds of small products and products of two K passes
+    (K above 1 024), ragged at their row, column and word edges: bitwise
+    the plain version, A broadcast too."""
+    _need_card()
+    rng = np.random.default_rng(batch + m + k + n)
+    density = min(0.5, k ** -0.5)
+    a = torch.from_numpy(rng.random((batch, m, k)) < density).cuda()
+    b = torch.from_numpy(rng.random((batch, k, n)) < density).cuda()
+    for x in (a, a[0]):
+        assert torch.equal(semiring_matmul(x, b, "bool"),
+                           ref.semiring_matmul_ref(x, b, "bool"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(65, 722, 63), (722, 722, 722),
+                                   (9, 1100, 130)])
+def test_cuda_bool_reads_any_nonzero_byte_as_true(m, k, n):
+    """uint8 bytes 0-255 viewed as bool give the product of ``x != 0``."""
+    _need_card()
+    rng = np.random.default_rng(m + k + n)
+    xa = rng.integers(0, 256, (2, m, k), dtype=np.uint8)
+    xb = rng.integers(0, 256, (2, k, n), dtype=np.uint8)
+    xa[rng.random(xa.shape) > k ** -0.5] = 0
+    xb[rng.random(xb.shape) > k ** -0.5] = 0
+    a = torch.from_numpy(xa).cuda().view(torch.bool)
+    b = torch.from_numpy(xb).cuda().view(torch.bool)
+    exp = ref.semiring_matmul_ref(torch.from_numpy(xa != 0).cuda(),
+                                  torch.from_numpy(xb != 0).cuda(), "bool")
+    assert 0 < int(exp.sum()) < exp.numel()
+    assert torch.equal(semiring_matmul(a, b, "bool"), exp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [9, 1])
+def test_cuda_bool_is_two_kernels_and_repeats(batch):
+    """A bool call at the main path's shapes is two device kernels (the
+    packing of both operands, then the product; ``torch.profiler``,
+    besides ``LAUNCHES``), allocates its output and the two packed
+    operands, and two launches give the same bits."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b = _mm_operands(722, 722, 722, "bool", seed=5, batch=batch)
+    first = semiring_matmul(a, b, "bool")
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    before = LAUNCHES["semiring"]
+    again = semiring_matmul(a, b, "bool")
+    torch.cuda.synchronize()
+    assert LAUNCHES["semiring"] == before + 1
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs + 3
+    assert torch.equal(again, first)
+    assert torch.equal(first, ref.semiring_matmul_ref(a, b, "bool"))
+    # The profiler can lose a trace's first device events: lead with spin
+    # kernels and take the reading again unless every one of them is there.
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+            semiring_matmul(a, b, "bool")
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if sum("spin" in x for x in names) == 8:
+            break
+    else:
+        pytest.fail("the profiler kept losing device events")
+    work = [x for x in names if "spin" not in x]
+    assert len(work) == 2, work
+    assert "pack_bool" in work[0] and "bool_product" in work[1], work
+
+
 def _wf_inputs(f, s, e, seed, pad=0, scale=1.0):
     """Random water-filling inputs on the card: (edges, w, desired, cap,
     active), edges an (F, S) view of an (F, S + pad) record as the scan
