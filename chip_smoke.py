@@ -212,7 +212,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``scaled_dot_product_attention(enable_gqa=True)``'s backward (in f32
    the memory-efficient backend alone on expanded K and V);
    (13.2) yi-9b at full width and 1 layer in f32, two train steps on the
-   card and on the CPU port from the same host-drawn weights (loss,
+   card and on the CPU port from the same card-drawn weights (loss,
    grad norm and every gradient leaf held), ``remat="full"`` bitwise
    ``"none"`` on the card; (13.3) yi-9b at full width with n_layers cut
    to 8 (the one cut: AdamW's f32 state of 48 layers exceeds the card)
@@ -278,7 +278,30 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    8 backward launches (zamba2) and none (rwkv6), no plain-version call,
    finite losses and grad norms, peak memory, one more step profiled
    beside its bound;
-16. one ``{"kernels": [...]}`` line: launches on the main path (for the
+16. the frontend models, after phase 15 with the card's cache emptied
+   (see ``phase_frontends`` and the constants above): (16.1) K5 at
+   hubert-xlarge's training layout (B 2, H = Hkv = 16, S 4096, D 80, no
+   causal mask) as 15.1 holds zamba2's, SDPA with ``is_causal=False``
+   beside it; (16.2) qwen2-vl-7b served uncut through the port's prefill
+   and decode steps on seeded patch and text embeddings (the engine
+   serves token prompts only), counts 0 before and read after (K5
+   exactly 952 times), finite logits, prefill and decode ms, tokens/s,
+   peak memory, one decode step profiled and split into K5, cuBLAS and
+   the rest beside its bound, its own K5 prefill and decode calls held
+   and timed as in 12.2; (16.3) hubert-xlarge's forward uncut on 4 x
+   1500 frame embeddings without a cache (K5 exactly 48 times), profiled
+   and split beside its bound, its prefill step's logits bitwise the
+   forward's, its K5 call held and timed as in 12.2; (16.4) both at 2
+   layers in f32, card against the CPU port (qwen2-vl with three
+   different M-RoPE position rows, then its decode steps), and qwen2-vl's
+   decode against prefill on the card in f32 and bf16; (16.5) both at 1
+   layer in f32, loss and gradients card against the CPU port, and
+   ``remat="full"`` and ``"dots"`` bitwise ``"none"`` on the card;
+   (16.6) hubert-xlarge uncut through ``TrainLoop``, batch 2 x 4096, 4
+   steps: exactly 384 K5 forward and 192 backward launches, no
+   plain-version call, finite losses and grad norms, peak memory, one
+   more step profiled beside its bound;
+17. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
    attention the serving path's, for its backward the training path's;
    each path's own counts in ``path_launches``),
@@ -287,7 +310,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-17. the last line: ``{"ok": true, "device": {...}}``.
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -354,6 +377,13 @@ PROFILE_LEAD_LOST: list = []
 # The lead of the last reading that held every event: the next trace
 # starts there, since the losses grow as the process ages.
 PROFILE_LEAD = [8]
+# The most lead spin kernels a trace takes (about 1 s).  Past it a
+# reading is taken again at the same lead: when the lead doubled without
+# bound, a run of this script on an H100 took it to 2048 (4 s of spin a
+# trace, for every later trace) on losses of 1-3 events that the longer
+# leads did not prevent.
+PROFILE_LEAD_MAX = 512
+PROFILE_ATTEMPTS = 8
 MAIN_TOPO = "sf(q=19)"
 MAIN_ROUTINGS = ("fatpaths(n_layers=9,rho=0.6)", "ecmp")
 MAIN_PATTERN = "permutation"
@@ -1576,9 +1606,10 @@ def _profile(fn, top_n: int = 6):
     opens with ``lead`` spin kernels of about 2 ms and a synchronize, and
     a reading counts only when the trace holds a device event for every
     launch, memset and copy call of ``fn`` (the trace's calls, less the
-    spin kernels); otherwise ``lead`` doubles and the reading is taken
-    again.  Each trace starts at the lead the last good reading needed
-    (8 at first).  The spin kernels are left out of the sums."""
+    spin kernels); otherwise ``lead`` doubles, up to PROFILE_LEAD_MAX,
+    and the reading is taken again (PROFILE_ATTEMPTS traces at most).
+    Each trace starts at the lead the last good reading needed (8 at
+    first).  The spin kernels are left out of the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1587,7 +1618,7 @@ def _profile(fn, top_n: int = 6):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     lead = PROFILE_LEAD[0]
-    for _ in range(5):
+    for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(lead):
@@ -1607,10 +1638,11 @@ def _profile(fn, top_n: int = 6):
             PROFILE_LEAD[0] = lead
             break
         PROFILE_RETRIES.append((lead, calls - lead - n_dev))
-        lead *= 2
+        lead = min(2 * lead, PROFILE_LEAD_MAX)
     else:
         raise AssertionError("the profiler kept losing device events: "
-                             f"{PROFILE_RETRIES[-5:]} (lead, lost)")
+                             f"{PROFILE_RETRIES[-PROFILE_ATTEMPTS:]} "
+                             "(lead, lost)")
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
     total = sum(dev_us(e) for e in dev)
@@ -3061,7 +3093,7 @@ def _step_bound(cfg, params, b, sq, n_keys, chosen=None):
             mm_params += t[0, 0].numel() * cfg.moe.top_k * t.shape[0]
         else:
             weight_bytes += t.numel() * t.element_size()
-            if t.ndim >= 3 or path == "/lm_head/w":
+            if t.ndim >= 3 or path in ("/lm_head/w", "/frontend/proj"):
                 mm_params += t.numel()
     m = cfg.mla
     if m is None:
@@ -3604,8 +3636,9 @@ def _grad_gap(got, exp):
 def phase_train_short(configs, Runtime, model_mod, tts, topt, DataConfig,
                       SyntheticDataset, LAUNCHES, reset_launches):
     """13.2 yi-9b at full width and 1 layer in f32, card against the CPU
-    port on the same weights (drawn on the host from the seed) and the
-    same batch of 1 x 128 ``lm`` tokens: two train steps a side, the
+    port on the same weights (drawn on the card from the seed and copied
+    to the host) and the same batch of 1 x 128 ``lm`` tokens: two train
+    steps a side, the
     first step's loss, grad norm and every gradient leaf held (see the
     constants above); on the card ``remat="full"`` gives the same
     gradients as ``remat="none"``, bitwise."""
@@ -3615,9 +3648,9 @@ def phase_train_short(configs, Runtime, model_mod, tts, topt, DataConfig,
     tc = tts.TrainConfig(opt=topt.AdamWConfig(warmup_steps=1,
                                               total_steps=TRAIN_STEPS))
     t0 = time.perf_counter()
-    host = model_mod.init_params(cfg, rt, torch.Generator().manual_seed(0),
-                                 "cpu")
-    card = _to_card(host)
+    card = model_mod.init_params(cfg, rt, torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    host = topt.tree_map(lambda t: t.cpu(), card)
     init_s = time.perf_counter() - t0
     data = {dev: SyntheticDataset(cfg, DataConfig(1, TRAIN_SHORT_SEQ),
                                   rt, dev) for dev in ("cuda", "cpu")}
@@ -4519,31 +4552,40 @@ def _attn_blocks(cfg):
 
 
 def phase_zamba_k5(ref, fa_mod):
-    """15.1 K5 at ZAMBA_K5_LAYOUT in bf16 (the tensor-core kernels) and
-    f32: the forward with its LSE and the backward held against the plain
-    versions one KV head at a time (13.1's tolerances), each timed beside
-    its bound (4 D flops a pair forward, 10 D backward) and
-    ``scaled_dot_product_attention(is_causal=True)``'s forward and
-    backward (in f32 through its memory-efficient backend alone); the
-    backward launched twice (bitwise equal) on its route (``wgmma-tma`` in
-    bf16, ``tf32x3`` in f32)."""
+    """15.1 K5 at ZAMBA_K5_LAYOUT (see :func:`_k5_train_layout`)."""
+    return _k5_train_layout(ref, fa_mod, ZAMBA_K5_LAYOUT,
+                            "zamba2-1.2b shared block", 15, "15.1")
+
+
+def _k5_train_layout(ref, fa_mod, lay, label, seed, sub):
+    """K5 at the training layout ``lay`` (no softcap; SDPA computes the
+    same function: no window, or one that covers every causal pair) in
+    bf16 (the tensor-core kernels) and f32: the forward with its LSE and
+    the backward held against the plain versions one KV head at a time
+    (13.1's tolerances), each timed beside its bound (4 D flops a pair
+    forward, 10 D backward) and ``scaled_dot_product_attention``'s
+    forward and backward with the layout's ``is_causal`` (in f32 through
+    its memory-efficient backend alone); the backward launched twice
+    (bitwise equal) on its route (``wgmma-tma`` in bf16, ``tf32x3`` in
+    f32).  Entries are named ``label`` and the dtype, printed as phase
+    ``sub``."""
     t_phase = time.perf_counter()
-    lay = ZAMBA_K5_LAYOUT
     b, h, hkv, s, d = (lay[k] for k in ("b", "h", "hkv", "s", "d"))
-    g = torch.Generator(device="cuda").manual_seed(15)
+    causal = lay["causal"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
     base = [torch.randn(sh, generator=g, device="cuda") for sh in
             ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, h, s, d))]
-    kw = dict(causal=True, window=lay["window"], softcap=0.0,
+    kw = dict(causal=causal, window=lay["window"], softcap=0.0,
               scale=d ** -0.5)
     fwd, bwd, errs = {}, {}, {"fwd": [], "bwd": []}
 
     def sdpa(*x):
         return torch.nn.functional.scaled_dot_product_attention(
-            *x, is_causal=True, scale=kw["scale"])
+            *x, is_causal=causal, scale=kw["scale"])
     for dt in (torch.bfloat16, torch.float32):
-        name = f"zamba2-1.2b shared block {str(dt).replace('torch.', '')}"
+        name = f"{label} {str(dt).replace('torch.', '')}"
         q, k, v, do = (t.to(dt) for t in base)
-        out, lse = fa_mod._launch(q, k, v, True, lay["window"], 0.0,
+        out, lse = fa_mod._launch(q, k, v, causal, lay["window"], 0.0,
                                   kw["scale"], with_lse=True)
         exp, lse_exp = _fwd_plain_sliced(ref, q, k, v, kw)
         rtol, atol = (1e-2, 1e-3) if dt == torch.bfloat16 else (1e-4, 1e-4)
@@ -4568,7 +4610,7 @@ def phase_zamba_k5(ref, fa_mod):
         errs["bwd"] += list(b_err.values())
         del got, exp
         f_ms, f_wall = _replay_ms(lambda *x: fa_mod._launch(
-            *x, True, lay["window"], 0.0, kw["scale"], with_lse=True),
+            *x, causal, lay["window"], 0.0, kw["scale"], with_lse=True),
             [(q, k, v)], 3)
         f_plain, _ = _replay_ms(lambda *x: _fwd_plain_sliced(ref, *x, kw),
                                 [(q, k, v)], 1)
@@ -4585,11 +4627,11 @@ def phase_zamba_k5(ref, fa_mod):
             del xs, o
             backend = None
         else:  # SDPA's memory-efficient backend alone (split TF32)
-            sd = _sdpa_f32(q, k, v, do, causal=True, scale=kw["scale"])
+            sd = _sdpa_f32(q, k, v, do, causal=causal, scale=kw["scale"])
             lib_f, lib_b, backend = sd["fwd_ms"], sd["bwd_ms"], sd["backend"]
         f_bound, f_by = _fwd_bound(lay, dt, lse=True)
         b_bound, b_by = _bwd_bound(lay, dt)
-        shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, causal=True,
+        shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, causal=causal,
                      window=lay["window"])
         fwd[name] = dict(
             shape=shape, ms=f_ms, wall_ms=f_wall, plain_ms=f_plain,
@@ -4607,13 +4649,13 @@ def phase_zamba_k5(ref, fa_mod):
                 lay, dt, lse=True, rate=F32_FLOP_PER_S)[0]
             bwd[name]["cuda_core_bound_ms"] = _bwd_bound(
                 lay, dt, F32_FLOP_PER_S)[0]
-        print(f"# phase 15.1 K5 forward {name}: " + json.dumps(fwd[name]),
+        print(f"# phase {sub} K5 forward {name}: " + json.dumps(fwd[name]),
               flush=True)
-        print(f"# phase 15.1 K5 backward {name}: " + json.dumps(bwd[name]),
+        print(f"# phase {sub} K5 backward {name}: " + json.dumps(bwd[name]),
               flush=True)
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
-    print(f"# phase 15.1: wall {time.perf_counter() - t_phase:.1f} s",
+    print(f"# phase {sub}: wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return fwd, bwd, max(errs["fwd"]), max(errs["bwd"])
 
@@ -5050,6 +5092,563 @@ def phase_recurrent(ref, fa_mod, LAUNCHES, reset_launches):
                 serve=serve, serve_k5=serve_k5, train=train)
 
 
+# Phase 16, the frontend models (src/repro/configs/qwen2_vl_7b.py and
+# hubert_xlarge.py, arXiv:2409.12191 and 2106.07447): the stubbed vision
+# tower's 1280-wide patch and text embeddings and the conv extractor's
+# 512-wide frame embeddings, drawn from a numpy seed, through
+# ``frontend.proj``.  K5 at hubert's training layout: 16 heads of 80
+# (MHA) without a causal mask at S 4096 (the kernels pad D 80 to 128 in
+# shared memory).  qwen2-vl-7b served uncut (28 layers, 28 : 4 heads of
+# 128, qkv biases, M-RoPE; 7.6e9 parameters) through the port's
+# prefill and decode steps (the engine serves token prompts only), at
+# the launcher's batch, length, requests and new steps; each request's
+# prefill 2-8 rows of embeddings placed right-aligned (zero rows on the
+# left), each decode step one row a sequence.  hubert-xlarge encoded
+# uncut (48 layers, 1.26e9) without a cache on 30 s clips (B 4 x S 1500
+# frames at 50 a second: S is ragged at K5's tiles).  At full width and
+# 2 layers in f32 with an f32 cache, the card against the CPU port
+# (rtol 1e-4, atol 1e-4 max|exp|): qwen2-vl's prefill at B 1 x 64 with
+# three different position rows, then FRONT_DECODE_STEPS decode steps fed
+# the same rows; hubert's logits at B 1 x 128; qwen2-vl's decode against
+# prefill on the card (f32 2e-2, bf16 0.1).  Gradients at full width, 1
+# layer, f32, card against the CPU port, each leaf within 1e-4 of its
+# largest (qwen2-vl's ``frontend.proj``, qkv biases and M-RoPE; hubert's
+# non-causal K5 backward at D 80 and its unshifted loss), and on the card
+# ``remat="full"`` and ``"dots"`` bitwise ``"none"``.  hubert-xlarge
+# trained uncut (1.26e9 x 16 B = 20 GB of f32 weights, gradients and
+# moments) through ``TrainLoop`` at phase 13.3's batch, compute and remat,
+# 4 steps.  qwen2-vl-7b is not trained at depth: its f32 state at 28
+# layers is 122 GB, and at 8 layers it would repeat phase 13.3.
+FRONT_ARCHS = ("qwen2-vl-7b", "hubert-xlarge")
+HUBERT_K5_LAYOUT = dict(b=2, h=16, hkv=16, s=4096, d=80, causal=False,
+                        window=0, softcap=0.0)
+HUBERT_CLIPS, HUBERT_FRAMES = 4, 1500
+FRONT_SHORT_LAYERS = 2
+FRONT_SHORT_SEQ = {"qwen2-vl-7b": 64, "hubert-xlarge": 128}
+FRONT_DECODE_STEPS = 4
+FRONT_GRAD_SEQ = {"qwen2-vl-7b": 64, "hubert-xlarge": 128}
+FRONT_TRAIN_STEPS = 4
+FRONT_MM_LEAVES = MM_LEAVES | {"proj"}
+
+
+def _mrope_rows(b, s):
+    """(3, B, S) int32 positions whose rows differ: a temporal row that
+    advances every 4 patches, height and width rows of a 16 x 16 grid."""
+    t = torch.arange(s, dtype=torch.int32) // 4
+    g = torch.arange(s, dtype=torch.int32) % 256
+    rows = torch.stack([t, g // 16, g % 16])
+    return rows[:, None].expand(3, b, s).contiguous()
+
+
+def _embeds(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def _device_split(top):
+    """A profiled call's device ms by kernel names: K5, cuBLAS, the
+    rest."""
+    split = {"k5": 0.0, "cublas": 0.0, "rest": 0.0}
+    for kname, ms, _ in top:
+        low = kname.lower()
+        key = ("k5" if "flash" in low else "cublas"
+               if any(m in low for m in _CUBLAS) else "rest")
+        split[key] += ms
+    return split
+
+
+def _front_serve(ref, flash_attention, LAUNCHES, reset_launches):
+    """16.2 qwen2-vl-7b uncut, drawn on the card in f32 from the
+    launcher's seed and cast once to bf16, through ``make_prefill_step``
+    and ``make_decode_step`` (bf16 cache) over the launcher's requests,
+    counts 0 before and read after: exactly 28 x 17 x 2 = 952 K5
+    launches; finite logits, next tokens in the vocabulary; one decode
+    step profiled and split beside its bound (every weight it reads
+    once: the token table, which the forward never reads, left out);
+    then K5 on the path's own prefill and decode calls (12.2)."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import (ServeConfig, make_decode_step,
+                                          make_prefill_step)
+
+    arch = "qwen2-vl-7b"
+    args = launch.parse_args(["--arch", arch])   # the CLI's defaults
+    cfg, rt = configs.get_config(arch), Runtime()
+    sc = ServeConfig(batch=args.batch, max_len=args.max_len)
+    n_batches = -(-args.n_requests // args.batch)
+    per_step = _attn_blocks(cfg)
+    want = n_batches * per_step * (1 + args.max_new)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, rt, torch.Generator(
+        device="cuda").manual_seed(args.seed), "cuda")
+    n_params = sum(t.numel() for t in _leaves(params).values())
+    with torch.no_grad():
+        held = model_mod.cast_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    read = {k: v for k, v in held.items() if k != "embed"}
+    # Every request's rows and every decode step's, drawn before the run.
+    rng = np.random.default_rng(args.seed)
+    batches = []
+    for i in range(n_batches):
+        n = min(args.batch, args.n_requests - i * args.batch)
+        lengths = rng.integers(2, 9, size=n)
+        e = torch.zeros((args.batch, int(lengths.max()), cfg.frontend_dim))
+        for j, n_rows in enumerate(lengths):
+            e[j, -n_rows:] = _embeds(rng, (n_rows, cfg.frontend_dim))
+        steps = [_embeds(rng, (args.batch, 1, cfg.frontend_dim)).cuda()
+                 for _ in range(args.max_new)]
+        batches.append((lengths.tolist(), e.cuda(), steps))
+    prefill = make_prefill_step(cfg, rt, sc, "cuda")
+    decode = make_decode_step(cfg, rt, sc)
+    calls = {}
+    rec = _k5_recorder(calls, per_step * (args.max_new - 1))
+    times = {"prefill": [], "decode": []}
+    outs, finite = [], True
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_run = time.perf_counter()
+    with _patched(attn_mod, "flash_attention", rec):
+        for lengths, e, steps in batches:
+            t0 = time.perf_counter()
+            logits, cache = prefill(held, {"embeds": e})
+            nxt = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            times["prefill"].append(time.perf_counter() - t0)
+            toks, finite = [nxt], finite and bool(
+                torch.isfinite(logits).all())
+            for x in steps:
+                t0 = time.perf_counter()
+                nxt, lg, cache = decode(held, cache, x)
+                torch.cuda.synchronize()
+                times["decode"].append(time.perf_counter() - t0)
+                toks.append(nxt)
+                finite = finite and bool(torch.isfinite(lg).all())
+            outs += torch.stack(toks, 1)[:len(lengths)].tolist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = dict(LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated()
+    _need_launches(launches, ("flash_attention",), f"{arch} serve",
+                   exactly=want)
+    if not finite or len(outs) != args.n_requests or any(
+            len(o) != args.max_new + 1 or not all(0 <= t < cfg.vocab
+                                                   for t in o)
+            for o in outs):
+        raise AssertionError(f"{arch} serve: finite {finite}, outputs "
+                             f"{outs}")
+    if set(calls) != {"prefill", "decode"}:
+        raise AssertionError(f"{arch} serve: K5 calls {sorted(calls)}")
+    n_keys = int(cache["0"]["pos"][0]) + 1
+    step_in = batches[-1][2][-1]
+    device_ms, n_events, top = _profile(
+        lambda: decode(held, cache, step_in), top_n=10 ** 6)
+    bound, by, weight_bytes = _step_bound(cfg, read, args.batch, 1, n_keys)
+    decode_s = times["decode"]
+    tokens = args.n_requests * (args.max_new + 1)
+    info = dict(
+        arch=arch, n_layers=cfg.n_layers, batch=args.batch,
+        max_len=args.max_len, n_requests=args.n_requests,
+        max_new=args.max_new, seed=args.seed,
+        prefill_rows=[b[0] for b in batches],
+        params_reckoned=cfg.param_count(), params_drawn=n_params,
+        params_read_by_a_step=sum(t.numel()
+                                  for t in _leaves(read).values()),
+        init_s=init_s, init_peak_gb=init_peak / 1e9,
+        held_weights_gb=sum(t.numel() * t.element_size()
+                            for t in _leaves(held).values()) / 1e9,
+        serve_peak_gb=serve_peak / 1e9, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        prefill_ms=[t * 1e3 for t in times["prefill"]],
+        decode_ms_per_step=1e3 * sum(decode_s) / len(decode_s),
+        decode_ms_min=1e3 * min(decode_s), decode_ms_max=1e3 * max(decode_s),
+        decode_steps=len(decode_s), launches=launches,
+        k5_launches_per_decode_step=per_step,
+        profiled_decode_step=dict(keys=n_keys, device_ms=device_ms,
+                                  device_events=n_events,
+                                  split_ms=_device_split(top), top=top[:10]),
+        decode_bound_ms=bound, decode_bound_by=by,
+        decode_bound_weight_gb=weight_bytes / 1e9)
+    print("# phase 16.2: " + json.dumps(info), flush=True)
+    del held, read, cache, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = _served_calls(ref, flash_attention, arch, calls, "16.2")
+    return launches["flash_attention"], per
+
+
+def _front_encode(ref, flash_attention, LAUNCHES, reset_launches):
+    """16.3 hubert-xlarge uncut, drawn on the card in f32 and cast once to
+    bf16: ``forward`` without a cache under ``torch.no_grad()`` on
+    HUBERT_CLIPS x HUBERT_FRAMES frame embeddings, counts 0 before and
+    read after (exactly 48 K5 launches), finite logits; the forward
+    profiled and split beside its bound (2 N T for the products, 4 D a
+    pair for attention, at the bf16 rate); ``make_prefill_step`` on the
+    same input, its logits the forward's last ones bitwise; K5 on the
+    path's own call (layer 0's) held and timed as in 12.2."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import ServeConfig, make_prefill_step
+
+    arch = "hubert-xlarge"
+    cfg, rt = configs.get_config(arch), Runtime()
+    b, s = HUBERT_CLIPS, HUBERT_FRAMES
+    params = model_mod.init_params(cfg, rt, torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    n_params = sum(t.numel() for t in _leaves(params).values())
+    with torch.no_grad():
+        held = model_mod.cast_params(params, cfg)
+    del params
+    batch = {"embeds": _embeds(np.random.default_rng(16),
+                               (b, s, cfg.frontend_dim)).cuda()}
+    calls = []
+
+    def first(fn):
+        def call(q, k, v, **kw):
+            if not calls:
+                calls.append((q.contiguous().clone(), k.contiguous().clone(),
+                              v.contiguous().clone(), kw))
+            return fn(q, k, v, **kw)
+        return call
+
+    def encode():
+        with torch.no_grad():
+            return model_mod.forward(held, cfg, rt, batch)[0]
+    encode()    # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _patched(attn_mod, "flash_attention", first):
+        logits = encode()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _need_launches(launches, ("flash_attention",), f"{arch} encode",
+                   exactly=cfg.n_layers)
+    if logits.shape != (b, s, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} encode: logits {logits.shape}")
+    device_ms, n_events, top = _profile(encode, top_n=10 ** 6)
+    sc = ServeConfig(batch=b, max_len=s)
+    reset_launches()
+    last, _ = make_prefill_step(cfg, rt, sc, "cuda")(held, batch)
+    prefill_launches = LAUNCHES["flash_attention"]
+    if prefill_launches != cfg.n_layers or not torch.equal(
+            last, logits[:, -1]):
+        raise AssertionError(f"{arch} prefill step: {prefill_launches} K5 "
+                             "launches, last logits equal to the forward's "
+                             f"{torch.equal(last, logits[:, -1])}")
+    n_mm = sum(t.numel() for p, t in _leaves(held).items()
+               if p.rsplit("/", 1)[-1] in FRONT_MM_LEAVES)
+    pairs = b * cfg.n_heads * cfg.n_layers * _attn_pairs(s, s, False, 0)
+    t_ops = (2.0 * n_mm * b * s + 4.0 * cfg.d_head * pairs) \
+        / BF16_FLOP_PER_S
+    info = dict(
+        arch=arch, n_layers=cfg.n_layers, clips=b, frames=s,
+        params_reckoned=cfg.param_count(), params_drawn=n_params,
+        product_params=n_mm, wall_ms=wall * 1e3, device_ms=device_ms,
+        device_events=n_events, split_ms=_device_split(top), top=top[:8],
+        peak_gb=peak / 1e9, launches=launches,
+        prefill_step_launches=prefill_launches,
+        prefill_step_equals_forward=True, bound_ms=t_ops * 1e3,
+        bound_by="operations", frames_per_s=b * s / wall)
+    print("# phase 16.3: " + json.dumps(info), flush=True)
+    del held, batch, logits, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = {f"{arch} encode": _k5_call_reading(ref, flash_attention,
+                                              calls[0], "encode")}
+    print("# phase 16.3 K5 on the path's own call: " + json.dumps(per),
+          flush=True)
+    return launches["flash_attention"], prefill_launches, per
+
+
+def _close_steps(card, cpu, what):
+    """Raise unless every step's logits are within rtol 1e-4, atol 1e-4
+    max|exp| of the CPU port's; returns the gaps over max|exp|."""
+    gaps = []
+    for i, (g, c) in enumerate(zip(card, cpu)):
+        g = g.float().cpu()
+        gaps.append(float((g - c).abs().max() / c.abs().max()))
+        if not bool(((g - c).abs() <= 1e-4 * c.abs()
+                     + 1e-4 * c.abs().max()).all()):
+            raise AssertionError(f"16.4 {what}, step {i}: card vs CPU port "
+                                 f"gaps {gaps}")
+    return gaps
+
+
+def _front_short():
+    """16.4 Both models at full width and FRONT_SHORT_LAYERS layers from
+    weights drawn on the card, in f32 with an f32 cache, the card against
+    the CPU port on the same inputs (rtol 1e-4, atol 1e-4 max|exp|):
+    qwen2-vl's prefill logits at B 1 x 64 with explicit (3, B, S)
+    positions whose rows differ, then FRONT_DECODE_STEPS decode steps fed
+    the same embeddings; hubert's logits at B 1 x 128.  Then qwen2-vl's
+    decode against prefill on the card: f32 (f32 cache) within 2e-2,
+    bf16 (bf16 cache) within SERVE_BF16_TOL."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import ServeConfig, make_decode_step
+    from repro_torch.train import optimizer as topt
+
+    rt, out = Runtime(), {}
+    rng = np.random.default_rng(16)
+    for arch in FRONT_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=FRONT_SHORT_LAYERS)
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        card = model_mod.init_params(c32, rt, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        host = topt.tree_map(lambda t: t.cpu(), card)
+        s = FRONT_SHORT_SEQ[arch]
+        n_dec = FRONT_DECODE_STEPS if cfg.decoder else 0
+        e = _embeds(rng, (1, s + n_dec, cfg.frontend_dim))
+        first = {"embeds": e[:, :s]}
+        if cfg.mrope_sections:
+            first["positions"] = _mrope_rows(1, s)
+        sc = ServeConfig(batch=1, max_len=s + n_dec, cache_dtype="float32")
+        decode = make_decode_step(c32, rt, sc) if cfg.decoder else None
+        runs, walls = {}, {}
+        for dev, params in (("cuda", card), ("cpu", host)):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                cache = model_mod.init_cache(c32, rt, 1, s + n_dec,
+                                             torch.float32, device=dev)
+                lg, cache, _ = model_mod.forward(
+                    params, c32, rt, {k: v.to(dev) for k, v in first.items()},
+                    cache=cache)
+                steps = [lg.cpu()]
+                for t in range(s, s + n_dec):
+                    _, lg, cache = decode(params, cache,
+                                          e[:, t:t + 1].to(dev))
+                    steps.append(lg.cpu())
+            runs[dev], walls[dev] = steps, time.perf_counter() - t0
+        gaps = _close_steps(runs["cuda"], runs["cpu"], arch)
+        info = dict(n_layers=cfg.n_layers, seq=s, decode_steps=n_dec,
+                    worst_step_gap=max(gaps), step_gaps=gaps,
+                    logits_max=float(max(c.abs().max()
+                                         for c in runs["cpu"])),
+                    card_s=walls["cuda"], cpu_port_s=walls["cpu"])
+        del host, runs
+        if cfg.decoder:
+            b, n = 2, 12
+            ek = _embeds(rng, (b, n, cfg.frontend_dim)).cuda()
+            errs = {}
+            with torch.no_grad():
+                for c, dt, tol in ((c32, torch.float32, 2e-2),
+                                   (cfg, torch.bfloat16, SERVE_BF16_TOL)):
+                    p = card if dt == torch.float32 else \
+                        model_mod.cast_params(card, c)
+                    full, _ = model_mod.forward(p, c, rt, {"embeds": ek})
+                    cache = model_mod.init_cache(c, rt, b, n + 4, dt,
+                                                 device="cuda")
+                    _, cache, _ = model_mod.forward(
+                        p, c, rt, {"embeds": ek[:, :-1]}, cache=cache)
+                    step, _, _ = model_mod.forward(
+                        p, c, rt, {"embeds": ek[:, -1:]}, cache=cache)
+                    full, step = full[:, -1].float(), step[:, 0].float()
+                    errs[str(dt)] = float((step - full).abs().max())
+                    if not bool(((step - full).abs()
+                                 <= tol * full.abs() + tol).all()):
+                        raise AssertionError(
+                            f"16.4 {arch} {dt}: decode does not match an "
+                            f"{n - 1}-row prefill (max abs err "
+                            f"{errs[str(dt)]})")
+                    del p, full, step, cache
+            info["decode_vs_prefill"] = errs
+        out[arch] = info
+        del card
+        torch.cuda.empty_cache()
+    return out
+
+
+def _front_grads(LAUNCHES, reset_launches):
+    """16.5 Both models at full width and 1 layer in f32 from weights
+    drawn on the card: ``loss_and_grads`` on the card and on the CPU
+    port (qwen2-vl at B 1 x 64 with three different position rows, its
+    loss shifted; hubert at B 1 x 128, unshifted), the loss within rtol
+    1e-5 and every gradient leaf within 1e-4 of its largest (qwen2-vl's
+    token table, which no forward reads, zero on both sides); on the card
+    ``remat="full"`` and ``"dots"`` bitwise ``"none"``, K5 forward once
+    under none and twice under either (the unit's recompute), backward
+    once."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    rt, out = Runtime(), {}
+    rng = np.random.default_rng(17)
+    for arch in FRONT_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=1,
+                                  dtype="float32", remat="none")
+        card = model_mod.init_params(cfg, rt, torch.Generator(
+            device="cuda").manual_seed(0), "cuda")
+        s = FRONT_GRAD_SEQ[arch]
+        batch = {"embeds": _embeds(rng, (1, s, cfg.frontend_dim)),
+                 "labels": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                         (1, s)))}
+        if cfg.mrope_sections:
+            batch["positions"] = _mrope_rows(1, s)
+        on_card = {k: v.cuda() for k, v in batch.items()}
+        runs, k5 = {}, {}
+        for r in ("none", "full", "dots"):
+            reset_launches()
+            runs[r] = tts.loss_and_grads(
+                card, dataclasses.replace(cfg, remat=r), rt, on_card)
+            k5[r] = (LAUNCHES["flash_attention"],
+                     LAUNCHES["flash_attention_bwd"])
+            if r != "none" and (not torch.equal(runs["none"][0], runs[r][0])
+                                or not all(torch.equal(a, b) for a, b in zip(
+                                    topt.tree_leaves(runs["none"][2]),
+                                    topt.tree_leaves(runs[r][2])))):
+                raise AssertionError(f"16.5 {arch}: remat={r!r} differs "
+                                     "from remat='none' on the card")
+            if r != "none":
+                del runs[r]
+        if k5 != {"none": (1, 1), "full": (2, 1), "dots": (2, 1)}:
+            raise AssertionError(f"16.5 {arch}: K5 launches {k5}")
+        loss_g, _, g_card = runs.pop("none")
+        host = topt.tree_map(lambda t: t.cpu(), card)
+        del card
+        t0 = time.perf_counter()
+        loss_c, _, g_cpu = tts.loss_and_grads(host, cfg, rt, batch)
+        cpu_s = time.perf_counter() - t0
+        gaps, worst = _grad_gap(g_card, g_cpu)
+        names = ["/".join(p) for p in topt.tree_leaves(topt.tree_map(
+            lambda path, _: path, g_cpu, with_path=True))]
+        if abs(float(loss_g) - float(loss_c)) > 1e-5 * abs(float(loss_c)) \
+                or worst > 1e-4:
+            raise AssertionError(f"16.5 {arch}: loss {float(loss_g)} vs "
+                                 f"{float(loss_c)}, gradient leaf gaps "
+                                 f"{dict(zip(names, gaps))}")
+        if cfg.frontend == "vision" and (g_card["embed"]["tok"].any()
+                                         or g_cpu["embed"]["tok"].any()):
+            raise AssertionError(f"16.5 {arch}: the unread token table "
+                                 "has a gradient")
+        out[arch] = dict(seq=s, loss=[float(loss_g), float(loss_c)],
+                         leaves=len(gaps), worst_gradient_leaf_gap=worst,
+                         leaf_gaps=dict(zip(names, gaps)), k5=k5,
+                         remat_full_and_dots_equal_none=True,
+                         cpu_port_s=cpu_s)
+        del host, g_card, g_cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _front_train(ref, LAUNCHES, reset_launches):
+    """16.6 hubert-xlarge uncut through ``TrainLoop`` (phase 13.3's
+    batch, compute, remat and optimizer; ``lm`` data: frame embeddings and
+    labels), FRONT_TRAIN_STEPS steps, counts 0 before and read after:
+    exactly 48 x 2 x 4 = 384 K5 forward launches (each layer's forward
+    and its recompute) and 48 x 4 = 192 backward, no plain-version call,
+    finite losses and grad norms; one more step profiled beside its
+    bound: 8 N T for the products (a forward, its recompute and the
+    backward's two), the attention's pairs (4 D flops a pair twice, 10 D
+    backward) at the bf16 rate, and the optimizer's 26 bytes a
+    parameter."""
+    from repro_torch import configs
+
+    arch = "hubert-xlarge"
+    cfg = configs.get_config(arch)
+    steps = FRONT_TRAIN_STEPS
+    loop, res, run_s, launches, peak, plain_calls = _loop_run(
+        cfg, ref, LAUNCHES, reset_launches, steps=steps)
+    hist = res["history"]
+    walls = [h["wall_s"] for h in hist]
+    state = res["state"]
+    _, (g_ms, g_events, g_top), (o_ms, o_events, o_top) = _profiled_step(
+        loop, state, cfg, steps=steps)
+    split = _step_split(g_top)
+    split["optimizer"] = o_ms
+    t = TRAIN_BATCH * TRAIN_SEQ
+    n_all = n_mm = 0
+    for path, x in _leaves(state["params"]).items():
+        n_all += x.numel()
+        if path.rsplit("/", 1)[-1] in FRONT_MM_LEAVES:
+            n_mm += x.numel()
+    pairs = TRAIN_BATCH * cfg.n_heads * cfg.n_layers * _attn_pairs(
+        TRAIN_SEQ, TRAIN_SEQ, False, 0)
+    t_mm = 8.0 * n_mm * t / BF16_FLOP_PER_S
+    t_attn = 18.0 * cfg.d_head * pairs / BF16_FLOP_PER_S
+    t_opt = 26.0 * n_all / HBM_BYTES_PER_S
+    steady = float(np.median(walls[1:]))
+    info = dict(
+        arch=arch, n_layers=cfg.n_layers, cut=None, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=steps, params=n_all, product_params=n_mm,
+        params_reckoned=cfg.param_count(), dtype=cfg.dtype,
+        param_dtype=cfg.param_dtype, remat=cfg.remat,
+        losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
+        steady_step_s=steady, tokens_per_s=t / steady, run_s=run_s,
+        peak_gb=peak / 1e9, peak_reckoned_gb=16 * n_all / 1e9,
+        launches={k: launches[k] for k in ("flash_attention",
+                                            "flash_attention_bwd")},
+        plain_calls=plain_calls,
+        profiled_step=dict(device_ms=g_ms + o_ms, events=g_events + o_events,
+                           split_ms=split, optimizer_events=o_events,
+                           top=g_top[:12] + o_top[:4]),
+        bound_ms=(t_mm + t_attn + t_opt) * 1e3,
+        bound_parts_ms=dict(products=t_mm * 1e3, attention=t_attn * 1e3,
+                            optimizer_bytes=t_opt * 1e3),
+        device_idle_share=1.0 - (g_ms + o_ms) / 1e3 / steady)
+    print("# phase 16.6: " + json.dumps(info), flush=True)
+    del loop, res, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_frontends(ref, fa_mod, LAUNCHES, reset_launches):
+    """16. The frontend models on the card (see the constants above and
+    the module docstring)."""
+    t = [time.perf_counter()]
+    fwd, bwd, f_err, b_err = _k5_train_layout(
+        ref, fa_mod, HUBERT_K5_LAYOUT, "hubert-xlarge", 16, "16.1")
+    t.append(time.perf_counter())
+    serve, serve_k5 = _front_serve(ref, fa_mod.flash_attention, LAUNCHES,
+                                   reset_launches)
+    t.append(time.perf_counter())
+    encode, prefill, per = _front_encode(ref, fa_mod.flash_attention,
+                                         LAUNCHES, reset_launches)
+    serve_k5.update(per)
+    t.append(time.perf_counter())
+    short = _front_short()
+    print("# phase 16.4: at full width and 2 layers in f32 (f32 cache) the "
+          "card against the CPU port within rtol 1e-4, atol 1e-4 max|exp| "
+          "(qwen2-vl's prefill with three position rows and its decode "
+          "steps, hubert's logits); qwen2-vl's decode against prefill on "
+          f"the card, f32 within 2e-2 and bf16 within {SERVE_BF16_TOL}: "
+          + json.dumps(short), flush=True)
+    t.append(time.perf_counter())
+    grads = _front_grads(LAUNCHES, reset_launches)
+    print("# phase 16.5: gradients at full width and 1 layer in f32, card "
+          "against the CPU port, loss within rtol 1e-5 and each leaf "
+          "within 1e-4 of its largest; remat full and dots bitwise none "
+          "on the card: " + json.dumps(grads), flush=True)
+    t.append(time.perf_counter())
+    train = _front_train(ref, LAUNCHES, reset_launches)
+    t.append(time.perf_counter())
+    parts = np.diff(t).tolist()
+    print(f"# phase 16: wall {t[-1] - t[0]:.1f} s (16.1 {parts[0]:.1f}, "
+          f"16.2 {parts[1]:.1f}, 16.3 {parts[2]:.1f}, 16.4 {parts[3]:.1f}, "
+          f"16.5 {parts[4]:.1f}, 16.6 {parts[5]:.1f})", flush=True)
+    return dict(fwd=fwd, bwd=bwd, fwd_err=f_err, bwd_err=b_err,
+                serve=serve, encode=encode, prefill=prefill,
+                serve_k5=serve_k5, train=train)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5167,14 +5766,19 @@ def _main(stop) -> int:
     torch.cuda.empty_cache()
     rec = phase_recurrent(ref, fa_mod, LAUNCHES, reset_launches)
     t16 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    front = phase_frontends(ref, fa_mod, LAUNCHES, reset_launches)
+    t17 = time.perf_counter()
     print(f"# wall s: phases 1-3 and (a)-(d) {t4 - t_start:.1f}, phase 4 "
           f"{t5 - t4:.1f}, phase 5 {t6 - t5:.1f}, phase 6 {t7 - t6:.1f}, "
           f"phase 7 {t8 - t7:.1f}, phase 8 "
           f"{t9 - t8:.1f}, phase 9 {t10 - t9:.1f}, phase 10 "
           f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, phase 12 "
           f"{t13 - t12:.1f}, phase 13 {t14 - t13:.1f}, phase 14 "
-          f"{t15 - t14:.1f}, phase 15 {t16 - t15:.1f}, script up to here "
-          f"{t16 - t_start:.1f}; phases 6-9 waited {sum(CPU_PORT_WAIT):.1f} "
+          f"{t15 - t14:.1f}, phase 15 {t16 - t15:.1f}, phase 16 "
+          f"{t17 - t16:.1f}, script up to here "
+          f"{t17 - t_start:.1f}; phases 6-9 waited {sum(CPU_PORT_WAIT):.1f} "
           f"s for the CPU port's {len(CPU_PORT_WAIT)} runs (their own "
           f"walls {sum(CPU_PORT_WALL):.1f} s)", flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
@@ -5199,19 +5803,24 @@ def _main(stop) -> int:
                            **{f"{arch} serve": n
                               for arch, n in rec["serve"].items()},
                            **{f"{arch} train": n["flash_attention"]
-                              for arch, n in rec["train"].items()}}
-    k5["per_layout"].update(serve["per_layout"])
-    k5["per_layout"].update(moe["fwd"])
-    k5["per_layout"].update(moe["serve_k5"])
-    k5["per_layout"].update(rec["fwd"])
-    k5["per_layout"].update(rec["serve_k5"])
+                              for arch, n in rec["train"].items()},
+                           "qwen2-vl-7b serve": front["serve"],
+                           "hubert-xlarge encode": front["encode"],
+                           "hubert-xlarge prefill step": front["prefill"],
+                           "hubert-xlarge train":
+                               front["train"]["flash_attention"]}
+    for part in (serve["per_layout"], moe["fwd"], moe["serve_k5"],
+                 rec["fwd"], rec["serve_k5"], front["fwd"],
+                 front["serve_k5"]):
+        k5["per_layout"].update(part)
     top = serve["per_layout"][f"{SERVE_ARCH} serve decode"]
     k5.update(launches=serve["launches"],
               max_abs_err=max([k5["max_abs_err"], moe["fwd_err"],
-                               rec["fwd_err"]] + [
+                               rec["fwd_err"], front["fwd_err"]] + [
                   r["max_abs_err"] for r in (*serve["per_layout"].values(),
                                              *moe["serve_k5"].values(),
-                                             *rec["serve_k5"].values())]),
+                                             *rec["serve_k5"].values(),
+                                             *front["serve_k5"].values())]),
               **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
               entry_layout=f"{SERVE_ARCH} serve decode bf16")
@@ -5220,10 +5829,13 @@ def _main(stop) -> int:
     k5b["path_launches"].update(
         {f"{arch} train": n["flash_attention_bwd"]
          for arch, n in rec["train"].items()})
+    k5b["path_launches"]["hubert-xlarge train"] = \
+        front["train"]["flash_attention_bwd"]
     k5b["per_layout"].update(moe["bwd"])
     k5b["per_layout"].update(rec["bwd"])
+    k5b["per_layout"].update(front["bwd"])
     k5b["max_abs_err"] = max(k5b["max_abs_err"], moe["bwd_err"],
-                             rec["bwd_err"])
+                             rec["bwd_err"], front["bwd_err"])
     # The loaded libraries' tensor-core kernels (the backward's wgmma and
     # split-TF32 kernels, the forward's split-TF32 kernel) and K2's bool
     # kernels (in the entry that holds the bool paths' entries): registers,

@@ -122,7 +122,9 @@ def model_params_from_arrays(cfg, tree: Mapping[str, Any],
     dict of numpy arrays, placed on ``device`` in ``cfg.param_dtype``:
     the JAX package's ``init_params`` tree, once converted leaf by leaf,
     is already in the port's layout (zamba2's ``shared_attn`` and its
-    ``a`` position's empty entry in ``blocks`` included)."""
+    ``a`` position's empty entry in ``blocks`` included; a frontend's
+    ``frontend.proj``, and qwen2-vl's token table, which its forward
+    never reads, carried across unchanged)."""
     from .models.common import dtype_of
 
     dev = resolve_device(device)

@@ -13,7 +13,9 @@
 The JAX package's ``launch/serve.py`` with the same flags, plus
 ``--device`` (``cuda`` unless ``cpu`` is asked for; ``cuda`` without a
 card raises).  Parameters are random, drawn from ``--seed`` on the
-device.
+device.  The prompts are tokens, so a frontend arch (qwen2-vl-7b,
+hubert-xlarge) is refused with a ``ValueError`` before any weight is
+drawn.
 """
 
 from __future__ import annotations
@@ -64,11 +66,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[List[int]]:
     from repro_torch import configs, resolve_device
     from repro_torch.dist.sharding import Runtime
     from repro_torch.models import model as model_mod
-    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.serve.engine import (ServeConfig, ServingEngine,
+                                          check_token_model)
 
-    dev = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
+    check_token_model(cfg)
+    dev = resolve_device(args.device)
     rt = Runtime(mesh=None)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model_mod.init_params(cfg, rt, gen, dev)

@@ -55,7 +55,7 @@ def attn_init(cfg: ModelConfig, generator: torch.Generator,
 # -----------------------------------------------------------------------------
 def attn_apply(params, cfg: ModelConfig, rt: Runtime, x, rope, *,
                window: int = 0, cache: Optional[dict] = None):
-    """x: (B, S, D); ``rope``: :func:`common.rope_tables` of the (B, S)
+    """x: (B, S, D); ``rope``: :func:`common.rope_tables` of the
     positions (the JAX package passes the positions themselves).
     Returns (out, cache).
 

@@ -5,9 +5,7 @@ nested dicts of tensors, as there.  Every init function takes ``device``
 without a default and draws from an explicit ``torch.Generator`` that
 lives on that device.
 
-Left out: M-RoPE (qwen2-vl's sections) raises until the frontends' slice
-(ROADMAP A13.11); the ``*_specs`` builders belong to the mesh (ROADMAP
-A13.5).
+Left out: the ``*_specs`` builders belong to the mesh (ROADMAP A13.5).
 """
 
 from __future__ import annotations
@@ -60,12 +58,27 @@ def rope_tables(positions: torch.Tensor, d_head: int, theta: float,
                 sections: Optional[Tuple[int, int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 (cos, sin), each (B, S, 1, D/2), of (B, S) positions: made
-    once per forward and shared by every layer's q and k."""
-    if sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) comes with the "
-                                  "frontends' slice, ROADMAP A13.11")
-    ang = positions[..., None].float() * rope_freqs(d_head, theta,
-                                                    positions.device)
+    once per forward and shared by every layer's q and k.
+
+    With ``sections`` (M-RoPE, qwen2-vl's temporal, height and width
+    parts of the half dimension) ``positions`` is (3, B, S): each section
+    of the frequencies is multiplied by its own position row, and the
+    sections are concatenated, as the JAX package's ``apply_rope``.  A
+    section past the D/2 frequencies takes what is left of them (none at
+    the smoke config's (4, 6, 6) over D/2 = 8), as the slices there do.
+    """
+    freqs = rope_freqs(d_head, theta, positions.device)
+    if sections is None:
+        ang = positions[..., None].float() * freqs
+    else:
+        if positions.ndim != 3 or positions.shape[0] != 3:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        parts, start = [], 0
+        for sec, pos in zip(sections, positions):
+            parts.append(pos[..., None].float() * freqs[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 

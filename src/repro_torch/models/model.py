@@ -24,15 +24,23 @@ through ``torch.utils.checkpoint`` without saving anything inside it,
 the JAX package's ``nothing_saveable`` on its unit, and, where the
 pattern is longer than 2 blocks (zamba2's 19), each block through a
 checkpoint of its own inside the unit's, as there: the unit's recompute
-then keeps one block's internals at a time; ``"none"`` saves every
-activation; ``"dots"`` (matmul outputs saveable) raises, ROADMAP
-A13.13.  Without grad the forward is the same either way.  The experts'
-load-balance loss of each block is summed over a unit (also out of the
-checkpointed unit, so that its gradient survives the recompute) and over
-the repeats; the forward returns that sum, 0 without experts.
+then keeps one block's internals at a time; ``"dots"`` runs the unit
+through a selective checkpoint that saves the outputs of the weight
+products (:func:`_dots_policy`) and recomputes the rest, with the same
+per-block checkpoints inside as ``"full"``; ``"none"`` saves every
+activation.  Without grad the forward is the same either way, and every
+policy gives the same bits.  The experts' load-balance loss of each
+block is summed over a unit (also out of the checkpointed unit, so that
+its gradient survives the recompute) and over the repeats; the forward
+returns that sum, 0 without experts.
 
-Not ported yet, and raising ``NotImplementedError``: the audio and
-vision frontends and M-RoPE (ROADMAP A13.11).  ``param_specs`` /
+Frontends (qwen2-vl-7b's vision, hubert-xlarge's audio): the model
+takes ``batch["embeds"]`` (B, S, ``frontend_dim``), the stubbed tower's
+patch or frame embeddings, through ``params["frontend"]["proj"]``
+instead of the token table.  qwen2-vl keeps a token table
+``params["embed"]`` that the forward never reads (the JAX package draws
+it too); hubert has none.  qwen2-vl's M-RoPE takes (3, B, S) positions,
+or broadcasts (B, S) ones to its three sections.  ``param_specs`` /
 ``cache_specs`` belong to the mesh (A13.5).
 
 Public API:
@@ -43,10 +51,12 @@ Public API:
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from ..dist.sharding import Runtime
@@ -54,8 +64,8 @@ from . import attention as attn_mod
 from . import common, mla, moe, rwkv, ssm
 from .config import ModelConfig
 
-__all__ = ["check_supported", "init_params", "init_cache", "cast_params",
-           "forward", "loss_fn", "AUX_COEF"]
+__all__ = ["init_params", "init_cache", "cast_params", "forward", "loss_fn",
+           "AUX_COEF"]
 
 AUX_COEF = 0.01
 
@@ -63,15 +73,6 @@ AUX_COEF = 0.01
 # norms' scales, the SSM's decay, step bias and skip, RWKV6's decay base
 # and bonus.  ``cast_params`` keeps their dtype.
 _F32_LEAVES = frozenset({"scale", "A_log", "dt_bias", "D", "w0", "u"})
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet,
-    naming the ROADMAP item that ports it."""
-    if cfg.frontend is not None or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not run the audio and vision "
-            "frontends and M-RoPE, ROADMAP A13.11 yet")
 
 
 def _tree_map(fn, tree):
@@ -145,16 +146,20 @@ def init_params(cfg: ModelConfig, rt: Runtime, generator: torch.Generator,
                 device) -> Dict[str, Any]:
     """Random parameters in ``cfg.param_dtype`` on ``device`` (``cuda``
     without a card raises), drawn from ``generator`` (which lives on
-    ``device``) in a fixed order: the embedding, each unit position's
+    ``device``) in a fixed order: a frontend's projection, the token
+    embedding (none for the audio frontend), each unit position's
     repeats, the shared attention block (zamba2), the LM head.  The
     tree, its shapes and dtypes are the JAX package's; its values are
     not."""
-    check_supported(cfg)
     device = resolve_device(device)
     dtype = common.dtype_of(cfg.param_dtype)
-    params: Dict[str, Any] = {
-        "embed": common.embed_init(cfg.vocab, cfg.d_model, generator, dtype,
-                                   device=device)}
+    params: Dict[str, Any] = {}
+    if cfg.frontend is not None:
+        params["frontend"] = {"proj": common.truncnorm(
+            (cfg.frontend_dim, cfg.d_model), dtype, generator, device)}
+    if cfg.frontend in (None, "vision"):
+        params["embed"] = common.embed_init(cfg.vocab, cfg.d_model,
+                                            generator, dtype, device=device)
     params["blocks"] = {
         str(i): _stacked(lambda ch=ch: _block_init(cfg, ch, generator, dtype,
                                                    device),
@@ -271,25 +276,51 @@ def _apply_block(bp, cfg: ModelConfig, rt: Runtime, char: str, x, rope,
     return x + h, cache, aux
 
 
+_AT = torch.ops.aten
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the outputs of ``mm``, ``addmm`` and of
+    ``bmm`` over a batch of 1, recompute every other op.  PyTorch runs
+    the models' weight einsums as ``bmm`` over a batch of 1 (and ``x @
+    W`` as ``mm``), and an einsum with batch dimensions (the SSD's chunk
+    products, RWKV6's state reads) as ``bmm`` over their product.  So
+    this is the JAX package's ``dots_with_no_batch_dims_saveable`` but in
+    two places: an einsum whose batch dimensions multiply to 1 (the SSD's
+    at B 1 and one chunk) is saved here, not there, and the experts'
+    products, one ``mm`` per expert here, are saved, where the JAX
+    package's ``ecd,edf`` einsum has the experts as a batch dimension.
+    K5 is no aten op, so its forward is recomputed, as under ``"full"``.
+    """
+    if op in (_AT.mm.default, _AT.addmm.default) or (
+            op is _AT.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
             cache: Optional[dict] = None):
     """Logits (B, S, V) in ``cfg.dtype`` and the f32 auxiliary loss (the
     experts' load-balance loss summed over the blocks, 0 without
     experts); with a cache, ``(logits, cache, aux)``, the cache updated
-    in place.  ``batch["tokens"]`` (B, S) lies on the params'
-    device; ``batch["positions"]`` (B, S) is optional."""
-    check_supported(cfg)
+    in place.  ``batch["tokens"]`` (B, S), or for a frontend
+    ``batch["embeds"]`` (B, S, ``frontend_dim``), lies on the params'
+    device; ``batch["positions"]`` (B, S), or M-RoPE's (3, B, S), is
+    optional."""
     dt = common.dtype_of(cfg.dtype)
-    tokens = batch["tokens"]
-    # Gather, then cast: the same bits as the JAX package's cast table.
-    x = params["embed"]["tok"][tokens].to(dt)
+    if cfg.frontend is None:
+        # Gather, then cast: the same bits as the JAX package's cast table.
+        x = params["embed"]["tok"][batch["tokens"]].to(dt)
+    else:
+        x = torch.einsum("bsf,fd->bsd", batch["embeds"].to(dt),
+                         params["frontend"]["proj"].to(dt))
     if cfg.embed_scale:
         x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=dt)
 
+    b, s = x.shape[:2]
     if "positions" in batch:
         positions = batch["positions"]
     else:
-        b, s = tokens.shape
         if cache is not None and s == 1:
             # The first unit position with a pos (a KV or a latent
             # cache's; every such block's is the same); 0 where none has
@@ -302,6 +333,9 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
+    if cfg.mrope_sections is not None and positions.ndim == 2:
+        # Text spans: the temporal, height and width positions are one.
+        positions = positions[None].expand(3, b, s)
     # Multi-head latent attention rotates its rope_dim part only.
     rope = common.rope_tables(positions, cfg.mla.rope_dim if cfg.mla
                               else cfg.d_head, cfg.rope_theta,
@@ -315,10 +349,14 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
                            params["blocks"][str(i)])
               for i in range(len(unit))}
     remat = torch.is_grad_enabled() and cfg.remat != "none"
-    if remat and cfg.remat != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: remat={cfg.remat!r} (matmul outputs saveable) is "
-            "not ported; ROADMAP A13.13.  Use 'full' or 'none'")
+    if remat and cfg.remat not in ("full", "dots"):
+        raise ValueError(f"{cfg.name}: remat={cfg.remat!r}; expected "
+                         "'none', 'dots' or 'full'")
+    # The unit's checkpoint saves nothing under "full", the weight
+    # products' outputs under "dots".
+    unit_kw = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+        if cfg.remat == "dots" else {})
 
     # Per-block checkpoints inside the unit's, as the JAX package's (its
     # unit recompute at zamba2's 19 blocks would otherwise keep every
@@ -342,7 +380,8 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
 
     for j in range(r):
         if remat:
-            x, aux = checkpoint(unit_body, x, aux, j, use_reentrant=False)
+            x, aux = checkpoint(unit_body, x, aux, j, use_reentrant=False,
+                                **unit_kw)
         else:
             x, aux = unit_body(x, aux, j)
 

@@ -16,8 +16,15 @@ activations here.
 
 The ``ServingEngine`` is a minimal continuous-batching loop: a
 fixed-size slot table, greedy sampling, per-request budgets, prompts
-right-aligned with zeros on their left.  Encoder-only models, which have
-no decode step, come with the frontends' slice (ROADMAP A13.11).
+right-aligned with zeros on their left.  It serves token prompts only,
+as the JAX package's engine feeds them: a frontend model (qwen2-vl-7b's
+patch and text embeddings, hubert-xlarge's frames) is rejected at
+construction, where the JAX package's ``run`` fails on the missing
+``embeds``.  Such a model is driven through the steps themselves:
+:func:`make_prefill_step` takes ``{"embeds"}``, and
+:func:`make_decode_step` feeds a frontend decoder (qwen2-vl) its
+per-step input under ``"embeds"``.  An encoder-only model (hubert) has
+a prefill step and no decode step.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from ..models.common import dtype_of
 from ..models.config import ModelConfig
 
 __all__ = ["ServeConfig", "make_prefill_step", "make_decode_step",
-           "ServingEngine"]
+           "check_token_model", "ServingEngine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +54,8 @@ class ServeConfig:
 
 def make_prefill_step(cfg: ModelConfig, rt: Runtime, sc: ServeConfig,
                       device="cuda"):
-    """(params, {"tokens"}) -> (last-token logits, primed cache)."""
+    """(params, {"tokens"} or {"embeds"}) -> (last-token logits, primed
+    cache)."""
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -62,13 +70,16 @@ def make_prefill_step(cfg: ModelConfig, rt: Runtime, sc: ServeConfig,
 
 
 def make_decode_step(cfg: ModelConfig, rt: Runtime, sc: ServeConfig):
-    """(params, cache, last_token) -> (next_token, f32 logits, cache)."""
+    """(params, cache, last_token) -> (next_token, f32 logits, cache); a
+    frontend model takes its step's (B, 1, ``frontend_dim``) embeddings
+    in place of the last token."""
     assert cfg.decoder, f"{cfg.name} is encoder-only: no decode step"
+    key = "embeds" if cfg.frontend is not None else "tokens"
 
     @torch.no_grad()
     def decode(params, cache, tokens):
-        logits, cache, _ = model_mod.forward(params, cfg, rt,
-                                             {"tokens": tokens}, cache=cache)
+        logits, cache, _ = model_mod.forward(params, cfg, rt, {key: tokens},
+                                             cache=cache)
         lg = logits[:, -1].float()
         if cfg.final_softcap:
             lg = cfg.final_softcap * torch.tanh(lg / cfg.final_softcap)
@@ -78,13 +89,25 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime, sc: ServeConfig):
     return decode
 
 
+def check_token_model(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a model that takes embeddings, not
+    tokens: the engine has no prompts to give it."""
+    if cfg.frontend is not None:
+        raise ValueError(
+            f"{cfg.name} takes {cfg.frontend} embeddings, not token "
+            "prompts: the engine cannot serve it.  Drive "
+            "make_prefill_step (and, for a decoder, make_decode_step) "
+            'with {"embeds"} instead')
+
+
 class ServingEngine:
     """Continuous batching over a fixed slot table (single replica) on
-    ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    ``device`` (``cuda`` unless the caller asks for the CPU), for models
+    that take tokens (:func:`check_token_model`)."""
 
     def __init__(self, cfg: ModelConfig, rt: Runtime, params,
                  sc: ServeConfig, device="cuda"):
-        model_mod.check_supported(cfg)
+        check_token_model(cfg)
         self.cfg, self.rt, self.sc = cfg, rt, sc
         self.device = resolve_device(device)
         with torch.no_grad():

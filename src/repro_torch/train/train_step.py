@@ -73,12 +73,15 @@ def _unflatten(like, leaves: List[torch.Tensor]):
 def loss_and_grads(params, cfg: ModelConfig, rt: Runtime,
                    batch: Dict[str, Any]):
     """``(loss, {"ce", "aux"}, grads)``: the loss of ``batch`` and its
-    gradient tree (the parameters' dtype) by ``torch.autograd.grad``."""
+    gradient tree (the parameters' dtype) by ``torch.autograd.grad``.  A
+    leaf the loss does not read (qwen2-vl's token table, which its
+    forward never takes) gets zeros, as ``jax.grad`` gives it."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = model_mod.loss_fn(_unflatten(params, leaves), cfg,
                                           rt, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, _unflatten(params, list(grads))
 
@@ -86,7 +89,6 @@ def loss_and_grads(params, cfg: ModelConfig, rt: Runtime,
 def make_train_step(cfg: ModelConfig, rt: Runtime,
                     tc: Optional[TrainConfig] = None):
     tc = tc or TrainConfig()
-    model_mod.check_supported(cfg)
 
     def train_step(params, opt_state, batch, step_rng=None):
         del step_rng  # deterministic substrate; kept for API stability

@@ -486,7 +486,9 @@ ATTN_CASES = [(1, 4, 2, 200, 200, 64, True, 0, 0.0),
               (1, 4, 2, 190, 190, 128, True, 64, 50.0),
               (1, 2, 1, 100, 77, 200, False, 0, 0.0),
               (1, 2, 1, 150, 60, 32, True, 16, 0.0),     # rows 75.. dead
-              (1, 8, 1, 64, 64, 256, True, 0, 30.0)]
+              (1, 8, 1, 64, 64, 256, True, 0, 30.0),
+              (2, 4, 4, 300, 300, 80, False, 0, 0.0),    # hubert: D 80
+              (1, 14, 2, 130, 130, 128, True, 0, 0.0)]   # qwen2-vl: group 7
 
 
 @pytest.mark.gpu
@@ -1094,7 +1096,9 @@ BWD_CASES = [(1, 4, 2, 200, 200, 64, 64, True, 0, 0.0),
              (1, 4, 2, 333, 333, 192, 128, True, 0, 0.0),   # MLA, ragged S
              (2, 4, 2, 150, 300, 64, 64, True, 32, 0.0),    # Sq != Sk
              (1, 4, 2, 120, 120, 80, 80, True, 0, 0.0),     # D 80 in 128
-             (1, 2, 2, 100, 100, 160, 160, True, 0, 0.0)]   # Dv 160 in 192
+             (1, 2, 2, 100, 100, 160, 160, True, 0, 0.0),   # Dv 160 in 192
+             (2, 4, 4, 300, 300, 80, 80, False, 0, 0.0),    # hubert: D 80
+             (1, 14, 2, 190, 190, 128, 128, True, 0, 0.0)]  # group 7
 
 
 def _bwd_inputs(b, h, hkv, sq, sk, d, dtype, seed, dv=None):

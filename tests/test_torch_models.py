@@ -3,9 +3,10 @@
 
 The smoke configs of the dense attention family (yi-9b, glm4-9b,
 qwen2.5-32b, gemma2-27b), of the mixture-of-experts family
-(olmoe-1b-7b, deepseek-v2-236b with its latent attention) and of the
+(olmoe-1b-7b, deepseek-v2-236b with its latent attention), of the
 recurrent families (zamba2-1.2b: Mamba2 blocks and the shared attention
-block; rwkv6-7b; f32 compute) run on the JAX package's own
+block; rwkv6-7b) and of the frontend models (qwen2-vl-7b, hubert-xlarge:
+embeddings in place of tokens; f32 compute) run on the JAX package's own
 parameters, carried across by ``repro_torch.interop``; inputs come from a
 numpy seed.  The JAX side runs jitted on the CPU, as its own tests run
 it; its model code reaches no Pallas kernel.
@@ -42,7 +43,7 @@ JRT, TRT = JRuntime(mesh=None), TRuntime()
 DENSE = ["yi-9b", "glm4-9b", "qwen2.5-32b", "gemma2-27b"]
 MOE = ["olmoe-1b-7b", "deepseek-v2-236b"]
 RECURRENT = ["zamba2-1.2b", "rwkv6-7b"]
-NOT_PORTED = ["hubert-xlarge", "qwen2-vl-7b"]
+FRONTEND = ["qwen2-vl-7b", "hubert-xlarge"]
 RTOL = 1e-5
 # Truncated at +-2 sigma with no variance correction: the sample std is
 # sqrt(1 - 4 phi(2) / (Phi(2) - Phi(-2))) sigma.
@@ -78,6 +79,19 @@ def tokens(cfg, b, s, seed=0):
 
 def as_t(a):
     return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def model_inputs(cfg, b, s, seed=0):
+    """The same input for both packages: tokens, or for a frontend model
+    (B, S, frontend_dim) f32 embeddings, as (key, numpy array)."""
+    if cfg.frontend is None:
+        return "tokens", tokens(cfg, b, s, seed)
+    return "embeds", np.random.default_rng(seed).standard_normal(
+        (b, s, cfg.frontend_dim)).astype(np.float32)
+
+
+def as_port(key, a):
+    return {key: as_t(a) if key == "tokens" else torch.from_numpy(a)}
 
 
 def leaves(tree, prefix=""):
@@ -138,17 +152,6 @@ def test_init_takes_an_explicit_device():
             tmodel.init_cache(cfg, TRT, 1, 8, device="cuda")
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_not_ported_archs_raise_naming_their_item(arch):
-    cfg = tconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A13\.\d+"):
-        tmodel.init_params(cfg, TRT, torch.Generator().manual_seed(0),
-                           "cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A13\.\d+"):
-        tmodel.forward({}, cfg, TRT, {"tokens": torch.zeros((1, 2),
-                                                            dtype=torch.long)})
-
-
 # ---- components -------------------------------------------------------------
 def test_rmsnorm_matches_reference():
     rng = np.random.default_rng(1)
@@ -180,9 +183,13 @@ def test_apply_rope_matches_reference(theta):
     exp = jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
     rope = tcommon.rope_tables(torch.from_numpy(pos), 16, theta)
     close(tcommon.apply_rope(torch.from_numpy(x), rope), exp, "apply_rope")
-    with pytest.raises(NotImplementedError, match="A13.11"):
-        tcommon.rope_tables(torch.from_numpy(pos), 16, theta,
-                            sections=(2, 3, 3))
+    # M-RoPE: three position rows, one a section of the half dimension.
+    pos3 = np.stack([pos, pos + 3, pos[:, ::-1]])
+    exp = jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos3), theta,
+                             (2, 3, 3))
+    rope = tcommon.rope_tables(torch.from_numpy(pos3.copy()), 16, theta,
+                               sections=(2, 3, 3))
+    close(tcommon.apply_rope(torch.from_numpy(x), rope), exp, "M-RoPE")
 
 
 def test_mlp_apply_matches_reference():
@@ -253,21 +260,22 @@ def _jforward(cfg):
 
 
 @pytest.mark.parametrize("mode", ["nocache", "cache"])
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_forward_matches_reference(arch, mode):
     """The logits (and the experts' aux loss, 0 without experts) of a
     20-token forward without a cache; or of a 19-token prefill into an
-    f32 cache of 32, then of one decode step, the cache (k and v, the
-    latent, or the recurrent state, conv window and boundary tokens,
-    which have no pos) held after each."""
+    f32 cache of 32, then of one decode step (none for an encoder), the
+    cache (k and v, the latent, or the recurrent state, conv window and
+    boundary tokens, which have no pos) held after each.  A frontend
+    model takes 20 rows of embeddings in place of the tokens."""
     cfg, jp, tp = both_params(arch)
     b, s = 2, 20
-    toks = tokens(cfg, b, s)
+    key, inp = model_inputs(cfg, b, s)
     tcfg = tconfigs.get_smoke(arch)
     if mode == "nocache":
         exp, jaux = jax.jit(lambda p, bt: jmodel.forward(p, cfg, JRT, bt))(
-            jp, {"tokens": jnp.asarray(toks)})
-        got, aux = tmodel.forward(tp, tcfg, TRT, {"tokens": as_t(toks)})
+            jp, {key: jnp.asarray(inp)})
+        got, aux = tmodel.forward(tp, tcfg, TRT, as_port(key, inp))
         if cfg.moe is None:
             assert float(aux) == 0.0
         np.testing.assert_allclose(float(aux), float(jaux), rtol=RTOL)
@@ -276,9 +284,10 @@ def test_forward_matches_reference(arch, mode):
     jc = jmodel.init_cache(cfg, JRT, b, 32, jnp.float32)
     tc = tmodel.init_cache(tcfg, TRT, b, 32, torch.float32, device="cpu")
     fwd = _jforward(cfg)
-    for step, sl in (("prefill", slice(0, s - 1)), ("decode", slice(s - 1, s))):
-        exp, jc, _ = fwd(jp, {"tokens": jnp.asarray(toks[:, sl])}, jc)
-        got, tc, _ = tmodel.forward(tp, tcfg, TRT, {"tokens": as_t(toks[:, sl])},
+    steps = (("prefill", slice(0, s - 1)), ("decode", slice(s - 1, s)))
+    for step, sl in steps[:2 if cfg.decoder else 1]:
+        exp, jc, _ = fwd(jp, {key: jnp.asarray(inp[:, sl])}, jc)
+        got, tc, _ = tmodel.forward(tp, tcfg, TRT, as_port(key, inp[:, sl]),
                                     cache=tc)
         close(got, exp, f"{step} logits")
         assert sorted(tc) == sorted(jc)
@@ -305,22 +314,23 @@ def test_recurrent_forward_above_two_chunks_matches_reference(arch):
     close(got, exp, "logits")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + ["qwen2-vl-7b"])
 def test_decode_matches_prefill(arch):
     """The port's own check, as the JAX package's
     ``test_decode_matches_prefill``: an 11-token prefill and one decode
-    step give the 12-token forward's last logits (rtol = atol = 2e-2)."""
+    step give the 12-token forward's last logits (rtol = atol = 2e-2);
+    qwen2-vl on 12 rows of embeddings."""
     cfg = tconfigs.get_smoke(arch)
     params = tmodel.init_params(cfg, TRT, torch.Generator().manual_seed(0),
                                 "cpu")
     b, s = 2, 12
-    toks = as_t(tokens(cfg, b, s, seed=6))
-    full, _ = tmodel.forward(params, cfg, TRT, {"tokens": toks})
+    key, inp = model_inputs(cfg, b, s, seed=6)
+    full, _ = tmodel.forward(params, cfg, TRT, as_port(key, inp))
     cache = tmodel.init_cache(cfg, TRT, b, 32, torch.float32,
                               device="cpu")
-    _, cache, _ = tmodel.forward(params, cfg, TRT, {"tokens": toks[:, :-1]},
+    _, cache, _ = tmodel.forward(params, cfg, TRT, as_port(key, inp[:, :-1]),
                                  cache=cache)
-    step, _, _ = tmodel.forward(params, cfg, TRT, {"tokens": toks[:, -1:]},
+    step, _, _ = tmodel.forward(params, cfg, TRT, as_port(key, inp[:, -1:]),
                                 cache=cache)
     np.testing.assert_allclose(step[:, 0].numpy(), full[:, -1].numpy(),
                                rtol=2e-2, atol=2e-2)
@@ -402,7 +412,7 @@ def _scale(path, cfg):
     return 0.02
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT + FRONTEND)
 def test_init_params_tree_matches_reference(arch):
     cfg = tconfigs.get_smoke(arch)
     jp = leaves(both_params(arch)[1])

@@ -200,7 +200,22 @@ def test_cuda_without_a_card_raises():
         TEngine(cfg, TRT, params, TServeConfig(batch=1, max_len=8))
 
 
-def test_engine_rejects_what_is_not_ported():
-    cfg = tconfigs.get_smoke("qwen2-vl-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13.11"):
-        TEngine(cfg, TRT, {}, TServeConfig(batch=1, max_len=8), device="cpu")
+def test_engine_rejects_what_is_not_ported(monkeypatch):
+    """The engine serves token prompts, as the JAX package's feeds them
+    (whose ``run`` fails on a frontend model's missing ``embeds``): the
+    frontend models are refused with a ``ValueError`` that names the
+    steps to drive instead, by the engine and by the launcher before it
+    draws any weight (also for the full configs, and for ``cuda``
+    without a card)."""
+    def drawn(*a, **kw):
+        raise AssertionError("weights drawn")
+    monkeypatch.setattr(tmodel, "init_params", drawn)
+    for arch in ("qwen2-vl-7b", "hubert-xlarge"):
+        cfg = tconfigs.get_smoke(arch)
+        with pytest.raises(ValueError, match="make_prefill_step"):
+            TEngine(cfg, TRT, {}, TServeConfig(batch=1, max_len=8),
+                    device="cpu")
+        for argv in (["--arch", arch, "--smoke", "--device", "cpu"],
+                     ["--arch", arch]):
+            with pytest.raises(ValueError, match="embeddings, not token"):
+                tlaunch.main(argv)
