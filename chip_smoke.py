@@ -88,7 +88,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    version and timed (``per_semiring.bool.pi_min_build``) beside the
    main sweep's;
 7. dynamic traffic at sf(q=19) x fatpaths(n_layers=9,rho=0.6): load over
-   a 96-step window, incast under the outcast evaluator and anycast to
+   a 64-step window, incast under the outcast evaluator and anycast to
    the closest replica, each on the card (counts 0 before, read after)
    and on the CPU port, ``depart_step`` and metrics equal; then the full
    ``load(level=0.5)`` (256-step window, 630 493 flows) on the card only:
@@ -211,10 +211,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    pair) and, without softcap or window,
    ``scaled_dot_product_attention(enable_gqa=True)``'s backward (in f32
    the memory-efficient backend alone on expanded K and V);
-   (13.2) yi-9b at full width and 1 layer in f32, two train steps on the
-   card and on the CPU port from the same card-drawn weights (loss,
-   grad norm and every gradient leaf held), ``remat="full"`` bitwise
-   ``"none"`` on the card; (13.3) yi-9b at full width with n_layers cut
+   (13.2) yi-9b at full width and 1 layer in f32, a train step on the
+   card and the gradient pass on the CPU port from the same card-drawn
+   weights (loss, grad norm and every gradient leaf held), the card's
+   updated parameters against the CPU port's AdamW update on the card's
+   gradients, ``remat="full"`` bitwise ``"none"`` on the card; (13.3) yi-9b at full width with n_layers cut
    to 8 (the one cut: AdamW's f32 state of 48 layers exceeds the card)
    through ``TrainLoop``, batch 2 x 4096 ``lm`` tokens, 6 steps, counts 0
    before and read after: exactly 96 K5 forward and 48 backward
@@ -276,8 +277,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    uncut and (15.7) rwkv6-7b at 2 of 32 layers through ``TrainLoop``,
    batch 2 x 4096 and 2 x 512, 4 and 3 steps: exactly 16 K5 forward and
    8 backward launches (zamba2) and none (rwkv6), no plain-version call,
-   finite losses and grad norms, peak memory, one more step profiled
-   beside its bound;
+   finite losses and grad norms, peak memory, the steady step beside its
+   bound;
 16. the frontend models, after phase 15 with the card's cache emptied
    (see ``phase_frontends`` and the constants above): (16.1) K5 at
    hubert-xlarge's training layout (B 2, H = Hkv = 16, S 4096, D 80, no
@@ -301,7 +302,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    steps: exactly 384 K5 forward and 192 backward launches, no
    plain-version call, finite losses and grad norms, peak memory, one
    more step profiled beside its bound;
-17. one ``{"kernels": [...]}`` line: launches on the main path (for the
+17. data-parallel training, after phase 16 with the card's cache
+   emptied (see ``phase_dp`` and the constants above): two ranks in
+   spawned processes share the card through a gloo group; yi-9b at full
+   width and 2 layers in f32 (global batch 2 x 2048, one row a rank)
+   through ``TrainLoop`` on a mesh of 2, against the same loop in one
+   process (losses) and its gradients (the reduced ones), each mesh step
+   split into wire, host staging, gradient pass and the rest; manual DP
+   over 4 stride rings at the f32 (grad norm and parameters against the
+   mesh step), bf16 (ranks bitwise equal) and int8 error-feedback (the
+   first grad norm against the wire's arithmetic done apart, 6 steps,
+   loss falling) wires; exactly 12 / 6 K5 forward / backward launches on
+   each rank's mesh loop and 4 / 2 a manual step; step wall, wire bytes
+   and seconds, host staging and peak memory per rank;
+18. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
    attention the serving path's, for its backward the training path's;
    each path's own counts in ``path_launches``),
@@ -310,7 +324,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    times (``ms``, ``plain_ms`` and ``library_ms`` are device time per call
    from ``torch.profiler``, each reading taken again until the trace
    holds a device event for every launch, memset and copy call);
-18. the last line: ``{"ok": true, "device": {...}}``.
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published dense peaks: 3.35 TB/s of device
 memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
@@ -374,16 +388,22 @@ SPIN_CYCLES = 4_000_000     # about 2 ms at the H100's 1980 MHz
 PROFILE_RETRIES: list = []
 # Lead spin kernels missing from each trace taken.
 PROFILE_LEAD_LOST: list = []
-# The lead of the last reading that held every event: the next trace
-# starts there, since the losses grow as the process ages.
-PROFILE_LEAD = [8]
+# The lead the next trace starts at: twice the lead spin kernels the
+# last good reading lost, rounded up to a power of 2, PROFILE_LEAD_MIN at
+# least.  A lead doubled on a retry is not kept: a run of this script on
+# an H100 that kept it took it to 512 (1 s of spin a trace, for every
+# later trace) on losses of 1-27 events at leads that had lost at most
+# 41 spin kernels.
+PROFILE_LEAD_MIN = 64
+PROFILE_LEAD = [PROFILE_LEAD_MIN]
 # The most lead spin kernels a trace takes (about 1 s).  Past it a
 # reading is taken again at the same lead: when the lead doubled without
 # bound, a run of this script on an H100 took it to 2048 (4 s of spin a
-# trace, for every later trace) on losses of 1-3 events that the longer
-# leads did not prevent.
+# trace) on losses of 1-3 events that the longer leads did not prevent.
 PROFILE_LEAD_MAX = 512
 PROFILE_ATTEMPTS = 8
+# Host seconds of each ``_profile`` call, retries and spin included.
+PROFILE_WALL: list = []
 MAIN_TOPO = "sf(q=19)"
 MAIN_ROUTINGS = ("fatpaths(n_layers=9,rho=0.6)", "ecmp")
 MAIN_PATTERN = "permutation"
@@ -393,14 +413,14 @@ LONG_PATTERN = "permutation(flow_size=268435456)"
 KSP_ROUTING = "fatpaths(n_layers=9,rho=0.6,scheme=ksp)"
 PIMIN_ROUTING = "fatpaths(n_layers=9,rho=0.6,scheme=pi_min)"
 DYN_ROUTING = "fatpaths(n_layers=9,rho=0.6)"
-# Dynamic cells held card vs CPU port: load over a 96-step window
-# (236 435 flows, so that its CPU-port run takes about a minute on the
-# card's host: 64 steps took 28 s there, 128 steps 91 s), incast waves
-# under the outcast evaluator, anycast to the closest replica.
+# Dynamic cells held card vs CPU port: load over a 64-step window (about
+# 158 000 flows; its CPU-port run took 28 s on the card's host, 96 steps
+# 58-82 s, 128 steps 91 s), incast waves under the outcast evaluator,
+# anycast to the closest replica.
 # Each with the steps its scan is profiled over: the whole run (None), or
 # anycast's first 320, since its four replicas' links keep it busy for
 # all 2000 steps.
-DYN_CELLS = (("load(level=0.5,window=96)", MAIN_EVAL, None),
+DYN_CELLS = (("load(level=0.5,window=64)", MAIN_EVAL, None),
              ("incast", "outcast(steps=2000,transport=ndp)", None),
              ("anycast(policy=closest)", MAIN_EVAL, 320))
 # The paper-scale load cell, card only: the default 256-step window,
@@ -495,10 +515,10 @@ ATTN_LAYOUTS = {
 # in other orders, as the forward's 1e-4), 2e-2 max|exp| in bf16 (one
 # bf16 rounding of each gradient, 2^-8, with room for the sums' order).
 # The card against the CPU port at full width and 1 layer in f32, batch
-# 1 x 128 (the CPU side about 30 s on the card's host): loss rtol 1e-5,
-# grad norm rtol 1e-4, every gradient leaf within 1e-4 of its largest
-# (K5 and its backward hold 1e-4 to the plain version; cuBLAS and the
-# CPU sum in other orders); the losses of step 2 within 1e-4.
+# 1 x 128 (the CPU side one gradient pass): loss rtol 1e-5, grad norm
+# rtol 1e-4, every gradient leaf within 1e-4 of its largest (K5 and its
+# backward hold 1e-4 to the plain version; cuBLAS and the CPU sum in
+# other orders).
 TRAIN_ARCH = "yi-9b"
 TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
@@ -1608,8 +1628,8 @@ def _profile(fn, top_n: int = 6):
     launch, memset and copy call of ``fn`` (the trace's calls, less the
     spin kernels); otherwise ``lead`` doubles, up to PROFILE_LEAD_MAX,
     and the reading is taken again (PROFILE_ATTEMPTS traces at most).
-    Each trace starts at the lead the last good reading needed (8 at
-    first).  The spin kernels are left out of the sums."""
+    Each call starts at twice the spin kernels the last good reading lost
+    (see PROFILE_LEAD).  The spin kernels are left out of the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1617,6 +1637,7 @@ def _profile(fn, top_n: int = 6):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    t0 = time.perf_counter()
     lead = PROFILE_LEAD[0]
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
@@ -1635,7 +1656,10 @@ def _profile(fn, top_n: int = 6):
             1 for e in events if e.device_type == DeviceType.CUDA
             and "spin_kernel" in e.name))
         if n_dev == calls - lead:
-            PROFILE_LEAD[0] = lead
+            need = PROFILE_LEAD_MIN
+            while need < 2 * PROFILE_LEAD_LOST[-1]:
+                need *= 2
+            PROFILE_LEAD[0] = min(need, PROFILE_LEAD_MAX)
             break
         PROFILE_RETRIES.append((lead, calls - lead - n_dev))
         lead = min(2 * lead, PROFILE_LEAD_MAX)
@@ -1647,6 +1671,7 @@ def _profile(fn, top_n: int = 6):
            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
     total = sum(dev_us(e) for e in dev)
     ranked = sorted(dev, key=dev_us, reverse=True)[:top_n]
+    PROFILE_WALL.append(time.perf_counter() - t0)
     return (total / 1e3, n_dev,
             [[e.key[:60], dev_us(e) / 1e3, e.count] for e in ranked])
 
@@ -3637,11 +3662,13 @@ def phase_train_short(configs, Runtime, model_mod, tts, topt, DataConfig,
                       SyntheticDataset, LAUNCHES, reset_launches):
     """13.2 yi-9b at full width and 1 layer in f32, card against the CPU
     port on the same weights (drawn on the card from the seed and copied
-    to the host) and the same batch of 1 x 128 ``lm`` tokens: two train
-    steps a side, the
-    first step's loss, grad norm and every gradient leaf held (see the
-    constants above); on the card ``remat="full"`` gives the same
-    gradients as ``remat="none"``, bitwise."""
+    to the host) and the same batch of 1 x 128 ``lm`` tokens: a train
+    step on the card, the gradient pass on the CPU port; the loss, the
+    grad norm and every gradient leaf held (see the constants above), and
+    the card's updated parameters against the CPU port's AdamW update on
+    the card's gradients within 1e-4 of each leaf's largest; on the card
+    ``remat="full"`` gives the same gradients as ``remat="none"``,
+    bitwise."""
     rt = Runtime()
     cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_layers=1,
                               dtype="float32", remat="none")
@@ -3671,45 +3698,59 @@ def phase_train_short(configs, Runtime, model_mod, tts, topt, DataConfig,
         raise AssertionError("13.2: remat='full' gradients differ from "
                              "remat='none' on the card")
     del runs
-    out = {}
-    for dev, params in (("cuda", card), ("cpu", host)):
-        first = []
+    # The card: one train step, its gradient pass recorded; the CPU port:
+    # the gradient pass alone, its grad norm that of the wire-cast
+    # gradients, as the step's (the CPU side's optimizer and second step
+    # were cut: 36.1 s of the script's wall, PR 29 run 3).
+    first = []
 
-        def rec(fn):
-            def call(*a, **kw):
-                res = fn(*a, **kw)
-                if not first:
-                    first.append(res)
-                return res
-            return call
-        step = tts.make_train_step(cfg, rt, tc)
-        opt = topt.adamw_init(params)
-        t0 = time.perf_counter()
-        metrics = []
-        with _patched(tts, "loss_and_grads", rec):
-            for i in range(2):
-                params, opt, m = step(params, opt, data[dev].batch(i), i)
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
-        out[dev] = dict(metrics=metrics, first=first[0],
-                        wall_s=time.perf_counter() - t0)
-    g_card, g_cpu = out["cuda"]["first"][2], out["cpu"]["first"][2]
+    def rec(fn):
+        def call(*a, **kw):
+            res = fn(*a, **kw)
+            if not first:
+                first.append(res)
+            return res
+        return call
+    step = tts.make_train_step(cfg, rt, tc)
+    t0 = time.perf_counter()
+    with _patched(tts, "loss_and_grads", rec):
+        card, _, m = step(card, topt.adamw_init(card), data["cuda"].batch(0),
+                          0)
+    l1g, n1g = float(m["loss"]), float(m["grad_norm"])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l1c, _, g_cpu = tts.loss_and_grads(host, cfg, rt, data["cpu"].batch(0))
+    l1c = float(l1c)
+    n1c = float(topt.global_norm(topt.tree_map(rt.astype, g_cpu)))
+    cpu_s = time.perf_counter() - t0
+    g_card = first[0][2]
     gaps, worst = _grad_gap(g_card, g_cpu)
-    (l1g, n1g), (l2g, n2g) = out["cuda"]["metrics"]
-    (l1c, n1c), (l2c, n2c) = out["cpu"]["metrics"]
+    # The card's AdamW update against the CPU port's on the card's own
+    # gradients: on the CPU port's, a leaf's entries whose gradient is
+    # within the two gradients' gap of 0 may take the other sign, and the
+    # first step moves each entry by about lr whatever its size.
+    t0 = time.perf_counter()
+    host, _, _ = topt.adamw_update(
+        tc.opt, host, topt.tree_map(lambda g: rt.astype(g).cpu(), g_card),
+        topt.adamw_init(host))
+    cpu_s = [cpu_s, time.perf_counter() - t0]
+    _, worst_p = _grad_gap(card, host)
     if abs(l1g - l1c) > 1e-5 * abs(l1c) or abs(n1g - n1c) > 1e-4 * n1c \
-            or worst > 1e-4 or abs(l2g - l2c) > 1e-4 * abs(l2c):
+            or worst > 1e-4 or worst_p > 1e-4:
         raise AssertionError(
-            f"13.2: card {out['cuda']['metrics']} vs CPU port "
-            f"{out['cpu']['metrics']}; worst gradient leaf gap {worst}")
+            f"13.2: card {(l1g, n1g)} vs CPU port {(l1c, n1c)}; worst "
+            f"gradient leaf gap {worst}, updated parameter leaf gap "
+            f"{worst_p}")
     info = dict(arch=TRAIN_ARCH, n_layers=1, dtype="float32",
                 tokens=TRAIN_SHORT_SEQ, params=cfg.param_count(),
-                card=out["cuda"]["metrics"], cpu_port=out["cpu"]["metrics"],
+                card=[l1g, n1g], cpu_port=[l1c, n1c],
                 worst_gradient_leaf_gap=worst, leaves=len(gaps),
+                worst_updated_parameter_leaf_gap=worst_p,
                 remat_full_equals_none=True, init_s=init_s,
-                card_two_steps_s=out["cuda"]["wall_s"],
-                cpu_two_steps_s=out["cpu"]["wall_s"])
+                card_step_s=card_s, cpu_gradient_pass_s=cpu_s[0],
+                cpu_adamw_s=cpu_s[1])
     print("# phase 13.2: " + json.dumps(info), flush=True)
-    del host, card, out, g_card, g_cpu
+    del host, card, first, g_card, g_cpu
 
 
 def _step_split(top):
@@ -4948,28 +4989,14 @@ def _rec_block_grads(LAUNCHES, reset_launches):
     return out
 
 
-def _train_split(top):
-    """A gradient pass's device ms by kernel names: K5 forward and
-    backward, cuBLAS's bf16 products and its f32 ones (the SSD's einsums,
-    the only f32 products of these models), the rest."""
-    split = _step_split(top)
-    f32 = sum(ms for kname, ms, _ in top
-              if any(m in kname.lower() for m in _CUBLAS)
-              and any(m in kname.lower() for m in ("sgemm", "f32f32",
-                                                   "fp32", "_sss")))
-    split["cublas"] -= f32
-    split["cublas_f32"] = f32
-    return split
-
-
 def _rec_train(arch, ref, LAUNCHES, reset_launches):
     """15.6 / 15.7 ``arch`` at REC_TRAIN's depth through ``TrainLoop``
     (phase 13.3's batch, compute and remat), counts 0 before and read
     after: K5 forward twice a shared-block application a step (its
     forward and its own checkpoint's recompute) and backward once (none
-    for rwkv6), no plain-version call, finite losses and grad norms; one
-    more step profiled at the same tokens a row beside
-    its bound: the products at the bf16 rate (6 N T, plus a forward's 2 N
+    for rwkv6), no plain-version call, finite losses and grad norms; the
+    steady step beside its bound (the profiled step that split it, most
+    of the two phases' 72 s, was cut; its split is PR 25's): the products at the bf16 rate (6 N T, plus a forward's 2 N
     T for each recompute: zamba2's Mamba2 blocks run three forwards
     under the nested checkpoints, its shared block two, rwkv6's blocks
     two, the embedding and LM head one), the SSD's f32 products at the
@@ -4988,10 +5015,6 @@ def _rec_train(arch, ref, LAUNCHES, reset_launches):
     hist = res["history"]
     walls = [h["wall_s"] for h in hist]
     state = res["state"]
-    _, (g_ms, g_events, g_top), (o_ms, o_events, o_top) = _profiled_step(
-        loop, state, cfg, steps=steps, seq=seq)
-    split = _train_split(g_top)
-    split["optimizer"] = o_ms
     t = TRAIN_BATCH * seq
     n_all = n_head = n_m = n_a = n_r = 0
     for path, x in _leaves(state["params"]).items():
@@ -5037,15 +5060,10 @@ def _rec_train(arch, ref, LAUNCHES, reset_launches):
         launches={k: launches[k] for k in ("flash_attention",
                                             "flash_attention_bwd")},
         plain_calls=plain_calls,
-        profiled_step=dict(seq=seq, device_ms=g_ms + o_ms,
-                           events=g_events + o_events, split_ms=split,
-                           optimizer_events=o_events,
-                           top=g_top[:12] + o_top[:4]),
         bound_ms=(t_mm + t_ssd + t_attn + t_opt) * 1e3,
         bound_parts_ms=dict(products=t_mm * 1e3, ssd_f32=t_ssd * 1e3,
                             attention=t_attn * 1e3,
-                            optimizer_bytes=t_opt * 1e3),
-        device_idle_share=1.0 - (g_ms + o_ms) / 1e3 / steady)
+                            optimizer_bytes=t_opt * 1e3))
     sub = "15.6" if arch == "zamba2-1.2b" else "15.7"
     print(f"# phase {sub}: " + json.dumps(info), flush=True)
     del loop, res, state
@@ -5649,6 +5667,402 @@ def phase_frontends(ref, fa_mod, LAUNCHES, reset_launches):
                 serve_k5=serve_k5, train=train)
 
 
+
+# Phase 17, data parallel on the card: two ranks (spawned processes)
+# share the one H100 through a gloo group (a file rendezvous; a
+# collective that waits DP_GROUP_TIMEOUT_S fails its rank), card payloads
+# crossing gloo through page-locked host buffers.  yi-9b at full width
+# (d_model 4096, 32 : 4 heads of 128, d_ff 11008, vocab 64000) with
+# n_layers cut from 48 to 2, the one cut (0.87e9 parameters: a rank's
+# replicated f32 state for manual DP, parameters, two moments, the
+# residual and the gradients, is 17 GB; 48 layers would be 185 GB), in
+# f32 compute with its full remat, f32 gradient wires; global batch 2 x
+# 2048 ``lm`` tokens, one row a rank.  Tolerances: the mesh loop against
+# the same loop in one process on the card (the same rows): loss rtol
+# 1e-5; the reduced gradients within 1e-4 of each leaf's largest (phase
+# 13's); manual DP's f32 wire against the mesh step, loss and grad norm
+# rtol 1e-5 and parameters after the step within 1e-4 of each leaf's
+# largest (AdamW's first step hardly reads the gradients' scale: the
+# grad norm is what holds the ranks' mean); the int8 wire's first grad
+# norm rtol 1e-5 of its arithmetic done apart (each rank's gradients
+# quantised by its own scale, the int8 payloads gathered by gloo and
+# summed in int32, times the rank's scale, over the ranks); its losses
+# finite, the last below the first and falling at every step after the
+# second (AdamW's first step overshoots from the random init).
+DP_ARCH, DP_LAYERS, DP_RANKS = "yi-9b", 2, 2
+DP_SEQ, DP_STEPS, DP_INT8_STEPS, DP_RINGS = 2048, 3, 6, 4
+DP_GROUP_TIMEOUT_S = 120
+DP_DEADLINE_S = 300
+
+
+def _dp_global(ds, step, dev):
+    """The global batch of ``step``: every shard's rows in shard order,
+    as the ranks' pipelines make them."""
+    tok = np.concatenate([ds._shard_tokens(step, s, ds.rows)
+                          for s in range(DP_RANKS)]).astype(np.int64)
+    t = torch.from_numpy(tok).to(dev)
+    return {"tokens": t, "labels": t}
+
+
+def _dp_gaps(got, exp):
+    """Per leaf max |got - exp| / max |exp| of two trees on the card; the
+    largest."""
+    from repro_torch.train.optimizer import tree_leaves
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_leaves(got), tree_leaves(exp)))
+
+
+def _dp_checksums(tree):
+    """Two int64 sums of each leaf's bits (plain and position-weighted):
+    equal across ranks when the leaves are bitwise equal."""
+    from repro_torch.train.optimizer import tree_leaves
+    out = []
+    for x in tree_leaves(tree):
+        bits = x.contiguous().view(torch.int32).reshape(-1).long()
+        w = torch.arange(bits.numel(), device=x.device) % 1009 + 1
+        out += [bits.sum(), (bits * w).sum()]
+    return torch.stack(out).cpu()
+
+
+def _dp_rank(rank, init, q):
+    """One rank of phase 17 (a spawned process): its result, or its
+    traceback, onto ``q``."""
+    import traceback
+    try:
+        q.put((rank, True, _dp_rank_body(rank, init)))
+    except Exception:   # the parent fails the phase with it
+        q.put((rank, False, traceback.format_exc()))
+
+
+def _dp_rank_body(rank, init):
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.dist.sharding import P, Runtime, tree_map_specs
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.manual_dp import (ManualDPConfig,
+                                             make_manual_dp_step)
+
+    t_body = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init}", world_size=DP_RANKS,
+        rank=rank, timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    try:
+        cfg = dataclasses.replace(configs.get_config(DP_ARCH),
+                                  n_layers=DP_LAYERS, dtype="float32")
+        rt = Runtime(mesh=make_mesh((DP_RANKS,), ("data",)),
+                     collective_dtype="float32")
+        one = Runtime(collective_dtype="float32")
+        data = DataConfig(DP_RANKS, DP_SEQ, seed=0)
+        oc = topt.AdamWConfig(warmup_steps=1, total_steps=DP_STEPS)
+        tc = tts.TrainConfig(opt=oc)
+        fwd, bwd = 2 * DP_LAYERS, DP_LAYERS      # K5 a step (remat full)
+        out = dict(rank=rank)
+        torch.cuda.reset_peak_memory_stats()
+
+        def draw():
+            gen = torch.Generator(device=dev).manual_seed(0)
+            return model_mod.init_params(cfg, one, gen, dev)
+
+        def loop_of(runtime):
+            return tloop.TrainLoop(
+                cfg, runtime, data, tc,
+                tloop.LoopConfig(total_steps=DP_STEPS, log_every=1),
+                device=dev)
+
+        # (i) the mesh step through TrainLoop; its first step's reduced
+        # gradients and its parameters after that step kept (this rank's
+        # shards: the later steps update in place); each step split into
+        # the wire (host staging apart), the gradient pass and the rest,
+        # and the state's set-up timed
+        loop = loop_of(rt)
+        mesh_step, first, split, grad_s = loop.step_fn, {}, [], [0.0]
+        init_state = loop.init_state
+
+        def timed_init(seed=0):
+            t = time.perf_counter()
+            state = init_state(seed)
+            torch.cuda.synchronize()
+            out["mesh_init_state_s"] = time.perf_counter() - t
+            return state
+
+        def step_fn(params, opt, batch, i):
+            w = mesh_step.wire
+            before = (w.seconds, w.staging_seconds, grad_s[0])
+            t = time.perf_counter()
+            res = mesh_step(params, opt, batch, i)
+            torch.cuda.synchronize()
+            part = dict(step_s=time.perf_counter() - t,
+                        wire_s=w.seconds - before[0],
+                        staging_s=w.staging_seconds - before[1],
+                        gradient_pass_s=grad_s[0] - before[2])
+            part["rest_s"] = (part["step_s"] - part["wire_s"]
+                              - part["gradient_pass_s"])
+            split.append(part)
+            if i == 0:
+                first["params"] = topt.tree_map(torch.clone, res[0])
+            return res
+
+        def timed_grads(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = fn(*a, **kw)
+                torch.cuda.synchronize()
+                grad_s[0] += time.perf_counter() - t
+                return res
+            return call
+
+        def keep_reduced(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                first.setdefault("grads", topt.tree_map(torch.clone, out))
+                return out
+            return call
+        loop.step_fn, loop.init_state = step_fn, timed_init
+        reset_launches()
+        t0 = time.perf_counter()
+        with _patched(tts, "reduce_grads", keep_reduced), \
+                _patched(tts, "loss_and_grads", timed_grads):
+            res = loop.run(seed=0)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        _need_launches(launches, ("flash_attention",), "17 mesh loop",
+                       exactly=fwd * DP_STEPS)
+        _need_launches(launches, ("flash_attention_bwd",), "17 mesh loop",
+                       exactly=bwd * DP_STEPS)
+        hist = res["history"]
+        walls = [h["wall_s"] for h in hist]
+        w = mesh_step.wire
+        out["mesh"] = dict(
+            run_s=time.perf_counter() - t0, losses=[h["loss"] for h in hist],
+            grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
+            steady_step_s=float(np.median(walls[1:])),
+            wire_bytes_a_step=w.reduced_bytes / DP_STEPS,
+            wire_s_a_step=w.seconds / DP_STEPS,
+            staging_s_a_step=w.staging_seconds / DP_STEPS,
+            collective_calls_a_step=w.calls / DP_STEPS, step_split=split,
+            k5=[launches["flash_attention"],
+                launches["flash_attention_bwd"]])
+        pspecs = loop.specs["params"]
+        ds = loop.data
+        del loop, res
+
+        # the first step's reduced gradients (this rank's shards) against
+        # the gradients of the global batch in one process
+        p0 = draw()
+        _, _, g1 = tts.loss_and_grads(p0, cfg, one, _dp_global(ds, 0, dev))
+        out["reduced_gradient_gap"] = gap = max(
+            float((a - rt.local(b, sp)).abs().max() / b.abs().max())
+            for a, b, sp in zip(topt.tree_leaves(first.pop("grads")),
+                                topt.tree_leaves(g1),
+                                topt.tree_leaves(pspecs)))
+        del g1
+        if gap > 1e-4:
+            raise AssertionError(f"17: reduced gradients {gap} of a leaf's "
+                                 "largest from one process's")
+        if rank == 0:
+            single = loop_of(one)
+            single.data.batch = lambda step: _dp_global(ds, step, dev)
+            t0 = time.perf_counter()
+            sres = single.run(seed=0)
+            torch.cuda.synchronize()
+            out["single"] = dict(
+                losses=[h["loss"] for h in sres["history"]],
+                grad_norms=[h["grad_norm"] for h in sres["history"]],
+                steady_step_s=float(np.median(
+                    [h["wall_s"] for h in sres["history"]][1:])),
+                run_s=time.perf_counter() - t0)
+            del single, sres
+            if not np.allclose(out["mesh"]["losses"],
+                               out["single"]["losses"], rtol=1e-5, atol=0):
+                raise AssertionError(f"17: mesh losses {out['mesh']} vs one "
+                                     f"process's {out['single']}")
+        del p0
+        dist.barrier()   # rank 1 waits here for rank 0's one-process run
+
+        # (ii) manual DP over the stride rings, from the same parameters
+        glob = _dp_global(ds, 0, dev)
+        out["manual"] = {}
+        group, members = rt.mesh.group(("data",))
+        # The int8 wire's first step done apart (before the counts are
+        # set to 0): this rank's gradients on its row, quantised by its
+        # own scale; the ranks' int8 payloads gathered by gloo and summed
+        # in int32, times this rank's scale, over the ranks: the grad norm
+        # the wire's first step must give.
+        p = draw()
+        _, _, g = tts.loss_and_grads(
+            p, cfg, one, {k: rt.local(v, P("data", None))
+                          for k, v in glob.items()})
+        del p
+        sq = torch.zeros((), dtype=torch.float64, device=dev)
+        for x in topt.tree_leaves(g):
+            scale = torch.max(torch.abs(x)) / 127.0 + 1e-12
+            q = torch.clamp(torch.round(x / scale), -127, 127)
+            tot = sum(t.to(torch.int32) for t in all_gather(
+                q.to(torch.int8), group, members))
+            sq += torch.sum(torch.square(
+                (tot.to(torch.float32) * scale / DP_RANKS).double()))
+            del q, tot
+        int8_norm = float(torch.sqrt(sq))
+        del g
+        reset_launches()
+        n_steps = 0
+        for wire in ("float32", "bfloat16", "int8_ef"):
+            p = draw()
+            opt = topt.adamw_init(p)
+            ef = topt.tree_map(torch.zeros_like, p)
+            step = make_manual_dp_step(cfg, rt, ManualDPConfig(
+                opt=oc, n_rings=DP_RINGS, wire=wire))
+            steps = DP_INT8_STEPS if wire == "int8_ef" else 1
+            losses, norms, walls = [], [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                p, opt, ef, m = step(p, opt, ef, glob)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                walls.append(time.perf_counter() - t0)
+            n_steps += steps
+            w = step.wire
+            info = dict(losses=losses, grad_norms=norms, step_wall_s=walls,
+                        wire_sent_bytes_a_step=w.sent_bytes / steps,
+                        wire_s_a_step=w.seconds / steps,
+                        staging_s_a_step=w.staging_seconds / steps)
+            sums = _dp_checksums(p)
+            peer = all_gather(sums, group, members)
+            info["ranks_bitwise_equal"] = bool(torch.equal(peer[0], peer[1]))
+            if wire == "float32":   # this rank's shards of the mesh step's
+                info["gap_to_mesh_step"] = _dp_gaps(
+                    tree_map_specs(rt.local, p, pspecs), first.pop("params"))
+                exp = out["mesh"]["losses"][0], out["mesh"]["grad_norms"][0]
+                if abs(losses[0] - exp[0]) > 1e-5 * abs(exp[0]) or \
+                        abs(norms[0] - exp[1]) > 1e-5 * exp[1] or \
+                        not info["gap_to_mesh_step"] <= 1e-4:
+                    raise AssertionError(f"17: f32 wire {info} against the "
+                                         f"mesh step {out['mesh']}")
+            if wire == "int8_ef":
+                # rank r holds the half r of each leaf against its peer's
+                # copy: each sends the half the other compares
+                gap = 0.0
+                for x in topt.tree_leaves(p):
+                    flat = x.reshape(-1)
+                    flat = torch.cat([flat, flat.new_zeros(flat.numel() % 2)])
+                    halves = flat.chunk(2)
+                    got = all_gather(halves[1 - rank], group, members)
+                    gap = max(gap, float((halves[rank] - got[1 - rank])
+                                         .abs().max()))
+                    del flat, halves, got
+                gap_t = torch.tensor([gap])
+                dist.all_reduce(gap_t, op=dist.ReduceOp.MAX)
+                info["largest_parameter_gap_between_ranks"] = float(gap_t)
+                info["first_grad_norm_done_apart"] = int8_norm
+                if not abs(norms[0] - int8_norm) <= 1e-5 * int8_norm:
+                    raise AssertionError(f"17: int8_ef first grad norm "
+                                         f"{norms[0]}, done apart "
+                                         f"{int8_norm}")
+                if not (all(math.isfinite(v) for v in losses)
+                        and losses[-1] < losses[0]
+                        and all(b < a for a, b in zip(losses[1:],
+                                                      losses[2:]))):
+                    raise AssertionError(f"17: int8_ef losses {losses}")
+            elif not info["ranks_bitwise_equal"]:
+                raise AssertionError(f"17: {wire} wire ranks differ")
+            out["manual"][wire] = info
+            del p, opt, ef, step
+        launches = dict(LAUNCHES)
+        _need_launches(launches, ("flash_attention",), "17 manual DP",
+                       exactly=fwd * n_steps)
+        _need_launches(launches, ("flash_attention_bwd",), "17 manual DP",
+                       exactly=bwd * n_steps)
+        out["manual_k5"] = [launches["flash_attention"],
+                            launches["flash_attention_bwd"]]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["body_s"] = time.perf_counter() - t_body
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp():
+    """17. Data-parallel training on the card (see the constants above):
+    two ranks share the card through gloo.  (i) ``TrainLoop`` on a mesh
+    of 2 (the sharded step, ``launch.train --mesh``'s path), counts 0
+    before and read after on each rank: exactly 12 K5 forward and 6
+    backward launches; its losses against the same loop in one process
+    on the same rows, its reduced gradients against one process's, each
+    step split into wire, staging, gradient pass and the rest; (ii)
+    manual DP over ``DP_RINGS`` stride rings from the same parameters:
+    the f32 wire against (i)'s first step, f32 and bf16 wires with the
+    ranks bitwise equal, the int8 error-feedback wire's first grad norm
+    against its arithmetic done apart, then 6 steps on a fixed batch
+    with its loss falling and the ranks' largest parameter gap printed;
+    exactly 4 K5 forward and 2 backward launches a step.  Step wall, wire
+    bytes and seconds, host staging and peak memory per rank."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    t0 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"# phase 17: compute mode {mode}", flush=True)
+    if "exclusive" in mode.lower():
+        raise AssertionError(f"17: the card is in {mode} mode: two ranks "
+                             "cannot hold a context each")
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    results = {}
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=_dp_rank, args=(r, f"{d}/pg", q),
+                             daemon=True) for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + DP_DEADLINE_S
+            while len(results) < DP_RANKS:
+                try:
+                    rank, ok, val = q.get(
+                        timeout=max(deadline - time.monotonic(), 0.1))
+                except queue.Empty:
+                    raise AssertionError(
+                        f"17: ranks {set(range(DP_RANKS)) - set(results)} "
+                        f"gave no result in {DP_DEADLINE_S} s") from None
+                if not ok:
+                    raise AssertionError(f"17: rank {rank} failed:\n{val}")
+                results[rank] = val
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    for r in range(DP_RANKS):
+        print(f"# phase 17 rank {r} ({smi}): " + json.dumps(results[r]),
+              flush=True)
+    wall = time.perf_counter() - t0
+    print(f"# phase 17: wall {wall:.1f} s", flush=True)
+    return {r: dict(mesh=results[r]["mesh"]["k5"],
+                    manual=results[r]["manual_k5"]) for r in results}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5770,6 +6184,10 @@ def _main(stop) -> int:
     torch.cuda.empty_cache()
     front = phase_frontends(ref, fa_mod, LAUNCHES, reset_launches)
     t17 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = phase_dp()
+    t18 = time.perf_counter()
     print(f"# wall s: phases 1-3 and (a)-(d) {t4 - t_start:.1f}, phase 4 "
           f"{t5 - t4:.1f}, phase 5 {t6 - t5:.1f}, phase 6 {t7 - t6:.1f}, "
           f"phase 7 {t8 - t7:.1f}, phase 8 "
@@ -5777,8 +6195,8 @@ def _main(stop) -> int:
           f"{t11 - t10:.1f}, phase 11 {t12 - t11:.1f}, phase 12 "
           f"{t13 - t12:.1f}, phase 13 {t14 - t13:.1f}, phase 14 "
           f"{t15 - t14:.1f}, phase 15 {t16 - t15:.1f}, phase 16 "
-          f"{t17 - t16:.1f}, script up to here "
-          f"{t17 - t_start:.1f}; phases 6-9 waited {sum(CPU_PORT_WAIT):.1f} "
+          f"{t17 - t16:.1f}, phase 17 {t18 - t17:.1f}, script up to here "
+          f"{t18 - t_start:.1f}; phases 6-9 waited {sum(CPU_PORT_WAIT):.1f} "
           f"s for the CPU port's {len(CPU_PORT_WAIT)} runs (their own "
           f"walls {sum(CPU_PORT_WALL):.1f} s)", flush=True)
     cells = {**dyn, **faults, "sf(q=19) main sweep (blocked)": blocked_main,
@@ -5808,7 +6226,11 @@ def _main(stop) -> int:
                            "hubert-xlarge encode": front["encode"],
                            "hubert-xlarge prefill step": front["prefill"],
                            "hubert-xlarge train":
-                               front["train"]["flash_attention"]}
+                               front["train"]["flash_attention"],
+                           **{f"{DP_ARCH} data-parallel train rank {r} "
+                              f"({kind})": n[kind][0]
+                              for r, n in dp.items()
+                              for kind in ("mesh", "manual")}}
     for part in (serve["per_layout"], moe["fwd"], moe["serve_k5"],
                  rec["fwd"], rec["serve_k5"], front["fwd"],
                  front["serve_k5"]):
@@ -5831,6 +6253,9 @@ def _main(stop) -> int:
          for arch, n in rec["train"].items()})
     k5b["path_launches"]["hubert-xlarge train"] = \
         front["train"]["flash_attention_bwd"]
+    k5b["path_launches"].update(
+        {f"{DP_ARCH} data-parallel train rank {r} ({kind})": n[kind][1]
+         for r, n in dp.items() for kind in ("mesh", "manual")})
     k5b["per_layout"].update(moe["bwd"])
     k5b["per_layout"].update(rec["bwd"])
     k5b["per_layout"].update(front["bwd"])
@@ -5858,9 +6283,11 @@ def _main(stop) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lost = PROFILE_LEAD_LOST
-    print(f"# profiler: {len(lost)} traces; lead spin kernels missing from "
+    print(f"# profiler: {len(lost)} traces in {len(PROFILE_WALL)} readings, "
+          f"{sum(PROFILE_WALL):.1f} s of the script's wall; lead spin "
+          f"kernels missing from "
           f"{sum(1 for x in lost if x)} of them ({sum(lost)} in all, at most "
-          f"{max(lost)} in one; last lead {PROFILE_LEAD[0]}); readings taken "
+          f"{max(lost)} in one; next lead {PROFILE_LEAD[0]}); readings taken "
           "again after losing device "
           f"events of the call: {len(PROFILE_RETRIES)} ((lead, lost): "
           f"{PROFILE_RETRIES})", flush=True)

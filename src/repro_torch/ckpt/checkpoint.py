@@ -1,7 +1,6 @@
-"""Restart-safe checkpoints of training state.
+"""Restart-safe checkpoints of training state, with elastic restore.
 
-The port of the JAX package's ``ckpt/checkpoint.py`` on one process, in
-its format:
+The port of the JAX package's ``ckpt/checkpoint.py``, in its format:
 
     <dir>/step_00000400/
         manifest.json       # step, extra (the data cursor), and per leaf
@@ -23,8 +22,15 @@ bf16 leaves go into the npz as their 16-bit patterns, int16 (numpy has no
 bf16) and keep ``"bfloat16"`` as their manifest dtype; their crc32 is
 over those bytes, the same bytes as the JAX package's bf16 arrays.
 Restore puts each leaf on the device and in the dtype of the matching
-leaf of ``like``.  Elastic re-sharding onto another mesh belongs to
-ROADMAP A13.5.
+leaf of ``like``.
+
+Under a mesh (``rt`` with its spec tree ``specs``) a state's leaves are
+the rank's shards: saving gathers each leaf whole (a collective, on
+every rank), rank 0 writes the step as above, and the other ranks wait
+for it at a barrier; the files are the one-process files.  Restoring
+reads each whole leaf and keeps the rank's slice under ``specs``, which
+may belong to another mesh than the one that saved (**elastic**: a job
+restarted on another number of ranks continues).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..dist.sharding import tree_map_specs
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "CheckpointManager",
            "latest_step"]
@@ -85,15 +93,44 @@ def latest_step(base: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _host_state(state) -> Dict[str, Tuple[np.ndarray, str]]:
+def _on_mesh(rt) -> bool:
+    return rt is not None and rt.mesh is not None
+
+
+def _host_state(state, rt=None, specs=None
+                ) -> Dict[str, Tuple[np.ndarray, str]]:
+    """Host copies of the leaves; under a mesh each gathered whole (on
+    every rank) first."""
+    if _on_mesh(rt):
+        state = tree_map_specs(rt.gather, state, specs)
     return {name: _to_numpy(x) for name, x in _flatten(state).items()}
 
 
+def _writer(rt) -> bool:
+    """Whether this process writes: rank 0 under a mesh, else always."""
+    import torch.distributed as dist
+    return not _on_mesh(rt) or dist.get_rank() == 0
+
+
+def _barrier(rt) -> None:
+    if _on_mesh(rt):
+        import torch.distributed as dist
+        dist.barrier()
+
+
 def save_checkpoint(base: str, step: int, state: Dict[str, Any],
-                    extra: Optional[Dict[str, Any]] = None) -> str:
+                    extra: Optional[Dict[str, Any]] = None, *, rt=None,
+                    specs=None) -> str:
     """Write one atomic checkpoint of ``state`` (nested dicts of tensors or
-    arrays); returns its directory."""
-    return _write(base, step, _host_state(state), extra)
+    arrays; under ``rt``'s mesh the rank's shards under ``specs``, on
+    every rank); returns its directory."""
+    host = _host_state(state, rt, specs)
+    try:
+        if _writer(rt):
+            _write(base, step, host, extra)
+    finally:
+        _barrier(rt)
+    return _step_dir(base, step)
 
 
 def _write(base, step, host, extra) -> str:
@@ -124,15 +161,22 @@ def _write(base, step, host, extra) -> str:
 
 
 def restore_checkpoint(base: str, like: Dict[str, Any],
-                       step: Optional[int] = None,
+                       step: Optional[int] = None, *, rt=None, specs=None,
                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """``(state, extra)`` of step ``step`` (the latest committed one by
     default) in the structure of ``like``, each leaf on the device and in
-    the dtype of ``like``'s.  Raises ``FileNotFoundError`` without a
-    committed step, ``IOError`` on a checksum mismatch and ``ValueError``
-    on a shape mismatch."""
+    the dtype of ``like``'s; under ``rt``'s mesh each leaf is the rank's
+    slice under ``specs`` (``like`` holds the shards).  Raises
+    ``FileNotFoundError`` without a committed step, ``IOError`` on a
+    checksum mismatch and ``ValueError`` on a shape mismatch."""
+    mesh = _on_mesh(rt)
     if step is None:
         step = latest_step(base)
+        if mesh:   # every rank restores the step rank 0 found
+            import torch.distributed as dist
+            box = [step]
+            dist.broadcast_object_list(box, src=0)
+            step = box[0]
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint under {base}")
     d = _step_dir(base, step)
@@ -149,14 +193,17 @@ def restore_checkpoint(base: str, like: Dict[str, Any],
         if crc != meta["crc32"]:
             raise IOError(f"checksum mismatch for {name} at step {step}")
 
+    spec_of = dict(_flatten(specs)) if mesh else {}
+
     def leaf(name, ref):
-        a = flat[name]
-        if tuple(a.shape) != tuple(ref.shape):
-            raise ValueError(f"{name}: checkpoint shape {tuple(a.shape)}, "
-                             f"expected {tuple(ref.shape)}")
-        t = torch.from_numpy(np.array(a))
+        t = torch.from_numpy(np.array(flat[name]))
         if manifest["leaves"][name]["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
+        if mesh:
+            t = rt.local(t, spec_of[name]).clone()
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)}, "
+                             f"expected {tuple(ref.shape)}")
         if isinstance(ref, torch.Tensor):
             return t.to(device=ref.device, dtype=ref.dtype)
         return t.numpy().astype(np.asarray(ref).dtype)
@@ -170,30 +217,41 @@ def restore_checkpoint(base: str, like: Dict[str, Any],
 
 
 class CheckpointManager:
-    """Asynchronous writer, retention policy and restart cursor."""
+    """Asynchronous writer, retention policy and restart cursor.  Under
+    ``rt``'s mesh every rank calls :meth:`save` and :meth:`wait` at the
+    same steps, with the state's spec tree; rank 0 writes."""
 
-    def __init__(self, base: str, keep: int = 3):
+    def __init__(self, base: str, keep: int = 3, rt=None):
         self.base = base
         self.keep = keep
+        self.rt = rt
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False
         os.makedirs(base, exist_ok=True)
 
     def wait(self) -> None:
-        """Wait for the last save; raise what its writer raised."""
+        """Wait for the last save (under a mesh: every rank, at a barrier
+        after rank 0's write); raise what its writer raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier(self.rt)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def save(self, step: int, state: Dict[str, Any],
-             extra: Optional[Dict[str, Any]] = None) -> None:
-        """Device-to-host copy now; the disk write on a background
-        thread."""
+             extra: Optional[Dict[str, Any]] = None, specs=None) -> None:
+        """Device-to-host copy now (under a mesh the gather of every
+        leaf); the disk write on a background thread of rank 0."""
         self.wait()
-        host = _host_state(state)
+        host = _host_state(state, self.rt, specs)
+        self._pending = True
+        if not _writer(self.rt):
+            return
 
         def work():
             try:
@@ -205,8 +263,9 @@ class CheckpointManager:
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
-    def restore_latest(self, like, step: Optional[int] = None):
-        return restore_checkpoint(self.base, like, step)
+    def restore_latest(self, like, step: Optional[int] = None, specs=None):
+        return restore_checkpoint(self.base, like, step, rt=self.rt,
+                                  specs=specs)
 
     def _gc(self) -> None:
         for s in sorted(_committed_steps(self.base))[:-self.keep]:

@@ -1,12 +1,16 @@
-"""Deterministic synthetic token pipeline.
+"""Deterministic, sharded synthetic token pipeline.
 
-The port of the JAX package's ``data/pipeline.py`` on one device (its
-``mesh=None`` branch).  A batch is a function of ``(seed, step)``:
-restart-safe, so resuming from a checkpoint at step ``s`` regenerates
-exactly the batches the crashed run would have seen.  The draws are the
+The port of the JAX package's ``data/pipeline.py``.  A batch is a
+function of ``(seed, step)``: restart-safe, so resuming from a
+checkpoint at step ``s`` regenerates exactly the batches the crashed run
+would have seen.  The draws are the
 JAX package's numpy draws, seeded by ``SeedSequence([seed, step,
-shard])`` with shard 0, so the tokens are bitwise its tokens; they go to
-the device as int64, the index type of the model's embedding gather.
+shard])``, so the tokens are bitwise its tokens; they go to the device
+as int64, the index type of the model's embedding gather.  Without a
+mesh the batch is shard 0 of ``global_batch`` rows.  Under a mesh each
+rank generates only its own rows: shard = its index over the data axes,
+``global_batch / fsdp_size`` rows (the JAX package's per-shard
+callback), and ``batch`` returns those rows.
 
 Two generators:
   * ``lm``    — Zipf-ish token stream with induced bigram structure, so
@@ -16,7 +20,6 @@ Two generators:
 
 For the frontend architectures the inputs are frame or patch embeddings
 (``embeds``, f32, ``cfg.frontend_dim`` wide) in place of the tokens.
-Sharded generation belongs to the mesh (ROADMAP A13.5).
 """
 
 from __future__ import annotations
@@ -65,10 +68,18 @@ class SyntheticDataset:
         if data.kind not in ("lm", "bytes"):
             raise ValueError(f"kind must be 'lm' or 'bytes', got "
                              f"{data.kind!r}")
+        if data.global_batch % max(rt.fsdp_size, 1):
+            raise ValueError(f"global batch {data.global_batch} does not "
+                             f"divide over {rt.fsdp_size} data shards")
         self.cfg = cfg
         self.data = data
         self.rt = rt
         self.device = resolve_device(device)
+        self.rows = data.global_batch // max(rt.fsdp_size, 1)
+        self.shard = 0
+        if rt.mesh is not None:
+            import torch.distributed as dist
+            self.shard = rt.mesh.axis_index(rt.fsdp_axes, dist.get_rank())
 
     # -- host-side generation for one data shard ------------------------------
     def _shard_tokens(self, step: int, shard: int, rows: int) -> np.ndarray:
@@ -90,15 +101,16 @@ class SyntheticDataset:
     # -- global batch ----------------------------------------------------------
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """``{"tokens", "labels"}`` (the same int64 tensor), or, for a
-        frontend, ``{"embeds", "labels"}``, on the dataset's device."""
-        d = self.data
+        frontend, ``{"embeds", "labels"}``, on the dataset's device: this
+        rank's rows under a mesh."""
         tok = torch.from_numpy(
-            self._shard_tokens(step, 0, d.global_batch).astype(np.int64)
+            self._shard_tokens(step, self.shard, self.rows).astype(np.int64)
         ).to(self.device)
         out: Dict[str, torch.Tensor] = {"tokens": tok, "labels": tok}
         if self.cfg.frontend is not None:
             out["embeds"] = torch.from_numpy(
-                self._shard_embeds(step, 0, d.global_batch)).to(self.device)
+                self._shard_embeds(step, self.shard, self.rows)
+            ).to(self.device)
             out.pop("tokens")
         return out
 

@@ -7,8 +7,9 @@ hand-written kernel (``kernels/csrc/flash_attention.cu``), on a CPU
 tensor its plain version ``kernels.ref.attention_ref``.  The JAX
 package's ``dense_attention`` and ``flash_chunked`` forward compute that
 one semantics; its custom VJP belongs to training (ROADMAP A13.3), and
-its sequence-sharded decode with the log-sum-exp combine to the mesh
-(ROADMAP A13.5).
+its sequence-sharded decode with the log-sum-exp combine to the mesh's
+model-parallel bodies (ROADMAP A13.5.3).  :func:`attn_specs` is the JAX
+package's, for the data-parallel mesh.
 
 A KV cache is ``{"k", "v": (B, L, KV, dh), "pos"}``.  ``pos`` is the
 number of tokens written so far, kept as an int32 tensor on the host:
@@ -31,7 +32,7 @@ from .config import ModelConfig
 
 
 # -----------------------------------------------------------------------------
-# Parameter init.
+# Parameter init and specs.
 # -----------------------------------------------------------------------------
 def attn_init(cfg: ModelConfig, generator: torch.Generator,
               dtype=torch.float32, *, device):
@@ -48,6 +49,21 @@ def attn_init(cfg: ModelConfig, generator: torch.Generator,
         p["bk"] = torch.zeros((kv, dh), dtype=dtype, device=device)
         p["bv"] = torch.zeros((kv, dh), dtype=dtype, device=device)
     return p
+
+
+def attn_specs(rt: Runtime, cfg: ModelConfig):
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = {
+        "wq": rt.spec_div(("fsdp", "tp", None), (d, h, dh)),
+        "wk": rt.spec_div(("fsdp", "tp", None), (d, kv, dh)),
+        "wv": rt.spec_div(("fsdp", "tp", None), (d, kv, dh)),
+        "wo": rt.spec_div(("tp", None, "fsdp"), (h, dh, d)),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = rt.spec_div(("tp", None), (h, dh))
+        s["bk"] = rt.spec_div(("tp", None), (kv, dh))
+        s["bv"] = rt.spec_div(("tp", None), (kv, dh))
+    return s
 
 
 # -----------------------------------------------------------------------------

@@ -3,9 +3,10 @@
 The port of the JAX package's ``models/common.py``.  Parameters are plain
 nested dicts of tensors, as there.  Every init function takes ``device``
 without a default and draws from an explicit ``torch.Generator`` that
-lives on that device.
-
-Left out: the ``*_specs`` builders belong to the mesh (ROADMAP A13.5).
+lives on that device.  The dense family's ``*_specs`` builders give
+each init's partition-spec tree under a
+:class:`~repro_torch.dist.sharding.Runtime`, the JAX package's specs
+(compared by ``tuple``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..dist.sharding import Runtime
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -37,6 +40,10 @@ def truncnorm(shape, dtype, generator: torch.Generator, device,
 # ---- RMSNorm -----------------------------------------------------------------
 def rmsnorm_init(d: int, dtype=torch.float32, *, device):
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_specs(rt: Runtime):
+    return {"scale": rt.spec(None)}
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
@@ -104,6 +111,11 @@ def mlp_init(d: int, f: int, generator: torch.Generator, dtype=torch.float32,
     }
 
 
+def mlp_specs(rt: Runtime, d: int, f: int):
+    return {"wi": rt.spec_div(("fsdp", None, "tp"), (d, 2, f)),
+            "wo": rt.spec_div(("tp", "fsdp"), (f, d))}
+
+
 def mlp_apply(params, x):
     """SwiGLU: ``silu(x wi_gate) * (x wi_up)``, then ``wo`` (the JAX
     package's default ``act``, the only one its dense blocks use)."""
@@ -135,6 +147,13 @@ def cast_cotangent_bf16(x: torch.Tensor) -> torch.Tensor:
 def embed_init(vocab: int, d: int, generator: torch.Generator,
                dtype=torch.float32, *, device):
     return {"tok": truncnorm((vocab, d), dtype, generator, device)}
+
+
+def embed_specs(rt: Runtime, vocab: int, d: int):
+    if rt.tp_size > 1:
+        return {"tok": rt.spec_div(("tp", "fsdp"), (vocab, d))}
+    # pure FSDP: shard d, so that the row gather is shard-local
+    return {"tok": rt.spec_div((None, "fsdp"), (vocab, d))}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

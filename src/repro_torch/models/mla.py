@@ -28,7 +28,7 @@ A cache is ``{"latent": (B, L, kv_lora + rope_dim), "pos"}`` with
 :mod:`repro_torch.models.attention` keeps it; prefill and decode write
 the latent in place and return the same dict.  ``mla_specs``,
 ``mla_cache_specs`` and the sequence-sharded decode with its log-sum-exp
-combine belong to the mesh (ROADMAP A13.5).
+combine belong to the mesh (ROADMAP A13.5.3).
 """
 
 from __future__ import annotations

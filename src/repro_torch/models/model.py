@@ -40,11 +40,15 @@ patch or frame embeddings, through ``params["frontend"]["proj"]``
 instead of the token table.  qwen2-vl keeps a token table
 ``params["embed"]`` that the forward never reads (the JAX package draws
 it too); hubert has none.  qwen2-vl's M-RoPE takes (3, B, S) positions,
-or broadcasts (B, S) ones to its three sections.  ``param_specs`` /
-``cache_specs`` belong to the mesh (A13.5).
+or broadcasts (B, S) ones to its three sections.
+
+``param_specs`` is the JAX package's partition-spec tree of the dense and
+frontend configs (``g`` and ``l`` blocks with an MLP); the experts, MLA,
+Mamba2, zamba2's shared block and RWKV6 spec builders, and
+``cache_specs``, come with the model-parallel bodies (ROADMAP A13.5.3).
 
 Public API:
-  init_params / init_cache / cast_params
+  init_params / param_specs / init_cache / cast_params
   forward(params, cfg, rt, batch, cache=None)  -> logits (+ cache) + aux
   loss_fn(params, cfg, rt, batch)              -> (loss, {"ce", "aux"})
 """
@@ -59,12 +63,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import resolve_device
-from ..dist.sharding import Runtime
+from ..dist.sharding import P, Runtime
 from . import attention as attn_mod
 from . import common, mla, moe, rwkv, ssm
 from .config import ModelConfig
 
-__all__ = ["init_params", "init_cache", "cast_params", "forward", "loss_fn",
+__all__ = ["init_params", "param_specs", "init_cache", "cast_params", "forward", "loss_fn",
            "AUX_COEF"]
 
 AUX_COEF = 0.01
@@ -174,6 +178,48 @@ def init_params(cfg: ModelConfig, rt: Runtime, generator: torch.Generator,
         params["lm_head"] = {"w": common.truncnorm(
             (cfg.d_model, cfg.vocab), dtype, generator, device)}
     return params
+
+
+def _block_specs(rt: Runtime, cfg: ModelConfig, char: str):
+    if char not in ("g", "l") or cfg.mla is not None or cfg.moe is not None:
+        what = {"a": "zamba2's shared block", "m": "Mamba2",
+                "r": "RWKV6"}.get(char, "MLA" if cfg.mla is not None
+                                  else "the experts")
+        raise NotImplementedError(
+            f"{cfg.name}: partition specs of {what} come with the "
+            "model-parallel bodies (ROADMAP A13.5.3)")
+    s = {"ln1": common.rmsnorm_specs(rt), "ln2": common.rmsnorm_specs(rt),
+         "attn": attn_mod.attn_specs(rt, cfg),
+         "mlp": common.mlp_specs(rt, cfg.d_model, cfg.d_ff)}
+    if cfg.post_norms:
+        s["ln1_post"] = common.rmsnorm_specs(rt)
+        s["ln2_post"] = common.rmsnorm_specs(rt)
+    return s
+
+
+def param_specs(cfg: ModelConfig, rt: Runtime) -> Dict[str, Any]:
+    """The partition spec of every leaf of ``init_params``' tree under
+    ``rt`` (the JAX package's; a stacked block leaf's leading repeat dim
+    is replicated).  Raises ``NotImplementedError`` for a config with
+    experts, MLA, ``m``, ``a`` or ``r`` blocks (ROADMAP A13.5.3)."""
+    specs: Dict[str, Any] = {}
+    if cfg.frontend is not None:
+        specs["frontend"] = {
+            "proj": rt.spec_div(("fsdp", "tp"),
+                                (cfg.frontend_dim, cfg.d_model))}
+    if cfg.frontend in (None, "vision"):
+        specs["embed"] = common.embed_specs(rt, cfg.vocab, cfg.d_model)
+
+    def stack(tree):
+        return _tree_map(lambda s: P(None, *s), tree)
+
+    specs["blocks"] = {str(i): stack(_block_specs(rt, cfg, ch))
+                       for i, ch in enumerate(cfg.layer_pattern)}
+    specs["final_norm"] = common.rmsnorm_specs(rt)
+    if not cfg.tie_embeddings:
+        head = ("fsdp", "tp") if rt.tp_size > 1 else (None, "fsdp")
+        specs["lm_head"] = {"w": rt.spec_div(head, (cfg.d_model, cfg.vocab))}
+    return specs
 
 
 def cast_params(params, cfg: ModelConfig, device=None):

@@ -20,7 +20,7 @@ outside any Pallas kernel; here each expert with rows is three
 ``torch.matmul`` calls on its slice.  The group sizes reach the host once
 a layer (they set the slices' shapes), and experts that no row chose are
 skipped.  ``moe_specs`` and the expert-parallel all-to-all body belong to
-the mesh (ROADMAP A13.5).
+the mesh (ROADMAP A13.5.3).
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ O(H K V) a sequence.
 A cache is ``{"state": (B, H, K, V), "tm_last": (B, D), "cm_last": (B,
 D)}``, all f32, with no ``pos``; the boundary tokens are cast to the
 stream's dtype where they are used.  ``rwkv_specs`` /
-``rwkv_cache_specs`` belong to the mesh (ROADMAP A13.5).
+``rwkv_cache_specs`` belong to the mesh (ROADMAP A13.5.3).
 """
 
 from __future__ import annotations

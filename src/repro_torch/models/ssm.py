@@ -30,7 +30,7 @@ A cache is ``{"state": (B, H, P, N) f32, "conv": (B, W - 1, C)}`` (C =
 d_inner + 2 d_state; f32, as the JAX package's ``init_cache`` makes it).
 It has no ``pos``.  :func:`ssm_apply` writes the new state and conv
 window into the cache's tensors in place and returns the same dict.
-``ssm_specs`` / ``ssm_cache_specs`` belong to the mesh (ROADMAP A13.5).
+``ssm_specs`` / ``ssm_cache_specs`` belong to the mesh (ROADMAP A13.5.3).
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Fault-tolerant training loop: checkpoint and restart, failure
 injection, straggler accounting.
 
-The port of the JAX package's ``train/loop.py`` on one device:
+The port of the JAX package's ``train/loop.py``:
 
   state  = (params, opt)           # nested dicts of tensors on the device
+                                   # (under a mesh the rank's shards)
   data   = deterministic (seed, step) pipeline -> same batches after restart
   ckpt   = atomic + async (ckpt.CheckpointManager)
 
@@ -14,6 +15,10 @@ The port of the JAX package's ``train/loop.py`` on one device:
   the step, ending in a synchronize: reading the loss) is kept, and a
   step slower than ``straggler_factor`` times the median of the last 32
   is flagged.
+* Elastic restart: under a mesh every rank runs the loop; checkpoints
+  hold whole leaves (rank 0 writes them) and restore re-shards them to
+  the current mesh, so a job restarted on another number of ranks
+  continues.
 * History: ``{"step", "loss", "grad_norm", "wall_s"}`` every
   ``log_every`` steps and at the last, and ``"aux"`` (the experts'
   load-balance loss) for a model with experts.
@@ -64,23 +69,26 @@ class TrainLoop:
         self.data = SyntheticDataset(cfg, data, rt, self.device)
         self.clock = clock
         self.step_fn = make_train_step(cfg, rt, self.tc)
-        self.mgr = (CheckpointManager(self.lc.ckpt_dir, self.lc.keep)
+        self.mgr = (CheckpointManager(self.lc.ckpt_dir, self.lc.keep, rt)
                     if self.lc.ckpt_dir else None)
+        self.specs = None  # the state's spec tree, set by init_state
         self.history: List[Dict[str, float]] = []
         self.straggler_steps: List[int] = []
 
     # -- state ------------------------------------------------------------
     def init_state(self, seed: int = 0):
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params, opt = make_train_state(self.cfg, self.rt, gen, self.tc,
-                                       device=self.device)
+        params, opt, pspecs, ospecs = make_train_state(
+            self.cfg, self.rt, gen, self.tc, device=self.device)
+        self.specs = {"params": pspecs, "opt": ospecs}
         return {"params": params, "opt": opt}
 
     def _maybe_restore(self, state):
         start = 0
         if self.mgr is not None:
             try:
-                state, extra = self.mgr.restore_latest(state)
+                state, extra = self.mgr.restore_latest(state,
+                                                       specs=self.specs)
                 start = int(extra.get("next_step", 0))
             except FileNotFoundError:
                 pass
@@ -114,10 +122,11 @@ class TrainLoop:
                     entry["aux"] = float(metrics["aux"])
                 self.history.append(entry)
             if self.mgr is not None and (step + 1) % self.lc.ckpt_every == 0:
-                self.mgr.save(step + 1, state, {"next_step": step + 1})
+                self.mgr.save(step + 1, state, {"next_step": step + 1},
+                              self.specs)
         if self.mgr is not None:
             self.mgr.save(self.lc.total_steps, state,
-                          {"next_step": self.lc.total_steps})
+                          {"next_step": self.lc.total_steps}, self.specs)
             self.mgr.wait()
         return {"state": state, "history": self.history,
                 "stragglers": self.straggler_steps}

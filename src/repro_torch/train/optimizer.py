@@ -14,19 +14,23 @@ Trees are the model's nested dicts of tensors.  :func:`adamw_update`
 writes the parameters and the moments in place and returns them (the
 JAX package's loop donates both to its jitted step): no second copy of
 either is made.  The master copy and the moments are f32 whatever the
-parameters' dtype.  ``opt_specs`` belongs to the mesh (ROADMAP A13.5).
+parameters' dtype.  Under a mesh the moments inherit the parameters'
+partition specs (:func:`opt_specs`, ZeRO-style: each rank updates its
+shards) and the caller passes the global norm, summed across ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import P
+
 __all__ = ["AdamWConfig", "schedule", "adamw_init", "ef_init", "adamw_update",
-           "global_norm", "clip_by_global_norm"]
+           "opt_specs", "global_norm", "clip_by_global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +97,15 @@ def ef_init(params) -> Dict[str, Any]:
         p.shape, dtype=torch.float32, device=p.device), params)}
 
 
+def opt_specs(param_spec_tree, with_ef: bool = False):
+    """The optimizer state's spec tree: the moments (and the
+    error-feedback residual) as the parameters, the step replicated."""
+    out = {"m": param_spec_tree, "v": param_spec_tree, "step": P()}
+    if with_ef:
+        out["ef"] = {"resid": param_spec_tree}
+    return out
+
+
 def _sum_squares(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(x.to(torch.float32)))
 
@@ -126,16 +139,20 @@ def _decay_mask(path: Tuple[str, ...]) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state,
+                 gnorm: Optional[torch.Tensor] = None,
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step.  ``grads`` may be bf16 (the wire dtype); the math
     is f32.  Writes ``params`` and ``state``'s moments in place and
-    returns ``(params, state, {"lr", "grad_norm"})``."""
+    returns ``(params, state, {"lr", "grad_norm"})``.  ``gnorm`` is the
+    global gradient norm, ``global_norm(grads)`` unless given (a mesh
+    step sums it across the ranks' shards)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     # The global norm of the f32 gradients; each leaf is cast and scaled
     # again in its update, so that no f32 copy of the whole tree is held.
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,

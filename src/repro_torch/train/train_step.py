@@ -1,10 +1,11 @@
-"""The train step: loss, gradients, the wire-dtype cast, AdamW.
+"""The train step: loss, gradients, the reduction, the wire-dtype cast,
+AdamW.
 
-The port of the JAX package's ``train/train_step.py`` on one device.
-Gradients come from ``torch.autograd.grad`` of :func:`repro_torch.models.
-model.loss_fn` with respect to the parameter leaves (detached views of
-them, so the caller's tensors never require grad), in the parameters'
-dtype; then, as there:
+The port of the JAX package's ``train/train_step.py``.  Gradients come
+from ``torch.autograd.grad`` of :func:`repro_torch.models.model.loss_fn`
+with respect to the parameter leaves (detached views of them, so the
+caller's tensors never require grad), in the parameters' dtype; then, as
+there:
 
 * ``grad_accum == 1``: the gradients are cast to ``rt.collective_dtype``
   (bf16 by default; the JAX package casts on one device too);
@@ -16,10 +17,24 @@ dtype; then, as there:
 * :func:`repro_torch.train.optimizer.adamw_update` updates the
   parameters and the optimizer state in place.
 
+Under a mesh (data parallel: ``rt.tp_size == 1``; a model axis above 1
+raises, ROADMAP A13.5.3) the state lives sharded as ``param_specs`` /
+``opt_specs`` say and the batch is the rank's rows (the data pipeline's
+batch under the mesh).  Each step gathers the parameters whole, runs the
+one-device arithmetic above on the rank's rows with ``Runtime()``
+(microbatches and int8 quantisation per rank), then all-reduces the
+gradients over the data axes, averages them and keeps the local slice
+(gloo has no reduce-scatter, so every backend takes all-reduce then the
+slice) before the wire cast, where the JAX package pins the gradients to
+the parameter layout and casts (``_constrain``, then ``astype``).  AdamW
+updates the shards with the global norm summed across ranks; the loss is
+the ranks' mean.
+
 ``make_train_step`` returns ``(params, opt_state, batch, step_rng) ->
 (params, opt_state, metrics)``; ``step_rng`` is kept for the signature
-and ignored, as in the JAX package.  Parameter and optimizer specs
-belong to the mesh (ROADMAP A13.5).
+and ignored, as in the JAX package.  The returned function's ``wire``
+is the :class:`~repro_torch.dist.collectives.WireLog` of its
+collectives.
 """
 
 from __future__ import annotations
@@ -29,14 +44,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..dist.sharding import Runtime
+from ..dist.collectives import WireLog, all_reduce
+from ..dist.sharding import P, Runtime, tree_map_specs
 from ..models import model as model_mod
 from ..models.config import ModelConfig
 from .optimizer import (AdamWConfig, adamw_init, adamw_update, ef_init,
-                        tree_leaves, tree_map)
+                        opt_specs, tree_leaves, tree_map)
 
 __all__ = ["TrainConfig", "make_train_state", "make_train_step",
-           "loss_and_grads"]
+           "loss_and_grads", "reduce_grads"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,18 +61,45 @@ class TrainConfig:
     grad_accum: int = 1
 
 
+def _mesh_only(rt: Runtime) -> None:
+    if rt.tp_size > 1:
+        raise NotImplementedError(
+            f"a model axis of {rt.tp_size}: tensor parallelism comes with "
+            "the model-parallel bodies (ROADMAP A13.5.3); fold the model "
+            "axis into the data axes (tp_disabled=True) to train data "
+            "parallel")
+
+
+def param_spec_tree(cfg: ModelConfig, rt: Runtime, params):
+    """``param_specs(cfg, rt)`` under a mesh; without one every leaf of
+    ``params`` replicated (what the JAX package's builders give there,
+    for every family)."""
+    if rt.mesh is not None:
+        return model_mod.param_specs(cfg, rt)
+    return tree_map(lambda p: P(*(None,) * p.dim()), params)
+
+
 def make_train_state(cfg: ModelConfig, rt: Runtime,
                      generator: torch.Generator,
                      tc: Optional[TrainConfig] = None, *, device):
-    """(params, opt_state): parameters drawn from ``generator`` on
-    ``device`` (``cuda`` without a card raises), AdamW's zero state, and
-    the error-feedback residual under ``compress="int8_ef"``."""
+    """``(params, opt_state, param_specs, opt_specs)``: parameters drawn
+    from ``generator`` on ``device`` (``cuda`` without a card raises),
+    AdamW's zero state, and the error-feedback residual under
+    ``compress="int8_ef"``.  Under a mesh every rank draws the whole
+    tree from the same generator state and keeps its shards."""
     tc = tc or TrainConfig()
+    if rt.mesh is not None:
+        _mesh_only(rt)
     params = model_mod.init_params(cfg, rt, generator, device)
+    pspecs = param_spec_tree(cfg, rt, params)
+    if rt.mesh is not None:
+        params = tree_map_specs(lambda p, s: rt.local(p, s).clone(),
+                                params, pspecs)
     opt = adamw_init(params)
     if tc.opt.compress == "int8_ef":
         opt["ef"] = ef_init(params)
-    return params, opt
+    return params, opt, pspecs, opt_specs(
+        pspecs, with_ef=tc.opt.compress == "int8_ef")
 
 
 def _quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -86,15 +129,52 @@ def loss_and_grads(params, cfg: ModelConfig, rt: Runtime,
     return loss.detach(), metrics, _unflatten(params, list(grads))
 
 
+def reduce_grads(grads, rt: Runtime, pspecs, log: Optional[WireLog] = None):
+    """The ranks' mean of each gradient leaf over the data axes, as this
+    rank's slice under ``pspecs`` (all-reduce, then the slice)."""
+    group, _ = rt.mesh.group(rt.fsdp_axes)
+    n = rt.fsdp_size
+    return tree_map_specs(
+        lambda g, s: rt.local(all_reduce(g, group, log) / n, s).clone(),
+        grads, pspecs)
+
+
+def _global_norm(grads, rt: Runtime, pspecs, log: Optional[WireLog]):
+    """The norm of the global gradient from the ranks' slices: sharded
+    leaves' squares summed across the data axes, replicated ones once."""
+    sharded, replicated = [], []
+    tree_map_specs(lambda g, s: (sharded if any(s) else replicated).append(
+        torch.sum(torch.square(g.to(torch.float32)))), grads, pspecs)
+    dev = tree_leaves(grads)[0].device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    if sharded:
+        group, _ = rt.mesh.group(rt.fsdp_axes)
+        total = all_reduce(torch.sum(torch.stack(sharded)), group, log)
+    if replicated:
+        total = total + torch.sum(torch.stack(replicated))
+    return torch.sqrt(total)
+
+
 def make_train_step(cfg: ModelConfig, rt: Runtime,
                     tc: Optional[TrainConfig] = None):
     tc = tc or TrainConfig()
+    mesh = rt.mesh is not None
+    if mesh:
+        _mesh_only(rt)
+        pspecs = model_mod.param_specs(cfg, rt)
+        group, _ = rt.mesh.group(rt.fsdp_axes)
+    # Inside a rank's step the model sees its rows only, with no mesh.
+    body_rt = Runtime() if mesh else rt
+    wire = WireLog()
 
     def train_step(params, opt_state, batch, step_rng=None):
         del step_rng  # deterministic substrate; kept for API stability
+        full = params
+        if mesh:
+            full = tree_map_specs(lambda p, s: rt.gather(p, s, wire),
+                                  params, pspecs)
         if tc.grad_accum == 1:
-            loss, metrics, grads = loss_and_grads(params, cfg, rt, batch)
-            grads = tree_map(rt.astype, grads)
+            loss, metrics, grads = loss_and_grads(full, cfg, body_rt, batch)
         else:
             def split(x):
                 mb = x.shape[0] // tc.grad_accum
@@ -104,13 +184,13 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
             # Accumulate in f32 (bf16 accumulation loses ~1e-2 relative);
             # the wire cast happens once, after the loop.
             acc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+                p.shape, dtype=torch.float32, device=p.device), full)
             loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=tree_leaves(params)[0].device)
+                                   device=tree_leaves(full)[0].device)
             aux_sum = loss_sum.clone()
             for i in range(tc.grad_accum):
                 loss, micro_metrics, g = loss_and_grads(
-                    params, cfg, rt, {k: v[i] for k, v in micro.items()})
+                    full, cfg, body_rt, {k: v[i] for k, v in micro.items()})
                 if tc.opt.compress == "int8_ef":
                     def q(gi):
                         qi, s = _quantize_int8(gi.to(torch.float32))
@@ -120,12 +200,25 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
                 del g
                 loss_sum = loss_sum + loss
                 aux_sum = aux_sum + micro_metrics["aux"]
-            grads = tree_map(lambda g: rt.astype(g / tc.grad_accum), acc)
+            grads = tree_map(lambda g: g / tc.grad_accum, acc)
             del acc
             loss = loss_sum / tc.grad_accum
             metrics = {"ce": loss, "aux": aux_sum / tc.grad_accum}
-        params, opt_state, opt_metrics = adamw_update(tc.opt, params, grads,
-                                                      opt_state)
+        del full
+        gnorm = None
+        if mesh:
+            grads = reduce_grads(grads, rt, pspecs, wire)
+            grads = tree_map(rt.astype, grads)
+            gnorm = _global_norm(grads, rt, pspecs, wire)
+            n = rt.fsdp_size
+            loss = all_reduce(loss, group, wire) / n
+            metrics = {k: all_reduce(v, group, wire) / n
+                       for k, v in metrics.items()}
+        else:
+            grads = tree_map(rt.astype, grads)
+        params, opt_state, opt_metrics = adamw_update(
+            tc.opt, params, grads, opt_state, gnorm=gnorm)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
+    train_step.wire = wire
     return train_step

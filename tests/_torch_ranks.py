@@ -1,0 +1,377 @@
+"""Spawned gloo ranks, and the JAX package's side in one subprocess, for
+the port's multi-rank tests (``tests/test_torch_collectives.py``,
+``tests/test_torch_dp.py``).
+
+:func:`run_ranks` starts ``world`` processes (the ``spawn`` method), each
+joining a gloo group through a ``file://`` rendezvous under the test's
+temporary directory (so parallel test workers never share a port), with
+a group timeout: a rank that hangs in a collective fails it.  The parent
+waits for every rank's result under its own deadline and ends every
+process it started.  The rank bodies live here, importing the port only,
+so that a spawned rank does not import JAX.
+
+:func:`run_reference` runs a program of the JAX package in one
+subprocess with ``N`` forced host devices and returns the arrays it
+saved.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import subprocess
+import sys
+import traceback
+import uuid
+
+import numpy as np
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "src")
+# A collective that waits longer fails the rank instead of hanging it.
+GROUP_TIMEOUT_S = 60
+
+
+def _rank_main(body, rank, world, init, args, q):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            out = body(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, True, out))
+    except Exception:  # reported to the parent, which fails the test
+        q.put((rank, False, traceback.format_exc()))
+
+
+def run_ranks(body, world: int, tmp_dir, *args, timeout: float = 90.0):
+    """``[body(rank, world, *args) for each rank]``, each in its own
+    process of one gloo world."""
+    import multiprocessing as mp
+    import time
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = os.path.join(str(tmp_dir), f"pg-{uuid.uuid4().hex}")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(body, r, world, init, args, q), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            left = deadline - time.monotonic()
+            try:
+                rank, ok, val = q.get(timeout=max(left, 0.1))
+            except queue.Empty:
+                raise AssertionError(
+                    f"ranks {sorted(set(range(world)) - set(results))} gave "
+                    f"no result within {timeout} s") from None
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{val}")
+            results[rank] = val
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+    return [results[r] for r in range(world)]
+
+
+def start_reference(prog: str, devices: int, out_path, *argv):
+    """Start ``prog`` (which saves an npz to ``sys.argv[1]`` and prints
+    ``REF_OK``) in one subprocess with ``devices`` forced host devices;
+    :func:`finish_reference` waits for it."""
+    env = {"XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}",
+           "JAX_PLATFORMS": "cpu", "PYTHONPATH": SRC,
+           "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": os.environ.get("HOME", "/tmp")}
+    return subprocess.Popen([sys.executable, "-c", prog, str(out_path),
+                             *map(str, argv)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_reference(proc, out_path, timeout: float) -> dict:
+    """The arrays the program of :func:`start_reference` saved; kills it
+    past ``timeout`` seconds."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert "REF_OK" in stdout, (stdout[-1000:], stderr[-3000:])
+    with np.load(out_path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def run_reference(prog: str, devices: int, out_path, *argv,
+                  timeout: float = 120.0) -> dict:
+    """:func:`start_reference`, then :func:`finish_reference`."""
+    return finish_reference(start_reference(prog, devices, out_path, *argv),
+                            out_path, timeout)
+
+
+# -----------------------------------------------------------------------------
+# Rank bodies.
+# -----------------------------------------------------------------------------
+def collectives_rank(rank, world, ref, order):
+    """The ring collectives on this rank's rows of the reference's
+    inputs: ``{name: result}``."""
+    import torch
+
+    from repro_torch.dist.collectives import (layer_strides,
+                                              multiring_all_reduce,
+                                              ring_all_gather,
+                                              ring_reduce_scatter)
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((world,), ("data",))
+    pos = int(mesh.axis_index(("data",), rank))
+    out = {}
+
+    def t(name, row=pos):
+        return torch.from_numpy(ref[name][row].copy())
+
+    for r in (1, 2, 3, 5):
+        st = layer_strides(world, r)
+        out[f"f32_{r}"] = multiring_all_reduce(t("xf"), "data", st,
+                                               mesh=mesh).numpy()
+        out[f"i32_{r}"] = multiring_all_reduce(t("xi"), "data", st,
+                                               mesh=mesh).numpy()
+        out[f"bf16_{r}"] = multiring_all_reduce(
+            t("xb").to(torch.bfloat16), "data", st,
+            mesh=mesh).float().numpy()
+    rs = ring_reduce_scatter(t("y"), "data", 5, mesh=mesh)
+    out["rs5"] = rs.numpy()
+    out["ag5"] = ring_all_gather(rs, "data", 5, chunk_offset=5,
+                                 mesh=mesh).numpy()
+    # an axis tuple, row-major: (pod, data) of a (2, 4) mesh
+    mesh2 = make_mesh((2, world // 2), ("pod", "data"))
+    pos2 = mesh2.axis_index(("pod", "data"), rank)
+    out["tuple_3"] = multiring_all_reduce(
+        t("xf", pos2), ("pod", "data"), layer_strides(world, 3),
+        mesh=mesh2).numpy()
+    # a permuted mesh: rank order[j] sits at position j
+    mesh3 = make_mesh((world,), ("data",), device_order=order)
+    pos3 = mesh3.axis_index(("data",), rank)
+    out["perm_2"] = multiring_all_reduce(
+        t("xf", pos3), "data", layer_strides(world, 2), mesh=mesh3).numpy()
+    out["pos_perm"] = pos3
+    # n == 1: the shortcut returns the payload untouched
+    mesh4 = make_mesh((world, 1), ("data", "model"))
+    x = t("xf")
+    out["n1"] = (multiring_all_reduce(x, "model", (1,), mesh=mesh4) is x
+                 and ring_reduce_scatter(x, "model", 1,
+                                         mesh=mesh4).data_ptr()
+                 == x.data_ptr())
+    # a stride sharing a factor with n is refused before any send
+    raised = []
+    for fn in (lambda: ring_reduce_scatter(x, "data", 2, mesh=mesh),
+               lambda: ring_all_gather(x, "data", 4, mesh=mesh),
+               lambda: multiring_all_reduce(x, "data", (1, 6), mesh=mesh)):
+        try:
+            fn()
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
+    out["raised"] = raised
+    return out
+
+
+def nested(flat: dict, prefix: str) -> dict:
+    """The nested dict of the arrays named ``prefix/a/b/...``."""
+    out: dict = {}
+    for name, a in flat.items():
+        if not name.startswith(prefix + "/"):
+            continue
+        keys = name[len(prefix) + 1:].split("/")
+        d = out
+        for k in keys[:-1]:
+            d = d.setdefault(k, {})
+        d[keys[-1]] = a
+    return out
+
+
+def _flat(tree, prefix: str, out: dict) -> dict:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flat(v, f"{prefix}/{k}", out)
+        else:
+            out[f"{prefix}/{k}"] = v.detach().cpu().numpy().copy()
+    return out
+
+
+DP_CFG = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
+              n_kv_heads=4, d_head=16, d_ff=128, vocab=256, dtype="float32",
+              remat="none")
+DP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=50)
+
+
+def dp_rank(rank, world, init, tok, ckpt_dir):
+    """The data-parallel paths on this rank: the mesh step at (4,) and
+    at (2, 2) with the model axis folded in, manual DP at each wire, the
+    elastic restore, and a loop resumed on another mesh."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.ckpt.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.sharding import P, Runtime, tree_map_specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train import loop as tloop
+    from repro_torch.train.manual_dp import (ManualDPConfig,
+                                             make_manual_dp_step)
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             tree_map)
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg = ModelConfig(**DP_CFG)
+    oc = AdamWConfig(**DP_OPT)
+    out = {}
+
+    def params0():
+        return interop.model_params_from_arrays(cfg, init, "cpu")
+
+    tokens = torch.from_numpy(tok.astype("int64"))
+    batch = {"tokens": tokens, "labels": tokens}
+    for name, shape, axes, kw in (("d4", (4,), ("data",), {}),
+                                  ("d2m2", (2, 2), ("data", "model"),
+                                   dict(tp_disabled=True))):
+        rt = Runtime(mesh=make_mesh(shape, axes), data_axes=("data",), **kw)
+        pspecs = tmodel.param_specs(cfg, rt)
+        p = tree_map_specs(lambda x, s: rt.local(x, s).clone(), params0(),
+                           pspecs)
+        o = adamw_init(p)
+        step = make_train_step(cfg, rt, TrainConfig(opt=oc))
+        rows = {k: rt.local(v, P(rt.fsdp, None)) for k, v in batch.items()}
+        for i in range(2):
+            p, o, m = step(p, o, rows, i)
+            out[f"pjit_{name}/loss{i}"] = float(m["loss"])
+            out[f"pjit_{name}/gnorm{i}"] = float(m["grad_norm"])
+        full = tree_map_specs(rt.gather, p, pspecs)
+        if rank == 0:
+            _flat(full, f"pjit_{name}/params", out)
+
+    rt = Runtime(mesh=make_mesh((world,), ("data",)), data_axes=("data",),
+                 tp_disabled=True)
+    for wire in ("float32", "bfloat16", "int8_ef"):
+        man = make_manual_dp_step(cfg, rt, ManualDPConfig(
+            opt=oc, wire=wire, n_rings=3))
+        p = params0()
+        o = adamw_init(p)
+        e = tree_map(lambda x: torch.zeros(x.shape), p)
+        for i in range(10 if wire == "int8_ef" else 1):
+            p, o, e, m = man(p, o, e, batch)
+            out[f"man_{wire}/loss{i}"] = float(m["loss"])
+            out[f"man_{wire}/gnorm{i}"] = float(m["grad_norm"])
+            if i == 0:
+                _flat(p, f"man_{wire}/params1", out)
+                _flat(e, f"man_{wire}/ef1", out)
+        _flat(p, f"man_{wire}/params", out)
+        out[f"man_{wire}/sent_bytes"] = man.wire.sent_bytes
+
+    # elastic: (4, 1) P("data", None) saved, restored onto (2, 2)
+    # P("model", "data")
+    rt_a = Runtime(mesh=make_mesh((4, 1), ("data", "model")))
+    rt_b = Runtime(mesh=make_mesh((2, 2), ("data", "model")))
+    x = torch.arange(16 * 12, dtype=torch.float32).reshape(16, 12)
+    spec_a, spec_b = {"w": P("data", None)}, {"w": P("model", "data")}
+    save_checkpoint(f"{ckpt_dir}/elastic", 5,
+                    {"w": rt_a.local(x, spec_a["w"]).clone()},
+                    {"next_step": 5}, rt=rt_a, specs=spec_a)
+    like = {"w": torch.zeros(rt_b.local(x, spec_b["w"]).shape)}
+    restored, extra = restore_checkpoint(f"{ckpt_dir}/elastic", like,
+                                         rt=rt_b, specs=spec_b)
+    out["elastic"] = restored["w"].numpy()
+    out["elastic_extra"] = extra
+
+    # a loop on (4,) against one that fails at step 2 and resumes on
+    # (2, 2) with the model axis folded in: the same shards, so the same
+    # bits
+    def loop(rt, total, d, fail=None):
+        return tloop.TrainLoop(
+            cfg, rt, DataConfig(global_batch=8, seq_len=32, seed=1),
+            TrainConfig(opt=oc),
+            tloop.LoopConfig(total_steps=total, ckpt_every=2, log_every=1,
+                             ckpt_dir=d, inject_failure_at=fail),
+            device="cpu")
+
+    rt4 = Runtime(mesh=make_mesh((4,), ("data",)))
+    rt22 = Runtime(mesh=make_mesh((2, 2), ("data", "model")),
+                   tp_disabled=True)
+    whole = loop(rt4, 4, f"{ckpt_dir}/whole").run()
+    failing = loop(rt4, 4, f"{ckpt_dir}/resume", fail=2)
+    try:
+        failing.run()
+        raise AssertionError("no injected failure")
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    failing.mgr.wait()
+    resumed = loop(rt22, 4, f"{ckpt_dir}/resume").run()
+    out["loop_whole"] = [(h["step"], h["loss"], h["grad_norm"])
+                         for h in whole["history"]]
+    out["loop_resumed"] = [(h["step"], h["loss"], h["grad_norm"])
+                           for h in resumed["history"]]
+    full = [tree_map_specs(r.gather, s["state"]["params"],
+                           tmodel.param_specs(cfg, r))
+            for r, s in ((rt4, whole), (rt22, resumed))]
+    a, b = _flat(full[0], "p", {}), _flat(full[1], "p", {})
+    out["loop_params_equal"] = a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) for k in a)
+    # the default group's world as a 1-D mesh
+    from repro_torch.dist.sharding import host_device_runtime
+    hdr = host_device_runtime()
+    out["host_device_runtime"] = (hdr.mesh.shape, hdr.fsdp_size)
+    try:
+        host_device_runtime(world + 1)
+        out["hdr_raises"] = False
+    except RuntimeError as e:
+        out["hdr_raises"] = f"--nproc-per-node {world + 1}" in str(e)
+    # a model axis above 1 is tensor parallelism (A13.5.3)
+    try:
+        make_train_step(cfg, Runtime(mesh=make_mesh((2, 2),
+                                                    ("data", "model"))))
+        out["tp_raises"] = False
+    except NotImplementedError as e:
+        out["tp_raises"] = "A13.5.3" in str(e)
+    return out
+
+
+def multiring_card_rank(rank, world, xs):
+    """``multiring_all_reduce`` of this rank's rows on the card and on the
+    CPU (gloo: the card's payloads cross through host buffers)."""
+    import torch
+
+    from repro_torch.dist.collectives import (WireLog, layer_strides,
+                                              multiring_all_reduce)
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((world,), ("data",))
+    out = {}
+    for name, x in xs.items():
+        t = torch.from_numpy(x[rank].copy())
+        if name == "bf16":
+            t = t.to(torch.bfloat16)
+        log = WireLog()
+        card = multiring_all_reduce(t.cuda(), "data", layer_strides(world, 3),
+                                    mesh=mesh, log=log)
+        assert card.is_cuda and log.staging_seconds > 0
+        host = multiring_all_reduce(t, "data", layer_strides(world, 3),
+                                    mesh=mesh)
+        out[name] = (card.cpu().float().numpy(), host.float().numpy())
+    return out

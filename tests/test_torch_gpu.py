@@ -1386,3 +1386,19 @@ def test_cuda_train_step_equals_cpu_port(arch):
                         {"tokens": t, "labels": t})
         out[name] = (float(m["loss"]), float(m["grad_norm"]))
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_multiring_all_reduce_two_gloo_ranks_on_one_card(tmp_path):
+    """``multiring_all_reduce`` over 2 gloo ranks whose payloads lie on the
+    card (staged through host buffers) gives the bits of the same call on
+    CPU payloads, f32, int32 and bf16, 3 rings over an odd length."""
+    from _torch_ranks import multiring_card_rank, run_ranks
+    _need_card()
+    rng = np.random.default_rng(5)
+    xs = {"f32": rng.standard_normal((2, 1001)).astype(np.float32),
+          "i32": rng.integers(-500, 500, (2, 1001)).astype(np.int32),
+          "bf16": rng.standard_normal((2, 1001)).astype(np.float32)}
+    for out in run_ranks(multiring_card_rank, 2, tmp_path, xs, timeout=120):
+        for name, (card, host) in out.items():
+            np.testing.assert_array_equal(card, host, err_msg=name)

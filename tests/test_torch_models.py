@@ -125,10 +125,13 @@ def test_registry_and_shapes_equal_reference():
 
 
 def test_runtime_is_one_device():
+    """``Runtime()`` is the one-device contract; a mesh is a ``Mesh`` of
+    ranks (``tests/test_torch_sharding.py``), anything else raises."""
     assert TRT == TRuntime() and TRT.mesh is None
+    assert TRT.fsdp_size == 1 and TRT.tp_size == 1
     with pytest.raises(dataclasses.FrozenInstanceError):
         TRT.mesh = object()
-    with pytest.raises(NotImplementedError, match="A13.5"):
+    with pytest.raises(TypeError, match="make_mesh"):
         TRuntime(mesh=object())
 
 

@@ -192,6 +192,11 @@ def test_launcher_device_and_mesh():
     with pytest.raises(NotImplementedError, match="A13.5"):
         tlaunch.main(["--arch", "yi-9b", "--smoke", "--mesh", "2x4",
                       "--device", "cpu"])
+    # data parallel needs its ranks: torchrun starts them
+    # (tests/test_torch_dp.py)
+    with pytest.raises(RuntimeError, match="torchrun --standalone"):
+        tlaunch.main(["--arch", "yi-9b", "--smoke", "--mesh", "4",
+                      "--device", "cpu"])
 
 
 def _tiny():

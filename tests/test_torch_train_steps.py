@@ -111,8 +111,8 @@ def test_grad_accum_reports_the_microbatches_mean_aux():
     microbatches' load-balance losses (the JAX package reports 0 there),
     olmoe-1b-7b smoke, rtol 1e-6."""
     cfg = tconfigs.get_smoke("olmoe-1b-7b")
-    tp, tst = tts.make_train_state(cfg, TRT, torch.Generator().manual_seed(0),
-                                   device="cpu")
+    tp, tst, _, _ = tts.make_train_state(
+        cfg, TRT, torch.Generator().manual_seed(0), device="cpu")
     _, tb = tokens(cfg.vocab, 4, 32, seed=10)
     want = np.mean([float(tts.loss_and_grads(
         tp, cfg, TRT, {k: v[i:i + 2] for k, v in tb.items()})[1]["aux"])
