@@ -17,9 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    semiring is timed again on its own path's calls once phase (a) has
    recorded them (bool: the main sweep; count: ``min_path_stats`` and
    ``path_counts_power``; minplus: the ksp cell), count and bool beside
-   ``torch.matmul`` f32, into the entry's ``per_semiring``; each bool
-   path's entry (main sweep, pi_min build, repair builds) with the device
-   kernels of one call (``torch.profiler``);
+   ``torch.matmul`` f32, into the entry's ``per_semiring``; the main
+   sweep's entry with the device kernels of one call
+   (``torch.profiler``);
 3. the water-filling kernel vs its plain version on CPU copies of the
    same inputs (the plain version on the card sums with float atomics in
    no fixed order; the kernel sums each link in the CPU's flat (flow,
@@ -56,12 +56,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    tensor-core kernel), held against the plain version two query heads
    at a time at bf16's rounding (|err| <= 1e-2 |exp| + 1e-3), the same
    layouts in f32 (split TF32 on the tensor cores) at rtol = atol =
-   1e-4, and ragged cases (D 32 to 256, dead rows) in both; both kernels
-   timed beside the plain version and, for yi-9b,
-   ``scaled_dot_product_attention`` on the bf16 inputs (the entry's
-   ``library_ms``) and on f32 copies through the memory-efficient backend
-   alone on K and V expanded to H heads (``library_f32_ms``; the
-   ``enable_gqa`` call apart, ``library_f32_gqa_ms``);
+   1e-4, and ragged cases (D 32 to 256, dead rows) in both (the
+   kernels' times at these layouts are in ``PERF.md``; the entry's times
+   are the serving path's own calls', 12.2);
 4. a small cell (sf(q=5)) on the card and on the CPU through the same
    port, for ecmp, fatpaths and fatpaths with the ksp scheme: tables,
    path-edge tensors, ``depart_step`` and the metrics equal;
@@ -84,9 +81,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (launch counts 0 before, read after) and on the CPU port: the stacks'
    ``layer_adj``, ``nh``, ``reach`` and ``pathlen`` bitwise, ``depart_step``
    and metrics equal, the card's stack loop-free on every entry; the
-   build's boolean products recorded, held bitwise against the plain
-   version and timed (``per_semiring.bool.pi_min_build``) beside the
-   main sweep's;
+   build's boolean products recorded and held bitwise against the plain
+   version (``per_semiring.bool.pi_min_build``);
 7. dynamic traffic at sf(q=19) x fatpaths(n_layers=9,rho=0.6): load over
    a 64-step window, incast under the outcast evaluator and anycast to
    the closest replica, each on the card (counts 0 before, read after)
@@ -104,12 +100,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    switch/drop and blast/repair) x permutation x
    transport(steps=2000,transport=ndp), the degraded tables bitwise, the
    reports equal, the card's stack loop-free on every entry, K2 bool held
-   against its plain version on each repair build's products and timed;
+   against its plain version on each repair build's products;
    a mid-run death at step 40 x permutation(256 MiB) x
    recovery(steps=400,transport=dctcp) for fatpaths and for ecmp, the
    fatpaths scan profiled over its first 80 steps and K1 held against
-   its plain version on its own calls (dead links, ``util``) and timed
-   with and without ``util``;
+   its plain version on its own calls (dead links, ``util`` on and
+   off);
    ``churn(rate=0.1)`` x permutation(256 MiB) x availability(steps=400);
    and the ``degradation`` ladder over permutation (7 scenarios);
 9. the blocked path engine (phases 1-8 build with ``REPRO_PATH_ENGINE=
@@ -122,10 +118,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    sf(q=29) stacks (rand, ksp, pi_min, ecmp) under each engine, bitwise
    equal, with peak device memory per build, and the blocked ksp build's
    four (min, +) products of (8, 1682, 1682) held against the plain
-   version and timed; (9.3) ``min_path_stats(adj, max_l=8)`` of sf(q=29)
-   under each engine (distances bitwise, counts bitwise below 2^24), the
-   blocked engine's 49 count products of (256, 1682) x (1682, 1682) held
-   against the plain version and timed beside the dense engine's 7;
+   version; (9.3) ``min_path_stats(adj, max_l=8)`` of sf(q=29) under each
+   engine (distances bitwise, counts bitwise below 2^24), the blocked
+   engine's 49 count products of (256, 1682) x (1682, 1682) held against
+   the plain version;
    (9.4) the sf(q=29) fatpaths(n_layers=9,rho=0.6) and ecmp cells x
    permutation x transport(steps=2000,transport=ndp) under ``auto`` on
    the card and on the CPU port, held equal as phase 5 holds its cells,
@@ -200,17 +196,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 13. training, last (see ``phase_train``): (13.1) K5's backward at
    yi-9b's training layout (B 2, H 32, Hkv 4, S 4096, D 128, causal) in
    bf16 (route ``wgmma-tma``: the wgmma kernels fed by TMA) and f32
-   (route ``tf32x3``: split TF32 on the tensor cores; its forward timed
-   too) and at gemma2-27b's (B 1, S 8192, window 4096,
-   softcap 50) and olmoe-1b-7b's (B 2, H = Hkv = 16, S 4096, D 128,
-   causal) in bf16, each launched twice on its asserted route and the
-   two launches held bitwise equal, held against the plain version one
-   KV head at a time (|err| <= 2e-2 max|exp| bf16, 1e-4 f32), the
-   forward's output (rtol 1e-2 / atol 1e-3 bf16, 1e-4 f32) and LSE
-   against the plain version's, timed beside the bound (10 D flops a
-   pair) and, without softcap or window,
-   ``scaled_dot_product_attention(enable_gqa=True)``'s backward (in f32
-   the memory-efficient backend alone on expanded K and V);
+   (route ``tf32x3``: split TF32 on the tensor cores) and at
+   gemma2-27b's (B 1, S 8192, window 4096, softcap 50) and
+   olmoe-1b-7b's (B 2, H = Hkv = 16, S 4096, D 128, causal) in bf16,
+   each launched twice on its asserted route and the two launches held
+   bitwise equal, held against the plain version one KV head at a time
+   (|err| <= 2e-2 max|exp| bf16, 1e-4 f32), the forward's output (rtol
+   1e-2 / atol 1e-3 bf16, 1e-4 f32) and LSE against the plain
+   version's; yi-9b's bf16 backward (the entry) timed beside the bound
+   (10 D flops a pair) and
+   ``scaled_dot_product_attention(enable_gqa=True)``'s backward;
    (13.2) yi-9b at full width and 1 layer in f32, a train step on the
    card and the gradient pass on the CPU port from the same card-drawn
    weights (loss, grad norm and every gradient leaf held), the card's
@@ -228,16 +223,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    192, Dv 128, causal), forward with its LSE and backward in bf16 and
    f32 (the backward twice on its asserted route, ``wgmma-tma`` in bf16,
    ``tf32x3`` in f32, bitwise equal), held against the plain versions one
-   KV head at a time and timed beside their bounds and
-   ``scaled_dot_product_attention``'s where a fused backend takes Dv != D
-   (in f32 the memory-efficient backend alone); (14.2) olmoe-1b-7b served uncut and
+   KV head at a time; (14.2) olmoe-1b-7b served uncut and
    (14.3) deepseek-v2-236b served at 2 of its 60 layers, both drawn on
    the card in f32 from the seed and served in bf16 through
    ``launch.serve``'s engine at the launcher's defaults, counts 0 before
    and read after (K5 exactly 544 and 4 times: deepseek's absorbed
    decode launches none), tokens in the vocabulary, finite logits; K5
    on the path's own prefill call and (olmoe) decode call held against
-   the plain version as in 12.2 and timed beside it;
+   the plain version as in 12.2;
    prefill and decode ms, tokens/s, peak memory, one decode step
    profiled and split into K5, the expert products, the router and the
    rest beside its bound (the weights it touches, the chosen experts
@@ -255,10 +248,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    32, S 4096, D 64, window 4096, causal), forward with its LSE and
    backward in bf16 and f32 (the backward twice on its asserted route,
    ``wgmma-tma`` in bf16, ``tf32x3`` in f32, bitwise equal), held against
-   the plain versions one KV head at a time and timed beside their bounds
-   and ``scaled_dot_product_attention(is_causal=True)``'s forward and
-   backward (at S <= window the same function; in f32 the
-   memory-efficient backend alone); (15.2) zamba2-1.2b and
+   the plain versions one KV head at a time; (15.2) zamba2-1.2b and
    (15.3) rwkv6-7b served uncut, drawn on the card in f32 from the seed
    and served in bf16 through ``launch.serve``'s engine at the
    launcher's defaults, counts 0 before and read after (K5 exactly 68
@@ -266,7 +256,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    decode ms, tokens/s, peak memory, one decode step profiled and split
    into K5, cuBLAS, the SSM's conv and scan or the WKV recurrence and
    the rest beside its bound; zamba2's own K5 prefill and decode calls
-   held and timed as in 12.2; (15.4) zamba2 at 19 layers and rwkv6 at 2
+   held as in 12.2; (15.4) zamba2 at 19 layers and rwkv6 at 2
    in f32: the CPU port's prefill and 16 decode steps teacher-forced on
    the card (rtol 1e-4, atol 1e-4 max|exp|), and decode against prefill
    on the card in f32 and bf16 (zamba2 after a 600-token prefill:
@@ -282,17 +272,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 16. the frontend models, after phase 15 with the card's cache emptied
    (see ``phase_frontends`` and the constants above): (16.1) K5 at
    hubert-xlarge's training layout (B 2, H = Hkv = 16, S 4096, D 80, no
-   causal mask) as 15.1 holds zamba2's, SDPA with ``is_causal=False``
-   beside it; (16.2) qwen2-vl-7b served uncut through the port's prefill
+   causal mask) as 15.1 holds zamba2's; (16.2) qwen2-vl-7b served uncut through the port's prefill
    and decode steps on seeded patch and text embeddings (the engine
    serves token prompts only), counts 0 before and read after (K5
    exactly 952 times), finite logits, prefill and decode ms, tokens/s,
    peak memory, one decode step profiled and split into K5, cuBLAS and
    the rest beside its bound, its own K5 prefill and decode calls held
-   and timed as in 12.2; (16.3) hubert-xlarge's forward uncut on 4 x
+   as in 12.2; (16.3) hubert-xlarge's forward uncut on 4 x
    1500 frame embeddings without a cache (K5 exactly 48 times), profiled
    and split beside its bound, its prefill step's logits bitwise the
-   forward's, its K5 call held and timed as in 12.2; (16.4) both at 2
+   forward's, its K5 call held as in 12.2; (16.4) both at 2
    layers in f32, card against the CPU port (qwen2-vl with three
    different M-RoPE position rows, then its decode steps), and qwen2-vl's
    decode against prefill on the card in f32 and bf16; (16.5) both at 1
@@ -313,8 +302,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    mesh step), bf16 (ranks bitwise equal) and int8 error-feedback (the
    first grad norm against the wire's arithmetic done apart, 6 steps,
    loss falling) wires; exactly 12 / 6 K5 forward / backward launches on
-   each rank's mesh loop and 4 / 2 a manual step; step wall, wire bytes
-   and seconds, host staging and peak memory per rank;
+   each rank's mesh loop and 4 / 2 a manual step; then olmoe-1b-7b at
+   full width and 1 of 16 layers (the experts, their load-balance loss
+   taken over the global batch) and zamba2-1.2b at 19 of 38 (18 Mamba2
+   blocks and the shared attention block) on the same mesh, f32 and full
+   remat, 2 steps each: losses and olmoe's aux against the same loop in
+   one process at rtol 1e-5, the ranks' mean of the aux their own rows
+   give printed beside it, exactly 2 K5 forward and 1 backward launches
+   a step on each rank; and one mesh step of olmoe at grad_accum 2 under
+   ``int8_ef`` on 4 rows (one a rank a microbatch, each microbatch's
+   gradient reduced before it is quantised) against one process: grad
+   norm rtol 1e-5, parameters within 2.5 learning rates (all but 1e-3
+   of a leaf's within 2^-6 of one), 4 / 2 K5 launches; step wall split into wire (host staging apart),
+   gradient pass and the rest, wire bytes, peak memory per rank;
 18. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
    attention the serving path's, for its backward the training path's;
@@ -331,8 +331,7 @@ memory, 1979 TOP/s of int8 and 989 TFLOP/s of bf16 on the tensor cores,
 and 67 TFLOP/s of float32 outside the tensor cores (the count semiring's
 rate: its exact fp64 tensor-core sums peak at the same 67 TFLOP/s).  K5's
 f32 bounds take the split-TF32 floor, three TF32 products at 495 TFLOP/s
-for each f32 product (165 TFLOP/s), with the 67 TFLOP/s figure beside
-(``cuda_core_bound_ms``).  The
+for each f32 product (165 TFLOP/s).  The
 GF(p) product is bound at the int8 rate over its 8-bit limb products
 (four for p > 256, one below): limbs^2 x 2 E^3 operations.
 """
@@ -360,8 +359,7 @@ F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 # f32-accurate products on the tensor cores: three TF32 products for each
 # f32 product (K5's split-TF32 kernels), 165 TFLOP/s of f32 work, the
-# floor K5's f32 bounds take; F32_FLOP_PER_S, the CUDA cores' rate, is
-# printed beside them.
+# floor K5's f32 bounds take.
 SPLIT_TF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 INT8_OP_PER_S = 1979e12
 BF16_FLOP_PER_S = 989e12
@@ -377,9 +375,6 @@ _K5_BWD = ("::delta_kernel", "::dkdv_kernel", "::dq_kernel", "::wg::",
 # Markers of K5's forward kernels: bf16 (``mma.sync`` bf16) and f32 (split
 # TF32).
 _K5_FWD = ("flash_tc_kernel", "flash_tf32_kernel")
-# SDPA's backend that K5's f32 kernels are timed beside: the
-# memory-efficient one (CUTLASS's split-TF32 ``OpMultiplyAddFastF32``).
-SDPA_F32_BACKEND = "EFFICIENT_ATTENTION"
 # Host calls that put one event on the device: kernel launches (runtime
 # and driver API), memsets and copies.
 DEVICE_WORK_CALLS = ("Launch", "Memset", "Memcpy")
@@ -404,6 +399,11 @@ PROFILE_LEAD_MAX = 512
 PROFILE_ATTEMPTS = 8
 # Host seconds of each ``_profile`` call, retries and spin included.
 PROFILE_WALL: list = []
+# [readings, host seconds] of the ``_profile`` calls by the phase
+# function that asked for them (the first caller outside the readers).
+PROFILE_BY_CALLER: dict = {}
+_READERS = frozenset({"_profile", "_replay_ms", "_replay_split_ms",
+                      "<lambda>"})
 MAIN_TOPO = "sf(q=19)"
 MAIN_ROUTINGS = ("fatpaths(n_layers=9,rho=0.6)", "ecmp")
 MAIN_PATTERN = "permutation"
@@ -524,6 +524,8 @@ TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 6
 TRAIN_SHORT_SEQ = 128
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The backward's entry in the kernels line, the one layout 13.1 times.
+BWD_TIMED = "yi-9b bfloat16"
 BWD_LAYOUTS = {
     "yi-9b": dict(b=2, **ATTN_LAYOUTS["yi-9b"]),
     "gemma2-27b": dict(b=1, **ATTN_LAYOUTS["gemma2-27b"]),
@@ -802,14 +804,6 @@ def phase_semiring(ref, semiring_matmul, main_calls):
     library_ms, _ = _replay_ms(torch.matmul, f32, 20)
     bound, by = _sum_bound([_mm_bound(*c) for c in calls])
     bound /= len(calls)
-    for routing in MAIN_ROUTINGS:
-        mine = [(a, b, s) for r, a, b, s in main_calls if r == routing]
-        shapes = sorted({(tuple(a.shape), tuple(b.shape)) for a, b, _ in mine})
-        k_dev, k_wall = _replay_ms(semiring_matmul, mine, 20)
-        p_dev, p_wall = _replay_ms(ref.semiring_matmul_ref, mine, 20)
-        print(f"# semiring on {routing}: {len(mine)} calls {shapes}: "
-              f"device ms/call kernel {k_dev:.5f}, plain {p_dev:.5f}; wall "
-              f"ms/call kernel {k_wall:.5f}, plain {p_wall:.5f}", flush=True)
     print(f"# semiring, main path's calls: device ms/call kernel {ms:.5f}, "
           f"plain {plain_ms:.5f}, torch.matmul f32 {library_ms:.5f}, bound "
           f"{bound:.6f} ({by}); wall ms/call kernel {wall:.5f}, plain "
@@ -836,7 +830,9 @@ def phase_semiring_paths(ref, semiring_matmul, recorded, path_launches, k2):
     (recorded in phase (a)), beside the plain version and, for count,
     ``torch.matmul`` of f32 copies (TF32 off); into ``per_semiring``.
     Each recorded call is one launch on its path (phase (a) holds the
-    launch counts to the recorded calls)."""
+    launch counts to the recorded calls).  The kernel is unchanged, so
+    the times of count's split-K sum pass and its 16-byte-row and
+    batched variants stay those of ``PERF.md`` §6."""
     paths = {"count": ("min_path_stats", "path_counts_power"),
              "minplus": ("ksp",)}
     for s, tags in paths.items():
@@ -846,45 +842,16 @@ def phase_semiring_paths(ref, semiring_matmul, recorded, path_launches, k2):
         plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, mine,
                                  20 if s == "count" else 2)
         lib = None
-        extra = {}
         if s == "count":
             lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
                                                for a, b, _ in mine], 20)
-            # The split-K sum pass apart from the product, one reading.
-            extra["reduce_ms"] = _marked_ms(_replay_split_ms(
-                semiring_matmul, mine, 20)[2], "count_reduce")
-            # The same products on copies whose rows are padded with zeros
-            # to a multiple of 4 floats, so that the kernel stages 16-byte
-            # copies (722-float rows allow 8); equal results, checked.
-            def pad4(x, rows):
-                return torch.nn.functional.pad(
-                    x, (0, -x.shape[1] % 4, 0, -x.shape[0] % 4 if rows
-                        else 0))
-            padded = [(pad4(a, False), pad4(b, True), "count")
-                      for a, b, _ in mine]
-            for (a, b, _), (ap, bp, _) in zip(mine, padded):
-                got = semiring_matmul(ap, bp, "count")
-                if not torch.equal(got[:, :b.shape[1]],
-                                   semiring_matmul(a, b, "count")):
-                    raise AssertionError("count on padded operands differs")
-            extra["padded16_ms"] = _replay_ms(semiring_matmul, padded, 20)[0]
-            # The same products as one batched call (B is the adjacency in
-            # every one): a full grid without split K, per product.
-            if all(torch.equal(b, mine[0][1]) for _, b, _ in mine):
-                stack = torch.stack([a for a, _, _ in mine])
-                one = [(stack, mine[0][1], "count")]
-                extra["batched_ms_per_product"] = _replay_ms(
-                    semiring_matmul, one, 10)[0] / len(mine)
-                extra["batched_library_ms_per_product"] = _replay_ms(
-                    torch.matmul, [(stack, mine[0][1].float())],
-                    10)[0] / len(mine)
         bound, by = _sum_bound([_mm_bound(*c) for c in mine])
         k2["per_semiring"][s] = dict(
             path=" + ".join(tags), calls=len(mine),
             launches=len(mine), ms=ms, wall_ms=wall, plain_ms=plain_ms,
             bound_ms=bound / len(mine), bound_by=by, library_ms=lib,
             shapes=sorted({(tuple(a.shape), tuple(b.shape))
-                           for a, b, _ in mine}), **extra)
+                           for a, b, _ in mine}))
         print(f"# semiring {s} on its path's calls: "
               + json.dumps(k2["per_semiring"][s]), flush=True)
     k2["path_launches"] = path_launches
@@ -1001,13 +968,15 @@ def phase_waterfill(ref, waterfill, main_calls):
 
     calls = [(args, kw) for _, args, kw in main_calls]
     ms, wall = _replay_ms(kernel, calls, 10)
-    plain_ms, plain_wall = _replay_ms(plain, calls, 3)
+    # One pass over the calls for the plain version and the plan: their
+    # many small launches a call make the longest traces to read.
+    plain_ms, plain_wall = _replay_ms(plain, calls, 1)
     bound, by = _sum_bound([wf_bound(*args) for args, _ in calls])
     bound /= len(calls)
     # The plan a direct call (no plan given) builds from its (F, S) edges.
     plan_ms, _ = _replay_ms(waterfill.link_plan,
                             [(args[0], args[3].shape[0])
-                             for args, _ in calls], 3)
+                             for args, _ in calls], 1)
     # Per-phase split over the main path's calls, from %globaltimer: block
     # 0's stamps at the start, after each grid barrier and at its end, and
     # every block's arrival at each barrier.  A phase's work runs from the
@@ -1037,16 +1006,6 @@ def phase_waterfill(ref, waterfill, main_calls):
             "skew_us": us(last[:, b] - first_in[:, b]),
             "barrier_us": us(rel[:, b + 1] - last[:, b])}
     phase_split[names[nb]] = {"work_us": us(rel[:, nb + 1] - rel[:, nb])}
-    for routing, (args, kw) in first.items():
-        edges = args[0]
-        mine = [(a, k) for r, a, k in main_calls if r == routing]
-        k_dev, k_wall = _replay_ms(kernel, mine, 10)
-        p_dev, p_wall = _replay_ms(plain, mine, 3)
-        print(f"# waterfill on {routing}: {len(mine)} calls, edges "
-              f"{tuple(edges.shape)} row stride {edges.stride(0)}, "
-              f"E={args[3].shape[0]}, fair_iters={kw.get('fair_iters')}: "
-              f"device ms/call kernel {k_dev:.5f}, plain {p_dev:.5f}; wall "
-              f"ms/call kernel {k_wall:.5f}, plain {p_wall:.5f}", flush=True)
     print(f"# waterfill, main path's calls: device ms/call kernel {ms:.5f}, "
           f"plain {plain_ms:.5f}, bound {bound:.6f} ({by}); wall ms/call "
           f"kernel {wall:.5f}, plain {plain_wall:.5f}; direct-call plan "
@@ -1265,42 +1224,25 @@ def phase_sparse(ref, sparse_semiring_matmul, occupancy, semiring_matmul,
           "plain within rtol 4e-6 of float64), launches on its own path "
           f"{launches}", flush=True)
 
-    groups = {"all": calls}
-    for s in ("bool", "count", "minplus"):
-        groups[s] = [c for c in calls if c[2] == s]
-    per = {}
-    for name, mine in groups.items():
-        if not mine:
-            continue
-        # One reading: the whole call, and of it the occupancy pass (the
-        # rest is the product, with the packing passes for bool); beside
-        # it K2's dense product on the same calls.
-        ms, _, split = _replay_split_ms(sparse_semiring_matmul, mine, 5)
-        occ_ms = _marked_ms(split, "occupancy")
-        k2_ms, _ = _replay_ms(semiring_matmul, mine, 5)
-        plain_ms, _ = _replay_ms(ref.sparse_semiring_matmul_ref, mine, 2)
-        parts = [_sparse_bound(a, b, s, occupancy) for a, b, s in mine]
-        bound, by = _sum_bound([p for p, _ in parts])
-        lib = None
-        if name == "count":
-            lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
-                                               for a, b, _ in mine], 5)
-        per[name] = dict(calls=len(mine), ms=ms, occupancy_ms=occ_ms,
-                         product_ms=ms - occ_ms, dense_kernel_ms=k2_ms,
-                         plain_ms=plain_ms, bound_ms=bound / len(mine),
-                         bound_by=by, library_ms=lib,
-                         occupied_share=sum(sh for _, sh in parts)
-                         / len(parts))
-        print(f"# sparse on {name} calls: " + json.dumps(per[name]),
-              flush=True)
-    top = per["all"]
+    # One reading over every recorded call: the whole call, and of it the
+    # occupancy pass (the rest is the product, with the packing pass for
+    # bool); beside it K2's dense product on the same calls.  The kernel
+    # is unchanged: its split by semiring stays PERF.md §6's.
+    ms, _, split = _replay_split_ms(sparse_semiring_matmul, calls, 5)
+    occ_ms = _marked_ms(split, "occupancy")
+    k2_ms, _ = _replay_ms(semiring_matmul, calls, 5)
+    plain_ms, _ = _replay_ms(ref.sparse_semiring_matmul_ref, calls, 2)
+    parts = [_sparse_bound(a, b, s, occupancy) for a, b, s in calls]
+    bound, by = _sum_bound([p for p, _ in parts])
+    top = dict(calls=len(calls), ms=ms, occupancy_ms=occ_ms,
+               product_ms=ms - occ_ms, dense_kernel_ms=k2_ms,
+               plain_ms=plain_ms, bound_ms=bound / len(calls), bound_by=by,
+               occupied_share=sum(sh for _, sh in parts) / len(parts))
+    print("# sparse on every recorded call: " + json.dumps(top), flush=True)
     return dict(name="sparse", route="cuda",
                 source="src/repro_torch/kernels/csrc/sparse.cu",
                 replaces="src/repro/kernels/sparse.py:94", launches=launches,
-                max_abs_err=max_err, ms=top["ms"], plain_ms=top["plain_ms"],
-                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                library_ms=None,
-                per_semiring={k: v for k, v in per.items() if k != "all"})
+                max_abs_err=max_err, library_ms=None, **top)
 
 
 def cheung_matrix(adj, p, seed=0):
@@ -1409,31 +1351,6 @@ def _attn_close(out, exp, rtol, atol, what):
     return err, rel
 
 
-def _sdpa_f32(q, k, v, do=None, *, causal, scale):
-    """``scaled_dot_product_attention`` on K5's f32 inputs through
-    SDPA_F32_BACKEND alone, K and V expanded to q's heads outside the timed
-    region where GQA groups them: ``dict(backend, fwd_ms, bwd_ms)`` (device
-    ms a call; ``bwd_ms`` None without ``do``)."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    group = q.shape[1] // k.shape[1]
-    if group > 1:
-        k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
-
-    def fwd(*x):
-        return torch.nn.functional.scaled_dot_product_attention(
-            *x, is_causal=causal, scale=scale)
-    with sdpa_kernel([getattr(SDPBackend, SDPA_F32_BACKEND)]):
-        f_ms, _ = _replay_ms(fwd, [(q, k, v)], 2)
-        b_ms = None
-        if do is not None:
-            xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            o = fwd(*xs)
-            b_ms, _ = _replay_ms(lambda: torch.autograd.grad(
-                o, xs, do, retain_graph=True), [()], 2)
-            del xs, o
-    return dict(backend=SDPA_F32_BACKEND, fwd_ms=f_ms, bwd_ms=b_ms)
-
-
 def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
     """(d) Attention at two full-width layouts in bf16 (the tensor-core
     kernel), held against the plain version two query heads at a time at
@@ -1442,7 +1359,7 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
     layouts in f32 (split TF32) and ragged cases in both types,
     f32 at rtol = atol = 1e-4 and bf16 at bf16's rounding (the JAX
     package's own kernel tolerances, 5e-2 bf16 and 2e-3 f32, are looser
-    than both).  Both kernels timed at both layouts."""
+    than both)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     inputs = {}
     for name, lay in ATTN_LAYOUTS.items():
@@ -1518,60 +1435,16 @@ def phase_flash(ops, ref, flash_attention, LAUNCHES, reset_launches):
           "relative Frobenius err) " + json.dumps(err) + "; fully masked "
           f"rows 0; launches on its own path {launches}", flush=True)
 
-    per = {}
-    for name, lay in ATTN_LAYOUTS.items():
-        q, k, v = inputs[name]
-        kw = kws[name]
-        ms, wall = _replay_ms(lambda *x: ops.attention(*x, **kw),
-                              [(q, k, v)], 2)
-        x32 = [t.float() for t in (q, k, v)]
-        f32_ms, _ = _replay_ms(lambda *x: flash_attention(*x, **kw),
-                               [tuple(x32)], 2)
-        del x32
-        plain_ms, _ = _replay_ms(plain_sliced, [(q, k, v, kw)], 1)
-        lib = lib32 = lib32_gqa = None
-        if lay["softcap"] == 0 and lay["window"] == 0:
-            def sdpa(*x):
-                return torch.nn.functional.scaled_dot_product_attention(
-                    *x, is_causal=lay["causal"], enable_gqa=True)
-            lib, _ = _replay_ms(sdpa, [(q, k, v)], 2)
-            x32 = [t.float() for t in (q, k, v)]
-            lib32_gqa, _ = _replay_ms(sdpa, [tuple(x32)], 2)
-            lib32 = _sdpa_f32(*x32, causal=lay["causal"],
-                              scale=lay["d"] ** -0.5)["fwd_ms"]
-            del x32
-        pairs = _attn_pairs(lay["s"], lay["s"], lay["causal"], lay["window"])
-        t_ops = 4.0 * lay["h"] * lay["d"] * pairs / BF16_FLOP_PER_S
-        t_bytes = sum(x.numel() * 2 for x in (q, k, v, q)) / HBM_BYTES_PER_S
-        t_ops32 = 4.0 * lay["h"] * lay["d"] * pairs / SPLIT_TF32_FLOP_PER_S
-        t_cc32 = 4.0 * lay["h"] * lay["d"] * pairs / F32_FLOP_PER_S
-        per[name] = dict(ms=ms, wall_ms=wall, f32_ms=f32_ms,
-                         f32_bound_ms=max(t_ops32, 2 * t_bytes) * 1e3,
-                         f32_cuda_core_bound_ms=max(t_cc32, 2 * t_bytes)
-                         * 1e3,
-                         plain_ms=plain_ms,
-                         bound_ms=max(t_ops, t_bytes) * 1e3,
-                         bound_by="operations" if t_ops >= t_bytes
-                         else "bytes", library_ms=lib,
-                         library_f32_ms=lib32,
-                         library_f32_backend=SDPA_F32_BACKEND
-                         if lib32 is not None else None,
-                         library_f32_gqa_ms=lib32_gqa,
-                         unmasked_pairs_per_head=pairs)
-        print(f"# attention {name}: " + json.dumps(per[name]), flush=True)
-    # The entry's times are yi-9b's in bf16, the layout that one PyTorch
-    # call (scaled_dot_product_attention) also computes; both layouts and
-    # both kernels are in per_layout.
-    top = per["yi-9b"]
+    # The kernels are unchanged: their times at these layouts stay
+    # PERF.md §6's.  The entry's times are the serving path's (phase
+    # 12.2), set in the kernels line.
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:96",
                 launches=launches,
                 max_abs_err=max(e for e, _ in err.values()),
-                ms=top["ms"], plain_ms=top["plain_ms"],
-                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                library_ms=top["library_ms"], entry_layout="yi-9b bf16",
-                per_layout=per)
+                per_layout={name: dict(max_abs_err=e, rel_frobenius_err=r)
+                            for name, (e, r) in err.items()})
 
 
 def phase_small_cell(Session, transport):
@@ -1672,6 +1545,12 @@ def _profile(fn, top_n: int = 6):
     total = sum(dev_us(e) for e in dev)
     ranked = sorted(dev, key=dev_us, reverse=True)[:top_n]
     PROFILE_WALL.append(time.perf_counter() - t0)
+    frame = sys._getframe(1)
+    while frame.f_back is not None and frame.f_code.co_name in _READERS:
+        frame = frame.f_back
+    tally = PROFILE_BY_CALLER.setdefault(frame.f_code.co_name, [0, 0.0])
+    tally[0] += 1
+    tally[1] += PROFILE_WALL[-1]
     return (total / 1e3, n_dev,
             [[e.key[:60], dev_us(e) / 1e3, e.count] for e in ranked])
 
@@ -1973,22 +1852,18 @@ def _same_runs(results_a, results_b, sims_a, sims_b, what):
 
 
 def _bool_calls_entry(ref, semiring_matmul, calls, launches, what):
-    """K2 bool on one path's recorded products: each bitwise its plain
-    version, then timed beside it and ``torch.matmul`` of f32 copies."""
+    """K2 bool on one path's recorded products, each bitwise its plain
+    version, beside their bound.  The kernel is unchanged: its times on
+    them beside the plain version's and ``torch.matmul``'s stay
+    ``PERF.md`` §6's."""
     max_err = max(_check_equal(semiring_matmul(*c),
                                ref.semiring_matmul_ref(*c),
                                f"semiring bool {what} call {i}")
                   for i, c in enumerate(calls))
-    ms, wall = _replay_ms(semiring_matmul, calls, 20)
-    plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, calls, 5)
-    lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
-                                       for a, b, _ in calls], 20)
     bound, by = _sum_bound([_mm_bound(*c) for c in calls])
-    _, events, kernels = _replay_split_ms(semiring_matmul, calls, 5)
-    return dict(calls=len(calls), launches=launches, ms=ms, wall_ms=wall,
-                plain_ms=plain_ms, bound_ms=bound / len(calls), bound_by=by,
-                library_ms=lib, max_abs_err=max_err, events_a_call=events,
-                kernels_a_call=kernels,
+    return dict(calls=len(calls), launches=launches,
+                bound_ms=bound / len(calls), bound_by=by,
+                max_abs_err=max_err,
                 shapes=sorted({(tuple(a.shape), tuple(b.shape))
                                for a, b, _ in calls}))
 
@@ -1998,7 +1873,7 @@ def phase_pimin(Session, catalog, paths, transport, prng, ref,
     """6. The pi_min cell at sf(q=19) on the card and on the CPU port:
     tables bitwise, ``depart_step`` and metrics equal; the card's stack
     loop-free on every entry; K2 bool held against its plain version on
-    the build's own calls and timed there beside the main sweep's."""
+    the build's own calls."""
     calls = []
     ses, cpu_stack, rr, _, launches, cpu_s = _card_and_cpu(
         Session, catalog, PIMIN_ROUTING, MAIN_PATTERN, MAIN_EVAL, LAUNCHES,
@@ -2101,8 +1976,9 @@ def _static_routing(pattern, mode):
 def _recovery_k1(ses, transport, prng, ref, waterfill_step, routing):
     """K1 on the recovery cell's own calls (400 steps of the dctcp scan
     with ``util``, dead links from step 40 on): a sample held bitwise
-    against the plain version with ``util`` on and off, and all of them
-    timed both ways."""
+    against the plain version with ``util`` on and off.  The kernel is
+    unchanged: its times there with and without ``util`` stay
+    ``PERF.md`` §6's."""
     cell = ses.resolve(ses.grid([MAIN_TOPO], [routing],
                                 [RECOVERY_PATTERN])[0])
     cfg = transport.SimConfig(balancing=cell.bundle.balancing,
@@ -2133,17 +2009,8 @@ def _recovery_k1(ses, transport, prng, ref, waterfill_step, routing):
             max_err = max(max_err, _wf_check(
                 ref, waterfill_step, args, dict(kw, want_util=wu),
                 f"recovery-cell call {i}"))
-
-    def kernel(args, kw):
-        return waterfill_step(*args, **kw)
-
-    on_ms, on_wall = _replay_ms(kernel, calls, 3)
-    off_ms, off_wall = _replay_ms(
-        kernel, [(a, dict(kw, want_util=False)) for a, kw in calls], 3)
     edges, _, _, cap = calls[0][0]
-    return dict(calls=len(calls), ms=on_ms, wall_ms=on_wall,
-                ms_without_util=off_ms, wall_ms_without_util=off_wall,
-                bound_ms=_wf_bound_s(*edges.shape, cap.shape[0], util=True)
+    return dict(calls=len(calls), bound_ms=_wf_bound_s(*edges.shape, cap.shape[0], util=True)
                 * 1e3, bound_by="bytes", n_flows=edges.shape[0],
                 dead_links=dead[-1], max_abs_err=max_err)
 
@@ -2157,8 +2024,7 @@ def phase_faults(Session, catalog, failures, paths, transport, prng, ref,
     tables bitwise, the same report, the card's stack loop-free, K2 bool
     on the repair build's products), the mid-run death cells under dctcp
     recovery (the fatpaths one profiled over RECOVERY_PROFILE_STEPS, K1
-    timed on its calls with and
-    without ``util``), the churn cell under the availability evaluator,
+    held on its calls with and without ``util``), the churn cell under the availability evaluator,
     and the degradation ladder."""
     path_launches = {}
     for pattern, mode in STATIC_DAMAGE:
@@ -2366,8 +2232,7 @@ def phase_paper_stacks(Session, paths, ref, semiring_matmul, LAUNCHES,
     """9.2 The four sf(q=29) stacks under each engine, each built in a new
     session with the launch counts and the peak memory reset before it:
     bitwise equal across engines; the blocked ksp stack's four (min, +)
-    products held against the plain version (whole products) and
-    timed."""
+    products held against the plain version (whole products)."""
     stacks, out, minplus = {}, {}, []
     n = Session(device="cpu").topology(PAPER_TOPO).n_routers
     for eng in ("auto", "dense"):
@@ -2409,14 +2274,11 @@ def phase_paper_stacks(Session, paths, ref, semiring_matmul, LAUNCHES,
                                ref.semiring_matmul_ref(*c),
                                f"sf(q=29) ksp minplus call {i}")
                   for i, c in enumerate(minplus))
-    ms, wall = _replay_ms(semiring_matmul, minplus, 3)
-    plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, minplus, 1)
+    # The kernel is unchanged: its times here stay PERF.md §6's.
     bound, by = _sum_bound([_mm_bound(*c) for c in minplus])
-    entry = dict(calls=len(minplus), launches=len(minplus), ms=ms,
-                 wall_ms=wall, plain_ms=plain_ms,
+    entry = dict(calls=len(minplus), launches=len(minplus),
                  bound_ms=bound / len(minplus), bound_by=by,
-                 library_ms=None, max_abs_err=max_err,
-                 plain_compared="whole products",
+                 max_abs_err=max_err, plain_compared="whole products",
                  shapes=[[8, n, n], [8, n, n]])
     k2["per_semiring"]["minplus"]["paper_ksp_blocked"] = entry
     print("# phase 9.2: sf(q=29) stacks (rand, ksp, pi_min, ecmp) bitwise "
@@ -2432,8 +2294,7 @@ def phase_paper_stats(Session, paths, ref, semiring_matmul, LAUNCHES,
                       reset_launches, k2):
     """9.3 ``min_path_stats(adj, max_l=8)`` of sf(q=29) under each engine:
     distances bitwise, counts bitwise below 2^24; the blocked engine's
-    count products (row blocks) held against the plain version and timed
-    beside the dense engine's."""
+    count products (row blocks) held against the plain version."""
     adj = np.asarray(Session(device="cpu").topology(PAPER_TOPO).adj)
     res, recorded, launches = {}, {}, {}
     for eng in ("dense", "blocked"):
@@ -2467,17 +2328,12 @@ def phase_paper_stats(Session, paths, ref, semiring_matmul, LAUNCHES,
                                     ref.semiring_matmul_ref(a, b, sr), a, b,
                                     f"sf(q=29) row-block count call {i}")
         max_err, n_exact = max(max_err, err), n_exact + ex
+    # The kernel is unchanged: its times here stay PERF.md §6's.
     entries = {}
     for eng, mine in recorded.items():
-        ms, wall = _replay_ms(semiring_matmul, mine, 5)
-        plain_ms, _ = _replay_ms(ref.semiring_matmul_ref, mine, 5)
-        lib, _ = _replay_ms(torch.matmul, [(a.float(), b.float())
-                                           for a, b, _ in mine], 5)
         bound, by = _sum_bound([_mm_bound(*c) for c in mine])
         entries[eng] = dict(calls=len(mine), launches=launches[eng],
-                            ms=ms, wall_ms=wall, plain_ms=plain_ms,
                             bound_ms=bound / len(mine), bound_by=by,
-                            library_ms=lib, path_ms=ms * len(mine),
                             shapes=sorted({(tuple(a.shape), tuple(b.shape))
                                            for a, b, _ in mine}))
     entries["blocked"].update(max_abs_err=max_err, bitwise_calls=n_exact)
@@ -3178,15 +3034,26 @@ def _k5_recorder(calls, decode_at):
     return wrap
 
 
-def _k5_call_reading(ref, flash_attention, call, what):
+def _k5_call_reading(ref, flash_attention, call, what, timed=True):
     """One recorded attention call of a served path: held against the
-    plain version at bf16's rounding, timed beside it, its bound and
-    ``scaled_dot_product_attention(enable_gqa=True)`` on the same
+    plain version at bf16's rounding, its bound and, ``timed``, its time
+    beside the plain version's and
+    ``scaled_dot_product_attention(enable_gqa=True)``'s on the same
     inputs."""
     q, k, v, kw = call
     out = flash_attention(q, k, v, **kw)
     err, rel = _attn_close(out, ref.attention_ref(q, k, v, **kw), 1e-2, 1e-3,
                            f"attention on the served path's {what} call")
+    b, h, sq, d = q.shape
+    lay = dict(b=b, h=h, hkv=k.shape[1], sq=sq, sk=k.shape[2], d=d,
+               dv=v.shape[3], causal=kw["causal"], window=kw["window"])
+    bound, by = _fwd_bound(lay, q.dtype)
+    entry = dict(shape={n: lay[n] for n in ("b", "h", "hkv", "sq", "sk",
+                                             "d", "dv")},
+                 dtype=str(q.dtype).replace("torch.", ""), bound_ms=bound,
+                 bound_by=by, max_abs_err=err, rel_frobenius_err=rel)
+    if not timed:
+        return entry
     ms, wall = _replay_ms(lambda *x: flash_attention(*x, **kw), [(q, k, v)],
                           20)
     plain_ms, _ = _replay_ms(lambda *x: ref.attention_ref(*x, **kw),
@@ -3200,15 +3067,8 @@ def _k5_call_reading(ref, flash_attention, call, what):
     windowed = kw["window"] and kw["window"] < k.shape[2]
     lib = None if windowed or kw["softcap"] else \
         _replay_ms(sdpa, [(q, k, v)], 20)[0]
-    b, h, sq, d = q.shape
-    lay = dict(b=b, h=h, hkv=k.shape[1], sq=sq, sk=k.shape[2], d=d,
-               dv=v.shape[3], causal=kw["causal"], window=kw["window"])
-    bound, by = _fwd_bound(lay, q.dtype)
-    return dict(shape={n: lay[n] for n in ("b", "h", "hkv", "sq", "sk", "d",
-                                           "dv")},
-                dtype=str(q.dtype).replace("torch.", ""), ms=ms, wall_ms=wall,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib, max_abs_err=err, rel_frobenius_err=rel)
+    return dict(entry, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                library_ms=lib)
 
 
 def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
@@ -3438,41 +3298,39 @@ def phase_serve(ref, flash_attention, LAUNCHES, reset_launches):
                 wall_s=wall12)
 
 
-def _fwd_bound(lay, dtype, lse=False, rate=None):
+def _fwd_bound(lay, dtype):
     """(least ms, what bounds it) of K5's forward at layout ``lay`` (``sq``
     and ``sk`` are ``s`` by default, V ``dv`` wide, D by default): 2
     products per unmasked (q, k) pair and head, S = q k^T and P v, 2 (D +
-    Dv) flops, at ``rate`` or the dtype's (bf16's tensor-core rate, f32's
-    split-TF32 floor); q, k, v read once, the output (and with ``lse`` its
-    f32 LSE) written once."""
+    Dv) flops, at the dtype's rate (bf16's tensor-core rate, f32's
+    split-TF32 floor); q, k, v read once, the output written once."""
     b, h, hkv, d = lay["b"], lay["h"], lay["hkv"], lay["d"]
     sq, sk = lay.get("sq", lay.get("s")), lay.get("sk", lay.get("s"))
     dv = lay.get("dv", d)
     pairs = b * h * _attn_pairs(sq, sk, lay["causal"], lay["window"])
-    rate = rate or (BF16_FLOP_PER_S if dtype == torch.bfloat16
-                    else SPLIT_TF32_FLOP_PER_S)
+    rate = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+            else SPLIT_TF32_FLOP_PER_S)
     item = torch.finfo(dtype).bits // 8
-    nbytes = item * (b * h * sq * (d + dv) + b * hkv * sk * (d + dv)) \
-        + (4 * b * h * sq if lse else 0)
+    nbytes = item * (b * h * sq * (d + dv) + b * hkv * sk * (d + dv))
     t_ops = 2.0 * (d + dv) * pairs / rate
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def _bwd_bound(lay, dtype, rate=None):
+def _bwd_bound(lay, dtype):
     """(least ms, what bounds it) of K5's backward at layout ``lay`` (V
     ``dv`` wide, D by default): 5 products per unmasked (q, k) pair and
     head, S = q k^T, dP = dO v^T, dV, dQ and dK, 2 (3 D + 2 Dv) flops (10
-    D at Dv = D), at ``rate`` or the dtype's (bf16's tensor-core rate,
-    f32's split-TF32 floor); q, k, v, o, dO and the LSE read once, dQ, dK,
+    D at Dv = D), at the dtype's rate (bf16's tensor-core rate, f32's
+    split-TF32 floor); q, k, v, o, dO and the LSE read once, dQ, dK,
     dV written once.  The kernels run seven products, so 7/5 of it is
     their design's floor."""
     b, h, hkv, s, d = lay["b"], lay["h"], lay["hkv"], lay["s"], lay["d"]
     dv = lay.get("dv", d)
     pairs = b * h * _attn_pairs(s, s, lay["causal"], lay["window"])
-    rate = rate or (BF16_FLOP_PER_S if dtype == torch.bfloat16
-                    else SPLIT_TF32_FLOP_PER_S)
+    rate = (BF16_FLOP_PER_S if dtype == torch.bfloat16
+            else SPLIT_TF32_FLOP_PER_S)
     item = torch.finfo(dtype).bits // 8
     nbytes = item * 2 * (b * h * s * (d + dv) + b * hkv * s * (d + dv)) \
         + 4 * b * h * s
@@ -3545,13 +3403,12 @@ def phase_bwd(ref, fa_mod):
     """13.1 K5's backward at full-width layouts against its plain version
     (see the constants above), its forward and LSE against the plain
     version's (the output at rtol 1e-2 / atol 1e-3 in bf16 and 1e-4 in
-    f32, the LSE within 1e-4), each backward timed beside its bound and,
-    where there is no softcap and no window,
+    f32, the LSE within 1e-4); every backward launched twice (bitwise
+    equal) on its route (``wgmma-tma`` in bf16, ``tf32x3`` in f32).  The
+    entry's layout (BWD_TIMED) is timed beside its bound and
     ``scaled_dot_product_attention(enable_gqa=True)``'s backward under
-    autograd (in f32 through SDPA's memory-efficient backend alone on K and
-    V expanded to H heads, the ``enable_gqa`` time apart, and the f32
-    forward timed too); every backward launched twice (bitwise equal) on
-    its route (``wgmma-tma`` in bf16, ``tf32x3`` in f32)."""
+    autograd.  The kernels are unchanged: the other layouts' times stay
+    ``PERF.md`` §6's."""
     t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(13)
     per, errs = {}, []
@@ -3592,6 +3449,18 @@ def phase_bwd(ref, fa_mod):
                         f"{err[gname]} above {BWD_TOL[dt]} x {e_max}")
             errs += list(err.values())
             del got, exp
+            key = f"{name} {str(dt).replace('torch.', '')}"
+            bound, by = _bwd_bound(lay, dt)
+            per[key] = dict(shape=dict(b=b, h=h, hkv=hkv, s=s, d=d),
+                            route=route, bound_ms=bound, bound_by=by,
+                            max_abs_err=err, fwd_max_abs_err=f_err,
+                            lse_max_abs_err=lse_err)
+            if key != BWD_TIMED:
+                print(f"# phase 13.1 K5 backward {key}: "
+                      + json.dumps(per[key]), flush=True)
+                del q, k, v, do, out, lse
+                torch.cuda.empty_cache()
+                continue
             ms, wall = _replay_ms(lambda *x: fa_mod.flash_attention_bwd(
                 *x, **kw), [(q, k, v, out, lse, do)], 2)
             plain_ms, _ = _replay_ms(
@@ -3606,37 +3475,9 @@ def phase_bwd(ref, fa_mod):
                 lib, _ = _replay_ms(lambda: torch.autograd.grad(
                     o, xs, do, retain_graph=True), [()], 2)
                 del xs, o
-            bound, by = _bwd_bound(lay, dt)
-            key = f"{name} {str(dt).replace('torch.', '')}"
-            per[key] = dict(shape=dict(b=b, h=h, hkv=hkv, s=s, d=d),
-                            route=route, ms=ms, wall_ms=wall,
-                            split=_bwd_split(fa_mod, (q, k, v, out, lse, do),
-                                             kw),
-                            plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by, library_ms=lib,
-                            max_abs_err=err, fwd_max_abs_err=f_err,
-                            lse_max_abs_err=lse_err)
-            if dt == torch.float32:
-                # f32: SDPA's memory-efficient backend alone on K and V
-                # expanded to H heads is the yardstick; the enable_gqa
-                # call (any backend) stays apart.  The forward with its
-                # LSE is timed too, beside its bounds.
-                sd = _sdpa_f32(q, k, v, do, causal=lay["causal"],
-                               scale=kw["scale"]) if lib is not None \
-                    else dict(backend=None, fwd_ms=None, bwd_ms=None)
-                f_ms, f_wall = _replay_ms(lambda *x: fa_mod._launch(
-                    *x, kw["causal"], kw["window"], kw["softcap"],
-                    kw["scale"], with_lse=True), [(q, k, v)], 2)
-                per[key].update(
-                    library_ms=sd["bwd_ms"], library=sd["backend"],
-                    library_gqa_ms=lib,
-                    cuda_core_bound_ms=_bwd_bound(lay, dt,
-                                                  F32_FLOP_PER_S)[0],
-                    fwd_ms=f_ms, fwd_wall_ms=f_wall,
-                    fwd_bound_ms=_fwd_bound(lay, dt, lse=True)[0],
-                    fwd_cuda_core_bound_ms=_fwd_bound(
-                        lay, dt, lse=True, rate=F32_FLOP_PER_S)[0],
-                    fwd_library_ms=sd["fwd_ms"])
+            per[key].update(
+                ms=ms, wall_ms=wall, plain_ms=plain_ms, library_ms=lib,
+                split=_bwd_split(fa_mod, (q, k, v, out, lse, do), kw))
             print(f"# phase 13.1 K5 backward {key}: " + json.dumps(per[key]),
                   flush=True)
             del q, k, v, do, out, lse
@@ -3956,46 +3797,15 @@ def phase_train(ref, fa_mod, LAUNCHES, reset_launches):
                     "flash_attention_bwd"]}), launches["flash_attention"]
 
 
-def _sdpa_dv(q, k, v, do, scale):
-    """``scaled_dot_product_attention``'s forward and backward ms on K5's
-    inputs, through the first fused backend that takes a V head dimension
-    below Q's (the math backend is the plain composition, no library
-    kernel): ``(backend, forward ms, backward ms)``, or ``(None, reason,
-    None)``."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    def fwd(*x):
-        return torch.nn.functional.scaled_dot_product_attention(
-            *x, is_causal=True, scale=scale)
-    reasons = {}
-    for backend in [getattr(SDPBackend, n) for n in (
-            "FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
-            if hasattr(SDPBackend, n)]:
-        try:
-            with sdpa_kernel([backend]):
-                fwd(q, k, v)
-                xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-                o = fwd(*xs)
-                torch.autograd.grad(o, xs, do, retain_graph=True)
-                f_ms, _ = _replay_ms(fwd, [(q, k, v)], 3)
-                b_ms, _ = _replay_ms(lambda: torch.autograd.grad(
-                    o, xs, do, retain_graph=True), [()], 2)
-            return backend.name, f_ms, b_ms
-        except RuntimeError as err:
-            reasons[backend.name] = str(err).splitlines()[0][:120]
-    return None, reasons, None
-
-
 def phase_mla_k5(ref, fa_mod):
     """14.1 K5 at deepseek-v2's prefill and training layout (MLA_LAYOUT:
     q and k 192 wide, v 128) in bf16 and f32: the forward with its LSE and
     the backward held against the plain versions one KV head at a time
     (the forward at rtol 1e-2 / atol 1e-3 in bf16 and 1e-4 in f32, the
-    LSE within 1e-4, each gradient within 2e-2 or 1e-4 of its largest),
-    each timed beside its bound (forward 2 (D + Dv) flops a pair,
-    backward 2 (3 D + 2 Dv)) and ``scaled_dot_product_attention``'s; the
-    backward launched twice (bitwise equal) on its route (``wgmma-tma``
-    in bf16)."""
+    LSE within 1e-4, each gradient within 2e-2 or 1e-4 of its largest);
+    the backward launched twice (bitwise equal) on its route
+    (``wgmma-tma`` in bf16).  The kernels are unchanged: the layout's
+    times beside their bounds and SDPA's stay ``PERF.md`` §6's."""
     t_phase = time.perf_counter()
     lay = MLA_LAYOUT
     b, h, hkv, s, d, dv = (lay[k] for k in ("b", "h", "hkv", "s", "d", "dv"))
@@ -4033,40 +3843,10 @@ def phase_mla_k5(ref, fa_mod):
         errs["fwd"].append(f_err)
         errs["bwd"] += list(b_err.values())
         del got, exp
-        f_ms, f_wall = _replay_ms(lambda *x: fa_mod._launch(
-            *x, True, 0, 0.0, kw["scale"], with_lse=True), [(q, k, v)], 3)
-        f_plain, _ = _replay_ms(lambda *x: _fwd_plain_sliced(ref, *x, kw),
-                                [(q, k, v)], 1)
-        b_ms, b_wall = _replay_ms(lambda *x: fa_mod.flash_attention_bwd(
-            *x, **kw), [(q, k, v, out, lse, do)], 2)
-        b_plain, _ = _replay_ms(lambda *x: _bwd_plain_sliced(ref, *x, kw),
-                                [(q, k, v, out, lse, do)], 1)
-        if dt == torch.bfloat16:
-            backend, lib_f, lib_b = _sdpa_dv(q, k, v, do, kw["scale"])
-        else:  # SDPA's memory-efficient backend alone (split TF32)
-            sd = _sdpa_f32(q, k, v, do, causal=True, scale=kw["scale"])
-            backend, lib_f, lib_b = sd["backend"], sd["fwd_ms"], sd["bwd_ms"]
-        f_bound, f_by = _fwd_bound(lay, dt, lse=True)
-        b_bound, b_by = _bwd_bound(lay, dt)
         shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, dv=dv, causal=True)
-        fwd[name] = dict(
-            shape=shape, ms=f_ms, wall_ms=f_wall, plain_ms=f_plain,
-            bound_ms=f_bound, bound_by=f_by, library_ms=lib_f if backend else None,
-            library=backend or f"none: {lib_f}", with_lse=True,
-            max_abs_err=f_err, rel_frobenius_err=f_rel,
-            lse_max_abs_err=lse_err)
-        bwd[name] = dict(
-            shape=shape, ms=b_ms, wall_ms=b_wall, plain_ms=b_plain,
-            bound_ms=b_bound, bound_by=b_by,
-            library_ms=lib_b if backend else None,
-            library=backend or f"none: {lib_f}", max_abs_err=b_err,
-            route=route,
-            split=_bwd_split(fa_mod, (q, k, v, out, lse, do), kw))
-        if dt == torch.float32:
-            fwd[name]["cuda_core_bound_ms"] = _fwd_bound(
-                lay, dt, lse=True, rate=F32_FLOP_PER_S)[0]
-            bwd[name]["cuda_core_bound_ms"] = _bwd_bound(
-                lay, dt, F32_FLOP_PER_S)[0]
+        fwd[name] = dict(shape=shape, with_lse=True, max_abs_err=f_err,
+                         rel_frobenius_err=f_rel, lse_max_abs_err=lse_err)
+        bwd[name] = dict(shape=shape, max_abs_err=b_err, route=route)
         print(f"# phase 14.1 K5 forward {name}: " + json.dumps(fwd[name]),
               flush=True)
         print(f"# phase 14.1 K5 backward {name}: " + json.dumps(bwd[name]),
@@ -4234,11 +4014,12 @@ def _served(arch, cfg, n_prefill, per_step, LAUNCHES, reset_launches):
 
 
 def _served_calls(ref, flash_attention, arch, calls, sub):
-    """K5 on the served path's own recorded calls, as phase 12.2 reads
-    yi-9b's."""
-    per = {f"{arch} serve {what}": _k5_call_reading(ref, flash_attention,
-                                                    calls[what], what)
-           for what in sorted(calls)}
+    """K5 on the served path's own recorded calls, held as phase 12.2
+    holds yi-9b's.  The kernel is unchanged: their times stay
+    ``PERF.md`` §6's."""
+    per = {f"{arch} serve {what}": _k5_call_reading(
+        ref, flash_attention, calls[what], what, timed=False)
+        for what in sorted(calls)}
     if per:
         print(f"# phase {sub} K5 on the path's own calls: "
               + json.dumps(per), flush=True)
@@ -4550,8 +4331,7 @@ def phase_moe(ref, fa_mod, LAUNCHES, reset_launches):
 # Phase 15, the recurrent families (src/repro/configs/zamba2_1p2b.py and
 # rwkv6_7b.py, arXiv:2411.15242 and 2404.05892).  K5 at zamba2's shared
 # attention block's training layout: 32 heads of 64 (MHA), causal, window
-# 4096 at S 4096 (the window covers every causal pair there, so SDPA's
-# ``is_causal`` computes the same function).  zamba2-1.2b served uncut
+# 4096 at S 4096 (the window covers every causal pair there).  zamba2-1.2b served uncut
 # (38 layers: 2 repeats of 18 Mamba2 blocks and the shared block; 1.118e9
 # parameters) and rwkv6-7b uncut (32 layers, 7.53e9), drawn on the card
 # in f32 and served in bf16 at the launcher's defaults.  At full width and
@@ -4599,17 +4379,14 @@ def phase_zamba_k5(ref, fa_mod):
 
 
 def _k5_train_layout(ref, fa_mod, lay, label, seed, sub):
-    """K5 at the training layout ``lay`` (no softcap; SDPA computes the
-    same function: no window, or one that covers every causal pair) in
-    bf16 (the tensor-core kernels) and f32: the forward with its LSE and
-    the backward held against the plain versions one KV head at a time
-    (13.1's tolerances), each timed beside its bound (4 D flops a pair
-    forward, 10 D backward) and ``scaled_dot_product_attention``'s
-    forward and backward with the layout's ``is_causal`` (in f32 through
-    its memory-efficient backend alone); the backward launched twice
-    (bitwise equal) on its route (``wgmma-tma`` in bf16, ``tf32x3`` in
-    f32).  Entries are named ``label`` and the dtype, printed as phase
-    ``sub``."""
+    """K5 at the training layout ``lay`` (no softcap) in bf16 (the
+    tensor-core kernels) and f32: the forward with its LSE and the
+    backward held against the plain versions one KV head at a time
+    (13.1's tolerances); the backward launched twice (bitwise equal) on
+    its route (``wgmma-tma`` in bf16, ``tf32x3`` in f32).  The kernels
+    are unchanged: the layout's times beside their bounds and SDPA's
+    stay ``PERF.md`` §6's.  Entries are named ``label`` and the dtype,
+    printed as phase ``sub``."""
     t_phase = time.perf_counter()
     b, h, hkv, s, d = (lay[k] for k in ("b", "h", "hkv", "s", "d"))
     causal = lay["causal"]
@@ -4619,10 +4396,6 @@ def _k5_train_layout(ref, fa_mod, lay, label, seed, sub):
     kw = dict(causal=causal, window=lay["window"], softcap=0.0,
               scale=d ** -0.5)
     fwd, bwd, errs = {}, {}, {"fwd": [], "bwd": []}
-
-    def sdpa(*x):
-        return torch.nn.functional.scaled_dot_product_attention(
-            *x, is_causal=causal, scale=kw["scale"])
     for dt in (torch.bfloat16, torch.float32):
         name = f"{label} {str(dt).replace('torch.', '')}"
         q, k, v, do = (t.to(dt) for t in base)
@@ -4650,46 +4423,11 @@ def _k5_train_layout(ref, fa_mod, lay, label, seed, sub):
         errs["fwd"].append(f_err)
         errs["bwd"] += list(b_err.values())
         del got, exp
-        f_ms, f_wall = _replay_ms(lambda *x: fa_mod._launch(
-            *x, causal, lay["window"], 0.0, kw["scale"], with_lse=True),
-            [(q, k, v)], 3)
-        f_plain, _ = _replay_ms(lambda *x: _fwd_plain_sliced(ref, *x, kw),
-                                [(q, k, v)], 1)
-        b_ms, b_wall = _replay_ms(lambda *x: fa_mod.flash_attention_bwd(
-            *x, **kw), [(q, k, v, out, lse, do)], 2)
-        b_plain, _ = _replay_ms(lambda *x: _bwd_plain_sliced(ref, *x, kw),
-                                [(q, k, v, out, lse, do)], 1)
-        if dt == torch.bfloat16:
-            lib_f, _ = _replay_ms(sdpa, [(q, k, v)], 3)
-            xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-            o = sdpa(*xs)
-            lib_b, _ = _replay_ms(lambda: torch.autograd.grad(
-                o, xs, do, retain_graph=True), [()], 2)
-            del xs, o
-            backend = None
-        else:  # SDPA's memory-efficient backend alone (split TF32)
-            sd = _sdpa_f32(q, k, v, do, causal=causal, scale=kw["scale"])
-            lib_f, lib_b, backend = sd["fwd_ms"], sd["bwd_ms"], sd["backend"]
-        f_bound, f_by = _fwd_bound(lay, dt, lse=True)
-        b_bound, b_by = _bwd_bound(lay, dt)
         shape = dict(b=b, h=h, hkv=hkv, s=s, d=d, causal=causal,
                      window=lay["window"])
-        fwd[name] = dict(
-            shape=shape, ms=f_ms, wall_ms=f_wall, plain_ms=f_plain,
-            bound_ms=f_bound, bound_by=f_by, library_ms=lib_f,
-            with_lse=True, max_abs_err=f_err, rel_frobenius_err=f_rel,
-            lse_max_abs_err=lse_err)
-        bwd[name] = dict(
-            shape=shape, ms=b_ms, wall_ms=b_wall, plain_ms=b_plain,
-            bound_ms=b_bound, bound_by=b_by, library_ms=lib_b,
-            max_abs_err=b_err, route=route,
-            split=_bwd_split(fa_mod, (q, k, v, out, lse, do), kw))
-        if backend:
-            fwd[name]["library"] = bwd[name]["library"] = backend
-            fwd[name]["cuda_core_bound_ms"] = _fwd_bound(
-                lay, dt, lse=True, rate=F32_FLOP_PER_S)[0]
-            bwd[name]["cuda_core_bound_ms"] = _bwd_bound(
-                lay, dt, F32_FLOP_PER_S)[0]
+        fwd[name] = dict(shape=shape, with_lse=True, max_abs_err=f_err,
+                         rel_frobenius_err=f_rel, lse_max_abs_err=lse_err)
+        bwd[name] = dict(shape=shape, max_abs_err=b_err, route=route)
         print(f"# phase {sub} K5 forward {name}: " + json.dumps(fwd[name]),
               flush=True)
         print(f"# phase {sub} K5 backward {name}: " + json.dumps(bwd[name]),
@@ -5308,7 +5046,7 @@ def _front_encode(ref, flash_attention, LAUNCHES, reset_launches):
     profiled and split beside its bound (2 N T for the products, 4 D a
     pair for attention, at the bf16 rate); ``make_prefill_step`` on the
     same input, its logits the forward's last ones bitwise; K5 on the
-    path's own call (layer 0's) held and timed as in 12.2."""
+    path's own call (layer 0's) held as in 12.2."""
     from repro_torch import configs
     from repro_torch.dist.sharding import Runtime
     from repro_torch.models import attention as attn_mod
@@ -5384,7 +5122,8 @@ def _front_encode(ref, flash_attention, LAUNCHES, reset_launches):
     gc.collect()
     torch.cuda.empty_cache()
     per = {f"{arch} encode": _k5_call_reading(ref, flash_attention,
-                                              calls[0], "encode")}
+                                              calls[0], "encode",
+                                              timed=False)}
     print("# phase 16.3 K5 on the path's own call: " + json.dumps(per),
           flush=True)
     return launches["flash_attention"], prefill_launches, per
@@ -5688,9 +5427,22 @@ def phase_frontends(ref, fa_mod, LAUNCHES, reset_launches):
 # quantised by its own scale, the int8 payloads gathered by gloo and
 # summed in int32, times the rank's scale, over the ranks); its losses
 # finite, the last below the first and falling at every step after the
-# second (AdamW's first step overshoots from the random init).
+# second (AdamW's first step overshoots from the random init).  Then the
+# other families on the same mesh (DP_FAMILIES, full width, the depth
+# cut as given; f32, full remat, the same rows, DP_FAMILY_STEPS steps):
+# olmoe-1b-7b at 1 of 16 layers (the experts, their load-balance loss
+# over the global batch), zamba2-1.2b at 19 of 38 (one repeat of its
+# pattern: 18 Mamba2 blocks and the shared attention block), each loop's
+# losses, and olmoe's aux, at rtol 1e-5 of the same loop in one process;
+# and C4's step (DP_C4: olmoe's, the cheaper) at grad_accum 2 under
+# int8_ef on DP_C4_BATCH rows, one a rank a microbatch, against one
+# process: grad norm rtol 1e-5, parameters as the CPU tests hold int8
+# steps (``_lr_gaps``).  DP_DEADLINE_S covers the three models.
 DP_ARCH, DP_LAYERS, DP_RANKS = "yi-9b", 2, 2
 DP_SEQ, DP_STEPS, DP_INT8_STEPS, DP_RINGS = 2048, 3, 6, 4
+DP_FAMILIES = (("olmoe-1b-7b", 1), ("zamba2-1.2b", 19))
+DP_FAMILY_STEPS = 2
+DP_C4, DP_C4_BATCH = ("olmoe-1b-7b", 1), 4
 DP_GROUP_TIMEOUT_S = 120
 DP_DEADLINE_S = 300
 
@@ -5710,6 +5462,25 @@ def _dp_gaps(got, exp):
     from repro_torch.train.optimizer import tree_leaves
     return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                for a, b in zip(tree_leaves(got), tree_leaves(exp)))
+
+
+def _lr_gaps(got, exp, lr):
+    """Two trees of parameters after one AdamW step, in units of its
+    learning rate: the largest ``|got - exp| / lr`` and the largest share
+    of a leaf's elements off by more than 2^-6 lr + 1e-6.  AdamW's first
+    update is about ``lr sign(g)``, so a gradient component that one
+    side's int8 quantisation rounds to 0 and the other's to one step (an
+    ``x / scale`` on a rounding half) moves its parameter by up to 2 lr
+    on one side only (``tests/test_torch_train_steps.py``: every element
+    within 1e-6 + 2.5 lr, all but 1e-3 of a leaf's within 1e-6 + 2^-6
+    lr)."""
+    from repro_torch.train.optimizer import tree_leaves
+    worst, share = 0.0, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(exp)):
+        err = (a - b).abs()
+        worst = max(worst, float((err.max() - 1e-6) / lr))
+        share = max(share, float((err > 2 ** -6 * lr + 1e-6).float().mean()))
+    return worst, share
 
 
 def _dp_checksums(tree):
@@ -5732,6 +5503,257 @@ def _dp_rank(rank, init, q):
         q.put((rank, True, _dp_rank_body(rank, init)))
     except Exception:   # the parent fails the phase with it
         q.put((rank, False, traceback.format_exc()))
+
+
+def _dp_loop_run(loop, LAUNCHES, reset_launches, apps, what,
+                 keep_first=False):
+    """``loop`` (a ``TrainLoop`` on the mesh) run once, the counts set to
+    0 just before and read just after: exactly 2 K5 forward launches (the
+    forward, the remat recompute) and 1 backward an attention
+    application a step.  Each step split into the wire (host staging
+    apart), the gradient pass and the rest; the state's set-up timed.
+    With ``keep_first``, the first step's reduced gradients and its
+    parameters after that step (this rank's shards) kept in ``first``.
+    Returns ``(info, first)``."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    mesh_step, first, split, grad_s = loop.step_fn, {}, [], [0.0]
+    init_state = loop.init_state
+    info = {}
+
+    def timed_init(seed=0):
+        t = time.perf_counter()
+        state = init_state(seed)
+        torch.cuda.synchronize()
+        info["init_state_s"] = time.perf_counter() - t
+        return state
+
+    def step_fn(params, opt, batch, i):
+        w = mesh_step.wire
+        before = (w.seconds, w.staging_seconds, grad_s[0])
+        t = time.perf_counter()
+        res = mesh_step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        part = dict(step_s=time.perf_counter() - t,
+                    wire_s=w.seconds - before[0],
+                    staging_s=w.staging_seconds - before[1],
+                    gradient_pass_s=grad_s[0] - before[2])
+        part["rest_s"] = (part["step_s"] - part["wire_s"]
+                          - part["gradient_pass_s"])
+        split.append(part)
+        if i == 0 and keep_first:
+            first["params"] = topt.tree_map(torch.clone, res[0])
+        return res
+
+    def timed_grads(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            grad_s[0] += time.perf_counter() - t
+            return res
+        return call
+
+    def keep_reduced(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            if keep_first:
+                first.setdefault("grads", topt.tree_map(torch.clone, out))
+            return out
+        return call
+    loop.step_fn, loop.init_state = step_fn, timed_init
+    steps = loop.lc.total_steps
+    reset_launches()
+    t0 = time.perf_counter()
+    with _patched(tts, "reduce_grads", keep_reduced), \
+            _patched(tts, "loss_and_grads", timed_grads):
+        res = loop.run(seed=0)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _need_launches(launches, ("flash_attention",), what,
+                   exactly=2 * apps * steps)
+    _need_launches(launches, ("flash_attention_bwd",), what,
+                   exactly=apps * steps)
+    hist = res["history"]
+    walls = [h["wall_s"] for h in hist]
+    w = mesh_step.wire
+    info.update(
+        run_s=time.perf_counter() - t0, losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
+        steady_step_s=float(np.median(walls[1:])),
+        wire_bytes_a_step=w.reduced_bytes / steps,
+        wire_s_a_step=w.seconds / steps,
+        staging_s_a_step=w.staging_seconds / steps,
+        collective_calls_a_step=w.calls / steps, step_split=split,
+        k5=[launches["flash_attention"], launches["flash_attention_bwd"]])
+    if "aux" in hist[0]:
+        info["aux"] = [h["aux"] for h in hist]
+    return info, first
+
+
+def _attn_apps(cfg):
+    """Attention applications a forward: g, l and a blocks a repeat."""
+    return sum(ch in "gla" for ch in cfg.layer_pattern) * cfg.pattern_repeats
+
+
+def _dp_single(cfg, one, data, tc, dev, ds, steps):
+    """The same loop in one process on the mesh's global rows."""
+    from repro_torch.train import loop as tloop
+    single = tloop.TrainLoop(cfg, one, data, tc,
+                             tloop.LoopConfig(total_steps=steps,
+                                              log_every=1), device=dev)
+    single.data.batch = lambda step: _dp_global(ds, step, dev)
+    t0 = time.perf_counter()
+    hist = single.run(seed=0)["history"]
+    torch.cuda.synchronize()
+    info = dict(losses=[h["loss"] for h in hist],
+                grad_norms=[h["grad_norm"] for h in hist],
+                steady_step_s=float(np.median(
+                    [h["wall_s"] for h in hist][1:])),
+                run_s=time.perf_counter() - t0)
+    if "aux" in hist[0]:
+        info["aux"] = [h["aux"] for h in hist]
+    return info
+
+
+def _dp_family(arch, layers, rank, rt, one, dev, group, LAUNCHES,
+               reset_launches):
+    """17.3 / 17.4: ``arch`` at full width, ``layers`` layers, in f32
+    with its full remat, through ``TrainLoop`` on the mesh for
+    DP_FAMILY_STEPS steps (:func:`_dp_loop_run`), held to the same loop
+    in one process (losses and, with experts, the aux at rtol 1e-5); the
+    ranks' mean of the aux their own rows give printed beside the
+    global one; peak memory a rank."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.collectives import all_reduce
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers,
+                              dtype="float32")
+    data = DataConfig(DP_RANKS, DP_SEQ, seed=0)
+    tc = tts.TrainConfig(opt=topt.AdamWConfig(
+        warmup_steps=1, total_steps=DP_FAMILY_STEPS))
+    loop = tloop.TrainLoop(cfg, rt, data, tc,
+                           tloop.LoopConfig(total_steps=DP_FAMILY_STEPS,
+                                            log_every=1), device=dev)
+    info, _ = _dp_loop_run(loop, LAUNCHES, reset_launches,
+                           _attn_apps(cfg), f"17 {arch} mesh loop")
+    out = dict(arch=arch, n_layers=layers,
+               cut=f"n_layers {configs.get_config(arch).n_layers} -> "
+                   f"{layers}", remat=cfg.remat, mesh=info)
+    ds = loop.data
+    rows = ds.batch(0)
+    del loop
+    if cfg.moe is not None:
+        # the aux of this rank's rows alone (no batch group), at the
+        # first step's parameters; the ranks' mean of it
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p0 = model_mod.init_params(cfg, one, gen, dev)
+        with torch.no_grad():
+            local = model_mod.loss_fn(p0, cfg, one, rows)[1]["aux"]
+        del p0
+        out["ranks_mean_local_aux"] = float(all_reduce(local, group)
+                                            / DP_RANKS)
+    if rank == 0:
+        out["single"] = single = _dp_single(cfg, one, data, tc, dev, ds,
+                                            DP_FAMILY_STEPS)
+        for key in ("losses", "aux"):
+            if key in single and not np.allclose(info[key], single[key],
+                                                 rtol=1e-5, atol=0):
+                raise AssertionError(f"17 {arch}: mesh {key} {info[key]} "
+                                     f"vs one process's {single[key]}")
+    dist.barrier()   # rank 1 waits here for rank 0's one-process run
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _dp_c4(arch, layers, rank, rt, one, dev, LAUNCHES, reset_launches):
+    """17.5 C4 on the card: one mesh step of ``arch`` (``layers`` layers,
+    f32, full remat) at grad_accum 2 under ``int8_ef`` on DP_C4_BATCH
+    global rows, so that each microbatch is one row a rank (its gradient
+    reduced over the ranks before the int8 quantisation), counts 0
+    before and read after (exactly 4 K5 forward and 2 backward launches:
+    two microbatches); held to the same step in one process on the same
+    rows: grad norm rtol 1e-5, parameters as ``tests/
+    test_torch_train_steps.py`` holds int8 steps (:func:`_lr_gaps`)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.dist.sharding import tree_map_specs
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers,
+                              dtype="float32")
+    tc = tts.TrainConfig(opt=topt.AdamWConfig(
+        warmup_steps=1, total_steps=2, compress="int8_ef"), grad_accum=2)
+    ds = SyntheticDataset(cfg, DataConfig(DP_C4_BATCH, DP_SEQ, seed=1), rt,
+                          dev)
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return model_mod.init_params(cfg, one, gen, dev)
+    pspecs = model_mod.param_specs(cfg, rt)
+    p = tree_map_specs(lambda x, s: rt.local(x, s).clone(), draw(), pspecs)
+    o = topt.adamw_init(p)
+    step = tts.make_train_step(cfg, rt, tc)
+    batch = ds.batch(0)
+    apps = _attn_apps(cfg)
+    reset_launches()
+    t = time.perf_counter()
+    p, o, m = step(p, o, batch, 0)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    _need_launches(launches, ("flash_attention",), "17 C4 step",
+                   exactly=2 * apps * 2)
+    _need_launches(launches, ("flash_attention_bwd",), "17 C4 step",
+                   exactly=apps * 2)
+    w = step.wire
+    out = dict(arch=arch, n_layers=layers, global_batch=DP_C4_BATCH,
+               grad_accum=2, compress="int8_ef", step_s=step_s,
+               loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               wire_bytes=w.reduced_bytes, wire_s=w.seconds,
+               staging_s=w.staging_seconds, collective_calls=w.calls,
+               k5=[launches["flash_attention"],
+                   launches["flash_attention_bwd"]])
+    full = tree_map_specs(rt.gather, p, pspecs)
+    del p, o
+    if rank == 0:
+        p1 = draw()
+        o1 = topt.adamw_init(p1)
+        p1, o1, m1 = tts.make_train_step(cfg, one, tc)(
+            p1, o1, _dp_global(ds, 0, dev), 0)
+        out["single"] = dict(loss=float(m1["loss"]),
+                             grad_norm=float(m1["grad_norm"]))
+        out["parameter_gap_in_lr"], out["parameter_share_off"] = \
+            worst, share = _lr_gaps(full, p1, float(m["lr"]))
+        del p1, o1
+        if not (abs(out["grad_norm"] - out["single"]["grad_norm"])
+                <= 1e-5 * out["single"]["grad_norm"]
+                and worst <= 2.5 and share <= 1e-3):
+            raise AssertionError(f"17 C4: mesh step {out} against one "
+                                 "process's")
+    del full
+    dist.barrier()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def _dp_rank_body(rank, init):
@@ -5777,89 +5799,19 @@ def _dp_rank_body(rank, init):
             gen = torch.Generator(device=dev).manual_seed(0)
             return model_mod.init_params(cfg, one, gen, dev)
 
-        def loop_of(runtime):
-            return tloop.TrainLoop(
-                cfg, runtime, data, tc,
-                tloop.LoopConfig(total_steps=DP_STEPS, log_every=1),
-                device=dev)
-
         # (i) the mesh step through TrainLoop; its first step's reduced
         # gradients and its parameters after that step kept (this rank's
-        # shards: the later steps update in place); each step split into
-        # the wire (host staging apart), the gradient pass and the rest,
-        # and the state's set-up timed
-        loop = loop_of(rt)
-        mesh_step, first, split, grad_s = loop.step_fn, {}, [], [0.0]
-        init_state = loop.init_state
-
-        def timed_init(seed=0):
-            t = time.perf_counter()
-            state = init_state(seed)
-            torch.cuda.synchronize()
-            out["mesh_init_state_s"] = time.perf_counter() - t
-            return state
-
-        def step_fn(params, opt, batch, i):
-            w = mesh_step.wire
-            before = (w.seconds, w.staging_seconds, grad_s[0])
-            t = time.perf_counter()
-            res = mesh_step(params, opt, batch, i)
-            torch.cuda.synchronize()
-            part = dict(step_s=time.perf_counter() - t,
-                        wire_s=w.seconds - before[0],
-                        staging_s=w.staging_seconds - before[1],
-                        gradient_pass_s=grad_s[0] - before[2])
-            part["rest_s"] = (part["step_s"] - part["wire_s"]
-                              - part["gradient_pass_s"])
-            split.append(part)
-            if i == 0:
-                first["params"] = topt.tree_map(torch.clone, res[0])
-            return res
-
-        def timed_grads(fn):
-            def call(*a, **kw):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                res = fn(*a, **kw)
-                torch.cuda.synchronize()
-                grad_s[0] += time.perf_counter() - t
-                return res
-            return call
-
-        def keep_reduced(fn):
-            def call(*a, **kw):
-                out = fn(*a, **kw)
-                first.setdefault("grads", topt.tree_map(torch.clone, out))
-                return out
-            return call
-        loop.step_fn, loop.init_state = step_fn, timed_init
-        reset_launches()
-        t0 = time.perf_counter()
-        with _patched(tts, "reduce_grads", keep_reduced), \
-                _patched(tts, "loss_and_grads", timed_grads):
-            res = loop.run(seed=0)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        _need_launches(launches, ("flash_attention",), "17 mesh loop",
-                       exactly=fwd * DP_STEPS)
-        _need_launches(launches, ("flash_attention_bwd",), "17 mesh loop",
-                       exactly=bwd * DP_STEPS)
-        hist = res["history"]
-        walls = [h["wall_s"] for h in hist]
-        w = mesh_step.wire
-        out["mesh"] = dict(
-            run_s=time.perf_counter() - t0, losses=[h["loss"] for h in hist],
-            grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
-            steady_step_s=float(np.median(walls[1:])),
-            wire_bytes_a_step=w.reduced_bytes / DP_STEPS,
-            wire_s_a_step=w.seconds / DP_STEPS,
-            staging_s_a_step=w.staging_seconds / DP_STEPS,
-            collective_calls_a_step=w.calls / DP_STEPS, step_split=split,
-            k5=[launches["flash_attention"],
-                launches["flash_attention_bwd"]])
+        # shards: the later steps update in place)
+        loop = tloop.TrainLoop(cfg, rt, data, tc,
+                               tloop.LoopConfig(total_steps=DP_STEPS,
+                                                log_every=1), device=dev)
+        out["mesh"], first = _dp_loop_run(
+            loop, LAUNCHES, reset_launches, DP_LAYERS, "17 mesh loop",
+            keep_first=True)
+        out["mesh_init_state_s"] = out["mesh"].pop("init_state_s")
         pspecs = loop.specs["params"]
         ds = loop.data
-        del loop, res
+        del loop
 
         # the first step's reduced gradients (this rank's shards) against
         # the gradients of the global batch in one process
@@ -5875,18 +5827,8 @@ def _dp_rank_body(rank, init):
             raise AssertionError(f"17: reduced gradients {gap} of a leaf's "
                                  "largest from one process's")
         if rank == 0:
-            single = loop_of(one)
-            single.data.batch = lambda step: _dp_global(ds, step, dev)
-            t0 = time.perf_counter()
-            sres = single.run(seed=0)
-            torch.cuda.synchronize()
-            out["single"] = dict(
-                losses=[h["loss"] for h in sres["history"]],
-                grad_norms=[h["grad_norm"] for h in sres["history"]],
-                steady_step_s=float(np.median(
-                    [h["wall_s"] for h in sres["history"]][1:])),
-                run_s=time.perf_counter() - t0)
-            del single, sres
+            out["single"] = _dp_single(cfg, one, data, tc, dev, ds,
+                                       DP_STEPS)
             if not np.allclose(out["mesh"]["losses"],
                                out["single"]["losses"], rtol=1e-5, atol=0):
                 raise AssertionError(f"17: mesh losses {out['mesh']} vs one "
@@ -5990,6 +5932,17 @@ def _dp_rank_body(rank, init):
         out["manual_k5"] = [launches["flash_attention"],
                             launches["flash_attention_bwd"]]
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del first
+        torch.cuda.empty_cache()
+        # (iii) the other families on the mesh, then C4's step
+        out["families"] = {}
+        for arch, layers in DP_FAMILIES:
+            out["families"][arch] = _dp_family(
+                arch, layers, rank, rt, one, dev, group, LAUNCHES,
+                reset_launches)
+            torch.cuda.empty_cache()
+        out["c4"] = _dp_c4(*DP_C4, rank, rt, one, dev, LAUNCHES,
+                           reset_launches)
         out["body_s"] = time.perf_counter() - t_body
         return out
     finally:
@@ -6009,8 +5962,11 @@ def phase_dp():
     ranks bitwise equal, the int8 error-feedback wire's first grad norm
     against its arithmetic done apart, then 6 steps on a fixed batch
     with its loss falling and the ranks' largest parameter gap printed;
-    exactly 4 K5 forward and 2 backward launches a step.  Step wall, wire
-    bytes and seconds, host staging and peak memory per rank."""
+    exactly 4 K5 forward and 2 backward launches a step; (iii) olmoe-1b-7b
+    and zamba2-1.2b on the mesh (:func:`_dp_family`), then C4's step
+    (:func:`_dp_c4`).  Step wall, wire bytes and seconds, host staging
+    and peak memory per rank.  Returns each rank's K5 launches a path,
+    ``{rank: {(arch, kind): [forward, backward]}}``."""
     import multiprocessing
     import queue
     import tempfile
@@ -6059,8 +6015,15 @@ def phase_dp():
               flush=True)
     wall = time.perf_counter() - t0
     print(f"# phase 17: wall {wall:.1f} s", flush=True)
-    return {r: dict(mesh=results[r]["mesh"]["k5"],
-                    manual=results[r]["manual_k5"]) for r in results}
+    out = {}
+    for r, res in results.items():
+        out[r] = {(DP_ARCH, "mesh"): res["mesh"]["k5"],
+                  (DP_ARCH, "manual"): res["manual_k5"],
+                  **{(arch, "mesh"): fam["mesh"]["k5"]
+                     for arch, fam in res["families"].items()},
+                  (res["c4"]["arch"], "grad_accum 2, int8_ef"):
+                      res["c4"]["k5"]}
+    return out
 
 
 def main() -> int:
@@ -6227,10 +6190,10 @@ def _main(stop) -> int:
                            "hubert-xlarge prefill step": front["prefill"],
                            "hubert-xlarge train":
                                front["train"]["flash_attention"],
-                           **{f"{DP_ARCH} data-parallel train rank {r} "
-                              f"({kind})": n[kind][0]
+                           **{f"{arch} data-parallel train rank {r} "
+                              f"({kind})": k5[0]
                               for r, n in dp.items()
-                              for kind in ("mesh", "manual")}}
+                              for (arch, kind), k5 in n.items()}}
     for part in (serve["per_layout"], moe["fwd"], moe["serve_k5"],
                  rec["fwd"], rec["serve_k5"], front["fwd"],
                  front["serve_k5"]):
@@ -6254,8 +6217,8 @@ def _main(stop) -> int:
     k5b["path_launches"]["hubert-xlarge train"] = \
         front["train"]["flash_attention_bwd"]
     k5b["path_launches"].update(
-        {f"{DP_ARCH} data-parallel train rank {r} ({kind})": n[kind][1]
-         for r, n in dp.items() for kind in ("mesh", "manual")})
+        {f"{arch} data-parallel train rank {r} ({kind})": k5[1]
+         for r, n in dp.items() for (arch, kind), k5 in n.items()})
     k5b["per_layout"].update(moe["bwd"])
     k5b["per_layout"].update(rec["bwd"])
     k5b["per_layout"].update(front["bwd"])
@@ -6290,7 +6253,9 @@ def _main(stop) -> int:
           f"{max(lost)} in one; next lead {PROFILE_LEAD[0]}); readings taken "
           "again after losing device "
           f"events of the call: {len(PROFILE_RETRIES)} ((lead, lost): "
-          f"{PROFILE_RETRIES})", flush=True)
+          f"{PROFILE_RETRIES}); by caller [readings, s]: "
+          + json.dumps(dict(sorted(PROFILE_BY_CALLER.items(),
+                                   key=lambda kv: -kv[1][1]))), flush=True)
     # Every kernel's keys, then the breakdowns some of them carry.
     print(json.dumps({"kernels": [
         {**{k: d[k] for k in keys}, **{k: v for k, v in d.items()

@@ -45,6 +45,7 @@ __all__ = [
     "ring_all_gather",
     "multiring_all_reduce",
     "all_reduce",
+    "replicated_sum",
     "all_gather",
     "WireLog",
 ]
@@ -133,6 +134,28 @@ def all_reduce(x: torch.Tensor, group=None,
         log.seconds += time.perf_counter() - t0
         log.calls += 1
     return buf
+
+
+class _ReplicatedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.n = n
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None, None
+
+
+def replicated_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, differentiable where
+    every rank's loss reads that sum the same way, so that each rank's
+    incoming gradient is the same ``g``.  The adjoint of the sum is then
+    the sum of the ranks' gradients, ``n g``: the backward scales by the
+    group's size ``n`` and needs no collective, so a recomputed forward
+    (a checkpoint's) is the only collective the backward reaches."""
+    import torch.distributed as dist
+    return _ReplicatedSum.apply(x, group, dist.get_world_size(group))
 
 
 def all_gather(x: torch.Tensor, group, members: Sequence[int],

@@ -15,10 +15,14 @@ not divisible by the axis size), and degrades to single-device no-ops
 when ``mesh=None``, bit for bit the one-device behaviour of the port
 before it had a mesh.  Layout knobs, as there: ``tp_disabled`` (the model
 axis folded into the data axes) and ``collective_dtype`` (the wire dtype
-of gradient reductions).  The JAX package's ``sequence_parallel``,
-``moe_mode`` and ``seq_sharded_decode`` come with the model-parallel
-bodies that read them (ROADMAP A13.5.3), as do ``shard`` and
-``shard_spec``, the constraints those bodies place.
+of gradient reductions).  The JAX package's ``sequence_parallel``
+(tensor parallelism, ROADMAP A13.5.3b), ``moe_mode`` (expert
+parallelism, A13.5.3c) and ``seq_sharded_decode`` (A13.5.3d) come with
+the model-parallel bodies that read them, as do ``shard`` and
+``shard_spec``, the constraints those bodies place.  ``batch_group`` is
+the port's own: a mesh step's body runs with no mesh on the rank's
+rows, and reads it where a statistic spans the batch (the experts'
+load-balance loss).
 
 **The port's counterpart of a mesh** (the decision, and why):
 
@@ -194,6 +198,12 @@ class Runtime:
     model_axis: str = "model"
     tp_disabled: bool = False
     collective_dtype: str = "bfloat16"
+    # Inside a mesh step's body, which sees no mesh: the process group
+    # whose ranks hold the rest of the batch.  The experts' routing
+    # statistics sum over it, so that their load-balance loss is the
+    # global batch's, as under the JAX package's pjit step.  None: the
+    # rows are the whole batch.
+    batch_group: Any = None
 
     def __post_init__(self):
         object.__setattr__(self, "data_axes", tuple(self.data_axes))
@@ -207,6 +217,9 @@ class Runtime:
             if missing:
                 raise ValueError(f"data_axes {missing} not in mesh axes "
                                  f"{tuple(self.mesh.axis_names)}")
+        if self.mesh is not None and self.batch_group is not None:
+            raise ValueError("batch_group belongs to a mesh step's body, "
+                             "which runs without a mesh")
         if self.collective_dtype not in _DTYPES:
             raise ValueError(f"collective_dtype must be one of "
                              f"{sorted(_DTYPES)}, got "

@@ -7,9 +7,9 @@ hand-written kernel (``kernels/csrc/flash_attention.cu``), on a CPU
 tensor its plain version ``kernels.ref.attention_ref``.  The JAX
 package's ``dense_attention`` and ``flash_chunked`` forward compute that
 one semantics; its custom VJP belongs to training (ROADMAP A13.3), and
-its sequence-sharded decode with the log-sum-exp combine to the mesh's
-model-parallel bodies (ROADMAP A13.5.3).  :func:`attn_specs` is the JAX
-package's, for the data-parallel mesh.
+its sequence-sharded decode with the log-sum-exp combine comes with
+ROADMAP A13.5.3d.  :func:`attn_specs` and :func:`kv_cache_specs` are
+the JAX package's (the cache's sequence dim replicated until then).
 
 A KV cache is ``{"k", "v": (B, L, KV, dh), "pos"}``.  ``pos`` is the
 number of tokens written so far, kept as an int32 tensor on the host:
@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from ..dist.sharding import Runtime
+from ..dist.sharding import P, Runtime
 from ..kernels import flash_attention
 from . import common
 from .config import ModelConfig
@@ -117,6 +117,20 @@ def init_kv_cache(rt: Runtime, cfg: ModelConfig, batch: int, length: int,
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.zeros((), dtype=torch.int32),
     }
+
+
+def kv_cache_specs(rt: Runtime, cfg: ModelConfig, batch: int, length: int,
+                   window: int = 0):
+    """The partition specs of :func:`init_kv_cache`'s leaves, the JAX
+    package's: the batch over the data axes, L capped at ``window`` and
+    at least the model axis' size.  The sequence entry is None; the
+    sequence-sharded decode (ROADMAP A13.5.3d) makes it ``"tp"``."""
+    l = length if window <= 0 else min(length, window)
+    l = max(l, rt.tp_size)
+    seq_entry = None
+    spec = rt.spec_div(("fsdp", seq_entry, None, None),
+                       (batch, l, cfg.n_kv_heads, cfg.d_head))
+    return {"k": spec, "v": spec, "pos": P()}
 
 
 def _fill_cache(rt, cache, k, v, s, window):

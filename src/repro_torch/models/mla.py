@@ -26,9 +26,9 @@ prefix (the slots the JAX package's ``written`` mask keeps).
 A cache is ``{"latent": (B, L, kv_lora + rope_dim), "pos"}`` with
 ``pos``, the number of tokens written, an int32 tensor on the host as
 :mod:`repro_torch.models.attention` keeps it; prefill and decode write
-the latent in place and return the same dict.  ``mla_specs``,
-``mla_cache_specs`` and the sequence-sharded decode with its log-sum-exp
-combine belong to the mesh (ROADMAP A13.5.3).
+the latent in place and return the same dict.  :func:`mla_specs` and
+:func:`mla_cache_specs` are the JAX package's; the sequence-sharded
+decode with its log-sum-exp combine comes with ROADMAP A13.5.3d.
 """
 
 from __future__ import annotations
@@ -38,12 +38,13 @@ from typing import Optional
 
 import torch
 
-from ..dist.sharding import Runtime
+from ..dist.sharding import P, Runtime
 from ..kernels import flash_attention
 from . import common
 from .config import ModelConfig
 
-__all__ = ["mla_init", "mla_apply", "init_mla_cache"]
+__all__ = ["mla_init", "mla_specs", "mla_apply", "init_mla_cache",
+           "mla_cache_specs"]
 
 
 def mla_init(cfg: ModelConfig, generator: torch.Generator,
@@ -62,6 +63,23 @@ def mla_init(cfg: ModelConfig, generator: torch.Generator,
         "wkr": common.truncnorm((d, m.rope_dim), dtype, generator, device),
         "wo": common.truncnorm((h, m.v_dim, d), dtype, generator, device,
                                scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def mla_specs(rt: Runtime, cfg: ModelConfig):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wdq": rt.spec_div(("fsdp", "tp"), (d, m.q_lora)),
+        "q_ln": common.rmsnorm_specs(rt),
+        "wuq": rt.spec_div(("fsdp", "tp", None),
+                           (m.q_lora, h, m.nope_dim + m.rope_dim)),
+        "wdkv": rt.spec_div(("fsdp", None), (d, m.kv_lora)),
+        "kv_ln": common.rmsnorm_specs(rt),
+        "wukv": rt.spec_div(("fsdp", "tp", None),
+                            (m.kv_lora, h, m.nope_dim + m.v_dim)),
+        "wkr": rt.spec_div(("fsdp", None), (d, m.rope_dim)),
+        "wo": rt.spec_div(("tp", None, "fsdp"), (h, m.v_dim, d)),
     }
 
 
@@ -117,6 +135,16 @@ def init_mla_cache(rt: Runtime, cfg: ModelConfig, batch: int, length: int,
     return {"latent": torch.zeros((batch, length, m.kv_lora + m.rope_dim),
                                   dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32)}
+
+
+def mla_cache_specs(rt: Runtime, cfg: ModelConfig, batch: int, length: int):
+    """The batch over the data axes; the sequence entry None until the
+    sequence-sharded decode (ROADMAP A13.5.3d)."""
+    m = cfg.mla
+    seq_entry = None
+    return {"latent": rt.spec_div(("fsdp", seq_entry, None),
+                                  (batch, length, m.kv_lora + m.rope_dim)),
+            "pos": P()}
 
 
 def _mla_decode(params, cfg: ModelConfig, q_nope, q_rope, latent, k_rope,

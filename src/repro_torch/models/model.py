@@ -42,13 +42,14 @@ instead of the token table.  qwen2-vl keeps a token table
 it too); hubert has none.  qwen2-vl's M-RoPE takes (3, B, S) positions,
 or broadcasts (B, S) ones to its three sections.
 
-``param_specs`` is the JAX package's partition-spec tree of the dense and
-frontend configs (``g`` and ``l`` blocks with an MLP); the experts, MLA,
-Mamba2, zamba2's shared block and RWKV6 spec builders, and
-``cache_specs``, come with the model-parallel bodies (ROADMAP A13.5.3).
+``param_specs`` and ``cache_specs`` are the JAX package's partition-spec
+trees for every config, with a stacked leaf's repeat dim replicated; the
+experts' under ``moe_mode="tp"`` (expert parallelism comes with ROADMAP
+A13.5.3c) and the caches' sequence dims replicated (the
+sequence-sharded decode comes with A13.5.3d).
 
 Public API:
-  init_params / param_specs / init_cache / cast_params
+  init_params / param_specs / init_cache / cache_specs / cast_params
   forward(params, cfg, rt, batch, cache=None)  -> logits (+ cache) + aux
   loss_fn(params, cfg, rt, batch)              -> (loss, {"ce", "aux"})
 """
@@ -68,8 +69,8 @@ from . import attention as attn_mod
 from . import common, mla, moe, rwkv, ssm
 from .config import ModelConfig
 
-__all__ = ["init_params", "param_specs", "init_cache", "cast_params", "forward", "loss_fn",
-           "AUX_COEF"]
+__all__ = ["init_params", "param_specs", "init_cache", "cache_specs",
+           "cast_params", "forward", "loss_fn", "AUX_COEF"]
 
 AUX_COEF = 0.01
 
@@ -181,27 +182,44 @@ def init_params(cfg: ModelConfig, rt: Runtime, generator: torch.Generator,
 
 
 def _block_specs(rt: Runtime, cfg: ModelConfig, char: str):
-    if char not in ("g", "l") or cfg.mla is not None or cfg.moe is not None:
-        what = {"a": "zamba2's shared block", "m": "Mamba2",
-                "r": "RWKV6"}.get(char, "MLA" if cfg.mla is not None
-                                  else "the experts")
-        raise NotImplementedError(
-            f"{cfg.name}: partition specs of {what} come with the "
-            "model-parallel bodies (ROADMAP A13.5.3)")
+    if char == "a":
+        return {}   # the shared weights' specs are their own
+    if char == "m":
+        return {"ln1": common.rmsnorm_specs(rt),
+                "ssm": ssm.ssm_specs(rt, cfg)}
+    if char == "r":
+        return {"ln1": common.rmsnorm_specs(rt),
+                "ln2": common.rmsnorm_specs(rt),
+                "rwkv": rwkv.rwkv_specs(rt, cfg)}
     s = {"ln1": common.rmsnorm_specs(rt), "ln2": common.rmsnorm_specs(rt),
-         "attn": attn_mod.attn_specs(rt, cfg),
-         "mlp": common.mlp_specs(rt, cfg.d_model, cfg.d_ff)}
+         "attn": (mla.mla_specs(rt, cfg) if cfg.mla is not None
+                  else attn_mod.attn_specs(rt, cfg))}
+    if cfg.moe is not None:
+        s["moe"] = moe.moe_specs(rt, cfg)
+    else:
+        s["mlp"] = common.mlp_specs(rt, cfg.d_model, cfg.d_ff)
     if cfg.post_norms:
         s["ln1_post"] = common.rmsnorm_specs(rt)
         s["ln2_post"] = common.rmsnorm_specs(rt)
     return s
 
 
+def _shared_block_specs(rt: Runtime, cfg: ModelConfig):
+    return {"ln1": common.rmsnorm_specs(rt),
+            "attn": attn_mod.attn_specs(rt, cfg),
+            "ln2": common.rmsnorm_specs(rt),
+            "mlp": common.mlp_specs(rt, cfg.d_model, cfg.d_ff)}
+
+
+def _stack_specs(tree):
+    """A stacked tree's specs: the leading repeat dim replicated."""
+    return _tree_map(lambda s: P(None, *s), tree)
+
+
 def param_specs(cfg: ModelConfig, rt: Runtime) -> Dict[str, Any]:
     """The partition spec of every leaf of ``init_params``' tree under
     ``rt`` (the JAX package's; a stacked block leaf's leading repeat dim
-    is replicated).  Raises ``NotImplementedError`` for a config with
-    experts, MLA, ``m``, ``a`` or ``r`` blocks (ROADMAP A13.5.3)."""
+    is replicated)."""
     specs: Dict[str, Any] = {}
     if cfg.frontend is not None:
         specs["frontend"] = {
@@ -210,11 +228,10 @@ def param_specs(cfg: ModelConfig, rt: Runtime) -> Dict[str, Any]:
     if cfg.frontend in (None, "vision"):
         specs["embed"] = common.embed_specs(rt, cfg.vocab, cfg.d_model)
 
-    def stack(tree):
-        return _tree_map(lambda s: P(None, *s), tree)
-
-    specs["blocks"] = {str(i): stack(_block_specs(rt, cfg, ch))
+    specs["blocks"] = {str(i): _stack_specs(_block_specs(rt, cfg, ch))
                        for i, ch in enumerate(cfg.layer_pattern)}
+    if "a" in cfg.layer_pattern:
+        specs["shared_attn"] = _shared_block_specs(rt, cfg)
     specs["final_norm"] = common.rmsnorm_specs(rt)
     if not cfg.tie_embeddings:
         head = ("fsdp", "tp") if rt.tp_size > 1 else (None, "fsdp")
@@ -269,6 +286,26 @@ def init_cache(cfg: ModelConfig, rt: Runtime, batch: int, length: int,
         out[str(i)] = _tree_map(
             lambda x: x[None].repeat((r,) + (1,) * x.ndim), one)
     return out
+
+
+def _block_cache_specs(rt: Runtime, cfg: ModelConfig, char: str, batch: int,
+                       length: int):
+    if char == "g" and cfg.mla is not None:
+        return mla.mla_cache_specs(rt, cfg, batch, length)
+    if char == "m":
+        return ssm.ssm_cache_specs(rt, cfg, batch)
+    if char == "r":
+        return rwkv.rwkv_cache_specs(rt, cfg, batch)
+    window = cfg.window if char in ("l", "a") else 0
+    return attn_mod.kv_cache_specs(rt, cfg, batch, length, window)
+
+
+def cache_specs(cfg: ModelConfig, rt: Runtime, batch: int, length: int):
+    """The partition spec of every leaf of ``init_cache``'s tree under
+    ``rt`` (the JAX package's; the leading repeat dim replicated)."""
+    return {str(i): _stack_specs(_block_cache_specs(rt, cfg, ch, batch,
+                                                    length))
+            for i, ch in enumerate(cfg.layer_pattern)}
 
 
 # -----------------------------------------------------------------------------

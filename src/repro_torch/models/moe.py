@@ -1,15 +1,21 @@
 """Mixture-of-experts MLP block (olmoe: 64 experts top-8; deepseek-v2: 160
-top-6 and 2 shared experts) on one device.
+top-6 and 2 shared experts) on one device and in a data-parallel mesh
+step's body.
 
-The port of the JAX package's ``models/moe.py`` without a mesh: its
-``moe_apply`` with no model axis, ``_moe_body_tp(do_psum=False)``.
+The port of the JAX package's ``models/moe.py`` without a model axis:
+its ``moe_apply`` there, ``_moe_body_tp(do_psum=False)``.
 Routing is token-choice and dropless:
 
 * the router's logits in f32, softmax, top-k, the k weights renormalised
   to sum to 1 under ``router_scale``;
 * the switch-style load-balance loss ``E sum_e f_e p_e``: ``f_e`` the
   share of the (token, k) choices that picked expert e (counts, so no
-  gradient flows through it), ``p_e`` the router's mean probability;
+  gradient flows through it), ``p_e`` the router's mean probability.
+  In a mesh step's body (``rt.batch_group`` set) both are the global
+  batch's, as the JAX package's pjit step takes them: the (E,) counts
+  and sums of probabilities are summed over the group before the
+  product (a mean over the ranks of each rank's own loss would differ,
+  a mean of products not being a product of means);
 * the (token, k) rows sorted by expert (a stable sort, as ``jnp.argsort``
   is), each expert's SwiGLU on its own contiguous rows, the rows put
   back in token order and combined over k as ``(t, k, d) * topw`` summed
@@ -19,23 +25,26 @@ The JAX package runs the experts' products as ``jax.lax.ragged_dot``
 outside any Pallas kernel; here each expert with rows is three
 ``torch.matmul`` calls on its slice.  The group sizes reach the host once
 a layer (they set the slices' shapes), and experts that no row chose are
-skipped.  ``moe_specs`` and the expert-parallel all-to-all body belong to
-the mesh (ROADMAP A13.5.3).
+skipped.  :func:`moe_specs` is the JAX package's under its default
+``moe_mode="tp"``; expert parallelism (``moe_mode="ep"``, its specs and
+the all-to-all body) comes with ROADMAP A13.5.3c, and the model axis'
+reduction of ``_moe_body_tp`` with tensor parallelism (A13.5.3b).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..dist.collectives import replicated_sum
 from ..dist.sharding import Runtime
 from . import common
 from .config import ModelConfig
 
-__all__ = ["moe_init", "moe_apply", "route"]
+__all__ = ["moe_init", "moe_specs", "moe_apply", "route"]
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator,
@@ -62,19 +71,51 @@ def moe_init(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def route(x_flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
+def moe_specs(rt: Runtime, cfg: ModelConfig):
+    """The partition specs of :func:`moe_init`'s leaves: the JAX
+    package's under ``moe_mode="tp"`` (the experts' FFN width over the
+    model axis, D over the data axes)."""
+    m = cfg.moe
+    d = cfg.d_model
+    s = {
+        "router": rt.spec_div(("fsdp", None), (d, m.n_experts)),
+        "w1": rt.spec_div((None, "fsdp", "tp"),
+                          (m.n_experts, d, m.d_ff_expert)),
+        "w3": rt.spec_div((None, "fsdp", "tp"),
+                          (m.n_experts, d, m.d_ff_expert)),
+        "w2": rt.spec_div((None, "tp", "fsdp"),
+                          (m.n_experts, m.d_ff_expert, d)),
+    }
+    if m.n_shared > 0:
+        s["shared"] = common.mlp_specs(rt, d, m.n_shared * m.d_ff_shared)
+    return s
+
+
+def route(x_flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
+          rt: Optional[Runtime] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(topw in x's dtype, topi int64, aux f32) of (T, D) tokens: the JAX
-    package's ``_route``."""
+    package's ``_route``.  With ``rt.batch_group`` the aux is the global
+    batch's: every rank's counts and probability sums summed over the
+    group (:func:`~repro_torch.dist.collectives.replicated_sum`, whose
+    backward gives each rank the whole batch's share of the gradient,
+    as the mesh step's mean over the ranks needs)."""
     m = cfg.moe
     logits = x_flat.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, m.top_k, dim=-1)
     if m.router_scale:
         topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
-    f_e = torch.bincount(topi.reshape(-1), minlength=m.n_experts).float()
-    f_e = f_e / torch.clamp(f_e.sum(), min=1.0)
-    aux = m.n_experts * torch.sum(f_e * probs.mean(dim=0))
+    counts = torch.bincount(topi.reshape(-1), minlength=m.n_experts).float()
+    group = rt.batch_group if rt is not None else None
+    if group is None:
+        p_e = probs.mean(dim=0)
+    else:
+        counts, p_sum = replicated_sum(
+            torch.cat([counts, probs.sum(dim=0)]), group).split(m.n_experts)
+        p_e = p_sum / (counts.sum() / m.top_k)   # over the global tokens
+    f_e = counts / torch.clamp(counts.sum(), min=1.0)
+    aux = m.n_experts * torch.sum(f_e * p_e)
     return topw.to(x_flat.dtype), topi, aux
 
 
@@ -100,7 +141,7 @@ def moe_apply(params, cfg: ModelConfig, rt: Runtime, x
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]
-    topw, topi, aux = route(x_flat, params["router"], cfg)
+    topw, topi, aux = route(x_flat, params["router"], cfg, rt)
     eid = topi.reshape(-1)                                 # (T k,)
     order = torch.argsort(eid, stable=True)
     # Token-major rows (token i's k choices at i k .. i k + k - 1), sorted:

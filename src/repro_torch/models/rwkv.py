@@ -22,8 +22,8 @@ O(H K V) a sequence.
 
 A cache is ``{"state": (B, H, K, V), "tm_last": (B, D), "cm_last": (B,
 D)}``, all f32, with no ``pos``; the boundary tokens are cast to the
-stream's dtype where they are used.  ``rwkv_specs`` /
-``rwkv_cache_specs`` belong to the mesh (ROADMAP A13.5.3).
+stream's dtype where they are used.  :func:`rwkv_specs` and
+:func:`rwkv_cache_specs` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -39,8 +39,9 @@ from ..dist.sharding import Runtime
 from . import common
 from .config import ModelConfig
 
-__all__ = ["rwkv_init", "time_mix", "wkv_recurrence", "channel_mix",
-           "rwkv_apply", "write_cache", "init_rwkv_cache"]
+__all__ = ["rwkv_init", "rwkv_specs", "time_mix", "wkv_recurrence",
+           "channel_mix", "rwkv_apply", "write_cache", "init_rwkv_cache",
+           "rwkv_cache_specs"]
 
 
 def rwkv_init(cfg: ModelConfig, generator: torch.Generator,
@@ -69,6 +70,31 @@ def rwkv_init(cfg: ModelConfig, generator: torch.Generator,
         "cm": {  # channel mix
             "mu": tn((2, d), 0.1),                           # k, r
             "wk": tn((d, f)), "wv": tn((f, d), scale_o), "wr": tn((d, d)),
+        },
+    }
+
+
+def rwkv_specs(rt: Runtime, cfg: ModelConfig):
+    r = cfg.rwkv
+    d, f = cfg.d_model, cfg.d_ff
+    nh = d // r.head_dim
+    dd = rt.spec_div(("fsdp", "tp"), (d, d))
+    return {
+        "tm": {
+            "mu": rt.spec_div((None, "fsdp"), (5, d)),
+            "wr": dd, "wk": dd, "wv": dd, "wg": dd,
+            "w0": rt.spec_div(("fsdp",), (d,)),
+            "wa": rt.spec_div(("fsdp", None), (d, r.decay_lora)),
+            "wb": rt.spec_div((None, "fsdp"), (r.decay_lora, d)),
+            "u": rt.spec_div(("tp", None), (nh, r.head_dim)),
+            "ln": common.rmsnorm_specs(rt),
+            "wo": rt.spec_div(("tp", "fsdp"), (d, d)),
+        },
+        "cm": {
+            "mu": rt.spec_div((None, "fsdp"), (2, d)),
+            "wk": rt.spec_div(("fsdp", "tp"), (d, f)),
+            "wv": rt.spec_div(("tp", "fsdp"), (f, d)),
+            "wr": dd,
         },
     }
 
@@ -190,4 +216,16 @@ def init_rwkv_cache(rt: Runtime, cfg: ModelConfig, batch: int, *, device):
                                device=device),
         "cm_last": torch.zeros((batch, d), dtype=torch.float32,
                                device=device),
+    }
+
+
+def rwkv_cache_specs(rt: Runtime, cfg: ModelConfig, batch: int):
+    r = cfg.rwkv
+    d = cfg.d_model
+    nh = d // r.head_dim
+    return {
+        "state": rt.spec_div(("fsdp", "tp", None, None),
+                             (batch, nh, r.head_dim, r.head_dim)),
+        "tm_last": rt.spec_div(("fsdp", None), (batch, d)),
+        "cm_last": rt.spec_div(("fsdp", None), (batch, d)),
     }

@@ -30,7 +30,7 @@ A cache is ``{"state": (B, H, P, N) f32, "conv": (B, W - 1, C)}`` (C =
 d_inner + 2 d_state; f32, as the JAX package's ``init_cache`` makes it).
 It has no ``pos``.  :func:`ssm_apply` writes the new state and conv
 window into the cache's tensors in place and returns the same dict.
-``ssm_specs`` / ``ssm_cache_specs`` belong to the mesh (ROADMAP A13.5.3).
+:func:`ssm_specs` and :func:`ssm_cache_specs` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ from ..dist.sharding import Runtime
 from . import common
 from .config import ModelConfig
 
-__all__ = ["ssm_init", "ssm_apply", "ssd_chunked", "ssd_scan",
-           "init_ssm_cache"]
+__all__ = ["ssm_init", "ssm_specs", "ssm_apply", "ssd_chunked", "ssd_scan",
+           "init_ssm_cache", "ssm_cache_specs"]
 
 
 def ssm_init(cfg: ModelConfig, generator: torch.Generator,
@@ -75,6 +75,23 @@ def ssm_init(cfg: ModelConfig, generator: torch.Generator,
         "out_proj": common.truncnorm((din, d), dtype, generator, device,
                                      scale=0.02 / math.sqrt(
                                          2 * cfg.n_layers)),
+    }
+
+
+def ssm_specs(rt: Runtime, cfg: ModelConfig):
+    s = cfg.ssm
+    d, din, nh = cfg.d_model, cfg.d_inner_ssm, cfg.n_ssm_heads
+    conv_dim = din + 2 * s.d_state
+    return {
+        "in_proj": rt.spec_div(("fsdp", "tp"),
+                               (d, 2 * din + 2 * s.d_state + nh)),
+        "conv_w": rt.spec_div((None, "tp"), (s.conv_width, conv_dim)),
+        "conv_b": rt.spec_div(("tp",), (conv_dim,)),
+        "dt_bias": rt.spec_div(("tp",), (nh,)),
+        "A_log": rt.spec_div(("tp",), (nh,)),
+        "D": rt.spec_div(("tp",), (nh,)),
+        "norm": common.rmsnorm_specs(rt),
+        "out_proj": rt.spec_div(("tp", "fsdp"), (din, d)),
     }
 
 
@@ -231,4 +248,16 @@ def init_ssm_cache(rt: Runtime, cfg: ModelConfig, batch: int,
         "conv": torch.zeros((batch, s.conv_width - 1,
                              cfg.d_inner_ssm + 2 * s.d_state), dtype=dtype,
                             device=device),
+    }
+
+
+def ssm_cache_specs(rt: Runtime, cfg: ModelConfig, batch: int):
+    s = cfg.ssm
+    return {
+        "state": rt.spec_div(("fsdp", "tp", None, None),
+                             (batch, cfg.n_ssm_heads, s.head_dim,
+                              s.d_state)),
+        "conv": rt.spec_div(("fsdp", None, "tp"),
+                            (batch, s.conv_width - 1,
+                             cfg.d_inner_ssm + 2 * s.d_state)),
     }

@@ -9,26 +9,40 @@ there:
 
 * ``grad_accum == 1``: the gradients are cast to ``rt.collective_dtype``
   (bf16 by default; the JAX package casts on one device too);
-* ``grad_accum > 1``: the batch is split into that many microbatches,
-  each one's gradients (quantised to int8 and back under
-  ``compress="int8_ef"``) are summed in f32, averaged, and cast to the
-  wire dtype once; the metrics' ``aux`` is the microbatches' mean (the
-  JAX package reports 0 there, a load-balance loss it never computed);
+* ``grad_accum > 1``: the batch is split by leading rows into that many
+  microbatches, each one's gradients (quantised to int8 and back under
+  ``compress="int8_ef"``, one scale a leaf, its ``max|g| / 127``) are
+  summed in f32, averaged, and cast to the wire dtype once; the metrics'
+  ``aux`` is the microbatches' mean (the JAX package reports 0 there, a
+  load-balance loss it never computed);
 * :func:`repro_torch.train.optimizer.adamw_update` updates the
   parameters and the optimizer state in place.
 
 Under a mesh (data parallel: ``rt.tp_size == 1``; a model axis above 1
-raises, ROADMAP A13.5.3) the state lives sharded as ``param_specs`` /
-``opt_specs`` say and the batch is the rank's rows (the data pipeline's
-batch under the mesh).  Each step gathers the parameters whole, runs the
-one-device arithmetic above on the rank's rows with ``Runtime()``
-(microbatches and int8 quantisation per rank), then all-reduces the
-gradients over the data axes, averages them and keeps the local slice
-(gloo has no reduce-scatter, so every backend takes all-reduce then the
-slice) before the wire cast, where the JAX package pins the gradients to
-the parameter layout and casts (``_constrain``, then ``astype``).  AdamW
-updates the shards with the global norm summed across ranks; the loss is
-the ranks' mean.
+raises, tensor parallelism being ROADMAP A13.5.3b) the state lives
+sharded as ``param_specs`` / ``opt_specs`` say and the batch is the
+rank's rows (the data pipeline's batch under the mesh).  Each step
+gathers the parameters whole and runs the model on rows of this rank
+with ``Runtime(batch_group=...)``: no mesh, save that the experts'
+load-balance loss sums its statistics over the data axes, so that it is
+the global batch's as under the JAX package's pjit step.  Then:
+
+* ``grad_accum == 1``: the gradients of the rank's rows are all-reduced
+  over the data axes, averaged, and the local slice kept (gloo has no
+  reduce-scatter, so every backend takes all-reduce then the slice)
+  before the wire cast, where the JAX package pins the gradients to the
+  parameter layout and casts (``_constrain``, then ``astype``);
+* ``grad_accum > 1``: the ranks' rows are all-gathered into the global
+  batch (token rows are small), microbatch ``i`` is its rows ``[i mb,
+  (i + 1) mb)`` as in the JAX package, and each rank computes the
+  gradient of its ``mb / n`` rows of it (``mb`` must divide over the
+  ``n`` data ranks: a ``ValueError`` otherwise).  Under ``int8_ef`` each
+  microbatch's gradient is all-reduced before it is quantised, so that
+  its scale is the global ``max|g|``; otherwise the sum is reduced once,
+  after the loop.
+
+AdamW updates the shards with the global norm summed across ranks; the
+loss is the ranks' mean.
 
 ``make_train_step`` returns ``(params, opt_state, batch, step_rng) ->
 (params, opt_state, metrics)``; ``step_rng`` is kept for the signature
@@ -65,7 +79,7 @@ def _mesh_only(rt: Runtime) -> None:
     if rt.tp_size > 1:
         raise NotImplementedError(
             f"a model axis of {rt.tp_size}: tensor parallelism comes with "
-            "the model-parallel bodies (ROADMAP A13.5.3); fold the model "
+            "the model-parallel bodies (ROADMAP A13.5.3b); fold the model "
             "axis into the data axes (tp_disabled=True) to train data "
             "parallel")
 
@@ -155,16 +169,52 @@ def _global_norm(grads, rt: Runtime, pspecs, log: Optional[WireLog]):
     return torch.sqrt(total)
 
 
+def _microbatches(batch: Dict[str, Any], rt: Runtime, grad_accum: int,
+                  log: Optional[WireLog]) -> List[Dict[str, Any]]:
+    """This rank's rows of each of the ``grad_accum`` microbatches, the
+    JAX package's split of the global batch by leading rows: microbatch
+    ``i`` is global rows ``[i mb, (i + 1) mb)``, of which the rank at
+    position ``j`` over the data axes takes the ``j``-th ``mb / n``.
+    Under a mesh the ranks' rows are all-gathered first."""
+    n = rt.fsdp_size
+    b = next(iter(batch.values())).shape[0] * n
+    if b % grad_accum:
+        raise ValueError(f"grad_accum {grad_accum} does not divide the "
+                         f"global batch of {b} rows")
+    mb = b // grad_accum
+    if mb % n:
+        raise ValueError(
+            f"grad_accum {grad_accum} splits the global batch of {b} rows "
+            f"into microbatches of {mb}, which do not divide over {n} data "
+            "ranks")
+    per = mb // n
+    whole, j = batch, 0
+    if rt.mesh is not None:
+        import torch.distributed as dist
+        whole = {k: rt.gather(v, P(rt.fsdp, *(None,) * (v.dim() - 1)), log)
+                 for k, v in batch.items()}
+        j = rt.mesh.axis_index(rt.fsdp_axes, dist.get_rank())
+    return [{k: v[i * mb + j * per:i * mb + (j + 1) * per]
+             for k, v in whole.items()} for i in range(grad_accum)]
+
+
 def make_train_step(cfg: ModelConfig, rt: Runtime,
                     tc: Optional[TrainConfig] = None):
     tc = tc or TrainConfig()
     mesh = rt.mesh is not None
+    int8 = tc.opt.compress == "int8_ef"
+    body_rt = rt
     if mesh:
         _mesh_only(rt)
         pspecs = model_mod.param_specs(cfg, rt)
         group, _ = rt.mesh.group(rt.fsdp_axes)
-    # Inside a rank's step the model sees its rows only, with no mesh.
-    body_rt = Runtime() if mesh else rt
+        # Inside a rank's step the model sees its rows only, with no
+        # mesh, save for the experts' statistics over the batch.
+        body_rt = Runtime(batch_group=group)
+    n = rt.fsdp_size
+    # Under int8_ef on a mesh each microbatch's gradient is reduced before
+    # it is quantised, and the loop's sum is then global already.
+    reduce_micro = mesh and int8 and tc.grad_accum > 1
     wire = WireLog()
 
     def train_step(params, opt_state, batch, step_rng=None):
@@ -176,11 +226,6 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
         if tc.grad_accum == 1:
             loss, metrics, grads = loss_and_grads(full, cfg, body_rt, batch)
         else:
-            def split(x):
-                mb = x.shape[0] // tc.grad_accum
-                return x.reshape((tc.grad_accum, mb) + tuple(x.shape[1:]))
-
-            micro = {k: split(v) for k, v in batch.items()}
             # Accumulate in f32 (bf16 accumulation loses ~1e-2 relative);
             # the wire cast happens once, after the loop.
             acc = tree_map(lambda p: torch.zeros(
@@ -188,10 +233,13 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=tree_leaves(full)[0].device)
             aux_sum = loss_sum.clone()
-            for i in range(tc.grad_accum):
-                loss, micro_metrics, g = loss_and_grads(
-                    full, cfg, body_rt, {k: v[i] for k, v in micro.items()})
-                if tc.opt.compress == "int8_ef":
+            for micro in _microbatches(batch, rt, tc.grad_accum, wire):
+                loss, micro_metrics, g = loss_and_grads(full, cfg, body_rt,
+                                                        micro)
+                if reduce_micro:   # the microbatch's global gradient
+                    g = tree_map(lambda gi: all_reduce(
+                        gi.to(torch.float32), group, wire) / n, g)
+                if int8:
                     def q(gi):
                         qi, s = _quantize_int8(gi.to(torch.float32))
                         return qi.to(torch.float32) * s
@@ -207,10 +255,13 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
         del full
         gnorm = None
         if mesh:
-            grads = reduce_grads(grads, rt, pspecs, wire)
+            if reduce_micro:
+                grads = tree_map_specs(lambda g, s: rt.local(g, s).clone(),
+                                       grads, pspecs)
+            else:
+                grads = reduce_grads(grads, rt, pspecs, wire)
             grads = tree_map(rt.astype, grads)
             gnorm = _global_norm(grads, rt, pspecs, wire)
-            n = rt.fsdp_size
             loss = all_reduce(loss, group, wire) / n
             metrics = {k: all_reduce(v, group, wire) / n
                        for k, v in metrics.items()}

@@ -1,6 +1,6 @@
 """Spawned gloo ranks, and the JAX package's side in one subprocess, for
 the port's multi-rank tests (``tests/test_torch_collectives.py``,
-``tests/test_torch_dp.py``).
+``tests/test_torch_dp.py``, ``tests/test_torch_dp_families.py``).
 
 :func:`run_ranks` starts ``world`` processes (the ``spawn`` method), each
 joining a gloo group through a ``file://`` rendezvous under the test's
@@ -266,6 +266,32 @@ def dp_rank(rank, world, init, tok, ckpt_dir):
         if rank == 0:
             _flat(full, f"pjit_{name}/params", out)
 
+    # grad_accum 2 on (4,): the global batch's microbatches, f32 and
+    # int8-quantised
+    rt = Runtime(mesh=make_mesh((4,), ("data",)), data_axes=("data",))
+    pspecs = tmodel.param_specs(cfg, rt)
+    rows = {k: rt.local(v, P(rt.fsdp, None)) for k, v in batch.items()}
+    for compress in ("none", "int8_ef"):
+        name = f"ga2_{compress}"
+        p = tree_map_specs(lambda x, s: rt.local(x, s).clone(), params0(),
+                           pspecs)
+        o = adamw_init(p)
+        step = make_train_step(cfg, rt, TrainConfig(
+            opt=AdamWConfig(**DP_OPT, compress=compress), grad_accum=2))
+        for i in range(2):
+            p, o, m = step(p, o, rows, i)
+            out[f"pjit_{name}/loss{i}"] = float(m["loss"])
+            out[f"pjit_{name}/gnorm{i}"] = float(m["grad_norm"])
+        full = tree_map_specs(rt.gather, p, pspecs)
+        if rank == 0:
+            _flat(full, f"pjit_{name}/params", out)
+    step = make_train_step(cfg, rt, TrainConfig(opt=oc, grad_accum=4))
+    try:
+        step(p, o, rows, 0)
+        out["ga4_raises"] = None
+    except ValueError as e:
+        out["ga4_raises"] = str(e)
+
     rt = Runtime(mesh=make_mesh((world,), ("data",)), data_axes=("data",),
                  tp_disabled=True)
     for wire in ("float32", "bfloat16", "int8_ef"):
@@ -374,4 +400,56 @@ def multiring_card_rank(rank, world, xs):
         host = multiring_all_reduce(t, "data", layer_strides(world, 3),
                                     mesh=mesh)
         out[name] = (card.cpu().float().numpy(), host.float().numpy())
+    return out
+
+
+FAMILY_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=50)
+
+
+def dp_families_rank(rank, world, cases, tok):
+    """One mesh step of each case ``(name, arch, remat, params)`` (the
+    smoke config of ``arch`` at ``remat``, from the nested numpy
+    ``params``) on a mesh of ``world`` ranks with an f32 wire: its
+    metrics, the first moment of the router's gradient (gathered) and,
+    on rank 0, the parameters after the step; beside them the aux this
+    rank's rows alone give (a body without ``batch_group``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs, interop
+    from repro_torch.dist.sharding import P, Runtime, tree_map_specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    tokens = torch.from_numpy(tok.astype("int64"))
+    batch = {"tokens": tokens, "labels": tokens}
+    rt = Runtime(mesh=make_mesh((world,), ("data",)), data_axes=("data",),
+                 collective_dtype="float32")
+    rows = {k: rt.local(v, P(rt.fsdp, None)) for k, v in batch.items()}
+    out = {}
+    for name, arch, remat, params in cases:
+        cfg = dataclasses.replace(configs.get_smoke(arch), remat=remat)
+        full = interop.model_params_from_arrays(cfg, params, "cpu")
+        pspecs = tmodel.param_specs(cfg, rt)
+        p = tree_map_specs(lambda x, s: rt.local(x, s).clone(), full,
+                           pspecs)
+        step = make_train_step(cfg, rt, TrainConfig(
+            opt=AdamWConfig(**FAMILY_OPT)))
+        p, o, m = step(p, adamw_init(p), rows, 0)
+        for k in ("loss", "aux", "grad_norm"):
+            out[f"{name}/{k}"] = float(m[k])
+        with torch.no_grad():
+            out[f"{name}/local_aux"] = float(
+                tmodel.loss_fn(full, cfg, Runtime(), rows)[1]["aux"])
+        moments = tree_map_specs(rt.gather, o["m"], pspecs)
+        for i, block in moments["blocks"].items():
+            if "moe" in block:
+                out[f"{name}/m/blocks/{i}/moe/router"] = \
+                    block["moe"]["router"].numpy()
+        p = tree_map_specs(rt.gather, p, pspecs)
+        if rank == 0:
+            _flat(p, f"{name}/params", out)
     return out

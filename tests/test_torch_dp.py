@@ -12,6 +12,10 @@ model is the JAX package's ``test_manual_dp`` model (2 layers, d_model
 ``repro_torch.interop`` (drawn here by the same eager calls, and held
 equal to the subprocess's).
 
+The mesh step is held at grad_accum 1 on (4,) and on (2, 2) with the
+model axis folded in, and at grad_accum 2 on (4,) with f32 and
+``int8_ef`` microbatch gradients.
+
 Tolerances: loss rtol 1e-5, grad norm rtol 2e-5, parameters within the
 JAX package's own 5e-4 (``tests/test_manual_dp.py``); under the int8
 wire ten steps of losses at rtol 1e-4 and the residuals within 1e-6 but
@@ -95,6 +99,22 @@ for name, shape, axes, kw in (("d4", (4,), ("data",), {}),
     rt = Runtime(mesh=mesh, data_axes=("data",), **kw)
     with mesh:
         step = jax.jit(make_train_step(cfg, rt, TrainConfig(opt=oc)))
+        p, o = params0, adamw_init(params0)
+        for i in range(2):
+            p, o, m = step(p, o, batch, jax.random.PRNGKey(1))
+            out[f"pjit_{name}/loss{i}"] = np.asarray(m["loss"])
+            out[f"pjit_{name}/gnorm{i}"] = np.asarray(m["grad_norm"])
+    flat(p, f"pjit_{name}/params")
+
+# the pjit step at grad_accum 2 on (4,), f32 and int8-quantised
+# microbatch gradients
+mesh = make_mesh((4,), ("data",))
+rt = Runtime(mesh=mesh, data_axes=("data",))
+for name, compress in (("ga2_none", "none"), ("ga2_int8_ef", "int8_ef")):
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=50,
+                                     compress=compress), grad_accum=2)
+    with mesh:
+        step = jax.jit(make_train_step(cfg, rt, tc))
         p, o = params0, adamw_init(params0)
         for i in range(2):
             p, o, m = step(p, o, batch, jax.random.PRNGKey(1))
@@ -236,6 +256,36 @@ def test_mesh_step_matches_pjit_step(runs, layout):
                 out[f"pjit_{layout}/gnorm{i}"],
                 ref[f"pjit_{layout}/gnorm{i}"], rtol=2e-5)
     _params_close(port[0], ref, f"pjit_{layout}/params")
+
+
+@pytest.mark.parametrize("compress", ["none", "int8_ef"])
+def test_mesh_step_grad_accum_matches_pjit_step(runs, compress):
+    """Two steps at grad_accum 2 on (4,): each microbatch is the global
+    batch's leading rows, one row a rank; under ``int8_ef`` its gradient
+    is reduced over the ranks before it is quantised, with one scale a
+    leaf as in the pjit step."""
+    ref, port, *_ = runs
+    name = f"ga2_{compress}"
+    for out in port:
+        for i in range(2):
+            np.testing.assert_allclose(
+                out[f"pjit_{name}/loss{i}"], ref[f"pjit_{name}/loss{i}"],
+                rtol=1e-5)
+            np.testing.assert_allclose(
+                out[f"pjit_{name}/gnorm{i}"], ref[f"pjit_{name}/gnorm{i}"],
+                rtol=2e-5)
+    _params_close(port[0], ref, f"pjit_{name}/params")
+
+
+def test_mesh_step_grad_accum_needs_microbatches_over_the_ranks(runs):
+    """grad_accum 4 splits 8 rows into microbatches of 2, which do not
+    divide over 4 ranks: a ValueError naming the numbers, on every
+    rank."""
+    _, port, *_ = runs
+    for out in port:
+        assert out["ga4_raises"] == ("grad_accum 4 splits the global batch "
+                                     "of 8 rows into microbatches of 2, "
+                                     "which do not divide over 4 data ranks")
 
 
 @pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8_ef"])

@@ -1,5 +1,6 @@
-"""The port's layout contract (``repro_torch.dist.sharding``), spec trees,
-device order and data shards against the JAX package's, in one process.
+"""The port's layout contract (``repro_torch.dist.sharding``), spec trees
+(parameters, optimizer state and caches of every config), device order
+and data shards against the JAX package's, in one process.
 
 The JAX package's ``Runtime`` takes a ``jax.sharding.AbstractMesh``, the
 port's a :class:`~repro_torch.dist.sharding.Mesh` of ranks that no
@@ -8,6 +9,8 @@ compare by ``tuple``.  A data shard's rows are the port's
 ``SyntheticDataset`` under a mesh, with the rank it asks
 ``torch.distributed`` for set by the test.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -33,6 +36,8 @@ from repro_torch.train import optimizer as topt
 DENSE = ("yi-9b", "glm4-9b", "qwen2.5-32b", "gemma2-27b", "qwen2-vl-7b",
          "hubert-xlarge")
 OTHER = ("olmoe-1b-7b", "deepseek-v2-236b", "zamba2-1.2b", "rwkv6-7b")
+# hubert-xlarge is an encoder: no cache
+CACHED = tuple(a for a in DENSE + OTHER if a != "hubert-xlarge")
 
 # (mesh shape, axis names, Runtime keywords)
 LAYOUTS = {
@@ -75,7 +80,7 @@ def test_runtime_sizes_and_specs(layout):
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + OTHER)
 def test_param_and_opt_specs_match_reference(arch, layout, smoke):
     get = "get_smoke" if smoke else "get_config"
     jcfg, tcfg = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
@@ -88,11 +93,47 @@ def test_param_and_opt_specs_match_reference(arch, layout, smoke):
             as_tuples(jopt.opt_specs(jspec, ef))
 
 
-@pytest.mark.parametrize("arch", OTHER)
-def test_model_parallel_families_raise(arch):
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("arch", CACHED)
+def test_cache_specs_match_reference(arch, layout, smoke):
+    """At batch 8 and length 128 (below gemma2's and zamba2's windows in
+    their full configs, above them in their smoke ones).  The port has
+    no sequence-sharded decode yet (ROADMAP A13.5.3d): it is held to the
+    JAX package's ``seq_sharded_decode=False`` everywhere, and to its
+    default (True) where the model axis is folded or absent, which
+    shards no sequence."""
+    get = "get_smoke" if smoke else "get_config"
+    jcfg, tcfg = getattr(jconfigs, get)(arch), getattr(tconfigs, get)(arch)
+    jrt, trt = runtimes(layout)
+    got = as_tuples(tmodel.cache_specs(tcfg, trt, 8, 128))
+    unsharded = dataclasses.replace(jrt, seq_sharded_decode=False)
+    assert got == as_tuples(jmodel.cache_specs(jcfg, unsharded, 8, 128))
+    if trt.tp_size == 1:
+        assert got == as_tuples(jmodel.cache_specs(jcfg, jrt, 8, 128))
+
+
+def _ranks(tree):
+    if isinstance(tree, dict):
+        return {k: _ranks(v) for k, v in tree.items()}
+    return len(tree)
+
+
+@pytest.mark.parametrize("arch", DENSE + OTHER)
+def test_spec_trees_cover_the_port_trees(arch):
+    """The smoke config's ``param_specs`` (and ``cache_specs``) have the
+    keys of ``init_params``' (and ``init_cache``'s) tree, a spec entry
+    for each of a leaf's dims."""
+    cfg = tconfigs.get_smoke(arch)
     _, trt = runtimes("data8")
-    with pytest.raises(NotImplementedError, match="A13.5.3"):
-        tmodel.param_specs(tconfigs.get_smoke(arch), trt)
+    gen = torch.Generator().manual_seed(0)
+    params = tmodel.init_params(cfg, Runtime(), gen, "cpu")
+    assert _ranks(tmodel.param_specs(cfg, trt)) == \
+        topt.tree_map(lambda p: p.dim(), params)
+    if arch in CACHED:
+        cache = tmodel.init_cache(cfg, Runtime(), 8, 128, device="cpu")
+        assert _ranks(tmodel.cache_specs(cfg, trt, 8, 128)) == \
+            topt.tree_map(lambda c: c.dim(), cache)
 
 
 @pytest.mark.parametrize("n", [8, 64, 100])
