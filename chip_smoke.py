@@ -301,7 +301,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    over 4 stride rings at the f32 (grad norm and parameters against the
    mesh step), bf16 (ranks bitwise equal) and int8 error-feedback (the
    first grad norm against the wire's arithmetic done apart, 6 steps,
-   loss falling) wires; exactly 12 / 6 K5 forward / backward launches on
+   loss falling) wires; exactly 8 / 4 K5 forward / backward launches on
    each rank's mesh loop and 4 / 2 a manual step; then olmoe-1b-7b at
    full width and 1 of 16 layers (the experts, their load-balance loss
    taken over the global batch) and zamba2-1.2b at 19 of 38 (18 Mamba2
@@ -313,8 +313,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``int8_ef`` on 4 rows (one a rank a microbatch, each microbatch's
    gradient reduced before it is quantised) against one process: grad
    norm rtol 1e-5, parameters within 2.5 learning rates (all but 1e-3
-   of a leaf's within 2^-6 of one), 4 / 2 K5 launches; step wall split into wire (host staging apart),
-   gradient pass and the rest, wire bytes, peak memory per rank;
+   of a leaf's within 2^-6 of one), 4 / 2 K5 launches; then tensor
+   parallelism on a (data, model) mesh of (1, 2) over the same two ranks:
+   yi-9b as above through ``TrainLoop`` for 2 steps on the same global
+   rows, against the one-process loop's losses and gradients, then one
+   step under sequence parallelism held the same way, exactly 4 / 2 K5
+   launches a step at the local 16 query and 2 KV heads; olmoe-1b-7b at 1
+   layer, 2 steps, losses and aux against one process; step wall split
+   into wire (host staging apart), gradient pass (the model axis' wire
+   apart inside it) and the rest, wire bytes, peak memory per rank,
+   beside the model axis' predicted wire;
 18. one ``{"kernels": [...]}`` line: launches on the main path (for the
    block-sparse and GF(p) kernels, on their own phase's path, for flash
    attention the serving path's, for its backward the training path's;
@@ -5437,12 +5445,38 @@ def phase_frontends(ref, fa_mod, LAUNCHES, reset_launches):
 # and C4's step (DP_C4: olmoe's, the cheaper) at grad_accum 2 under
 # int8_ef on DP_C4_BATCH rows, one a rank a microbatch, against one
 # process: grad norm rtol 1e-5, parameters as the CPU tests hold int8
-# steps (``_lr_gaps``).  DP_DEADLINE_S covers the three models.
+# steps (``_lr_gaps``).  Then tensor parallelism (ROADMAP A13.5.3b) on a
+# (data, model) mesh of TP_SHAPE over the same ranks: yi-9b as above on
+# the same global rows (both ranks read both rows, each at half the
+# heads, FFN width and vocabulary) through ``TrainLoop`` for DP_STEPS
+# steps, then as many under sequence parallelism, each held to the
+# one-process loop (losses rtol 1e-5, reduced gradients within 1e-4 of
+# each leaf's largest); TP_FAMILY's loop as the families' above, its
+# reduced gradients held alike.
+# DP_DEADLINE_S covers the three models and both layouts.
 DP_ARCH, DP_LAYERS, DP_RANKS = "yi-9b", 2, 2
-DP_SEQ, DP_STEPS, DP_INT8_STEPS, DP_RINGS = 2048, 3, 6, 4
+DP_SEQ, DP_STEPS, DP_INT8_STEPS, DP_RINGS = 2048, 2, 6, 4
+# yi-9b's AdamW schedule (total steps) in this phase: 3, longer than
+# the mesh loop's 2 steps; the int8 wire's 6 steps on a fixed batch fall
+# at every step after the second on it.
+DP_SCHEDULE_STEPS = 3
 DP_FAMILIES = (("olmoe-1b-7b", 1), ("zamba2-1.2b", 19))
 DP_FAMILY_STEPS = 2
 DP_C4, DP_C4_BATCH = ("olmoe-1b-7b", 1), 4
+TP_SHAPE, TP_FAMILY = (1, 2), ("olmoe-1b-7b", 1)
+# The model axis' wire a yi-9b step, read from the code: 12 all-reduces
+# of one (2, 2048, 4096) f32 activation (the embedding's exit; each
+# layer's attention and MLP exits in the forward, and its attention exit
+# again in the remat's recompute, which stops once the tensors the
+# backward needs are back; the entries' backward of both blocks of 2
+# layers and of the LM head), at the 0.5-0.9 GB/s that gloo gave between
+# two ranks of the card in this phase's data-parallel runs; the
+# cross-entropy's two reductions are a few bytes a token.
+TP_ACT_BYTES = 2 * 2048 * 4096 * 4
+TP_PREDICTED = dict(activation_all_reduces=12,
+                    wire_bytes=12 * TP_ACT_BYTES,
+                    wire_s=(12 * TP_ACT_BYTES / 0.9e9,
+                            12 * TP_ACT_BYTES / 0.5e9))
 DP_GROUP_TIMEOUT_S = 120
 DP_DEADLINE_S = 300
 
@@ -5510,8 +5544,10 @@ def _dp_loop_run(loop, LAUNCHES, reset_launches, apps, what,
     """``loop`` (a ``TrainLoop`` on the mesh) run once, the counts set to
     0 just before and read just after: exactly 2 K5 forward launches (the
     forward, the remat recompute) and 1 backward an attention
-    application a step.  Each step split into the wire (host staging
-    apart), the gradient pass and the rest; the state's set-up timed.
+    application a step.  Each step split into the wire over the data
+    axes (host staging apart), the gradient pass (the model axis' wire,
+    its staging apart, inside it) and the rest; the state's set-up
+    timed.
     With ``keep_first``, the first step's reduced gradients and its
     parameters after that step (this rank's shards) kept in ``first``.
     Returns ``(info, first)``."""
@@ -5530,8 +5566,9 @@ def _dp_loop_run(loop, LAUNCHES, reset_launches, apps, what,
         return state
 
     def step_fn(params, opt, batch, i):
-        w = mesh_step.wire
-        before = (w.seconds, w.staging_seconds, grad_s[0])
+        w, mw = mesh_step.wire, mesh_step.model_wire
+        before = (w.seconds, w.staging_seconds, grad_s[0], mw.seconds,
+                  mw.staging_seconds)
         t = time.perf_counter()
         res = mesh_step(params, opt, batch, i)
         torch.cuda.synchronize()
@@ -5539,6 +5576,9 @@ def _dp_loop_run(loop, LAUNCHES, reset_launches, apps, what,
                     wire_s=w.seconds - before[0],
                     staging_s=w.staging_seconds - before[1],
                     gradient_pass_s=grad_s[0] - before[2])
+        if mw.calls:
+            part.update(model_wire_s=mw.seconds - before[3],
+                        model_staging_s=mw.staging_seconds - before[4])
         part["rest_s"] = (part["step_s"] - part["wire_s"]
                           - part["gradient_pass_s"])
         split.append(part)
@@ -5582,12 +5622,18 @@ def _dp_loop_run(loop, LAUNCHES, reset_launches, apps, what,
     info.update(
         run_s=time.perf_counter() - t0, losses=[h["loss"] for h in hist],
         grad_norms=[h["grad_norm"] for h in hist], step_wall_s=walls,
-        steady_step_s=float(np.median(walls[1:])),
+        steady_step_s=float(np.median(walls[1:] or walls)),
         wire_bytes_a_step=w.reduced_bytes / steps,
         wire_s_a_step=w.seconds / steps,
         staging_s_a_step=w.staging_seconds / steps,
         collective_calls_a_step=w.calls / steps, step_split=split,
         k5=[launches["flash_attention"], launches["flash_attention_bwd"]])
+    mw = mesh_step.model_wire
+    if mw.calls:
+        info.update(model_wire_bytes_a_step=mw.reduced_bytes / steps,
+                    model_wire_s_a_step=mw.seconds / steps,
+                    model_staging_s_a_step=mw.staging_seconds / steps,
+                    model_collective_calls_a_step=mw.calls / steps)
     if "aux" in hist[0]:
         info["aux"] = [h["aux"] for h in hist]
     return info, first
@@ -5619,17 +5665,21 @@ def _dp_single(cfg, one, data, tc, dev, ds, steps):
 
 
 def _dp_family(arch, layers, rank, rt, one, dev, group, LAUNCHES,
-               reset_launches):
+               reset_launches, dp_rt=None):
     """17.3 / 17.4: ``arch`` at full width, ``layers`` layers, in f32
     with its full remat, through ``TrainLoop`` on the mesh for
     DP_FAMILY_STEPS steps (:func:`_dp_loop_run`), held to the same loop
     in one process (losses and, with experts, the aux at rtol 1e-5); the
     ranks' mean of the aux their own rows give printed beside the
-    global one; peak memory a rank."""
+    global one; peak memory a rank.  With ``dp_rt`` (``rt`` then a
+    tensor-parallel mesh of one data shard) the loop reads the global
+    rows of the data-parallel mesh ``dp_rt`` whole, on both ranks, and
+    its first step's reduced gradients (this rank's slices) are held to
+    one process's within 1e-4 of each leaf's largest."""
     import torch.distributed as dist
 
     from repro_torch import configs
-    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
     from repro_torch.dist.collectives import all_reduce
     from repro_torch.models import model as model_mod
     from repro_torch.train import loop as tloop
@@ -5646,15 +5696,36 @@ def _dp_family(arch, layers, rank, rt, one, dev, group, LAUNCHES,
     loop = tloop.TrainLoop(cfg, rt, data, tc,
                            tloop.LoopConfig(total_steps=DP_FAMILY_STEPS,
                                             log_every=1), device=dev)
-    info, _ = _dp_loop_run(loop, LAUNCHES, reset_launches,
-                           _attn_apps(cfg), f"17 {arch} mesh loop")
+    ds = loop.data
+    if dp_rt is not None:
+        ds = SyntheticDataset(cfg, data, dp_rt, dev)
+        loop.data.batch = lambda step: _dp_global(ds, step, dev)
+    info, first = _dp_loop_run(loop, LAUNCHES, reset_launches,
+                               _attn_apps(cfg), f"17 {arch} mesh loop",
+                               keep_first=dp_rt is not None)
     out = dict(arch=arch, n_layers=layers,
                cut=f"n_layers {configs.get_config(arch).n_layers} -> "
                    f"{layers}", remat=cfg.remat, mesh=info)
-    ds = loop.data
     rows = ds.batch(0)
+    pspecs = loop.specs["params"]
     del loop
-    if cfg.moe is not None:
+    if dp_rt is not None:
+        # the reduced gradients, the router's summed over the model axis
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p0 = model_mod.init_params(cfg, one, gen, dev)
+        _, _, g1 = tts.loss_and_grads(p0, cfg, one, _dp_global(ds, 0, dev))
+        del p0
+        out["reduced_gradient_gap"] = gap = max(
+            float((a - rt.local(b, sp)).abs().max() / b.abs().max())
+            for a, b, sp in zip(topt.tree_leaves(first.pop("grads")),
+                                topt.tree_leaves(g1),
+                                topt.tree_leaves(pspecs)))
+        del first, g1
+        if gap > 1e-4:
+            raise AssertionError(f"17 {arch} tensor-parallel: reduced "
+                                 f"gradients {gap} of a leaf's largest "
+                                 "from one process's")
+    if cfg.moe is not None and dp_rt is None:
         # the aux of this rank's rows alone (no batch group), at the
         # first step's parameters; the ranks' mean of it
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -5756,6 +5827,93 @@ def _dp_c4(arch, layers, rank, rt, one, dev, LAUNCHES, reset_launches):
     return out
 
 
+def _tp_heads(seen):
+    """A wrapper of the attention module's K5 entry that records each
+    call's (query heads, KV heads)."""
+    def wrap(fn):
+        def call(q, k, v, **kw):
+            seen.add((int(q.shape[1]), int(k.shape[1])))
+            return fn(q, k, v, **kw)
+        return call
+    return wrap
+
+
+def _tp_yi(rank, cfg, tc, ds, single, one, dev, LAUNCHES, reset_launches):
+    """17.6 tensor parallelism: ``cfg`` (yi-9b, 2 layers, f32, full
+    remat, AdamW as ``tc``) through ``TrainLoop`` on a (data, model) mesh
+    of TP_SHAPE for DP_STEPS steps, then DP_STEPS steps under sequence
+    parallelism, both on
+    the data-parallel loop's global rows (``ds``), each rank reading both
+    rows at half the heads, FFN width and vocabulary; counts 0 before and
+    read after each (:func:`_dp_loop_run`: exactly 4 / 2 K5 launches a
+    step), every K5 call at the local 16 query and 2 KV heads.  Held to
+    the one-process loop ``single`` (rank 0's: losses rtol 1e-5) and to
+    the one-process gradients of the first step (the reduced ones, this
+    rank's slices, within 1e-4 of each leaf's largest)."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.train import loop as tloop
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_step as tts
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(TP_SHAPE, ("data", "model"))
+    data = DataConfig(DP_RANKS, DP_SEQ, seed=0)
+    heads = cfg.n_heads // TP_SHAPE[1], cfg.n_kv_heads // TP_SHAPE[1]
+    out = dict(arch=DP_ARCH, mesh_shape=TP_SHAPE, predicted=TP_PREDICTED)
+    g1 = None
+    for sp, steps in ((False, DP_STEPS), (True, DP_STEPS)):
+        what = "17 tensor-parallel" + (" sequence-parallel" if sp else "")
+        rt = Runtime(mesh=mesh, collective_dtype="float32",
+                     sequence_parallel=sp)
+        loop = tloop.TrainLoop(cfg, rt, data, tc,
+                               tloop.LoopConfig(total_steps=steps,
+                                                log_every=1), device=dev)
+        loop.data.batch = lambda step: _dp_global(ds, step, dev)
+        seen = set()
+        with _patched(attn_mod, "flash_attention", _tp_heads(seen)):
+            info, first = _dp_loop_run(loop, LAUNCHES, reset_launches,
+                                       DP_LAYERS, what, keep_first=True)
+        if seen != {heads}:
+            raise AssertionError(f"{what}: K5 at (H, Hkv) {seen}, expected "
+                                 f"{heads}")
+        info["k5_heads"] = sorted(seen)
+        pspecs = loop.specs["params"]
+        del loop
+        if g1 is None:   # the first step's gradients in one process
+            gen = torch.Generator(device=dev).manual_seed(0)
+            p0 = model_mod.init_params(cfg, one, gen, dev)
+            _, _, g1 = tts.loss_and_grads(p0, cfg, one,
+                                          _dp_global(ds, 0, dev))
+            del p0
+        info["reduced_gradient_gap"] = gap = max(
+            float((a - rt.local(b, sp_)).abs().max() / b.abs().max())
+            for a, b, sp_ in zip(topt.tree_leaves(first.pop("grads")),
+                                 topt.tree_leaves(g1),
+                                 topt.tree_leaves(pspecs)))
+        del first
+        if gap > 1e-4:
+            raise AssertionError(f"{what}: reduced gradients {gap} of a "
+                                 "leaf's largest from one process's")
+        if rank == 0 and not np.allclose(
+                info["losses"], single["losses"][:steps], rtol=1e-5, atol=0):
+            raise AssertionError(f"{what}: losses {info['losses']} vs one "
+                                 f"process's {single['losses']}")
+        out["sequence_parallel" if sp else "mesh"] = info
+        torch.cuda.empty_cache()
+    del g1
+    dist.barrier()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def _dp_rank_body(rank, init):
     import datetime
 
@@ -5789,7 +5947,8 @@ def _dp_rank_body(rank, init):
                      collective_dtype="float32")
         one = Runtime(collective_dtype="float32")
         data = DataConfig(DP_RANKS, DP_SEQ, seed=0)
-        oc = topt.AdamWConfig(warmup_steps=1, total_steps=DP_STEPS)
+        oc = topt.AdamWConfig(warmup_steps=1,
+                              total_steps=DP_SCHEDULE_STEPS)
         tc = tts.TrainConfig(opt=oc)
         fwd, bwd = 2 * DP_LAYERS, DP_LAYERS      # K5 a step (remat full)
         out = dict(rank=rank)
@@ -5943,6 +6102,18 @@ def _dp_rank_body(rank, init):
             torch.cuda.empty_cache()
         out["c4"] = _dp_c4(*DP_C4, rank, rt, one, dev, LAUNCHES,
                            reset_launches)
+        torch.cuda.empty_cache()
+        # (iv) tensor parallelism on a (data, model) mesh of the same
+        # ranks: yi-9b, then TP_FAMILY
+        single = out["single"] if rank == 0 else None
+        out["tp"] = _tp_yi(rank, cfg, tc, ds, single, one, dev, LAUNCHES,
+                           reset_launches)
+        torch.cuda.empty_cache()
+        rt_tp = Runtime(mesh=make_mesh(TP_SHAPE, ("data", "model")),
+                        collective_dtype="float32")
+        out["tp_family"] = _dp_family(*TP_FAMILY, rank, rt_tp, one, dev,
+                                      group, LAUNCHES, reset_launches,
+                                      dp_rt=rt)
         out["body_s"] = time.perf_counter() - t_body
         return out
     finally:
@@ -5950,11 +6121,11 @@ def _dp_rank_body(rank, init):
 
 
 def phase_dp():
-    """17. Data-parallel training on the card (see the constants above):
-    two ranks share the card through gloo.  (i) ``TrainLoop`` on a mesh
-    of 2 (the sharded step, ``launch.train --mesh``'s path), counts 0
-    before and read after on each rank: exactly 12 K5 forward and 6
-    backward launches; its losses against the same loop in one process
+    """17. Training on a mesh on the card (see the constants above): two
+    ranks share the card through gloo.  (i) ``TrainLoop`` on a mesh of 2
+    (the sharded step, ``launch.train --mesh``'s path), counts 0 before
+    and read after on each rank: exactly 8 K5 forward and 4 backward
+    launches; its losses against the same loop in one process
     on the same rows, its reduced gradients against one process's, each
     step split into wire, staging, gradient pass and the rest; (ii)
     manual DP over ``DP_RINGS`` stride rings from the same parameters:
@@ -5964,8 +6135,11 @@ def phase_dp():
     with its loss falling and the ranks' largest parameter gap printed;
     exactly 4 K5 forward and 2 backward launches a step; (iii) olmoe-1b-7b
     and zamba2-1.2b on the mesh (:func:`_dp_family`), then C4's step
-    (:func:`_dp_c4`).  Step wall, wire bytes and seconds, host staging
-    and peak memory per rank.  Returns each rank's K5 launches a path,
+    (:func:`_dp_c4`); (iv) tensor parallelism on a (1, 2) mesh of the
+    same ranks: yi-9b with and without sequence parallelism
+    (:func:`_tp_yi`), then olmoe-1b-7b (:func:`_dp_family`).  Step wall,
+    wire bytes and seconds (the model axis' apart), host staging and
+    peak memory per rank.  Returns each rank's K5 launches a path,
     ``{rank: {(arch, kind): [forward, backward]}}``."""
     import multiprocessing
     import queue
@@ -6015,14 +6189,35 @@ def phase_dp():
               flush=True)
     wall = time.perf_counter() - t0
     print(f"# phase 17: wall {wall:.1f} s", flush=True)
+    for r in range(DP_RANKS):
+        tp = results[r]["tp"]
+        print(f"# phase 17 rank {r} tensor parallel ({smi}): predicted "
+              f"model-axis wire {TP_PREDICTED['wire_bytes'] / 1e9:.3f} GB "
+              f"in {TP_PREDICTED['wire_s'][0]:.2f}-"
+              f"{TP_PREDICTED['wire_s'][1]:.2f} s a step; measured "
+              f"{tp['mesh']['model_wire_bytes_a_step'] / 1e9:.3f} GB in "
+              f"{tp['mesh']['model_wire_s_a_step']:.3f} s (staging "
+              f"{tp['mesh']['model_staging_s_a_step']:.3f} s), step "
+              f"{tp['mesh']['steady_step_s']:.3f} s (data-parallel mesh "
+              f"step {results[r]['mesh']['steady_step_s']:.3f} s, "
+              f"sequence-parallel "
+              f"{tp['sequence_parallel']['steady_step_s']:.3f} s), peak "
+              f"{tp['peak_gb']:.2f} GB", flush=True)
     out = {}
     for r, res in results.items():
-        out[r] = {(DP_ARCH, "mesh"): res["mesh"]["k5"],
-                  (DP_ARCH, "manual"): res["manual_k5"],
-                  **{(arch, "mesh"): fam["mesh"]["k5"]
+        dp_ = "data-parallel"
+        tp_ = "tensor-parallel"
+        out[r] = {(DP_ARCH, dp_, "mesh"): res["mesh"]["k5"],
+                  (DP_ARCH, dp_, "manual"): res["manual_k5"],
+                  **{(arch, dp_, "mesh"): fam["mesh"]["k5"]
                      for arch, fam in res["families"].items()},
-                  (res["c4"]["arch"], "grad_accum 2, int8_ef"):
-                      res["c4"]["k5"]}
+                  (res["c4"]["arch"], dp_, "grad_accum 2, int8_ef"):
+                      res["c4"]["k5"],
+                  (DP_ARCH, tp_, "mesh"): res["tp"]["mesh"]["k5"],
+                  (DP_ARCH, tp_, "sequence-parallel"):
+                      res["tp"]["sequence_parallel"]["k5"],
+                  (res["tp_family"]["arch"], tp_, "mesh"):
+                      res["tp_family"]["mesh"]["k5"]}
     return out
 
 
@@ -6190,10 +6385,9 @@ def _main(stop) -> int:
                            "hubert-xlarge prefill step": front["prefill"],
                            "hubert-xlarge train":
                                front["train"]["flash_attention"],
-                           **{f"{arch} data-parallel train rank {r} "
-                              f"({kind})": k5[0]
-                              for r, n in dp.items()
-                              for (arch, kind), k5 in n.items()}}
+                           **{f"{arch} {par} train rank {r} ({kind})":
+                              k5[0] for r, n in dp.items()
+                              for (arch, par, kind), k5 in n.items()}}
     for part in (serve["per_layout"], moe["fwd"], moe["serve_k5"],
                  rec["fwd"], rec["serve_k5"], front["fwd"],
                  front["serve_k5"]):
@@ -6217,8 +6411,8 @@ def _main(stop) -> int:
     k5b["path_launches"]["hubert-xlarge train"] = \
         front["train"]["flash_attention_bwd"]
     k5b["path_launches"].update(
-        {f"{arch} data-parallel train rank {r} ({kind})": k5[1]
-         for r, n in dp.items() for (arch, kind), k5 in n.items()})
+        {f"{arch} {par} train rank {r} ({kind})": k5[1]
+         for r, n in dp.items() for (arch, par, kind), k5 in n.items()})
     k5b["per_layout"].update(moe["bwd"])
     k5b["per_layout"].update(rec["bwd"])
     k5b["per_layout"].update(front["bwd"])

@@ -28,6 +28,30 @@ back after the receive); all-reduce is staged the same way.  The
 backend decides, never a caught error.  A :class:`WireLog` passed in
 counts the bytes each call sends and the seconds it and its host
 staging take.
+
+The model region's autograd functions (tensor parallelism, ROADMAP
+A13.5.3b) cross the model axis of a mesh step's body, whose Runtime
+names the axis' group (``model_group``, ``model_ranks``,
+``model_index``) and counts on its ``model_wire``:
+
+* :func:`model_enter`: identity forward, all-reduce backward: a
+  replicated tensor (an activation or a replicated weight) read by a
+  region in which each rank computes a part, so that each rank's
+  cotangent is a partial sum;
+* :func:`model_leave`: all-reduce forward, identity backward: the
+  ranks' partial sums leave the region replicated;
+* :func:`model_gather`: all-gather along a dimension forward, the
+  rank's slice of the cotangent backward: the sequence at a block's
+  entry under sequence parallelism (the region's :func:`model_enter`
+  then sums the cotangent first: reduce, then slice), or the frontend's
+  projection split on ``d``;
+* :func:`model_split`: the rank's slice along a dimension forward, the
+  all-gather of the cotangent backward: the rows of a block's output
+  under sequence parallelism, after :func:`model_leave` (reduce, then
+  slice: gloo has no reduce-scatter).
+
+Under a checkpoint each runs again in the recomputed forward, in the
+same order on every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +71,10 @@ __all__ = [
     "all_reduce",
     "replicated_sum",
     "all_gather",
+    "model_enter",
+    "model_leave",
+    "model_gather",
+    "model_split",
     "WireLog",
 ]
 
@@ -118,15 +146,19 @@ def _to_device(ts: List[torch.Tensor], device, log: Optional[WireLog]):
 
 
 def all_reduce(x: torch.Tensor, group=None,
-               log: Optional[WireLog] = None) -> torch.Tensor:
-    """The sum of every rank's ``x`` over ``group`` (a new tensor)."""
+               log: Optional[WireLog] = None, op: str = "sum"
+               ) -> torch.Tensor:
+    """The sum (``op="max"``: the largest) of every rank's ``x`` over
+    ``group`` (a new tensor)."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
     device = x.device
     stage = _staged(x, group)
-    buf = _to_host([x], log)[0] if stage else x.clone()
-    dist.all_reduce(buf, group=group)
+    buf = (_to_host([x], log)[0] if stage
+           else x.clone(memory_format=torch.contiguous_format))
+    dist.all_reduce(buf, group=group, op={"sum": dist.ReduceOp.SUM,
+                                          "max": dist.ReduceOp.MAX}[op])
     if stage:
         buf = _to_device([buf], device, log)[0]
     if log is not None:
@@ -180,6 +212,85 @@ def all_gather(x: torch.Tensor, group, members: Sequence[int],
         log.seconds += time.perf_counter() - t0
         log.calls += 1
     return out
+
+
+class _ModelEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt):
+        ctx.rt = rt
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        rt = ctx.rt
+        return all_reduce(g, rt.model_group, rt.model_wire), None
+
+
+class _ModelLeave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt):
+        return all_reduce(x, rt.model_group, rt.model_wire)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _model_slice(x: torch.Tensor, rt, dim: int) -> torch.Tensor:
+    per = x.shape[dim] // rt.model_size
+    return x.narrow(dim, rt.model_index * per, per).contiguous()
+
+
+def _model_cat(x: torch.Tensor, rt, dim: int) -> torch.Tensor:
+    return torch.cat(all_gather(x, rt.model_group, rt.model_ranks,
+                                rt.model_wire), dim=dim)
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt, dim):
+        ctx.rt, ctx.dim = rt, dim
+        return _model_cat(x, rt, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_slice(g, ctx.rt, ctx.dim), None, None
+
+
+class _ModelSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rt, dim):
+        ctx.rt, ctx.dim = rt, dim
+        return _model_slice(x, rt, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_cat(g.contiguous(), ctx.rt, ctx.dim), None, None
+
+
+def model_enter(x: torch.Tensor, rt) -> torch.Tensor:
+    """``x`` entering a model region (identity); its cotangent is summed
+    over ``rt``'s model axis."""
+    return _ModelEnter.apply(x, rt)
+
+
+def model_leave(x: torch.Tensor, rt) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``rt``'s model axis; the
+    cotangent passes unchanged to each rank's part."""
+    return _ModelLeave.apply(x, rt)
+
+
+def model_gather(x: torch.Tensor, rt, dim: int) -> torch.Tensor:
+    """The ranks' slices of ``x`` along ``dim`` joined in axis order; the
+    backward keeps the rank's slice of the cotangent."""
+    return _ModelGather.apply(x, rt, dim)
+
+
+def model_split(x: torch.Tensor, rt, dim: int) -> torch.Tensor:
+    """The rank's slice of the replicated ``x`` along ``dim`` (which the
+    model axis divides); the backward all-gathers the ranks'
+    cotangents."""
+    return _ModelSplit.apply(x, rt, dim)
 
 
 def _axes(axis) -> Tuple[str, ...]:

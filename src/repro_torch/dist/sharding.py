@@ -14,15 +14,30 @@ divide-or-replicate rule (an axis entry is dropped when the dimension is
 not divisible by the axis size), and degrades to single-device no-ops
 when ``mesh=None``, bit for bit the one-device behaviour of the port
 before it had a mesh.  Layout knobs, as there: ``tp_disabled`` (the model
-axis folded into the data axes) and ``collective_dtype`` (the wire dtype
-of gradient reductions).  The JAX package's ``sequence_parallel``
-(tensor parallelism, ROADMAP A13.5.3b), ``moe_mode`` (expert
-parallelism, A13.5.3c) and ``seq_sharded_decode`` (A13.5.3d) come with
-the model-parallel bodies that read them, as do ``shard`` and
-``shard_spec``, the constraints those bodies place.  ``batch_group`` is
-the port's own: a mesh step's body runs with no mesh on the rank's
-rows, and reads it where a statistic spans the batch (the experts'
-load-balance loss).
+axis folded into the data axes), ``sequence_parallel`` (the residual
+stream's sequence split over the model axis between blocks) and
+``collective_dtype`` (the wire dtype of gradient reductions).  The JAX
+package's ``moe_mode`` (expert parallelism, ROADMAP A13.5.3c) and
+``seq_sharded_decode`` (A13.5.3d) come with the bodies that read them.
+:meth:`Runtime.local` stands for the JAX package's ``shard`` and
+``shard_spec`` constraints, read as this contract reads a layout: the
+rank's slice of a tensor it holds whole, as a differentiable view.
+
+A mesh step's body runs with no mesh, on the rank's rows and its
+model-axis slices of the parameters (:meth:`Runtime.step_body`).  Its
+Runtime carries what the body reads of the mesh, fields of the port's
+own:
+
+* ``batch_group`` (no model axis): the data ranks' process group, over
+  which the experts' load-balance loss sums its statistics, so that it
+  is the global batch's as under the JAX package's pjit step;
+* ``model_group``, ``model_ranks`` and ``model_index`` (a model axis
+  above 1): the rank's slice of the model axis, its global ranks in axis
+  order and the rank's position on it.  The model-parallel bodies split
+  a dimension over the axis where :meth:`Runtime.splits` says the
+  divide-or-replicate rule splits it, and cross the axis through the
+  region functions of :mod:`repro_torch.dist.collectives`, which count
+  on ``model_wire``.
 
 **The port's counterpart of a mesh** (the decision, and why):
 
@@ -198,12 +213,20 @@ class Runtime:
     model_axis: str = "model"
     tp_disabled: bool = False
     collective_dtype: str = "bfloat16"
-    # Inside a mesh step's body, which sees no mesh: the process group
-    # whose ranks hold the rest of the batch.  The experts' routing
-    # statistics sum over it, so that their load-balance loss is the
-    # global batch's, as under the JAX package's pjit step.  None: the
-    # rows are the whole batch.
+    sequence_parallel: bool = False
+    # Inside a mesh step's body, which sees no mesh (``step_body``): the
+    # process group whose ranks hold the rest of the batch.  The experts'
+    # routing statistics sum over it, so that their load-balance loss is
+    # the global batch's, as under the JAX package's pjit step.  None:
+    # the rows are the whole batch.
     batch_group: Any = None
+    # Inside a mesh step's body on a model axis above 1: the axis' process
+    # group, its global ranks in axis order, the rank's position on it,
+    # and the WireLog its region functions count on.
+    model_group: Any = None
+    model_ranks: Tuple[int, ...] = ()
+    model_index: int = 0
+    model_wire: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "data_axes", tuple(self.data_axes))
@@ -217,9 +240,18 @@ class Runtime:
             if missing:
                 raise ValueError(f"data_axes {missing} not in mesh axes "
                                  f"{tuple(self.mesh.axis_names)}")
-        if self.mesh is not None and self.batch_group is not None:
-            raise ValueError("batch_group belongs to a mesh step's body, "
-                             "which runs without a mesh")
+        object.__setattr__(self, "model_ranks", tuple(self.model_ranks))
+        if self.mesh is not None and (self.batch_group is not None
+                                      or self.model_ranks):
+            raise ValueError("batch_group and the model_* fields belong to "
+                             "a mesh step's body, which runs without a "
+                             "mesh")
+        if self.model_ranks and not (
+                self.model_group is not None
+                and 0 <= self.model_index < len(self.model_ranks)):
+            raise ValueError(f"model_ranks {self.model_ranks} need their "
+                             f"group and an index in range, got "
+                             f"{self.model_index}")
         if self.collective_dtype not in _DTYPES:
             raise ValueError(f"collective_dtype must be one of "
                              f"{sorted(_DTYPES)}, got "
@@ -254,6 +286,18 @@ class Runtime:
                 or self.model_axis in self.fsdp_axes):
             return 1
         return int(self._mesh_sizes.get(self.model_axis, 1))
+
+    @property
+    def model_size(self) -> int:
+        """The model axis a mesh step's body sees: its size, 1 outside a
+        body or without a model axis."""
+        return max(len(self.model_ranks), 1)
+
+    def splits(self, dim: int) -> bool:
+        """Whether a body's dimension of ``dim`` entries, laid out on
+        ``"tp"``, is split over its model axis: the divide-or-replicate
+        rule of :meth:`spec_div`."""
+        return self.model_size > 1 and int(dim) % self.model_size == 0
 
     @property
     def fsdp(self):
@@ -307,6 +351,34 @@ class Runtime:
             out.append(self._resolve(e)
                        if size > 1 and int(d) % size == 0 else None)
         return P(*out)
+
+    def data_spec(self, spec: P) -> P:
+        """``spec`` with its model-axis entries replicated: the layout
+        over the data axes alone, in which a rank holds its model-axis
+        slice whole."""
+        if self.tp_size == 1:
+            return spec
+        return P(*(None if e == self.model_axis else e for e in spec))
+
+    def step_body(self, wire=None) -> "Runtime":
+        """The Runtime that a mesh step's body runs with on this rank: no
+        mesh; without a model axis the data ranks' ``batch_group``; on a
+        model axis above 1 its ``model_*`` fields (``wire`` their
+        WireLog) and ``sequence_parallel``.  On a model axis each data
+        shard's rows are a batch of their own, as in the JAX package's
+        manual model regions: the experts' load-balance loss is then each
+        data shard's own, which the mesh step averages over the data
+        ranks.  Makes the process groups it names, a collective call on
+        every rank."""
+        import torch.distributed as dist
+
+        if self.tp_size == 1:
+            return Runtime(batch_group=self.mesh.group(self.fsdp_axes)[0])
+        mgroup, ranks = self.mesh.group((self.model_axis,))
+        return Runtime(sequence_parallel=self.sequence_parallel,
+                       model_group=mgroup, model_ranks=ranks,
+                       model_index=ranks.index(dist.get_rank()),
+                       model_wire=wire)
 
     # ---- per-rank shards -----------------------------------------------------
     def _rank(self) -> int:

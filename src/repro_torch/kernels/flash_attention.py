@@ -260,6 +260,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if bq < 1 or bk < 1:
         raise ValueError(f"tiles must be positive, got bq={bq}, bk={bk}")
+    if q.dim() != 4 or k.dim() != 4 or q.shape[1] % k.shape[1]:
+        # A GQA group cut in two (a head split over a model axis) lands
+        # here on either device.
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: "
+                         "expected (B, H, S, D) and (B, Hkv, S, D) with H "
+                         "a multiple of Hkv")
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -16,6 +16,9 @@
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.train --arch olmoe-1b-7b --smoke --device cpu \\
       --mesh 4 --steps 4 --global-batch 8 --seq 64
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch yi-9b --smoke --device cpu \\
+      --mesh 2x2 --steps 4 --global-batch 8 --seq 64
 
 The JAX package's ``launch/train.py`` with the same flags, plus
 ``--device`` (``cuda`` unless ``cpu`` is asked for; ``cuda`` without a
@@ -26,11 +29,13 @@ trajectory.  Prints one JSON line per history entry (with the experts'
 load-balance loss ``aux`` beside the loss for a mixture-of-experts
 model).
 
-``--mesh N`` or ``Dx1`` trains any family data parallel on a mesh of
-``(data, model)`` axes over the ranks that ``torchrun --standalone
---nproc-per-node N`` starts (its environment rendezvous; the mesh's
-size must be the world's).  A model axis above 1 raises (tensor
-parallelism comes with ROADMAP A13.5.3b).  Rank ``r`` runs on
+``--mesh N`` or ``DxM`` trains on a mesh of ``(data, model)`` axes over
+the ranks that ``torchrun --standalone --nproc-per-node N`` starts (its
+environment rendezvous; the mesh's size must be the world's): any family
+data parallel, and with a model axis ``M`` above 1 tensor parallel (the
+dense, frontend and mixture-of-experts families; the families with MLA,
+Mamba2 or RWKV6 blocks raise before a weight is drawn, ROADMAP
+A13.5.3e).  Rank ``r`` runs on
 ``cuda:{local_rank % device_count}`` (or the CPU under ``--device
 cpu``); the backend is nccl where every rank has a card of its own,
 gloo otherwise (the CPU, or ranks sharing a card).  Rank 0 prints the
@@ -126,11 +131,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     rt, device, rank = Runtime(), args.device, 0
     if args.mesh:
         shape = mesh_shape(args.mesh)
-        if len(shape) == 2 and shape[1] > 1:
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: a model axis of {shape[1]} is tensor "
-                "parallelism, which comes with the model-parallel bodies "
-                "(ROADMAP A13.5.3b)")
+        from repro_torch.models.model import check_model_axis
+        check_model_axis(cfg, shape[1] if len(shape) == 2 else 1)
         import math
 
         import torch.distributed as dist

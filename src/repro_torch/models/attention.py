@@ -11,6 +11,17 @@ its sequence-sharded decode with the log-sum-exp combine comes with
 ROADMAP A13.5.3d.  :func:`attn_specs` and :func:`kv_cache_specs` are
 the JAX package's (the cache's sequence dim replicated until then).
 
+On a model axis that splits the query heads (a mesh step's body,
+``rt.splits(n_heads)``) :func:`attn_apply` runs on the rank's heads and
+returns ``wo``'s partial sum, the caller entering and leaving the model
+region around it (``repro_torch.models.model``); K5 runs at the local
+head counts.  Where the KV heads do not divide over the axis, ``wk``,
+``wv`` and their biases stay whole (divide-or-replicate), and the rank
+reads the KV heads that its query heads read (query head ``i`` reads
+``i // (H / Hkv)``) through :func:`~repro_torch.dist.collectives.model_enter`,
+which sums their gradients over the axis.  Where the query heads do not
+divide, the block runs whole on every rank.
+
 A KV cache is ``{"k", "v": (B, L, KV, dh), "pos"}``.  ``pos`` is the
 number of tokens written so far, kept as an int32 tensor on the host:
 it sets the length of the live prefix a decode step attends, a shape, so
@@ -25,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from ..dist.collectives import model_enter
 from ..dist.sharding import P, Runtime
 from ..kernels import flash_attention
 from . import common
@@ -80,6 +92,8 @@ def attn_apply(params, cfg: ModelConfig, rt: Runtime, x, rope, *,
     """
     s = x.shape[1]
     dt = x.dtype
+    if rt.splits(cfg.n_heads):
+        params = _local_kv(params, cfg, rt)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
@@ -104,6 +118,38 @@ def attn_apply(params, cfg: ModelConfig, rt: Runtime, x, rope, *,
     if cache is not None:  # prefill fill-up
         cache = _fill_cache(rt, cache, k, v, s, window)
     return o, cache
+
+
+def kv_heads_read(cfg: ModelConfig, rt: Runtime):
+    """The KV heads (a list of indices) that the rank's query heads read
+    where the query heads split over the model axis and the KV heads do
+    not: ``lo .. lo + n - 1`` where each of n heads serves ``H_local /
+    n`` consecutive local query heads (a GQA group, or a rank's part of
+    one), else one KV head per local query head."""
+    h_loc = cfg.n_heads // rt.model_size
+    group = cfg.n_heads // cfg.n_kv_heads
+    q0 = rt.model_index * h_loc
+    idx = [(q0 + i) // group for i in range(h_loc)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if h_loc % n == 0 and idx == [lo + i // (h_loc // n)
+                                  for i in range(h_loc)]:
+        return list(range(lo, lo + n))
+    return idx
+
+
+def _local_kv(params, cfg: ModelConfig, rt: Runtime):
+    """``params`` with whole (replicated) KV projections narrowed to the
+    heads the rank reads, through ``model_enter``; as given where the KV
+    heads split too."""
+    if rt.splits(cfg.n_kv_heads):
+        return params
+    sel = kv_heads_read(cfg, rt)
+    out = dict(params)
+    for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in params:
+            w = model_enter(params[name], rt)
+            out[name] = w[:, sel] if dim == 1 else w[sel]
+    return out
 
 
 def init_kv_cache(rt: Runtime, cfg: ModelConfig, batch: int, length: int,

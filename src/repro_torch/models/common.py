@@ -7,6 +7,14 @@ lives on that device.  The dense family's ``*_specs`` builders give
 each init's partition-spec tree under a
 :class:`~repro_torch.dist.sharding.Runtime`, the JAX package's specs
 (compared by ``tuple``).
+
+On a model axis (a mesh step's body, ``rt.model_size > 1``) the
+functions run on the rank's slices: :func:`mlp_apply` on its slice of
+the FFN width, returning a partial sum; :func:`embed_lookup` on its
+slice of the vocabulary, ids outside it reading zeros, summed over the
+axis; :func:`cross_entropy` on its slice of the logits, with the max,
+the sum of exponentials and the gold logit reduced over the axis (the
+logits themselves never cross it).
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.collectives import all_reduce, model_leave
 from ..dist.sharding import Runtime
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -118,7 +127,9 @@ def mlp_specs(rt: Runtime, d: int, f: int):
 
 def mlp_apply(params, x):
     """SwiGLU: ``silu(x wi_gate) * (x wi_up)``, then ``wo`` (the JAX
-    package's default ``act``, the only one its dense blocks use)."""
+    package's default ``act``, the only one its dense blocks use).  On
+    the rank's slice of the width (``wi``'s last dim, ``wo``'s first)
+    the result is the rank's partial sum."""
     dt = x.dtype
     h = torch.einsum("bsd,dcf->bscf", x, params["wi"].to(dt))
     gate, up = h[:, :, 0], h[:, :, 1]
@@ -156,12 +167,50 @@ def embed_specs(rt: Runtime, vocab: int, d: int):
     return {"tok": rt.spec_div((None, "fsdp"), (vocab, d))}
 
 
+def _vocab_slice(rt: Runtime, ids: torch.Tensor, v_local: int):
+    """(ids inside the rank's slice of the vocabulary, their offsets in
+    it, clamped into range)."""
+    idx = ids.long() - rt.model_index * v_local
+    inside = (idx >= 0) & (idx < v_local)
+    return inside, idx.clamp(0, v_local - 1)
+
+
+def embed_lookup(params, tokens: torch.Tensor, dtype,
+                 rt: Optional[Runtime] = None) -> torch.Tensor:
+    """The rows of ``params["tok"]`` for ``tokens``, cast to ``dtype``
+    (gather, then cast: the bits of the JAX package's cast table).  With
+    ``rt`` (a body whose model axis splits the vocabulary) the table is
+    the rank's slice: ids outside it read zeros, and the rows are summed
+    over the axis."""
+    tok = params["tok"]
+    if rt is None:
+        return tok[tokens].to(dtype)
+    inside, idx = _vocab_slice(rt, tokens, tok.shape[0])
+    x = torch.where(inside[..., None], tok[idx].to(dtype),
+                    torch.zeros((), dtype=dtype, device=tok.device))
+    return model_leave(x, rt)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  softcap: float = 0.0) -> torch.Tensor:
-    """Mean token cross-entropy in f32 (with optional final logit softcap)."""
+                  softcap: float = 0.0,
+                  rt: Optional[Runtime] = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32 (with optional final logit
+    softcap).  With ``rt`` (a body whose model axis splits the
+    vocabulary) ``logits`` are the rank's slice of it: the max over the
+    vocabulary, then the sum of exponentials and the gold logit (from
+    the rank that owns the label) are reduced over the axis."""
     lf = logits.float()
     if softcap > 0:
         lf = softcap * torch.tanh(lf / softcap)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - gold)
+    if rt is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        return torch.mean(lse - gold)
+    m = all_reduce(lf.detach().amax(dim=-1), rt.model_group, rt.model_wire,
+                   op="max")
+    sum_exp = torch.exp(lf - m[..., None]).sum(dim=-1)
+    inside, idx = _vocab_slice(rt, labels, lf.shape[-1])
+    gold = torch.where(inside, torch.gather(lf, -1, idx[..., None])[..., 0],
+                       torch.zeros((), dtype=lf.dtype, device=lf.device))
+    sum_exp, gold = model_leave(torch.stack([sum_exp, gold]), rt)
+    return torch.mean(torch.log(sum_exp) + m - gold)

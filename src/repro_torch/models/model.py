@@ -48,6 +48,24 @@ experts' under ``moe_mode="tp"`` (expert parallelism comes with ROADMAP
 A13.5.3c) and the caches' sequence dims replicated (the
 sequence-sharded decode comes with A13.5.3d).
 
+Tensor parallelism (a mesh step's body on a model axis above 1, ROADMAP
+A13.5.3b; the ``g`` and ``l`` blocks, dense or with experts, and the
+frontends): the parameters are the rank's model-axis slices under
+``param_specs``, and each dimension that the divide-or-replicate rule
+splits (``rt.splits``) runs as a model region.  The token table is
+looked up vocab-parallel; a frontend's projection, split on ``d``, is
+all-gathered on ``d``; attention (on the rank's heads) and the MLP (on
+its slice of the width) enter their region and leave it summed; the
+experts handle their own region (``models/moe.py``); the LM head
+(``lm_head`` or the tied table, split on the vocabulary) gives the
+rank's slice of the logits, which :func:`loss_fn`'s cross-entropy reads
+vocab-parallel.  Under ``rt.sequence_parallel``, where the model axis
+divides S (else as without it, as the JAX package falls back), the
+residual stream between blocks is the rank's S / tp rows: the norms run
+on the rows (their scales entering the region, since each rank's
+gradient of them is its rows' part), the sequence is all-gathered at a
+block's body and its summed output sliced back to the rows.
+
 Public API:
   init_params / param_specs / init_cache / cache_specs / cast_params
   forward(params, cfg, rt, batch, cache=None)  -> logits (+ cache) + aux
@@ -64,13 +82,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import resolve_device
+from ..dist.collectives import (model_enter, model_gather, model_leave,
+                                model_split)
 from ..dist.sharding import P, Runtime
 from . import attention as attn_mod
 from . import common, mla, moe, rwkv, ssm
 from .config import ModelConfig
 
 __all__ = ["init_params", "param_specs", "init_cache", "cache_specs",
-           "cast_params", "forward", "loss_fn", "AUX_COEF"]
+           "cast_params", "forward", "loss_fn", "AUX_COEF",
+           "check_model_axis"]
 
 AUX_COEF = 0.01
 
@@ -78,6 +99,19 @@ AUX_COEF = 0.01
 # norms' scales, the SSM's decay, step bias and skip, RWKV6's decay base
 # and bonus.  ``cast_params`` keeps their dtype.
 _F32_LEAVES = frozenset({"scale", "A_log", "dt_bias", "D", "w0", "u"})
+
+
+def check_model_axis(cfg: ModelConfig, tp_size: int) -> None:
+    """Raise where ``cfg`` has no model-axis body yet and ``tp_size`` is
+    above 1: multi-head latent attention, Mamba2 (zamba2's shared block
+    with it) and RWKV6 blocks (ROADMAP A13.5.3e)."""
+    if tp_size > 1 and (cfg.mla is not None
+                        or any(ch in "mar" for ch in cfg.layer_pattern)):
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {tp_size}: the model-axis "
+            "bodies of MLA, Mamba2 and RWKV6 blocks come with ROADMAP "
+            "A13.5.3e; fold the model axis into the data axes "
+            "(tp_disabled=True) to train it data parallel")
 
 
 def _tree_map(fn, tree):
@@ -311,12 +345,34 @@ def cache_specs(cfg: ModelConfig, rt: Runtime, batch: int, length: int):
 # -----------------------------------------------------------------------------
 # Forward.
 # -----------------------------------------------------------------------------
+def _norm(p, x, cfg: ModelConfig, rt: Runtime, sp: bool):
+    """RMSNorm; on the rank's rows under sequence parallelism (``sp``),
+    its scale entering the model region."""
+    if sp:
+        p = {"scale": model_enter(p["scale"], rt)}
+    return common.rmsnorm(p, x, cfg.norm_eps)
+
+
+def _region(fn, h, rt: Runtime, split: bool, sp: bool):
+    """``fn`` on the block input ``h`` (the rank's rows under sequence
+    parallelism ``sp``, gathered first): inside a model region where
+    ``split`` (its partial output summed over the axis), else whole;
+    the output sliced back to the rows under ``sp``."""
+    if sp:
+        h = model_gather(h, rt, 1)
+    h = model_leave(fn(model_enter(h, rt)), rt) if split else fn(h)
+    return model_split(h, rt, 1) if sp else h
+
+
 def _apply_block(bp, cfg: ModelConfig, rt: Runtime, char: str, x, rope,
-                 cache, shared=None):
+                 cache, shared=None, sp: bool = False):
     """One block; returns (x, cache, aux): aux is the experts' f32
     load-balance loss, None without experts.  An ``a`` block applies
     ``shared`` (attention windowed at ``cfg.window``, then the MLP);
-    ``m`` and ``r`` blocks write a given cache in place."""
+    ``m`` and ``r`` blocks write a given cache in place.  On a model
+    axis the attention and the MLP run in model regions (:func:`_region`)
+    where it splits them; ``sp``: ``x`` is the rank's rows of the
+    residual stream (sequence parallelism)."""
     if char == "m":
         h, cache = ssm.ssm_apply(bp["ssm"], cfg, rt,
                                  common.rmsnorm(bp["ln1"], x, cfg.norm_eps),
@@ -338,24 +394,39 @@ def _apply_block(bp, cfg: ModelConfig, rt: Runtime, char: str, x, rope,
         return x + h, cache, None
     if char == "a":
         bp = shared
-    h = common.rmsnorm(bp["ln1"], x, cfg.norm_eps)
     window = cfg.window if char in ("l", "a") and cfg.window > 0 else 0
-    if cfg.mla is not None and char != "a":
-        h, cache = mla.mla_apply(bp["attn"], cfg, rt, h, rope, cache=cache)
-    else:
-        h, cache = attn_mod.attn_apply(bp["attn"], cfg, rt, h, rope,
-                                       window=window, cache=cache)
+
+    def attend(h):
+        nonlocal cache
+        if cfg.mla is not None and char != "a":
+            h, cache = mla.mla_apply(bp["attn"], cfg, rt, h, rope,
+                                     cache=cache)
+        else:
+            h, cache = attn_mod.attn_apply(bp["attn"], cfg, rt, h, rope,
+                                           window=window, cache=cache)
+        return h
+
+    h = _region(attend, _norm(bp["ln1"], x, cfg, rt, sp), rt,
+                rt.splits(cfg.n_heads), sp)
     if cfg.post_norms:
-        h = common.rmsnorm(bp["ln1_post"], h, cfg.norm_eps)
+        h = _norm(bp["ln1_post"], h, cfg, rt, sp)
     x = x + h
-    h = common.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    h = _norm(bp["ln2"], x, cfg, rt, sp)
     aux = None
     if cfg.moe is not None and char != "a":
-        h, aux = moe.moe_apply(bp["moe"], cfg, rt, h)
+        def experts(t):
+            # The experts enter and leave their region themselves: the
+            # routing runs on the replicated input, outside it.
+            nonlocal aux
+            t, aux = moe.moe_apply(bp["moe"], cfg, rt, t)
+            return t
+
+        h = _region(experts, h, rt, False, sp)
     else:
-        h = common.mlp_apply(bp["mlp"], h)
+        h = _region(lambda t: common.mlp_apply(bp["mlp"], t), h, rt,
+                    rt.splits(cfg.d_ff), sp)
     if cfg.post_norms:
-        h = common.rmsnorm(bp["ln2_post"], h, cfg.norm_eps)
+        h = _norm(bp["ln2_post"], h, cfg, rt, sp)
     return x + h, cache, aux
 
 
@@ -391,16 +462,29 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
     device; ``batch["positions"]`` (B, S), or M-RoPE's (3, B, S), is
     optional."""
     dt = common.dtype_of(cfg.dtype)
+    tp = rt.model_size > 1
+    check_model_axis(cfg, rt.model_size)
+    if tp and cache is not None:
+        raise NotImplementedError("decode on a model axis is the "
+                                  "sequence-sharded decode (ROADMAP "
+                                  "A13.5.3d)")
     if cfg.frontend is None:
         # Gather, then cast: the same bits as the JAX package's cast table.
-        x = params["embed"]["tok"][batch["tokens"]].to(dt)
+        x = common.embed_lookup(params["embed"], batch["tokens"], dt,
+                                rt if rt.splits(cfg.vocab) else None)
     else:
         x = torch.einsum("bsf,fd->bsd", batch["embeds"].to(dt),
                          params["frontend"]["proj"].to(dt))
+        if rt.splits(cfg.d_model):   # the projection's slice of d
+            x = model_gather(x, rt, 2)
     if cfg.embed_scale:
         x = x * torch.tensor(float(cfg.d_model) ** 0.5, dtype=dt)
 
     b, s = x.shape[:2]
+    # Sequence parallelism where the model axis divides S (the JAX
+    # package's fallback otherwise): the residual stream is the rank's
+    # rows between blocks.
+    sp = tp and rt.sequence_parallel and s % rt.model_size == 0
     if "positions" in batch:
         positions = batch["positions"]
     else:
@@ -447,13 +531,15 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
     inner = remat and len(unit) > 2
     shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if sp:
+        x = model_split(x, rt, 1)
 
     def unit_body(x, aux, j):
         for i, ch in enumerate(unit):
             bp = _tree_map(lambda views: views[j], blocks[i])
             c = (_tree_map(lambda t: t[j], cache[str(i)])
                  if cache is not None else None)
-            args = (bp, cfg, rt, ch, x, rope, c, shared)
+            args = (bp, cfg, rt, ch, x, rope, c, shared, sp)
             x, _, block_aux = (checkpoint(_apply_block, *args,
                                           use_reentrant=False)
                                if inner else _apply_block(*args))
@@ -468,7 +554,11 @@ def forward(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any],
         else:
             x, aux = unit_body(x, aux, j)
 
-    x = common.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _norm(params["final_norm"], x, cfg, rt, sp)
+    if sp:
+        x = model_gather(x, rt, 1)
+    if rt.splits(cfg.vocab):   # the rank's slice of the logits
+        x = model_enter(x, rt)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x,
                               params["embed"]["tok"].to(x.dtype))
@@ -486,13 +576,17 @@ def loss_fn(params, cfg: ModelConfig, rt: Runtime, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss: next-token cross-entropy (f32, final softcap
     applied) over the batch's tokens shifted by one, plus ``AUX_COEF``
-    times the auxiliary loss; returns ``(total, {"ce", "aux"})``."""
+    times the auxiliary loss; returns ``(total, {"ce", "aux"})``.  On a
+    model axis that splits the vocabulary the cross-entropy reads the
+    rank's slice of the logits."""
     logits, aux = forward(params, cfg, rt, batch)
     labels = batch["labels"]
+    vocab_rt = rt if rt.splits(cfg.vocab) else None
     if cfg.causal and cfg.frontend is None:
         loss = common.cross_entropy(logits[:, :-1], labels[:, 1:],
-                                    cfg.final_softcap)
+                                    cfg.final_softcap, vocab_rt)
     else:
-        loss = common.cross_entropy(logits, labels, cfg.final_softcap)
+        loss = common.cross_entropy(logits, labels, cfg.final_softcap,
+                                    vocab_rt)
     total = loss + AUX_COEF * aux
     return total, {"ce": loss, "aux": aux}

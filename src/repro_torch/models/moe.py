@@ -27,8 +27,20 @@ outside any Pallas kernel; here each expert with rows is three
 a layer (they set the slices' shapes), and experts that no row chose are
 skipped.  :func:`moe_specs` is the JAX package's under its default
 ``moe_mode="tp"``; expert parallelism (``moe_mode="ep"``, its specs and
-the all-to-all body) comes with ROADMAP A13.5.3c, and the model axis'
-reduction of ``_moe_body_tp`` with tensor parallelism (A13.5.3b).
+the all-to-all body) comes with ROADMAP A13.5.3c.
+
+On a model axis (a mesh step's body, ROADMAP A13.5.3b) the experts run
+the JAX package's ``_moe_body_tp`` with its psum over ``model``: ``w1``
+and ``w3`` are the rank's slices of ``d_ff_expert``, ``w2`` of its
+first dim, and the shared experts' MLP is split the same way where its
+width divides.  The routing runs whole on every rank from the
+replicated input; the experts' rows and ``topw`` enter the model region
+(:func:`~repro_torch.dist.collectives.model_enter`, so that the router's
+gradient, of which each rank sees a part through its partial outputs,
+is summed over the axis), and the partial output leaves it summed.  The
+load-balance loss is the rank's data shard's own (the JAX package's
+``pmean`` over the axes of each shard's aux), which the mesh step
+averages over the data ranks.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.collectives import replicated_sum
+from ..dist.collectives import model_enter, model_leave, replicated_sum
 from ..dist.sharding import Runtime
 from . import common
 from .config import ModelConfig
@@ -142,6 +154,14 @@ def moe_apply(params, cfg: ModelConfig, rt: Runtime, x
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]
     topw, topi, aux = route(x_flat, params["router"], cfg, rt)
+    experts_split = rt.splits(m.d_ff_expert)
+    shared_split = m.n_shared > 0 and rt.splits(m.n_shared * m.d_ff_shared)
+    x_in = x
+    if experts_split:
+        x_flat = model_enter(x_flat, rt)
+        topw = model_enter(topw, rt)
+    if shared_split:
+        x_in = model_enter(x, rt)
     eid = topi.reshape(-1)                                 # (T k,)
     order = torch.argsort(eid, stable=True)
     # Token-major rows (token i's k choices at i k .. i k + k - 1), sorted:
@@ -153,6 +173,9 @@ def moe_apply(params, cfg: ModelConfig, rt: Runtime, x
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     y = (ys[inv].reshape(t, m.top_k, d) * topw[..., None]).sum(dim=1)
+    if experts_split:
+        y = model_leave(y, rt)
     if "shared" in params:
-        y = y + common.mlp_apply(params["shared"], x).reshape(t, d)
+        sh = common.mlp_apply(params["shared"], x_in).reshape(t, d)
+        y = y + (model_leave(sh, rt) if shared_split else sh)
     return y.reshape(b, s, d), aux

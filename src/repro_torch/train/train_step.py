@@ -18,37 +18,56 @@ there:
 * :func:`repro_torch.train.optimizer.adamw_update` updates the
   parameters and the optimizer state in place.
 
-Under a mesh (data parallel: ``rt.tp_size == 1``; a model axis above 1
-raises, tensor parallelism being ROADMAP A13.5.3b) the state lives
-sharded as ``param_specs`` / ``opt_specs`` say and the batch is the
-rank's rows (the data pipeline's batch under the mesh).  Each step
-gathers the parameters whole and runs the model on rows of this rank
-with ``Runtime(batch_group=...)``: no mesh, save that the experts'
-load-balance loss sums its statistics over the data axes, so that it is
-the global batch's as under the JAX package's pjit step.  Then:
+Under a mesh the state lives sharded as ``param_specs`` / ``opt_specs``
+say and the batch is the rank's rows (the data pipeline's batch under
+the mesh: the ranks of one data shard draw the same rows).  Each step
+gathers the parameters over the data axes, so that the rank holds its
+model-axis slices whole, and runs the model on its rows with
+:meth:`Runtime.step_body`'s Runtime:
+
+* data parallel (``rt.tp_size == 1``): no mesh, save that the experts'
+  load-balance loss sums its statistics over the data axes, so that it
+  is the global batch's as under the JAX package's pjit step;
+* tensor parallel (a model axis above 1, ROADMAP A13.5.3b; the families
+  with MLA, Mamba2 or RWKV6 blocks raise, A13.5.3e): the model-parallel
+  bodies of ``repro_torch.models`` on the rank's slices, crossing the
+  model axis inside the forward and backward (counted on the step's
+  ``model_wire``).  A leaf replicated over the model axis but read
+  inside a model region (the router, KV projections that stay whole,
+  the norms' scales under sequence parallelism) enters the region
+  through ``model_enter``, whose backward sums its gradient over the
+  axis; every other replicated leaf's gradient is the same on each rank
+  and is left alone.  The experts' load-balance loss is each data
+  shard's own, averaged over the data ranks, as in the JAX package.
+
+Then:
 
 * ``grad_accum == 1``: the gradients of the rank's rows are all-reduced
-  over the data axes, averaged, and the local slice kept (gloo has no
-  reduce-scatter, so every backend takes all-reduce then the slice)
-  before the wire cast, where the JAX package pins the gradients to the
-  parameter layout and casts (``_constrain``, then ``astype``);
+  over the data axes, averaged, and the slice over the data axes kept
+  (gloo has no reduce-scatter, so every backend takes all-reduce then
+  the slice) before the wire cast, where the JAX package pins the
+  gradients to the parameter layout and casts (``_constrain``, then
+  ``astype``);
 * ``grad_accum > 1``: the ranks' rows are all-gathered into the global
   batch (token rows are small), microbatch ``i`` is its rows ``[i mb,
   (i + 1) mb)`` as in the JAX package, and each rank computes the
   gradient of its ``mb / n`` rows of it (``mb`` must divide over the
   ``n`` data ranks: a ``ValueError`` otherwise).  Under ``int8_ef`` each
   microbatch's gradient is all-reduced before it is quantised, so that
-  its scale is the global ``max|g|``; otherwise the sum is reduced once,
-  after the loop.
+  its scale is the global ``max|g|`` (over the model axis too, for a
+  leaf split on it); otherwise the sum is reduced once, after the loop.
 
-AdamW updates the shards with the global norm summed across ranks; the
-loss is the ranks' mean.
+AdamW updates the shards with the global norm: each leaf's squares
+summed across the ranks that hold distinct slices of it, on the data
+axes or the model axis, and counted once along an axis that replicates
+it.  The loss and the metrics are the data ranks' mean.
 
 ``make_train_step`` returns ``(params, opt_state, batch, step_rng) ->
 (params, opt_state, metrics)``; ``step_rng`` is kept for the signature
 and ignored, as in the JAX package.  The returned function's ``wire``
 is the :class:`~repro_torch.dist.collectives.WireLog` of its
-collectives.
+collectives over the data axes, and ``model_wire`` that of its body's
+over the model axis.
 """
 
 from __future__ import annotations
@@ -75,15 +94,6 @@ class TrainConfig:
     grad_accum: int = 1
 
 
-def _mesh_only(rt: Runtime) -> None:
-    if rt.tp_size > 1:
-        raise NotImplementedError(
-            f"a model axis of {rt.tp_size}: tensor parallelism comes with "
-            "the model-parallel bodies (ROADMAP A13.5.3b); fold the model "
-            "axis into the data axes (tp_disabled=True) to train data "
-            "parallel")
-
-
 def param_spec_tree(cfg: ModelConfig, rt: Runtime, params):
     """``param_specs(cfg, rt)`` under a mesh; without one every leaf of
     ``params`` replicated (what the JAX package's builders give there,
@@ -102,8 +112,7 @@ def make_train_state(cfg: ModelConfig, rt: Runtime,
     ``compress="int8_ef"``.  Under a mesh every rank draws the whole
     tree from the same generator state and keeps its shards."""
     tc = tc or TrainConfig()
-    if rt.mesh is not None:
-        _mesh_only(rt)
+    model_mod.check_model_axis(cfg, rt.tp_size)
     params = model_mod.init_params(cfg, rt, generator, device)
     pspecs = param_spec_tree(cfg, rt, params)
     if rt.mesh is not None:
@@ -116,8 +125,14 @@ def make_train_state(cfg: ModelConfig, rt: Runtime,
         pspecs, with_ef=tc.opt.compress == "int8_ef")
 
 
-def _quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.max(torch.abs(x)) / 127.0 + 1e-12
+def _quantize_int8(x: torch.Tensor, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes of ``x`` and their scale, ``max|x| / 127``: over the
+    ranks of ``group`` where ``x`` is their slice of one leaf."""
+    top = torch.max(torch.abs(x))
+    if group is not None:
+        top = all_reduce(top, group, op="max")
+    scale = top / 127.0 + 1e-12
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -144,28 +159,48 @@ def loss_and_grads(params, cfg: ModelConfig, rt: Runtime,
 
 
 def reduce_grads(grads, rt: Runtime, pspecs, log: Optional[WireLog] = None):
-    """The ranks' mean of each gradient leaf over the data axes, as this
-    rank's slice under ``pspecs`` (all-reduce, then the slice)."""
+    """The ranks' mean of each gradient leaf (the rank's model-axis
+    slice) over the data axes, as this rank's slice under ``pspecs``
+    (all-reduce, then the slice over the data axes)."""
     group, _ = rt.mesh.group(rt.fsdp_axes)
     n = rt.fsdp_size
-    return tree_map_specs(
-        lambda g, s: rt.local(all_reduce(g, group, log) / n, s).clone(),
-        grads, pspecs)
+
+    def reduce(g, s):
+        if n > 1:   # one data shard: nothing to cross
+            g = all_reduce(g, group, log) / n
+        return rt.local(g, rt.data_spec(s)).clone()
+    return tree_map_specs(reduce, grads, pspecs)
+
+
+def _split_on(rt: Runtime, s: P) -> Tuple[bool, bool]:
+    """(whether spec ``s`` splits a dim over the data axes, over the
+    model axis)."""
+    model = rt.tp_size > 1 and rt.model_axis in s
+    return (any(e is not None and not (model and e == rt.model_axis)
+                for e in s), model)
 
 
 def _global_norm(grads, rt: Runtime, pspecs, log: Optional[WireLog]):
-    """The norm of the global gradient from the ranks' slices: sharded
-    leaves' squares summed across the data axes, replicated ones once."""
-    sharded, replicated = [], []
-    tree_map_specs(lambda g, s: (sharded if any(s) else replicated).append(
+    """The norm of the global gradient from the ranks' slices: each
+    leaf's squares summed across the axes that split it (the data axes,
+    the model axis or both), and counted once along an axis that
+    replicates it."""
+    buckets: Dict[Tuple[bool, bool], List[torch.Tensor]] = {}
+    tree_map_specs(lambda g, s: buckets.setdefault(
+        _split_on(rt, s), []).append(
         torch.sum(torch.square(g.to(torch.float32)))), grads, pspecs)
     dev = tree_leaves(grads)[0].device
     total = torch.zeros((), dtype=torch.float32, device=dev)
-    if sharded:
-        group, _ = rt.mesh.group(rt.fsdp_axes)
-        total = all_reduce(torch.sum(torch.stack(sharded)), group, log)
-    if replicated:
-        total = total + torch.sum(torch.stack(replicated))
+    for on_data, on_model in ((True, False), (True, True), (False, True)):
+        part = buckets.get((on_data, on_model))
+        if part:
+            axes = ((rt.fsdp_axes if on_data else ())
+                    + ((rt.model_axis,) if on_model else ()))
+            group, _ = rt.mesh.group(axes)
+            total = total + all_reduce(torch.sum(torch.stack(part)), group,
+                                       log)
+    if buckets.get((False, False)):
+        total = total + torch.sum(torch.stack(buckets[(False, False)]))
     return torch.sqrt(total)
 
 
@@ -201,28 +236,34 @@ def _microbatches(batch: Dict[str, Any], rt: Runtime, grad_accum: int,
 def make_train_step(cfg: ModelConfig, rt: Runtime,
                     tc: Optional[TrainConfig] = None):
     tc = tc or TrainConfig()
+    model_mod.check_model_axis(cfg, rt.tp_size)
     mesh = rt.mesh is not None
     int8 = tc.opt.compress == "int8_ef"
     body_rt = rt
+    wire, model_wire = WireLog(), WireLog()
     if mesh:
-        _mesh_only(rt)
         pspecs = model_mod.param_specs(cfg, rt)
+        dspecs = tree_map(rt.data_spec, pspecs)
         group, _ = rt.mesh.group(rt.fsdp_axes)
-        # Inside a rank's step the model sees its rows only, with no
-        # mesh, save for the experts' statistics over the batch.
-        body_rt = Runtime(batch_group=group)
+        # Inside a rank's step the model sees its rows and its model-axis
+        # slices, with no mesh.
+        body_rt = rt.step_body(model_wire)
+        # The scale of an int8 microbatch gradient spans a leaf split on
+        # the model axis.
+        qgroups = tree_map(lambda s: (body_rt.model_group
+                                      if _split_on(rt, s)[1] else None),
+                           pspecs)
     n = rt.fsdp_size
     # Under int8_ef on a mesh each microbatch's gradient is reduced before
     # it is quantised, and the loop's sum is then global already.
     reduce_micro = mesh and int8 and tc.grad_accum > 1
-    wire = WireLog()
 
     def train_step(params, opt_state, batch, step_rng=None):
         del step_rng  # deterministic substrate; kept for API stability
         full = params
         if mesh:
             full = tree_map_specs(lambda p, s: rt.gather(p, s, wire),
-                                  params, pspecs)
+                                  params, dspecs)
         if tc.grad_accum == 1:
             loss, metrics, grads = loss_and_grads(full, cfg, body_rt, batch)
         else:
@@ -240,10 +281,11 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
                     g = tree_map(lambda gi: all_reduce(
                         gi.to(torch.float32), group, wire) / n, g)
                 if int8:
-                    def q(gi):
-                        qi, s = _quantize_int8(gi.to(torch.float32))
+                    def q(gi, qg=None):
+                        qi, s = _quantize_int8(gi.to(torch.float32), qg)
                         return qi.to(torch.float32) * s
-                    g = tree_map(q, g)
+                    g = (tree_map(q, g, qgroups) if mesh
+                         else tree_map(q, g))
                 acc = tree_map(lambda a, gi: a + gi.to(torch.float32), acc, g)
                 del g
                 loss_sum = loss_sum + loss
@@ -256,8 +298,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
         gnorm = None
         if mesh:
             if reduce_micro:
-                grads = tree_map_specs(lambda g, s: rt.local(g, s).clone(),
-                                       grads, pspecs)
+                grads = tree_map_specs(
+                    lambda g, s: rt.local(g, s).clone(), grads, dspecs)
             else:
                 grads = reduce_grads(grads, rt, pspecs, wire)
             grads = tree_map(rt.astype, grads)
@@ -272,4 +314,5 @@ def make_train_step(cfg: ModelConfig, rt: Runtime,
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     train_step.wire = wire
+    train_step.model_wire = model_wire
     return train_step

@@ -368,13 +368,17 @@ def dp_rank(rank, world, init, tok, ckpt_dir):
         out["hdr_raises"] = False
     except RuntimeError as e:
         out["hdr_raises"] = f"--nproc-per-node {world + 1}" in str(e)
-    # a model axis above 1 is tensor parallelism (A13.5.3)
-    try:
-        make_train_step(cfg, Runtime(mesh=make_mesh((2, 2),
-                                                    ("data", "model"))))
-        out["tp_raises"] = False
-    except NotImplementedError as e:
-        out["tp_raises"] = "A13.5.3" in str(e)
+    # a model axis above 1 is tensor parallelism, which Mamba2 and RWKV6
+    # have no body for yet (A13.5.3e)
+    from repro_torch import configs
+    out["tp_raises"] = True
+    for arch in ("zamba2-1.2b", "rwkv6-7b"):
+        try:
+            make_train_step(configs.get_smoke(arch), Runtime(
+                mesh=make_mesh((2, 2), ("data", "model"))))
+            out["tp_raises"] = False
+        except NotImplementedError as e:
+            out["tp_raises"] &= "A13.5.3e" in str(e)
     return out
 
 
@@ -400,6 +404,46 @@ def multiring_card_rank(rank, world, xs):
         host = multiring_all_reduce(t, "data", layer_strides(world, 3),
                                     mesh=mesh)
         out[name] = (card.cpu().float().numpy(), host.float().numpy())
+    return out
+
+
+def model_region_card_rank(rank, world, xs):
+    """The model region's functions over a (1, ``world``) mesh on the
+    card and on the CPU (gloo: the card's payloads cross through host
+    buffers): forward and backward of enter, leave, gather and split on
+    this rank's rows of ``xs``."""
+    import torch
+
+    from repro_torch.dist.collectives import (WireLog, model_enter,
+                                              model_gather, model_leave,
+                                              model_split)
+    from repro_torch.dist.sharding import Runtime
+    from repro_torch.launch.mesh import make_mesh
+
+    log = WireLog()
+    rt = Runtime(mesh=make_mesh((1, world), ("data", "model"))).step_body(
+        log)
+    x0 = torch.from_numpy(xs["x"][rank].copy())
+    g0 = torch.from_numpy(xs["g"][rank].copy())
+    out = {}
+    for name, fn in (("enter", lambda x: model_enter(x, rt)),
+                     ("leave", lambda x: model_leave(x, rt)),
+                     ("gather", lambda x: model_gather(x, rt, 1)),
+                     ("split", lambda x: model_split(x, rt, 1))):
+        res = []
+        for dev in ("cuda", "cpu"):
+            x = x0.to(dev).requires_grad_()
+            y = fn(x)
+            g = g0.to(dev)
+            if name == "gather":
+                g = torch.cat([g, 2 * g], dim=1)
+            elif name == "split":
+                g = g.narrow(1, 0, g.shape[1] // world)
+            (dx,) = torch.autograd.grad(y, x, g)
+            assert y.device.type == dx.device.type == dev
+            res.append((y.detach().cpu().numpy(), dx.cpu().numpy()))
+        out[name] = res
+    out["staged"] = log.staging_seconds > 0
     return out
 
 
@@ -452,4 +496,128 @@ def dp_families_rank(rank, world, cases, tok):
         p = tree_map_specs(rt.gather, p, pspecs)
         if rank == 0:
             _flat(p, f"{name}/params", out)
+    return out
+
+
+TP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=50)
+# The leaves whose first moment a tensor-parallel case reports: the
+# router, and the norms' scales (sequence parallelism sums them over the
+# model axis).
+TP_MOMENTS = ("router", "scale")
+
+
+def _rows(batch, rt):
+    """The rank's rows of a global batch: dim 0, or dim 1 of M-RoPE's
+    (3, B, S) positions."""
+    from repro_torch.dist.sharding import P
+
+    return {k: rt.local(v, P(None, rt.fsdp, None)) if k == "positions"
+            else rt.local(v, P(rt.fsdp, *(None,) * (v.dim() - 1)))
+            for k, v in batch.items()}
+
+
+def tp_rank(rank, world, cases, arrays, ckpt_dir):
+    """One mesh step of each case ``(name, arch, shape, sp, seq, ga)`` on
+    a ``(data, model)`` mesh of ``shape`` with an f32 wire (at
+    ``grad_accum=ga`` under ``int8_ef`` where ``ga > 1``): its metrics,
+    the first moments of ``TP_MOMENTS`` (gathered) and, on rank 0, the
+    parameters after the step; then a loop checkpointed on (2, 2),
+    restored on (4,) and back; then the families that have no model-axis
+    body yet, each refusing a model axis above 1."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs, interop
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.sharding import Runtime, tree_map_specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.train import loop as tloop
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, tree_map
+    from repro_torch.train.train_step import (TrainConfig, make_train_state,
+                                              make_train_step)
+
+    out = {}
+    tc = TrainConfig(opt=AdamWConfig(**TP_OPT))
+    for name, arch, shape, sp, seq, ga in cases:
+        cfg = configs.get_smoke(arch)
+        rt = Runtime(mesh=make_mesh(shape, ("data", "model")),
+                     data_axes=("data",), collective_dtype="float32",
+                     sequence_parallel=sp)
+        full = interop.model_params_from_arrays(
+            cfg, nested(arrays, f"{arch}/params"), "cpu")
+        batch = {k: torch.from_numpy(v[..., :seq] if k != "embeds"
+                                     else v[:, :seq])
+                 for k, v in nested(arrays, f"{arch}/batch").items()}
+        pspecs = tmodel.param_specs(cfg, rt)
+        p = tree_map_specs(lambda x, s: rt.local(x, s).clone(), full,
+                           pspecs)
+        step = make_train_step(cfg, rt, dataclasses.replace(
+            tc, grad_accum=ga, opt=dataclasses.replace(
+                tc.opt, compress="int8_ef" if ga > 1 else "none")))
+        p, o, m = step(p, adamw_init(p), _rows(batch, rt), 0)
+        for k in ("loss", "aux", "grad_norm"):
+            out[f"{name}/{k}"] = float(m[k])
+        out[f"{name}/model_wire_bytes"] = step.model_wire.reduced_bytes
+        moments = tree_map_specs(rt.gather, o["m"], pspecs)
+        tree_map(lambda path, x: out.__setitem__(
+            f"{name}/m/" + "/".join(path), x.numpy())
+            if path[-1] in TP_MOMENTS else None, moments, with_path=True)
+        p = tree_map_specs(rt.gather, p, pspecs)
+        if rank == 0:
+            _flat(p, f"{name}/params", out)
+
+    # a loop on (2, 2) that fails at step 2, resumed on (4,), failing at
+    # step 4, resumed on (2, 2) again, against one uninterrupted on (2, 2).
+    # The pipeline draws each data shard's rows apart, so that (2, 2) and
+    # (4,) would see other batches: every loop takes its rows of one
+    # global batch a step instead.
+    cfg = dataclasses.replace(configs.get_smoke("yi-9b"), remat="full")
+    rt22 = Runtime(mesh=make_mesh((2, 2), ("data", "model")))
+    rt4 = Runtime(mesh=make_mesh((4,), ("data",)))
+
+    def global_batch(step):
+        tok = torch.from_numpy(np.random.default_rng(step).integers(
+            0, cfg.vocab, (4, 32)))
+        return {"tokens": tok, "labels": tok}
+
+    def loop(rt, d, fail=None):
+        run = tloop.TrainLoop(
+            cfg, rt, DataConfig(global_batch=4, seq_len=32, seed=1), tc,
+            tloop.LoopConfig(total_steps=6, ckpt_every=2, log_every=1,
+                             ckpt_dir=d, inject_failure_at=fail),
+            device="cpu")
+        run.data.batch = lambda step: _rows(global_batch(step), rt)
+        return run
+
+    whole = loop(rt22, f"{ckpt_dir}/whole").run()
+    resumed = []
+    for rt, fail in ((rt22, 2), (rt4, 4), (rt22, None)):
+        run = loop(rt, f"{ckpt_dir}/resume", fail)
+        try:
+            resumed += run.run()["history"]
+        except RuntimeError as e:
+            if f"injected failure at step {fail}" not in str(e):
+                raise
+            resumed += run.history
+            run.mgr.wait()
+    out["loop_whole"] = [(h["step"], h["loss"], h["grad_norm"])
+                         for h in whole["history"]]
+    out["loop_resumed"] = [(h["step"], h["loss"], h["grad_norm"])
+                           for h in resumed]
+
+    # no model-axis body yet: refused before a weight is drawn
+    out["refused"] = {}
+    for arch in ("deepseek-v2-236b", "zamba2-1.2b", "rwkv6-7b"):
+        msgs = []
+        for fn in (lambda: make_train_step(configs.get_smoke(arch), rt22),
+                   lambda: make_train_state(configs.get_smoke(arch), rt22,
+                                            None, device="cpu")):
+            try:
+                fn()
+                msgs.append("")
+            except NotImplementedError as e:
+                msgs.append(str(e))
+        out["refused"][arch] = msgs
     return out

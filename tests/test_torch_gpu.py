@@ -1402,3 +1402,21 @@ def test_cuda_multiring_all_reduce_two_gloo_ranks_on_one_card(tmp_path):
     for out in run_ranks(multiring_card_rank, 2, tmp_path, xs, timeout=120):
         for name, (card, host) in out.items():
             np.testing.assert_array_equal(card, host, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_model_region_two_gloo_ranks_on_one_card(tmp_path):
+    """The model region's autograd functions (tensor parallelism) over 2
+    gloo ranks whose tensors lie on the card give, forward and backward,
+    the bits of the same calls on CPU tensors."""
+    from _torch_ranks import model_region_card_rank, run_ranks
+    _need_card()
+    rng = np.random.default_rng(6)
+    xs = {"x": rng.standard_normal((2, 3, 8, 5)).astype(np.float32),
+          "g": rng.standard_normal((2, 3, 8, 5)).astype(np.float32)}
+    for out in run_ranks(model_region_card_rank, 2, tmp_path, xs,
+                         timeout=120):
+        assert out.pop("staged")
+        for name, ((y_card, dx_card), (y_host, dx_host)) in out.items():
+            np.testing.assert_array_equal(y_card, y_host, err_msg=name)
+            np.testing.assert_array_equal(dx_card, dx_host, err_msg=name)
